@@ -1,0 +1,169 @@
+"""Shared building blocks of the port's encoders (mirrors
+``triad_tpu/models/layers.py``).
+
+Dtype policy as in the JAX package: parameters stay in ``param_dtype``
+(fp32) and every module casts them and its input to its compute
+``dtype`` at use. Linear weights take torch's (out, in) layout; the
+converter in ``models/convert.py`` transposes the Flax (in, out) kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from triad_tpu_torch.ops.attention import attention_eval, masked_attention
+from triad_tpu_torch.ops.mlp import fused_mlp, gelu
+
+
+def not_ported(option: str, roadmap_item: str):
+    """An impl value this slice does not port: raise, never fall back."""
+    return NotImplementedError(
+        f"{option} is not ported to triad_tpu_torch yet (ROADMAP.md {roadmap_item})"
+    )
+
+
+class Dense(nn.Linear):
+    """nn.Dense: y = x W^T + b, computed in ``dtype`` (params cast)."""
+
+    def __init__(self, in_features, out_features, bias=True, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device,
+                         dtype=param_dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        d = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(d)
+        return F.linear(x.to(d), self.weight.to(d), b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm: statistics and affine in fp32, output in ``dtype``."""
+
+    def __init__(self, dim, eps, dtype=torch.float32, param_dtype=torch.float32,
+                 device=None):
+        super().__init__(dim, eps=eps, device=device, dtype=param_dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        f32 = torch.float32
+        y = F.layer_norm(x.to(f32), self.normalized_shape, self.weight.to(f32),
+                         self.bias.to(f32), self.eps)
+        return y.to(self.compute_dtype)
+
+
+class LoRALinear(nn.Module):
+    """LoRADense: y = x W^T + b + (alpha / r) x A^T B^T (peft shapes:
+    lora_a (r, in), lora_b (out, r)).
+
+    "folded" (layers.py:497-500): W + s * B A is formed in the param
+    dtype, cast to ``dtype``, one product. "separate": x W^T + s (x A^T)
+    B^T in ``dtype``."""
+
+    def __init__(self, in_features, out_features, rank=0, alpha=16.0, bias=True,
+                 dtype=torch.float32, param_dtype=torch.float32,
+                 lora_compute="folded", device=None):
+        super().__init__()
+        if lora_compute not in ("folded", "separate"):
+            raise ValueError(f"unknown lora_compute {lora_compute!r}")
+        kw = dict(device=device, dtype=param_dtype)
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, **kw))
+        self.bias = nn.Parameter(torch.zeros(out_features, **kw)) if bias else None
+        self.rank, self.alpha = rank, alpha
+        if rank > 0:
+            self.lora_a = nn.Parameter(torch.empty(rank, in_features, **kw))
+            self.lora_b = nn.Parameter(torch.zeros(out_features, rank, **kw))
+        self.compute_dtype = dtype
+        self.lora_compute = lora_compute
+
+    def forward(self, x):
+        d = self.compute_dtype
+        x = x.to(d)
+        if self.rank > 0 and self.lora_compute == "folded":
+            w = self.weight + (self.alpha / self.rank) * (self.lora_b @ self.lora_a)
+            y = F.linear(x, w.to(d))
+        else:
+            y = F.linear(x, self.weight.to(d))
+            if self.rank > 0:
+                s = torch.tensor(self.alpha / self.rank, dtype=d)
+                y = y + s * F.linear(F.linear(x, self.lora_a.to(d)), self.lora_b.to(d))
+        if self.bias is not None:
+            y = y + self.bias.to(d)
+        return y
+
+
+def mlp_forward(x, fc1: Dense, fc2: Dense, impl: str, gelu_form: str):
+    """fc2(gelu(fc1(x))). impl "fused" runs ops.mlp.fused_mlp (the CUDA
+    kernel on the card) with ``gelu_form``; "xla" runs the two Dense
+    layers around an exact GELU, as the JAX package's unfused path does."""
+    if impl == "fused":
+        d = fc1.compute_dtype
+        return fused_mlp(x.to(d), fc1.weight.to(d), fc1.bias.to(d), fc2.weight.to(d),
+                         fc2.bias.to(d), gelu_form)
+    return fc2(gelu(fc1(x), "erf"))
+
+
+class Mlp(nn.Module):
+    """Dense -> GELU -> Dense (see mlp_forward)."""
+
+    def __init__(self, in_features, hidden_features, out_features,
+                 dtype=torch.float32, param_dtype=torch.float32, impl="xla",
+                 gelu_form="erf", device=None):
+        super().__init__()
+        if impl not in ("xla", "fused"):
+            raise ValueError(f"unknown mlp impl {impl!r}")
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.fc1 = Dense(in_features, hidden_features, **kw)
+        self.fc2 = Dense(hidden_features, out_features, **kw)
+        self.impl, self.gelu_form = impl, gelu_form
+
+    def forward(self, x):
+        return mlp_forward(x, self.fc1, self.fc2, self.impl, self.gelu_form)
+
+
+class ProjectionHead(nn.Module):
+    """Linear(hidden -> 512) -> LayerNorm(eps 1e-5) -> Linear(512 -> 512)."""
+
+    def __init__(self, in_features, embedding_dim=512, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.projection1 = Dense(in_features, embedding_dim, **kw)
+        self.layer_norm = LayerNorm(embedding_dim, 1e-5, **kw)
+        self.projection2 = Dense(embedding_dim, embedding_dim, **kw)
+
+    def forward(self, x):
+        return self.projection2(self.layer_norm(self.projection1(x)))
+
+
+def dot_product_attention(q, k, v, mask: Optional[torch.Tensor], dtype,
+                          scores_dtype=torch.float32, impl: str = "xla"):
+    """Eval attention dispatch of layers.py:385-450 (no dropout).
+
+    q, k, v: (B, N, H, Dh); mask: optional (B, 1, 1, Nk) bool. impl
+    "xla": plain masked softmax; "packed": the packed eval kernel on the
+    (B, N, H*Dh) layout."""
+    if impl == "xla":
+        return masked_attention(q, k, v, mask, dtype, scores_dtype)
+    if impl == "packed":
+        b, n, h, d = q.shape
+        if d != 64:
+            raise ValueError(f"the packed eval kernel needs head_dim 64, got {d}")
+        key_mask = None if mask is None else mask.reshape(b, n)
+        out = attention_eval(
+            *(x.reshape(b, n, h * d).to(dtype) for x in (q, k, v)), key_mask,
+            1.0 / d ** 0.5,
+        )
+        return out.reshape(b, n, h, d)
+    if impl == "flash":
+        raise not_ported("attention impl 'flash' (JAX's library flash kernel)",
+                         "Queue 2 item 1")
+    if impl == "packed_pair":
+        raise not_ported("attention impl 'packed_pair'", "Queue 2 item 6")
+    if impl in ("fused", "fused_packed", "fused_packed_merged"):
+        raise not_ported(f"attention impl {impl!r} (training kernel)", "Queue 2 item 1")
+    raise ValueError(f"unknown attention impl {impl!r}")
