@@ -1,25 +1,38 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA
 kernels from triad_tpu_torch/csrc, checks each against its plain PyTorch
-twin at the serving path's shapes, then serves the full-width
-perf_eval_model_config() TriadModel (random weights from a seed) over
-HTTP and checks the answers.
+twin at the shapes of the serving and training paths, serves the
+full-width perf_eval_model_config() TriadModel (random weights from a
+seed) over HTTP and checks the answers, then trains the full-width
+text-visual step of perf_train_model_config() for a few steps.
 
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero before the last line):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
-  2. nvcc build of the kernels;
+  2. nvcc build of the kernels (one nvcc per source, in parallel);
   3. each kernel vs its plain twin on the card in bf16: max abs error
-     against a stated bound, median time of both (CUDA events);
+     against a stated bound, median time of both (CUDA events); the
+     training kernels at B = 8 and at the train step's B = 64;
   4. the server on an ephemeral port answers /healthz, embed audio
      (2 x 10 s), image (2 x 224^2), text (token ids) and /v1/score
      (av, tv); shapes and finiteness are checked, and the served
      embeddings are held against a float32 CPU run of the same weights;
-  5. every kernel's launch count rose during phase 4's requests.
+  5. every serving kernel's launch count rose during phase 4's requests;
+  6. the text-visual train step (perf_train_model_config +
+     perf_train_loss_config, no accumulation) at B = 64 images of 224^2
+     and 32 text tokens: 2 warm-up and 3 timed steps, every loss finite,
+     the LoRA factors, projection heads and temperature moved, the ViT
+     base and the still-gated DistilBERT and HuBERT bit-unchanged, and
+     every training kernel launched during the steps (counts zeroed just
+     before them), then a torch.profiler kernel split of one more step
+     (the top rows printed, all of them in chiprun_out/train_profile.txt);
+  7. one step's loss and per-group gradients at B = 4 (dropouts off,
+     DistilBERT unfrozen) on the card in bf16 against the same weights
+     in float32 on the CPU.
 The line before the last is one JSON object with one entry per kernel:
-its launches in phase 4, and its error and times at the first shape of
-phase 3 (HuBERT's), with every shape of phase 3 under "cases". The last
-line is {"ok": true, "device": {...}}.
+its launches in the path that runs it (phase 4 or 6), and its error and
+times at the first shape of phase 3, with every shape of phase 3 under
+"cases". The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -39,6 +52,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 8  # batch of the kernel comparisons
 TXT = 24  # text tokens in the served request
+TRAIN_B, TRAIN_TXT, REF_B = 64, 32, 4  # train batch, its text tokens, reference batch
 BF16_ULP = 2.0 ** -7
 
 
@@ -77,11 +91,13 @@ def time_pair(kernel_fn, plain_fn, reps=20, warmup=3):
 
 
 def max_err(got, ref):
+    """(max abs error, its bound's base): over several outputs, the one
+    whose error is largest against its own largest magnitude."""
     g = [got] if isinstance(got, torch.Tensor) else list(got)
     r = [ref] if isinstance(ref, torch.Tensor) else list(ref)
-    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(g, r))
-    mx = max(float(b.float().abs().max()) for b in r)
-    return err, mx
+    pairs = [(float((a.float() - b.float()).abs().max()), float(b.float().abs().max()))
+             for a, b in zip(g, r)]
+    return max(pairs, key=lambda p: p[0] / max(p[1], 1e-30))
 
 
 def compare(results, name, shape, kernel_fn, plain_fn, tol_rel):
@@ -113,7 +129,14 @@ KERNELS = {
                        "triad_tpu/ops/pallas_frontend.py:471"),
     "frontend_conv": ("triad_tpu_torch/csrc/frontend.cu",
                       "triad_tpu/ops/pallas_frontend.py:208"),
+    "attention_train": ("triad_tpu_torch/csrc/attention_train.cu",
+                        "triad_tpu/ops/pallas_attention.py:575"),
+    "attention_train_bwd": ("triad_tpu_torch/csrc/attention_train.cu",
+                            "triad_tpu/ops/pallas_attention.py:585"),
+    "fused_mlp_bwd": ("triad_tpu_torch/csrc/fused_mlp.cu", "triad_tpu/ops/pallas_mlp.py:204"),
 }
+TRAIN_ONLY_KERNELS = ("attention_train", "attention_train_bwd", "fused_mlp_bwd")
+TRAIN_KERNELS = TRAIN_ONLY_KERNELS + ("fused_mlp",)
 
 
 def kernel_phase():
@@ -172,6 +195,25 @@ def kernel_phase():
     compare(res, "frontend (stack)", (B, 160000),
             lambda: FE.frontend(wave, w0, gs, gb, ws, "tanh"),
             lambda: FE.reference_frontend(wave, w0, gs, gb, ws, "tanh"), 4 * BF16_ULP)
+    # training kernels at the ViT's shapes, at B and at the train step's
+    # batch. Attention forward: both round the same fp32 P to bf16;
+    # backward: the kernels carry fp32 P and dS as bf16 hi + lo halves; MLP
+    # backward: dh rounds to bf16 from an fp32 dg summed in another order.
+    # 2 bf16 ulps of each output's largest magnitude.
+    for b in (B, TRAIN_B):
+        q, k, v, do = (randn((b, 261, 768), s) for s in (13, 14, 15, 16))
+        keys = torch.ones((b, 261), device="cuda")
+        compare(res, "attention_train", (b, 261, 768),
+                lambda: A.attention_train_fwd(q, k, v, keys, 0.125),
+                lambda: A.attention_train_plain(q, k, v, keys, 0.125), 2 * BF16_ULP)
+        compare(res, "attention_train_bwd", (b, 261, 768),
+                lambda: A.attention_train_bwd(q, k, v, keys, do, 0.125),
+                lambda: A.attention_train_bwd_plain(q, k, v, keys, do, 0.125), 2 * BF16_ULP)
+        x, dy = randn((b, 261, 768), 17), randn((b, 261, 768), 18)
+        for form in ("tanh", "erf"):
+            compare(res, "fused_mlp_bwd", (b, 261, 768, form),
+                    lambda: M.fused_mlp_bwd(x, w1, b1, w2, dy, form),
+                    lambda: M.fused_mlp_bwd_plain(x, w1, b1, w2, dy, form), 2 * BF16_ULP)
     return res
 
 
@@ -271,6 +313,144 @@ def reference_phase(serving, audio, images, ids, mask, a, v, t):
             fail(f"{name} embeddings disagree with the fp32 CPU reference")
 
 
+def _train_batch(b, seed):
+    rng = np.random.default_rng(seed)
+    mask = np.ones((b, TRAIN_TXT), np.float32)
+    mask[1::2, TRAIN_TXT * 3 // 4:] = 0.0  # every other caption padded
+    return {
+        "images": torch.from_numpy(rng.standard_normal((b, 224, 224, 3), dtype=np.float32)),
+        "token_ids": torch.from_numpy(rng.integers(1, 30_000, size=(b, TRAIN_TXT))),
+        "text_mask": torch.from_numpy(mask),
+    }
+
+
+def _step_ms(fn):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def train_phase():
+    """The full-width text-visual step; returns the model, the launch
+    counts of the steps and the median ms of the timed steps."""
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.config import OptimConfig, perf_train_loss_config, perf_train_model_config
+    from triad_tpu_torch.models.convert import init_triad_model
+    from triad_tpu_torch.train.optim import OptimizerBank
+    from triad_tpu_torch.train.step import StepFactory, TrainState
+
+    cfg, ocfg = perf_train_model_config(), OptimConfig(gradient_accumulation_steps=1)
+    model = init_triad_model(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    state = TrainState(model, OptimizerBank(ocfg, model, total_updates=1000), 0, 1)
+    step = StepFactory(perf_train_loss_config(), ocfg).make_step("tv")
+    batch = {k: v.cuda() for k, v in _train_batch(TRAIN_B, 3).items()}
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    times = []
+    kernels.reset_launches()
+    for i in range(5):
+        (state, m), ms = _step_ms(lambda: step(state, None, batch))
+        loss = float(m["loss_tv"])
+        print(f"  step {i} ({'warm-up' if i < 2 else 'timed'}): loss_tv {loss:.6f}  "
+              f"{ms:.3f} ms", flush=True)
+        if not np.isfinite(loss):
+            fail(f"train step {i}: loss {loss}")
+        if i >= 2:
+            times.append(ms)
+    launches = dict(kernels.LAUNCHES)
+    print(f"  launches during the steps: {launches}", flush=True)
+    for name, p in model.named_parameters():
+        changed = not torch.equal(p, before[name])
+        must_move = "lora_" in name or name.startswith(
+            ("visual_projection", "text_projection", "temperature"))
+        must_stay = name.startswith(("visual_backbone", "text_backbone", "audio_backbone")) \
+            and "lora_" not in name
+        if must_move and not changed:
+            fail(f"{name} did not move in training")
+        if must_stay and changed:
+            fail(f"{name} (frozen or gated) changed in training")
+    print("  LoRA factors, projection heads and temperature moved; ViT base, "
+          "DistilBERT and HuBERT bit-unchanged", flush=True)
+    for name in TRAIN_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the training steps")
+    profile_step(lambda: step(state, None, batch))
+    return model, launches, statistics.median(times)
+
+
+def profile_step(fn):
+    """torch.profiler over one step: kernel self device time by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, ms = _step_ms(fn)
+    # kernels only: a CPU op's row also carries its kernels' device time
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in rows) / 1e3
+    lines = [f"step {ms:.3f} ms (CUDA events), kernel self device time {total:.3f} ms "
+             f"({100 * total / ms:.1f}% busy)"]
+    lines += [f"{e.self_device_time_total / 1e3:10.4f} ms {e.count:6d}x  {e.key[:110]}"
+              for e in rows[:60]]
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "train_profile.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    print("\n".join("  " + line for line in lines[:25]), flush=True)
+
+
+def train_reference_phase(model):
+    """One TV step's loss and per-group gradients at B = REF_B with every
+    dropout off and DistilBERT unfrozen: the card in bf16 against the same
+    weights in float32 on the CPU (plain versions there). The loss must
+    agree to 5e-2 relative (a bf16 pass through 12 + 6 layers and the
+    squared-sim regulariser) and each group's gradient at cosine > 0.99."""
+    import dataclasses
+
+    from triad_tpu_torch.config import OptimConfig, perf_train_loss_config
+    from triad_tpu_torch.models.multimodal import TriadModel
+    from triad_tpu_torch.train.optim import label_for_path
+    from triad_tpu_torch.train.step import StepFactory
+
+    cfg = dataclasses.replace(model.cfg, compute_dtype="float32")
+    ref = TriadModel(cfg, device="cpu")
+    ref.load_state_dict({k: p.detach().cpu() for k, p in model.state_dict().items()})
+    batch = _train_batch(REF_B, 4)
+    factory = StepFactory(perf_train_loss_config(), OptimConfig())
+
+    def loss_and_grads(m, device):
+        groups = ("others", "text", "vit_lora")
+        for name, p in m.named_parameters():
+            p.requires_grad_(label_for_path(name) in groups)
+            p.grad = None
+        total, _ = factory.compute_losses(m, None, {k: v.to(device) for k, v in batch.items()},
+                                          None, train=False)
+        total.backward()
+        grads = {g: [] for g in groups}
+        for name, p in m.named_parameters():
+            if p.grad is not None:
+                grads[label_for_path(name)].append(p.grad.detach().double().cpu().ravel())
+        return float(total.detach()), {g: torch.cat(v) for g, v in grads.items()}
+
+    loss, grads = loss_and_grads(model, "cuda")
+    ref_loss, ref_grads = loss_and_grads(ref, "cpu")
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    print(f"  loss bf16 card {loss:.6f} vs fp32 CPU {ref_loss:.6f} (rel {rel:.3g}, bound 5e-2)",
+          flush=True)
+    if not rel < 5e-2:
+        fail("training loss disagrees with the fp32 CPU reference")
+    for g, want in ref_grads.items():
+        got = grads[g]
+        cos = float(got @ want / (got.norm() * want.norm()))
+        print(f"  grad {g:8s} cosine {cos:.6f} over {want.numel()} values", flush=True)
+        if not cos > 0.99:
+            fail(f"{g} gradients disagree with the fp32 CPU reference")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -311,26 +491,37 @@ def main():
     print(f"  {n_params} parameters, random init from seed 0", flush=True)
     kernels.reset_launches()
     served = serve_phase(serving)
-    launches = dict(kernels.LAUNCHES)
-    print(f"  launches during the requests: {launches}", flush=True)
+    serve_launches = dict(kernels.LAUNCHES)
+    print(f"  launches during the requests: {serve_launches}", flush=True)
     reference_phase(serving, *served)
 
     phase("5. launch counts")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in KERNELS:
+        if name not in TRAIN_ONLY_KERNELS and serve_launches[name] <= 0:
             fail(f"kernel {name} was not launched by the serving path")
+    del serving
+    torch.cuda.empty_cache()
+
+    phase(f"6. text-visual train step, perf_train_model_config() at full width, B = {TRAIN_B}")
+    model, train_launches, step_ms = train_phase()
+    print(f"  median of 3 timed steps: {step_ms:.3f} ms", flush=True)
+
+    phase(f"7. train step at B = {REF_B}: bf16 card vs fp32 CPU")
+    train_reference_phase(model)
 
     kernels_json = []
     for name, (src, replaces) in KERNELS.items():
         cases = [r for r in results if r["name"] == name]
         kernels_json.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": cases[0]["max_abs_err"],
+            "launches": serve_launches[name] + train_launches[name],
+            "launches_by_path": {"serve": serve_launches[name], "train": train_launches[name]},
+            "max_abs_err": cases[0]["max_abs_err"],
             "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"],
             "cases": [{k: r[k] for k in ("shape", "max_abs_err", "bound", "ms", "plain_ms")}
                       for r in cases],
         })
-    print(json.dumps({"kernels": kernels_json}), flush=True)
+    print(json.dumps({"kernels": kernels_json, "train_step_ms": step_ms}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -145,7 +145,7 @@ class TestRefusals:
             kernels._nvcc()
 
     @pytest.mark.parametrize("section,field,value", [
-        ("vit", "attention_impl", "fused_packed"),
+        ("vit", "attention_impl", "fused"),
         ("vit", "attention_impl", "fused_packed_merged"),
         ("vit", "attention_impl", "packed_merged_pair"),
         ("hubert", "attention_impl", "fused"),
@@ -163,8 +163,12 @@ class TestRefusals:
 
         cfg = small_model_config()
         sub = dataclasses.replace(getattr(cfg, section), **{field: value})
+        # The model builds and HuBERT raises when it runs, or the model
+        # does not build: the HuBERT training-kernel options build the
+        # same parameters, so a text-visual training run carries HuBERT.
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TriadModel(dataclasses.replace(cfg, **{section: sub}), device="meta")
+            model = TriadModel(dataclasses.replace(cfg, **{section: sub}), device="meta")
+            model.encode_audio(torch.zeros(1, 400, device="meta"))
 
     def test_flash_attention_raises(self):
         from triad_tpu_torch.models.layers import dot_product_attention
@@ -172,6 +176,17 @@ class TestRefusals:
         q = torch.zeros(1, 4, 2, 64)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             dot_product_attention(q, q, q, None, torch.float32, impl="flash")
+
+    @pytest.mark.parametrize("impl", ["flash", "packed", "packed_pair", "fused_packed"])
+    def test_attention_dropout_needs_xla(self, impl):
+        """Live attention dropout runs on "xla" only; any other impl raises
+        rather than falling back to the plain attention."""
+        from triad_tpu_torch.models.layers import dot_product_attention
+
+        q = torch.zeros(1, 4, 2, 64)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            dot_product_attention(q, q, q, None, torch.float32, impl=impl,
+                                  probs_dropout=lambda p: p)
 
     def test_ignored_tpu_knobs_are_config_fields(self):
         from triad_tpu.core.config import HubertConfig, ViTConfig

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card,
-at the shapes the serving path gives them (perf_eval_model_config at
-B=8: HuBERT 499 tokens, ViT 261 tokens, 10 s of 16 kHz audio).
+at the shapes the serving and training paths give them (B=8: HuBERT 499
+tokens, ViT 261 tokens, 10 s of 16 kHz audio), plus ragged and masked
+edge cases.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. On a machine with the
 card and no JAX (tests/conftest.py imports JAX, hence --noconftest):
@@ -148,3 +149,84 @@ class TestFrontend:
         torch.cuda.synchronize()
         assert float(var.min()) > 0.0
         assert bool(torch.isfinite(out.float()).all())
+
+
+class TestAttentionTrain:
+    # Forward: both round the same fp32 P to bf16; an fp32 summation-order
+    # difference can flip one rounding, ~1 ulp of one term. Backward: the
+    # kernels carry the fp32 P and dS as bf16 hi + lo halves (~2^-16
+    # relative) and sum in another order; each output rounds once to
+    # bf16. Both: 2 bf16 ulps of the largest output.
+    TOL = 2 * 2.0 ** -7
+
+    @pytest.mark.parametrize("b,n", [(8, 261), (2, 37), (1, 512)])
+    def test_fwd_bwd(self, dev, b, n):
+        from triad_tpu_torch.ops import attention as A
+
+        q, k, v, do = (_randn((b, n, 768), dev, s) for s in (21, 22, 23, 24))
+        mask = torch.ones((b, n), device=dev)
+        mask[0, 3] = 0.0          # one masked key
+        mask[-1, n // 2:] = 0.0   # a ragged key tail
+        if b == 2:
+            mask[1] = 0.0         # a fully masked row: uniform weights
+        got = A.attention_train_fwd(q, k, v, mask, 0.125)
+        torch.cuda.synchronize()
+        err, mx = _max_err(got, A.attention_train_plain(q, k, v, mask, 0.125))
+        assert err <= self.TOL * mx, ("fwd", err, mx)
+        grads = A.attention_train_bwd(q, k, v, mask, do, 0.125)
+        torch.cuda.synchronize()
+        refs = A.attention_train_bwd_plain(q, k, v, mask, do, 0.125)
+        for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            err, mx = _max_err(g, r)
+            assert err <= self.TOL * mx, (name, err, mx)
+
+    def test_mask_forms(self, dev):
+        """The wrappers take the key mask in any dtype and on any device,
+        as attention_train does: a bool mask on the CPU gives the fp32
+        mask's result on the card."""
+        from triad_tpu_torch.ops import attention as A
+
+        q, k, v, do = (_randn((2, 37, 128), dev, s) for s in (41, 42, 43, 44))
+        mask = torch.ones((2, 37), device=dev)
+        mask[1, 20:] = 0.0
+        bool_mask = mask.bool().cpu()
+        assert torch.equal(A.attention_train_fwd(q, k, v, bool_mask, 0.125),
+                           A.attention_train_fwd(q, k, v, mask, 0.125))
+        for g, r in zip(A.attention_train_bwd(q, k, v, bool_mask, do, 0.125),
+                        A.attention_train_bwd(q, k, v, mask, do, 0.125)):
+            assert torch.equal(g, r)
+
+    def test_autograd_counts_launches(self, dev):
+        from triad_tpu_torch import kernels
+        from triad_tpu_torch.ops.attention import attention_train
+
+        q, k, v = (_randn((2, 37, 128), dev, s).requires_grad_() for s in (25, 26, 27))
+        kernels.reset_launches()
+        attention_train(q, k, v).float().sum().backward()
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["attention_train"] == 1
+        assert kernels.LAUNCHES["attention_train_bwd"] == 1
+        assert q.grad.shape == q.shape and bool(torch.isfinite(q.grad.float()).all())
+
+
+class TestMlpBwd:
+    # dh rounds to bf16 from an fp32 dg summed in another order (a flipped
+    # rounding moves one element by 1 ulp); dx sums 3072 bf16(dh) W1
+    # products. 2 bf16 ulps of each output's largest magnitude.
+    TOL = 2 * 2.0 ** -7
+
+    @pytest.mark.parametrize("m", [8 * 261, 45])
+    @pytest.mark.parametrize("form", ["tanh", "erf"])
+    def test_matches_plain(self, dev, m, form):
+        from triad_tpu_torch.ops.mlp import fused_mlp_bwd, fused_mlp_bwd_plain
+
+        x = _randn((m, 768), dev, 31)
+        w1 = _randn((3072, 768), dev, 32, 768 ** -0.5)
+        b1 = _randn((3072,), dev, 33, 0.1)
+        w2 = _randn((768, 3072), dev, 34, 3072 ** -0.5)
+        dy = _randn((m, 768), dev, 35)
+        got = fused_mlp_bwd(x, w1, b1, w2, dy, form)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("dx", "dh", "g"), got, fused_mlp_bwd_plain(x, w1, b1, w2, dy, form)):
+            err, mx = _max_err(g, r)
+            assert err <= self.TOL * mx, (name, err, mx)

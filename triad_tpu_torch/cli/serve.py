@@ -22,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from triad_tpu.core.config import Config, ModelConfig, perf_eval_model_config
+from triad_tpu_torch.config import Config, ModelConfig, perf_eval_model_config
 
 
 def load_config(spec: str) -> ModelConfig:

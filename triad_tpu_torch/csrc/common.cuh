@@ -31,6 +31,26 @@ __device__ __forceinline__ float gelu(float x, int tanh_form) {
   return tanh_form ? gelu_tanh(x) : gelu_erf(x);
 }
 
+// d gelu / dx in fp32 (pallas_mlp.py:_gelu_tanh_grad and _gelu_grad).
+__device__ __forceinline__ float gelu_grad(float x, int tanh_form) {
+  if (tanh_form) {
+    const float t = tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x));
+    const float du = 0.7978845608028654f * (1.0f + 3.0f * 0.044715f * x * x);
+    return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * du;
+  }
+  const float cdf = 0.5f * (1.0f + erff(x * 0.7071067811865476f));
+  return cdf + x * expf(-0.5f * x * x) * 0.3989422804014327f;
+}
+
+// v = hi + lo with both halves bf16: two bf16 products against an exact
+// bf16 operand carry ~16 mantissa bits of v (an fp32 operand on bf16
+// tensor cores).
+__device__ __forceinline__ void split_bf16(float v, __nv_bfloat16* hi, __nv_bfloat16* lo) {
+  const __nv_bfloat16 h = __float2bfloat16(v);
+  *hi = h;
+  *lo = __float2bfloat16(v - __bfloat162float(h));
+}
+
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }

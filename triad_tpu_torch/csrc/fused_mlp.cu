@@ -1,5 +1,6 @@
 // Fused transformer MLP forward: y = gelu(x W1^T + b1) W2^T + b2, bf16
-// in and out, fp32 accumulation, no dropout (inference).
+// in and out, fp32 accumulation, no dropout; its backward (dx, dh, g)
+// follows further down.
 //
 // Replaces triad_tpu/ops/pallas_mlp.py:fused_mlp's forward (_fwd :174,
 // body _fwd_kernel :88) at p_drop = 0. The TPU kernel holds a whole
@@ -196,7 +197,207 @@ int launch_rows(const void* x, const void* w1, const void* b1, const void* w2, c
   return launch<32, DOUT>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, stream);
 }
 
+// ------------------------------------------------------------------------
+// Backward: replaces pallas_mlp._bwd_call (:197, body _bwd_kernel :114) at
+// p_drop = 0. Per 16-row block it walks the hidden dimension in the
+// forward's 16-wide chunks through the same two-stage cp.async ring:
+//   h  = x W1[c]^T + b1        (fp32 accumulation)
+//   dg = dy W2[:, c]           (fp32 accumulation of exact bf16 products,
+//                               the TPU body's fp32 dy . W2^T)
+//   dh = dg * gelu'(h)         (fp32; tanh or erf form)
+//   writes bf16 dh and g = gelu(h) for the weight gradients, and
+//   dx += bf16(dh) W1[c]       (fp32 accumulator tile in registers)
+// x and dy stay resident in shared memory, so 32-row blocks no longer fit
+// beside the ring; every 16-row block re-streams W1 and W2 from L2 (the
+// same bound as the forward, at half its rows per weight byte).
+
+constexpr int BBM = 16;  // backward rows per block
+constexpr int BKS = 8;   // K splits of the two chunk GEMMs (one per warp)
+
+struct BwdLayout {
+  size_t x, dy, stage, w2_in_stage, stage_bytes, h, dg, dh, total;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(int din, int dout) {
+  BwdLayout L;
+  const size_t ldx = din + 8, ldy = dout + 8;
+  L.x = 0;
+  L.dy = up128(BBM * ldx * 2);
+  L.stage = L.dy + up128(BBM * ldy * 2);
+  L.w2_in_stage = up128(HC * ldx * 2);
+  L.stage_bytes = up128(L.w2_in_stage + (size_t)dout * LDW2 * 2);
+  size_t region = 2 * L.stage_bytes;
+  const size_t xb = (size_t)BBM * (din + 4) * 4;  // epilogue reuses the ring
+  if (xb > region) region = xb;
+  L.h = L.stage + up128(region);
+  L.dg = L.h + up128((size_t)BKS * BBM * LDH * 4);
+  L.dh = L.dg + up128((size_t)BKS * BBM * LDH * 4);
+  L.total = L.dh + up128(BBM * LDG * 2);
+  return L;
+}
+
+template <int DIN>
+__global__ void __launch_bounds__(THREADS)
+fused_mlp_bwd_kernel(const triad::bf16* __restrict__ x, const triad::bf16* __restrict__ w1,
+                     const triad::bf16* __restrict__ b1, const triad::bf16* __restrict__ w2,
+                     const triad::bf16* __restrict__ dy, triad::bf16* __restrict__ dx,
+                     triad::bf16* __restrict__ dh_out, triad::bf16* __restrict__ g_out, int m,
+                     int dout, int dh, int tanh_form) {
+  using triad::bf16;
+  constexpr int NF = DIN / 16 / 8;  // dx fragments per warp (8 warps side by side)
+  extern __shared__ __align__(128) unsigned char smem[];
+  const BwdLayout L = bwd_layout(DIN, dout);
+  const int ldx = DIN + 8, ldy = dout + 8;
+  bf16* sX = reinterpret_cast<bf16*>(smem + L.x);
+  bf16* sDY = reinterpret_cast<bf16*>(smem + L.dy);
+  float* sOut = reinterpret_cast<float*>(smem + L.stage);
+  float* sH = reinterpret_cast<float*>(smem + L.h);
+  float* sDG = reinterpret_cast<float*>(smem + L.dg);
+  bf16* sDH = reinterpret_cast<bf16*>(smem + L.dh);
+  auto sW1 = [&](int s) { return reinterpret_cast<bf16*>(smem + L.stage + s * L.stage_bytes); };
+  auto sW2 = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + L.stage + s * L.stage_bytes + L.w2_in_stage);
+  };
+
+  const int m0 = blockIdx.x * BBM;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+
+  auto load_chunk = [&](int s, int c0) {
+    bf16* d1 = sW1(s);
+    for (int i = tid; i < HC * (DIN / 8); i += THREADS) {
+      const int r = i / (DIN / 8), c = (i % (DIN / 8)) * 8;
+      triad::cp_async16(d1 + r * ldx + c, w1 + (long long)(c0 + r) * DIN + c, true);
+    }
+    bf16* d2 = sW2(s);
+    for (int i = tid; i < dout * (HC / 8); i += THREADS) {
+      const int r = i / (HC / 8), c = (i % (HC / 8)) * 8;
+      triad::cp_async16(d2 + r * LDW2 + c, w2 + (long long)r * dh + c0 + c, true);
+    }
+  };
+
+  for (int i = tid; i < BBM * (DIN / 8); i += THREADS) {
+    const int r = i / (DIN / 8), c = (i % (DIN / 8)) * 8;
+    const bool ok = m0 + r < m;
+    triad::cp_async16(sX + r * ldx + c, ok ? x + (long long)(m0 + r) * DIN + c : x, ok);
+  }
+  for (int i = tid; i < BBM * (dout / 8); i += THREADS) {
+    const int r = i / (dout / 8), c = (i % (dout / 8)) * 8;
+    const bool ok = m0 + r < m;
+    triad::cp_async16(sDY + r * ldy + c, ok ? dy + (long long)(m0 + r) * dout + c : dy, ok);
+  }
+  load_chunk(0, 0);
+  triad::cp_async_commit();
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
+  for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[f], 0.0f);
+  const int kx = DIN / BKS, ky = dout / BKS;  // each warp's K slice of h and dg
+
+  const int nchunks = dh / HC;
+  for (int ci = 0; ci < nchunks; ++ci) {
+    const int s = ci & 1, c0 = ci * HC;
+    triad::cp_async_wait<0>();
+    __syncthreads();  // chunk ci landed; chunk ci-1 fully consumed
+    if (ci + 1 < nchunks) {
+      load_chunk(s ^ 1, c0 + HC);
+      triad::cp_async_commit();
+    }
+    {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc, gacc;
+      wmma::fill_fragment(hacc, 0.0f);
+      wmma::fill_fragment(gacc, 0.0f);
+      const bf16* w1s = sW1(s);
+      for (int kk = warp * kx; kk < (warp + 1) * kx; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
+        wmma::load_matrix_sync(a, sX + kk, ldx);
+        wmma::load_matrix_sync(bw, w1s + kk, ldx);
+        wmma::mma_sync(hacc, a, bw, hacc);
+      }
+      const bf16* w2s = sW2(s);
+      for (int kk = warp * ky; kk < (warp + 1) * ky; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
+        wmma::load_matrix_sync(a, sDY + kk, ldy);
+        wmma::load_matrix_sync(bw, w2s + kk * LDW2, LDW2);
+        wmma::mma_sync(gacc, a, bw, gacc);
+      }
+      wmma::store_matrix_sync(sH + warp * BBM * LDH, hacc, LDH, wmma::mem_row_major);
+      wmma::store_matrix_sync(sDG + warp * BBM * LDH, gacc, LDH, wmma::mem_row_major);
+    }
+    __syncthreads();
+    for (int i = tid; i < BBM * HC; i += THREADS) {
+      const int r = i / HC, c = i % HC;
+      float h = __bfloat162float(b1[c0 + c]);
+      float dg = 0.0f;
+      for (int k = 0; k < BKS; ++k) {
+        h += sH[(k * BBM + r) * LDH + c];
+        dg += sDG[(k * BBM + r) * LDH + c];
+      }
+      const bf16 dhb = __float2bfloat16(dg * triad::gelu_grad(h, tanh_form));
+      sDH[r * LDG + c] = dhb;
+      if (m0 + r < m) {
+        const long long o = (long long)(m0 + r) * dh + c0 + c;
+        dh_out[o] = dhb;
+        g_out[o] = __float2bfloat16(triad::gelu(h, tanh_form));
+      }
+    }
+    __syncthreads();
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> da;
+    wmma::load_matrix_sync(da, sDH, LDG);
+    const bf16* w1s = sW1(s);
+    for (int f = 0; f < NF; ++f) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
+      wmma::load_matrix_sync(bw, w1s + (warp * NF + f) * 16, ldx);
+      wmma::mma_sync(acc[f], da, bw, acc[f]);
+    }
+  }
+  __syncthreads();
+  constexpr int LDO = DIN + 4;
+  for (int f = 0; f < NF; ++f)
+    wmma::store_matrix_sync(sOut + (warp * NF + f) * 16, acc[f], LDO, wmma::mem_row_major);
+  __syncthreads();
+  for (int i = tid; i < BBM * (DIN / 2); i += THREADS) {
+    const int r = i / (DIN / 2), c = (i % (DIN / 2)) * 2;
+    if (m0 + r >= m) continue;
+    *reinterpret_cast<__nv_bfloat162*>(dx + (long long)(m0 + r) * DIN + c) =
+        __floats2bfloat162_rn(sOut[r * LDO + c], sOut[r * LDO + c + 1]);
+  }
+}
+
+template <int DIN>
+int launch_bwd(const void* x, const void* w1, const void* b1, const void* w2, const void* dy,
+               void* dx, void* dh_out, void* g_out, int m, int dout, int dh, int tanh_form,
+               cudaStream_t stream) {
+  const BwdLayout L = bwd_layout(DIN, dout);
+  if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_mlp_bwd_kernel<DIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  fused_mlp_bwd_kernel<DIN><<<(m + BBM - 1) / BBM, THREADS, L.total, stream>>>(
+      (const triad::bf16*)x, (const triad::bf16*)w1, (const triad::bf16*)b1,
+      (const triad::bf16*)w2, (const triad::bf16*)dy, (triad::bf16*)dx, (triad::bf16*)dh_out,
+      (triad::bf16*)g_out, m, dout, dh, tanh_form);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// x (m, din), w1 (dh, din), b1 (dh), w2 (dout, dh), dy (m, dout); outputs
+// dx (m, din), dh_out and g (m, dh): contiguous bf16. din == 768 (the
+// ViT's width, the only one on a path), dout % 128 == 0, dh % 16 == 0.
+// Returns a cudaError_t.
+extern "C" int triad_fused_mlp_bwd(const void* x, const void* w1, const void* b1,
+                                   const void* w2, const void* dy, void* dx, void* dh_out,
+                                   void* g_out, int m, int din, int dh, int dout, int tanh_form,
+                                   void* stream) {
+  if (m <= 0 || dout % 128 || dh % HC) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (din) {
+    case 768: return launch_bwd<768>(x, w1, b1, w2, dy, dx, dh_out, g_out, m, dout, dh, tanh_form, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // x (m, din), w1 (dh, din), b1 (dh), w2 (dout, dh), b2 (dout), y (m, dout):
 // contiguous bf16. din % 128 == 0, dh % 16 == 0, dout in {256, 512, 768,

@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-All sources under ``triad_tpu_torch/csrc/`` compile with ``nvcc`` into
-one shared library with a plain C interface (no PyTorch headers, so a
-build takes seconds), which ``ctypes`` loads. The build happens at first
+All sources under ``triad_tpu_torch/csrc/`` compile with ``nvcc`` (one
+process per source, in parallel) into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), which
+``ctypes`` loads. The build happens at first
 use, into ``triad_tpu_torch/_build/`` (git-ignored), keyed by a hash of
 the sources, so a fresh checkout builds everything from the repo alone.
 
@@ -10,9 +11,10 @@ Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`call` raises when that is not 0.
 
 ``LAUNCHES`` counts kernel launches per wrapper name. A wrapper adds one
-where it launches its kernel and nowhere else; :func:`reset_launches`
-zeroes the counts, so a caller can show that a run went through the
-kernels.
+where it launches its kernel and nowhere else; a wrapper whose entry
+point runs two grids (``attention_train_bwd``: rows, then columns) adds
+one per call. :func:`reset_launches` zeroes the counts, so a caller can
+show that a run went through the kernels.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 LAUNCHES: Dict[str, int] = {
@@ -43,13 +45,20 @@ LAUNCHES: Dict[str, int] = {
     "frontend_stats": 0,
     "frontend_conv0": 0,
     "frontend_conv": 0,
+    "attention_train": 0,
+    "attention_train_bwd": 0,
+    "fused_mlp_bwd": 0,
 }
 
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "triad_attention_eval": [_VP] * 5 + [_I] * 4 + [_LL] * 9 + [_F, _VP],
     "triad_attention_eval_max_keys": [],
+    "triad_attention_train_fwd": [_VP] * 5 + [_I] * 3 + [_F, _VP],
+    "triad_attention_train_bwd": [_VP] * 11 + [_I] * 3 + [_F, _VP],
+    "triad_attention_train_max_keys": [],
     "triad_fused_mlp": [_VP] * 6 + [_I] * 5 + [_VP],
+    "triad_fused_mlp_bwd": [_VP] * 8 + [_I] * 5 + [_VP],
     "triad_frontend_stats": [_VP, _LL, _VP, _VP, _VP, _I, _I, _VP],
     "triad_frontend_conv0": [_VP, _LL] + [_VP] * 4 + [_I] * 3 + [_VP],
     "triad_frontend_conv": [_VP, _I, _VP, _VP] + [_I] * 4 + [_VP],
@@ -92,12 +101,27 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(p) for p in _sources() if p.suffix == ".cu"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    nvcc = _nvcc()
+    # One nvcc per source, all at once, then one link.
+    objs, procs = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [(proc, proc.communicate()[0]) for proc in procs]
+    build_log = "".join(log for _, log in logs)
+    failed = [proc.returncode for proc, _ in logs if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        failed = [link.returncode] if link.returncode != 0 else []
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{build_log}")
     os.replace(tmp, out)
     return out
 

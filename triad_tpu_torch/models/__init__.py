@@ -1,7 +1,7 @@
 """nn.Module encoders of the port (mirroring ``triad_tpu/models``).
 
-Configs are the JAX package's dataclasses (``triad_tpu.core.config``),
-used as they are. Some of their fields choose TPU tilings, not
+Configs are the JAX package's dataclasses (``triad_tpu.core.config``,
+through ``triad_tpu_torch.config``), used as they are. Some of their fields choose TPU tilings, not
 semantics; the port accepts them and ignores them (IGNORED_TPU_KNOBS).
 """
 

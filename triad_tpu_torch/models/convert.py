@@ -23,7 +23,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from triad_tpu.core.config import ModelConfig
+from triad_tpu_torch.config import ModelConfig
 from triad_tpu_torch.models.multimodal import TriadModel
 
 _LIST_ITEM = re.compile(r"^(block|layer|conv)_(\d+)$")

@@ -1,15 +1,20 @@
-"""DistilBERT text encoder, eval only (mirrors
-``triad_tpu/models/distilbert.py``): word + learned position embeddings,
-LayerNorm(1e-12), then post-LN blocks MHA -> LN(x + attn) -> FFN ->
-LN(x + ffn). Padded keys are masked in the attention scores."""
+"""DistilBERT text encoder (mirrors ``triad_tpu/models/distilbert.py``):
+word + learned position embeddings, LayerNorm(1e-12), then post-LN blocks
+MHA -> LN(x + attn) -> FFN -> LN(x + ffn). Padded keys are masked in the
+attention scores.
+
+Training mode is a ``torch.Generator`` passed to ``forward``: it drives
+the embedding, attention-probs and FFN-output dropouts of HF DistilBERT
+(``config.dropout`` / ``config.attention_dropout``). Without one the
+model is deterministic (eval)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
-from triad_tpu.core.config import DistilBertConfig
-from triad_tpu_torch.models.layers import Dense, LayerNorm, Mlp, dot_product_attention
+from triad_tpu_torch.config import DistilBertConfig
+from triad_tpu_torch.models.layers import Dense, LayerNorm, Mlp, dot_product_attention, dropout
 
 
 class DistilBertAttention(nn.Module):
@@ -23,17 +28,21 @@ class DistilBertAttention(nn.Module):
         self.out_lin = Dense(c.hidden_size, c.hidden_size, **kw)
         self.cfg, self.dtype = cfg, dtype
 
-    def forward(self, x, attn_mask):
+    def forward(self, x, attn_mask, generator=None):
         c = self.cfg
         b, n, _ = x.shape
         hd = c.hidden_size // c.num_heads
         q, k, v = (lin(x).reshape(b, n, c.num_heads, hd)
                    for lin in (self.q_lin, self.k_lin, self.v_lin))
         mask = None if attn_mask is None else attn_mask.to(torch.bool)[:, None, None, :]
+        probs_dropout = None
+        if generator is not None and c.attention_dropout > 0:
+            def probs_dropout(p):
+                return dropout(p, c.attention_dropout, generator)
         out = dot_product_attention(
             q, k, v, mask, self.dtype,
             scores_dtype=getattr(torch, c.attention_scores_dtype),
-            impl=c.attention_impl,
+            impl=c.attention_impl, probs_dropout=probs_dropout,
         )
         return self.out_lin(out.reshape(b, n, c.hidden_size))
 
@@ -47,10 +56,11 @@ class DistilBertBlock(nn.Module):
         self.sa_layer_norm = LayerNorm(c.hidden_size, c.layer_norm_eps, **kw)
         self.ffn = Mlp(c.hidden_size, c.intermediate_size, c.hidden_size, **kw)
         self.output_layer_norm = LayerNorm(c.hidden_size, c.layer_norm_eps, **kw)
+        self.cfg = cfg
 
-    def forward(self, x, attn_mask):
-        x = self.sa_layer_norm(x + self.attention(x, attn_mask))
-        return self.output_layer_norm(x + self.ffn(x))
+    def forward(self, x, attn_mask, generator=None):
+        x = self.sa_layer_norm(x + self.attention(x, attn_mask, generator))
+        return self.output_layer_norm(x + dropout(self.ffn(x), self.cfg.dropout, generator))
 
 
 class DistilBertModel(nn.Module):
@@ -69,10 +79,10 @@ class DistilBertModel(nn.Module):
         self.layers = nn.ModuleList(DistilBertBlock(c, **kw) for _ in range(c.num_layers))
         self.cfg, self.dtype = cfg, dtype
 
-    def forward(self, input_ids, attention_mask=None):
+    def forward(self, input_ids, attention_mask=None, generator=None):
         n = input_ids.shape[1]
         x = self.word_embeddings[input_ids.long()] + self.position_embeddings[None, :n]
-        x = self.emb_layer_norm(x.to(self.dtype))
+        x = dropout(self.emb_layer_norm(x.to(self.dtype)), self.cfg.dropout, generator)
         for layer in self.layers:
-            x = layer(x, attention_mask)
+            x = layer(x, attention_mask, generator)
         return x

@@ -12,6 +12,11 @@ dtype with exact GELU. ``attention_impl="packed"`` runs the packed eval
 kernel; ``mlp_impl="auto"`` runs the fused MLP kernel on a CUDA tensor
 and the plain Dense/GELU/Dense elsewhere, as the JAX package picks its
 Pallas kernel on the accelerator only.
+
+The training-kernel options of ``perf_train_model_config()`` (packed
+training attention, the Pallas positional conv) build the same
+parameters, so a text-visual training run can carry HuBERT; running
+HuBERT with them raises NotImplementedError (ROADMAP.md slice 3).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from triad_tpu.core.config import HubertConfig
+from triad_tpu_torch.config import HubertConfig
 from triad_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
@@ -102,9 +107,7 @@ class PositionalConvEmbedding(nn.Module):
     def __init__(self, cfg: HubertConfig, dtype, param_dtype, device=None):
         super().__init__()
         c = cfg
-        if c.posconv_impl == "pallas":
-            raise not_ported("posconv_impl 'pallas'", "Queue 2 item 4")
-        if c.posconv_impl != "conv":
+        if c.posconv_impl not in ("conv", "pallas"):
             raise ValueError(f"unknown posconv_impl {c.posconv_impl!r}")
         k = c.num_conv_pos_embeddings
         self.conv = nn.Conv1d(c.hidden_size, c.hidden_size, k, padding=k // 2,
@@ -131,9 +134,6 @@ class HubertSelfAttention(nn.Module):
         self.v_proj = Dense(c.hidden_size, c.hidden_size, **kw)
         self.out_proj = Dense(c.hidden_size, c.hidden_size, **kw)
         impl = c.attention_impl
-        if impl in ("fused", "fused_packed", "fused_packed_merged"):
-            raise not_ported(f"HuBERT attention_impl {impl!r} (training kernel)",
-                             "Queue 2 item 1")
         if impl in ("packed_pair", "packed_merged_pair"):
             raise not_ported(f"HuBERT attention_impl {impl!r}", "Queue 2 item 6")
         if impl == "packed_merged" and c.hidden_size // c.num_heads != HEAD_DIM:
@@ -208,8 +208,15 @@ class HubertModel(nn.Module):
         self.pos_conv_embed = PositionalConvEmbedding(c, **kw)
         self.encoder_layer_norm = LayerNorm(c.hidden_size, c.layer_norm_eps, **kw)
         self.layers = nn.ModuleList(HubertEncoderLayer(c, **kw) for _ in range(c.num_layers))
+        self.cfg = cfg
 
     def forward(self, audio):
+        c = self.cfg
+        if c.attention_impl in ("fused", "fused_packed", "fused_packed_merged"):
+            raise not_ported(f"HuBERT attention_impl {c.attention_impl!r} (training kernel)",
+                             "slice 3")
+        if c.posconv_impl == "pallas":
+            raise not_ported("posconv_impl 'pallas'", "Queue 2 item 4")
         x = self.feature_extractor(audio)
         x = self.feature_projection(self.feature_projection_norm(x))
         x = self.encoder_layer_norm(x + self.pos_conv_embed(x))

@@ -15,8 +15,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from triad_tpu_torch.ops.attention import attention_eval, masked_attention
-from triad_tpu_torch.ops.mlp import fused_mlp, gelu
+from triad_tpu_torch.ops.attention import attention_eval, attention_train, masked_attention
+from triad_tpu_torch.ops.mlp import FusedMlp, gelu
 
 
 def not_ported(option: str, roadmap_item: str):
@@ -96,14 +96,32 @@ class LoRALinear(nn.Module):
         return y
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
+    """nn.Dropout as Flax applies it: keep with probability 1 - rate, kept
+    values divided by 1 - rate. ``generator`` None means deterministic
+    (eval): x is returned as it is."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def patch_dropout_mask(generator: torch.Generator, shape, drop_rate: float,
+                       device=None) -> torch.Tensor:
+    """Bernoulli(1 - drop_rate) keep mask for token dropout
+    (layers.py:639-651): dropped tokens are zeroed, not removed."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - drop_rate
+
+
 def mlp_forward(x, fc1: Dense, fc2: Dense, impl: str, gelu_form: str):
-    """fc2(gelu(fc1(x))). impl "fused" runs ops.mlp.fused_mlp (the CUDA
-    kernel on the card) with ``gelu_form``; "xla" runs the two Dense
-    layers around an exact GELU, as the JAX package's unfused path does."""
+    """fc2(gelu(fc1(x))). impl "fused" runs ops.mlp.FusedMlp (the CUDA
+    kernels on the card, forward and backward) with ``gelu_form``; "xla"
+    runs the two Dense layers around an exact GELU, as the JAX package's
+    unfused path does."""
     if impl == "fused":
         d = fc1.compute_dtype
-        return fused_mlp(x.to(d), fc1.weight.to(d), fc1.bias.to(d), fc2.weight.to(d),
-                         fc2.bias.to(d), gelu_form)
+        return FusedMlp.apply(x.to(d), fc1.weight.to(d), fc1.bias.to(d), fc2.weight.to(d),
+                              fc2.bias.to(d), gelu_form)
     return fc2(gelu(fc1(x), "erf"))
 
 
@@ -141,14 +159,31 @@ class ProjectionHead(nn.Module):
 
 
 def dot_product_attention(q, k, v, mask: Optional[torch.Tensor], dtype,
-                          scores_dtype=torch.float32, impl: str = "xla"):
-    """Eval attention dispatch of layers.py:385-450 (no dropout).
+                          scores_dtype=torch.float32, impl: str = "xla",
+                          probs_dropout=None):
+    """Attention dispatch of layers.py:148-211 and 385-450.
 
     q, k, v: (B, N, H, Dh); mask: optional (B, 1, 1, Nk) bool. impl
-    "xla": plain masked softmax; "packed": the packed eval kernel on the
-    (B, N, H*Dh) layout."""
+    "xla": plain masked softmax, with ``probs_dropout`` (a function of
+    the probs) when given; "packed": the packed eval kernel on the
+    (B, N, H*Dh) layout; "fused_packed": the packed training kernel
+    (differentiable, p = 0, ragged N, so ``attention_pad`` stays
+    ignored). Attention dropout runs on "xla" only: every other impl
+    with a live ``probs_dropout`` raises."""
     if impl == "xla":
-        return masked_attention(q, k, v, mask, dtype, scores_dtype)
+        return masked_attention(q, k, v, mask, dtype, scores_dtype, probs_dropout)
+    if probs_dropout is not None:
+        raise not_ported(f"attention impl {impl!r} with attention dropout", "slice 3")
+    if impl == "fused_packed":
+        b, n, h, d = q.shape
+        if d != 64:
+            raise ValueError(f"the packed training kernel needs head_dim 64, got {d}")
+        key_mask = None if mask is None else mask.reshape(b, n)
+        out = attention_train(
+            *(x.reshape(b, n, h * d).to(dtype) for x in (q, k, v)), key_mask, 0, 0.0,
+            1.0 / d ** 0.5,
+        )
+        return out.reshape(b, n, h, d)
     if impl == "packed":
         b, n, h, d = q.shape
         if d != 64:
@@ -164,6 +199,6 @@ def dot_product_attention(q, k, v, mask: Optional[torch.Tensor], dtype,
                          "Queue 2 item 1")
     if impl == "packed_pair":
         raise not_ported("attention impl 'packed_pair'", "Queue 2 item 6")
-    if impl in ("fused", "fused_packed", "fused_packed_merged"):
+    if impl in ("fused", "fused_packed_merged"):
         raise not_ported(f"attention impl {impl!r} (training kernel)", "Queue 2 item 1")
     raise ValueError(f"unknown attention impl {impl!r}")

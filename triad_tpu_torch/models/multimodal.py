@@ -1,8 +1,13 @@
-"""The combined tri-modal model, eval only (mirrors
-``triad_tpu/models/multimodal.py``): ViT / HuBERT / DistilBERT backbones,
-each followed by a projection head into the shared ``embedding_dim``
-token space, and a learnable scalar temperature. Backbones and heads run
-in ``cfg.compute_dtype``; parameters stay in ``cfg.param_dtype``."""
+"""The combined tri-modal model (mirrors ``triad_tpu/models/multimodal.py``):
+ViT / HuBERT / DistilBERT backbones, each followed by a projection head
+into the shared ``embedding_dim`` token space, and a learnable scalar
+temperature. Backbones and heads run in ``cfg.compute_dtype``; parameters
+stay in ``cfg.param_dtype``. The ViT base is frozen (only its LoRA
+factors take gradients).
+
+Training mode (``train=True``) takes a ``torch.Generator`` for its random
+draws: patch dropout on the visual tokens and DistilBERT's dropouts.
+HuBERT's training mode is not ported yet (ROADMAP.md slice 3)."""
 
 from __future__ import annotations
 
@@ -11,12 +16,18 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
-from triad_tpu.core.config import ModelConfig
+from triad_tpu_torch.config import ModelConfig
 from triad_tpu_torch.models.distilbert import DistilBertModel
 from triad_tpu_torch.models.hubert import HubertModel, normalize_waveform
-from triad_tpu_torch.models.layers import ProjectionHead
+from triad_tpu_torch.models.layers import ProjectionHead, not_ported, patch_dropout_mask
 from triad_tpu_torch.models.vit import DinoViT
 from triad_tpu_torch.ops.similarity import pairwise_similarity
+
+
+def _needs(generator: Optional[torch.Generator]) -> torch.Generator:
+    if generator is None:
+        raise ValueError("training mode draws dropout bits: pass a torch.Generator")
+    return generator
 
 
 class TriadModel(nn.Module):
@@ -33,21 +44,37 @@ class TriadModel(nn.Module):
         self.text_projection = ProjectionHead(c.text.hidden_size, c.embedding_dim, **kw)
         self.temperature = nn.Parameter(
             torch.tensor(c.temperature_init, dtype=torch.float32, device=device))
+        self.visual_backbone.freeze_non_lora()
         self.cfg = cfg
 
-    def encode_visual(self, images: torch.Tensor) -> torch.Tensor:
-        """images (B, H, W, 3) -> (B, Nv, D) projected patch tokens."""
-        return self.visual_projection(self.visual_backbone.get_patch_tokens(images))
+    def encode_visual(self, images: torch.Tensor, train: bool = False,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """images (B, H, W, 3) -> (B, Nv, D) projected patch tokens. In
+        training, patch dropout after the projection zeroes each token
+        with probability ``visual_dropout_prob`` (multimodal.py:101-116)."""
+        feats = self.visual_projection(self.visual_backbone.get_patch_tokens(images))
+        rate = self.cfg.visual_dropout_prob
+        if train and rate > 0:
+            keep = patch_dropout_mask(_needs(generator), feats.shape[:2], rate, feats.device)
+            feats = feats * keep[..., None].to(feats.dtype)
+        return feats
 
-    def encode_audio(self, audio: torch.Tensor) -> torch.Tensor:
+    def encode_audio(self, audio: torch.Tensor, train: bool = False,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """audio (B, T) raw 16 kHz waveform -> (B, Na, D)."""
+        del generator
+        if train:
+            raise not_ported("HuBERT training mode", "slice 3")
         if self.cfg.hubert.normalize_waveform:
             audio = normalize_waveform(audio)
         return self.audio_projection(self.audio_backbone(audio))
 
-    def encode_text(self, token_ids, attention_mask) -> torch.Tensor:
-        """token_ids, attention_mask (B, Nt) -> (B, Nt, D)."""
-        return self.text_projection(self.text_backbone(token_ids, attention_mask))
+    def encode_text(self, token_ids, attention_mask, train: bool = False,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """token_ids, attention_mask (B, Nt) -> (B, Nt, D); training runs
+        DistilBERT's dropouts from ``generator``."""
+        gen = _needs(generator) if train else None
+        return self.text_projection(self.text_backbone(token_ids, attention_mask, gen))
 
     def forward(self, images, audio, token_ids, attention_mask) -> Dict[str, torch.Tensor]:
         return {

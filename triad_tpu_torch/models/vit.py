@@ -1,4 +1,4 @@
-"""DINOv2 ViT-B/14 with register tokens and LoRA, eval only (mirrors
+"""DINOv2 ViT-B/14 with register tokens and LoRA (mirrors
 ``triad_tpu/models/vit.py``):
 
   patch conv (14x14 s14) -> [cls | registers | patches + pos] -> pre-LN
@@ -6,8 +6,10 @@
 
 LoRA sits on the fused qkv projection and the output projection (folded
 into the weight by default). ``attention_impl="packed_merged"`` feeds the
-(B, N, 3C) qkv projection straight into the merged eval kernel. Images
-are NHWC, as in the JAX package.
+(B, N, 3C) qkv projection straight into the merged eval kernel;
+``"fused_packed"`` runs the differentiable training kernel (DINOv2 has no
+dropout, so it is the same at eval and in training). Images are NHWC, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from triad_tpu.core.config import ViTConfig
+from triad_tpu_torch.config import ViTConfig
 from triad_tpu_torch.models.layers import (
     LayerNorm,
     LoRALinear,
@@ -49,7 +51,7 @@ class ViTAttention(nn.Module):
         self.qkv = LoRALinear(c.hidden_size, 3 * c.hidden_size, bias=c.qkv_bias, **kw)
         self.proj = LoRALinear(c.hidden_size, c.hidden_size, **kw)
         impl = c.attention_impl
-        if impl in ("fused", "fused_packed", "fused_packed_merged"):
+        if impl in ("fused", "fused_packed_merged"):
             raise not_ported(f"ViT attention_impl {impl!r} (training kernel)", "Queue 2 item 1")
         if impl == "packed_merged_pair":
             raise not_ported("ViT attention_impl 'packed_merged_pair'", "Queue 2 item 6")
@@ -122,6 +124,14 @@ class DinoViT(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         return self.norm(x)
+
+    def freeze_non_lora(self) -> None:
+        """requires_grad False on every leaf but the LoRA factors: the
+        counterpart of multimodal._freeze_non_lora (the ViT base is never
+        optimized, and its weight gradients are never formed)."""
+        for name, p in self.named_parameters():
+            if "lora" not in name.rsplit(".", 1)[-1]:
+                p.requires_grad_(False)
 
     def get_patch_tokens(self, images):
         """DINOv2 get_intermediate_layers(x, n=1)[0]: patch tokens only."""

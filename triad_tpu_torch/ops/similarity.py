@@ -1,7 +1,11 @@
-"""Inference-path similarities (mirrors the serving parts of
-``triad_tpu/ops/similarity.py`` and ``triad_tpu/serve/export.py``)."""
+"""Token similarities (mirrors ``triad_tpu/ops/similarity.py`` and the
+pair scorer of ``triad_tpu/serve/export.py``): the inference-path
+pairwise sims and retrieval scores, and the training path's cross-batch
+max-mean aggregation with its hand-written backward."""
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,3 +34,175 @@ def pair_scores(q_tokens, q_mask, k_tokens, k_mask, inv_temp) -> torch.Tensor:
     mx = sims.amax(dim=3)  # (q, Nq, k)
     counts = torch.clamp(q_mask.to(f32).sum(dim=1), min=1.0)
     return (mx * q_mask.to(f32)[:, :, None]).sum(dim=1) / counts[:, None]
+
+
+# ---------------------------------------------------------------------------
+# Training aggregation (triad_tpu/ops/similarity.py:aggregate_crossbatch)
+# ---------------------------------------------------------------------------
+
+
+class AggregateOut(NamedTuple):
+    """clip_sims (Bq, Bk) fp32 (rows queries, columns keys);
+    nonneg_sq_sum () fp32, the sum of clamp(ts, clamp_min, 0)^2 over the
+    whole (Bq, Bk, Nq, Nk) volume; volume_numel () fp32, its size;
+    diag_token_sims (Bq, Nq, Nk) fp32, the token sims of the positive
+    pairs (or None)."""
+
+    clip_sims: torch.Tensor
+    nonneg_sq_sum: torch.Tensor
+    volume_numel: torch.Tensor
+    diag_token_sims: Optional[torch.Tensor]
+
+
+def _volume_pet(name: str) -> torch.dtype:
+    """Storage dtype of the token-sim volume (config ``volume_dtype``):
+    the products accumulate in fp32 either way; "bfloat16" rounds the
+    stored volume."""
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown volume_dtype {name!r}")
+    return getattr(torch, name)
+
+
+def _volume_operands(query, key, precision: str):
+    """(q, k) for the token-sim products (similarity.py:62-81): bf16 pairs
+    stay bf16 (their products are exact in the fp32 accumulator);
+    otherwise "highest" computes in fp32 and "default" keeps the
+    features' dtype. fp32 products run at torch's global matmul precision
+    (TF32 off for parity)."""
+    if precision == "highest" and query.dtype == key.dtype == torch.bfloat16:
+        return query, key
+    keep = query.dtype if precision != "highest" else torch.float32
+    return query.to(keep), key.to(keep)
+
+
+def _sims(eq: str, a, b, dtype: torch.dtype) -> torch.Tensor:
+    """einsum with fp32 accumulation of exact products, stored in
+    ``dtype`` (JAX's preferred_element_type)."""
+    if dtype == torch.bfloat16 and a.dtype == b.dtype == torch.bfloat16:
+        return torch.einsum(eq, a, b)
+    return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32)).to(dtype)
+
+
+def _masked_mean_over_queries(max_sims, query_mask):
+    """Mean over the last (query-token) axis; with a (Bq, Nq) mask, the
+    reference TV mean: masked sum / clamp(count, 1e-7)."""
+    if query_mask is None:
+        return max_sims.mean(dim=-1)
+    mask = query_mask.to(torch.float32)[:, None, :]
+    return (max_sims * mask).sum(dim=-1) / mask.sum(dim=-1).clamp(min=1e-7)
+
+
+def _chunk_sizes(bk: int, chunk_size: int):
+    chunk = min(chunk_size, bk)
+    while bk % chunk:
+        chunk -= 1
+    return chunk, bk // chunk
+
+
+def _chunk_fwd(q, k_chunk, temp, coeff, clamp_min, vdt):
+    """One key chunk: (clip (Bq, chunk), sum of clamp^2)."""
+    ts = _sims("iqd,jkd->ijqk", q, k_chunk, vdt).to(torch.float32) * temp
+    clip = (ts.amax(dim=3) * coeff[:, None, :]).sum(dim=-1)
+    clamped = ts.clamp(clamp_min, 0.0)
+    return clip, (clamped * clamped).sum()
+
+
+class MaxMeanChunked(torch.autograd.Function):
+    """_maxmean_chunked_vjp: forward over key-batch chunks; the backward
+    recomputes each chunk's token sims at the forward's volume dtype (so
+    the max routing matches the forward's bit for bit), splits the max
+    gradient evenly among ties (ts == max, as jnp.max's VJP does, never
+    one argmax), adds the clamp window's 2 ts, and forms dq, dk and dT
+    with no residual volume kept. q, k are the resolved volume operands;
+    coeff (Bq, Nq) is the per-query mean weight (1/Nq or mask/count)."""
+
+    @staticmethod
+    def forward(ctx, q, k, temperature, coeff, clamp_min, chunk_size, vdt):
+        chunk, nchunks = _chunk_sizes(k.shape[0], chunk_size)
+        temp = temperature.to(torch.float32)
+        clips, nonneg = [], torch.zeros((), dtype=torch.float32, device=q.device)
+        for c in range(nchunks):
+            clip, nn_sum = _chunk_fwd(q, k[c * chunk:(c + 1) * chunk], temp, coeff,
+                                      clamp_min, vdt)
+            clips.append(clip)
+            nonneg = nonneg + nn_sum
+        ctx.save_for_backward(q, k, temperature, coeff)
+        ctx.conf = (clamp_min, chunk, nchunks, vdt)
+        return torch.cat(clips, dim=1), nonneg
+
+    @staticmethod
+    def backward(ctx, g_clip, g_nn):
+        q, k, temperature, coeff = ctx.saved_tensors
+        clamp_min, chunk, nchunks, vdt = ctx.conf
+        f32 = torch.float32
+        temp = temperature.to(f32)
+        g_clip, g_nn = g_clip.to(f32), g_nn.to(f32)
+        dq = torch.zeros(q.shape, dtype=f32, device=q.device)
+        dtemp = torch.zeros((), dtype=f32, device=q.device)
+        dks = []
+        for c in range(nchunks):
+            k_c = k[c * chunk:(c + 1) * chunk]
+            ts = _sims("iqd,jkd->ijqk", q, k_c, vdt).to(f32) * temp
+            eq = (ts == ts.amax(dim=3, keepdim=True)).to(f32)
+            g_max = g_clip[:, c * chunk:(c + 1) * chunk, None] * coeff[:, None, :]
+            dts = eq * (g_max / eq.sum(dim=3))[..., None]
+            active = (ts > clamp_min) & (ts < 0.0)
+            dts = dts + g_nn * 2.0 * torch.where(active, ts, torch.zeros((), dtype=f32,
+                                                                          device=ts.device))
+            dtemp = dtemp + (dts * ts).sum() / temp
+            dts_op = (dts * temp).to(q.dtype)
+            dq = dq + _sims("ijqk,jkd->iqd", dts_op, k_c, f32)
+            dks.append(_sims("ijqk,iqd->jkd", dts_op, q, f32))
+        return (dq.to(q.dtype), torch.cat(dks).to(k.dtype), dtemp.to(temperature.dtype),
+                None, None, None, None)
+
+
+def aggregate_crossbatch(query, key, temperature, *, clamp_min: float, query_mask=None,
+                         implementation: str = "dense", chunk_size: int = 8,
+                         compute_diag: bool = True, precision: str = "highest",
+                         volume_dtype: str = "float32") -> AggregateOut:
+    """Cross-batch max-mean aggregation (similarity.py:433-497).
+
+    query (Bq, Nq, D) audio or text tokens (rows of clip_sims); key
+    (Bk, Nk, D) visual tokens (columns); temperature a scalar
+    (multiplied); query_mask optional (Bq, Nq) for the TV masked mean.
+    implementation "dense" materializes the volume (autograd through
+    amax, which splits ties evenly); "chunked" walks key chunks under
+    activation checkpointing; "chunked_vjp" is MaxMeanChunked."""
+    vdt = _volume_pet(volume_dtype)
+    bq, nq, _ = query.shape
+    bk, nk = key.shape[0], key.shape[1]
+    q, k = _volume_operands(query, key, precision)
+    temp = temperature.to(torch.float32)
+    if implementation == "dense":
+        ts = _sims("iqd,jkd->ijqk", q, k, vdt).to(torch.float32) * temp
+        clip = _masked_mean_over_queries(ts.amax(dim=3), query_mask)
+        clamped = ts.clamp(clamp_min, 0.0)
+        nonneg = (clamped * clamped).sum()
+    elif implementation in ("chunked", "chunked_vjp"):
+        if query_mask is None:
+            coeff = torch.full((bq, nq), 1.0 / nq, dtype=torch.float32, device=q.device)
+        else:
+            m = query_mask.to(torch.float32)
+            coeff = m / m.sum(dim=1, keepdim=True).clamp(min=1e-7)
+        if implementation == "chunked_vjp":
+            clip, nonneg = MaxMeanChunked.apply(q, k, temperature, coeff, clamp_min,
+                                                chunk_size, vdt)
+        else:
+            from torch.utils.checkpoint import checkpoint
+
+            chunk, nchunks = _chunk_sizes(bk, chunk_size)
+            parts = [checkpoint(_chunk_fwd, q, k[c * chunk:(c + 1) * chunk], temp, coeff,
+                                clamp_min, vdt, use_reentrant=False)
+                     for c in range(nchunks)]
+            clip = torch.cat([p[0] for p in parts], dim=1)
+            nonneg = sum(p[1] for p in parts)
+    elif implementation == "pallas":
+        raise NotImplementedError(
+            "aggregate implementation 'pallas' (pallas_maxmean) is not ported to "
+            "triad_tpu_torch yet (ROADMAP.md Queue 2 item 5)")
+    else:
+        raise ValueError(f"Unknown implementation {implementation!r}")
+    numel = torch.tensor(float(bq * bk * nq * nk), dtype=torch.float32, device=q.device)
+    diag = _sims("bqd,bkd->bqk", q, k, torch.float32) * temp if compute_diag else None
+    return AggregateOut(clip, nonneg, numel, diag)

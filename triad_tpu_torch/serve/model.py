@@ -13,7 +13,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from triad_tpu.core.config import ModelConfig
+from triad_tpu_torch.config import ModelConfig
 from triad_tpu_torch.models.convert import init_triad_model
 from triad_tpu_torch.models.multimodal import TriadModel
 from triad_tpu_torch.ops.similarity import pair_scores

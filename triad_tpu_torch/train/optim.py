@@ -1,0 +1,179 @@
+"""Four-group optimizer bank with staged unfreezing and delayed OneCycle
+(mirrors ``triad_tpu/train/optim.py``, which reproduces the reference
+trainer's torch AdamW + OneCycleLR(cycle_momentum=True) bank):
+
+* groups by state-dict name: "audio" (HuBERT backbone), "text"
+  (DistilBERT backbone), "vit_lora" (the ViT's LoRA factors),
+  "vit_frozen" (the ViT base, never optimized) and "others" (projection
+  heads and temperature, trained from step 0);
+* one ``torch.optim.AdamW`` per group at the group's OneCycle cosine
+  schedule (per-group peak scale, cycle shortened by the group's unfreeze
+  step; vit_lora trains from step 0 on its shortened cycle), beta1
+  cycled 0.95 -> 0.85 -> 0.95 along it;
+* unfreeze gates compared with the *micro* step: before its step a
+  backbone has ``requires_grad`` False and its AdamW never steps, so its
+  moments start fresh at unfreeze, while the schedules advance per update;
+* global-norm 10.0 clipping over audio_* and over text_*, after gating.
+
+The schedule is set on each param group before each step rather than
+through ``OneCycleLR``: the JAX bank clamps at the cycle's end and for
+cycles shorter than one warm-up step, where ``OneCycleLR`` raises or
+takes another phase. Groups that are on step with zero gradients where
+nothing reached a parameter, as the JAX bank's zero-filled tree does.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List
+
+import torch
+import torch.nn as nn
+
+from triad_tpu_torch.config import OptimConfig
+from triad_tpu_torch.models.layers import not_ported
+
+GROUPS = ("others", "audio", "text", "vit_lora")
+FROZEN_GROUP = "vit_frozen"
+_CLIP_SUBTREES = (("audio_backbone", "audio_projection"), ("text_backbone", "text_projection"))
+
+
+def label_for_path(name: str) -> str:
+    """Group label of a TriadModel state-dict name."""
+    if name.startswith("audio_backbone"):
+        return "audio"
+    if name.startswith("text_backbone"):
+        return "text"
+    if name.startswith("visual_backbone"):
+        return "vit_lora" if "lora" in name.rsplit(".", 1)[-1] else FROZEN_GROUP
+    return "others"
+
+
+def _annealing_cos(start: float, end: float, pct: float) -> float:
+    return end + (start - end) / 2.0 * (math.cos(math.pi * pct) + 1.0)
+
+
+def _phases(cfg: OptimConfig, cycle_steps: int):
+    total = max(1, cycle_steps)
+    warm_end = max(cfg.pct_start * total - 1, 1e-8)
+    return warm_end, max(total - 1, warm_end + 1e-8)
+
+
+def onecycle(cfg: OptimConfig, peak_scale: float, cycle_steps: int) -> Callable[[int], float]:
+    """OneCycleLR's cosine lr (milestones pct * total - 1 and total - 1),
+    clamped at its minimum past the cycle's end."""
+    max_lr = cfg.learning_rate * peak_scale
+    initial = max_lr / cfg.div_factor
+    min_lr = initial / cfg.final_div_factor
+    warm_end, anneal_end = _phases(cfg, cycle_steps)
+
+    def schedule(count: int) -> float:
+        if count <= warm_end:
+            return _annealing_cos(initial, max_lr, min(max(count / warm_end, 0.0), 1.0))
+        pct = min(max((count - warm_end) / (anneal_end - warm_end), 0.0), 1.0)
+        return _annealing_cos(max_lr, min_lr, pct)
+
+    return schedule
+
+
+def onecycle_momentum(cfg: OptimConfig, cycle_steps: int) -> Callable[[int], float]:
+    """OneCycleLR's beta1: max_momentum -> base_momentum over the warm-up,
+    back to max_momentum over the anneal."""
+    warm_end, anneal_end = _phases(cfg, cycle_steps)
+    base, top = cfg.base_momentum, cfg.max_momentum
+
+    def schedule(count: int) -> float:
+        if count <= warm_end:
+            return _annealing_cos(top, base, min(max(count / warm_end, 0.0), 1.0))
+        pct = min(max((count - warm_end) / (anneal_end - warm_end), 0.0), 1.0)
+        return _annealing_cos(base, top, pct)
+
+    return schedule
+
+
+def _norm(grads: List[torch.Tensor], device) -> torch.Tensor:
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    for g in grads:
+        total = total + g.to(torch.float32).square().sum()
+    return total.sqrt()
+
+
+class OptimizerBank:
+    """4x AdamW with per-group delayed OneCycle schedules over a model's
+    parameters (grouped by ``label_for_path``)."""
+
+    def __init__(self, cfg: OptimConfig, model: nn.Module, total_updates: int):
+        if cfg.mu_dtype != "float32" or cfg.nu_dtype != "float32":
+            raise not_ported(f"Adam moments in {cfg.mu_dtype}/{cfg.nu_dtype}", "Queue 1 item 4")
+        self.cfg = cfg
+        self.named = list(model.named_parameters())
+        self.device = self.named[0][1].device
+        self.groups: Dict[str, List[nn.Parameter]] = {g: [] for g in GROUPS + (FROZEN_GROUP,)}
+        for name, p in self.named:
+            self.groups[label_for_path(name)].append(p)
+        cycles = {
+            "others": total_updates,
+            "audio": total_updates - cfg.unfreeze_audio_step,
+            "text": total_updates - cfg.unfreeze_text_step,
+            "vit_lora": total_updates - cfg.unfreeze_vit_step,
+        }
+        scales = {"others": cfg.lr_scale_others, "audio": cfg.lr_scale_audio,
+                  "text": cfg.lr_scale_text, "vit_lora": cfg.lr_scale_vit_lora}
+        self.schedules = {g: onecycle(cfg, scales[g], cycles[g]) for g in GROUPS}
+        self.momentum = {g: onecycle_momentum(cfg, cycles[g]) for g in GROUPS}
+        self.opts = {
+            g: torch.optim.AdamW(self.groups[g], lr=0.0, betas=(cfg.b1, cfg.b2), eps=cfg.eps,
+                                 weight_decay=cfg.weight_decay)
+            for g in GROUPS if self.groups[g]
+        }
+        self.counts = {g: 0 for g in GROUPS}  # applied updates per group
+
+    def gates(self, global_step: int) -> Dict[str, bool]:
+        """Which groups train at this micro step (others and vit_lora always)."""
+        return {"others": True, "audio": global_step >= self.cfg.unfreeze_audio_step,
+                "text": global_step >= self.cfg.unfreeze_text_step, "vit_lora": True}
+
+    def set_trainable(self, global_step: int) -> None:
+        """requires_grad per the gates: the torch form of gate_grads."""
+        for g, on in self.gates(global_step).items():
+            for p in self.groups[g]:
+                p.requires_grad_(on)
+        for p in self.groups[FROZEN_GROUP]:
+            p.requires_grad_(False)
+
+    def clip_grads(self) -> Dict[str, torch.Tensor]:
+        """Per-group grad norms (metrics) and the audio / text subtree
+        clipping, in place on the accumulated .grad."""
+        grads = {g: [p.grad for p in ps if p.grad is not None] for g, ps in self.groups.items()}
+        metrics = {f"grad_norm_{'vit' if g == FROZEN_GROUP else g}": _norm(gs, self.device)
+                   for g, gs in grads.items()}
+        for prefixes in _CLIP_SUBTREES:
+            sub = [p.grad for n, p in self.named if n.startswith(prefixes) and p.grad is not None]
+            coef = torch.clamp(self.cfg.clip_norm / (_norm(sub, self.device) + 1e-6), max=1.0)
+            for g in sub:
+                g.mul_(coef.to(g.dtype))
+        return metrics
+
+    def update(self, global_step: int) -> Dict[str, float]:
+        """One optimizer update at micro step ``global_step``; returns the
+        lr each group's schedule gives (its lr metric)."""
+        metrics = {}
+        for g, on in self.gates(global_step).items():
+            count = self.counts[g]
+            lr = self.schedules[g](count)
+            metrics[f"lr_{g}"] = lr
+            if not on or g not in self.opts:
+                continue
+            for p in self.groups[g]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            b1 = self.momentum[g](count) if self.cfg.cycle_momentum else self.cfg.b1
+            for group in self.opts[g].param_groups:
+                group["lr"], group["betas"] = lr, (b1, self.cfg.b2)
+            self.opts[g].step()
+            self.counts[g] = count + 1
+        return metrics
+
+    def zero_grad(self) -> None:
+        for _, p in self.named:
+            p.grad = None
