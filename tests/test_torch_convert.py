@@ -113,6 +113,40 @@ def test_package_imports_without_jax():
     assert r.stdout.strip() == "ok"
 
 
+_PORTED_TRAINING_IMPLS = {
+    ("hubert", "attention_impl", "fused_packed"),
+    ("hubert", "posconv_impl", "pallas"),
+    ("hubert", "ln_impl", "fused"),
+}
+
+
+def _check_runs_in_training(field, value):
+    """A HuBERT of 2 heads of 64 (the packed kernel's head width) with the
+    option set trains on the CPU through the kernel's plain twin: finite
+    features, and a gradient reaches the parameters the option touches."""
+    from triad_tpu_torch.config import ModelConfig
+    from triad_tpu_torch.models.convert import init_triad_model
+    from triad_tpu_torch.ops.dropout import HostSeeds
+
+    port_cfg = ModelConfig(**{k: v for k, v in dataclasses.asdict(small_model_config()).items()
+                              if k not in ("vit", "hubert", "text")})
+    hub = dataclasses.replace(port_cfg.hubert, hidden_size=128, num_heads=2,
+                              intermediate_size=64, conv_dim=(16, 16), conv_kernel=(10, 3),
+                              conv_stride=(5, 2), num_conv_pos_embeddings=16,
+                              num_conv_pos_embedding_groups=4, layerdrop=0.0,
+                              **{field: value})
+    model = init_triad_model(dataclasses.replace(port_cfg, hubert=hub),
+                             torch.Generator().manual_seed(0))
+    audio = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 400)).astype(np.float32))
+    feats = model.encode_audio(audio, True, torch.Generator().manual_seed(1), HostSeeds(1, 0))
+    assert bool(torch.isfinite(feats).all())
+    feats.square().sum().backward()
+    touched = {"attention_impl": "attention.q_proj.weight", "posconv_impl": "pos_conv_embed.conv",
+               "ln_impl": "final_layer_norm.weight"}[field]
+    grads = [p.grad for n, p in model.audio_backbone.named_parameters() if touched in n]
+    assert grads and all(g is not None and bool(g.abs().sum() > 0) for g in grads)
+
+
 class TestRefusals:
     def test_cli_without_cuda_refuses(self, monkeypatch):
         from triad_tpu_torch.cli import serve
@@ -135,6 +169,14 @@ class TestRefusals:
             mlp.fused_mlp(m(1, 8, 64), m(128, 64), m(128), m(64, 128), m(64))
         with pytest.raises(ValueError, match="CUDA"):
             frontend.conv_s2_gelu(m(1, 9, 512), m(512, 512, 3))
+        from triad_tpu_torch.ops import layernorm, posconv
+
+        with pytest.raises(ValueError, match="CUDA"):
+            layernorm.dropout_add_ln(m(1, 8, 768), m(1, 8, 768), m(768), m(768), 1e-5)
+        with pytest.raises(ValueError, match="CUDA"):
+            posconv.pos_conv(m(1, 8, 768), m(768, 48, 128), None, 16)
+        with pytest.raises(ValueError, match="CUDA"):
+            posconv.pos_conv_dw(m(1, 8, 768), m(1, 8, 768), 16, 128)
 
     def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
         from triad_tpu_torch import kernels
@@ -159,13 +201,18 @@ class TestRefusals:
         ("hubert", "ln_impl", "fused"),
     ])
     def test_unported_impls_raise(self, section, field, value):
+        """Unported impl values raise; the three HuBERT training options
+        that this port now has (fused_packed attention, the posconv and
+        fused LayerNorm kernels) run in training mode instead."""
         from triad_tpu_torch.models.multimodal import TriadModel
 
         cfg = small_model_config()
+        if (section, field, value) in _PORTED_TRAINING_IMPLS:
+            _check_runs_in_training(field, value)
+            return
         sub = dataclasses.replace(getattr(cfg, section), **{field: value})
         # The model builds and HuBERT raises when it runs, or the model
-        # does not build: the HuBERT training-kernel options build the
-        # same parameters, so a text-visual training run carries HuBERT.
+        # does not build.
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             model = TriadModel(dataclasses.replace(cfg, **{section: sub}), device="meta")
             model.encode_audio(torch.zeros(1, 400, device="meta"))

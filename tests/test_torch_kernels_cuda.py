@@ -230,3 +230,124 @@ class TestMlpBwd:
         for name, g, r in zip(("dx", "dh", "g"), got, fused_mlp_bwd_plain(x, w1, b1, w2, dy, form)):
             err, mx = _max_err(g, r)
             assert err <= self.TOL * mx, (name, err, mx)
+
+
+class TestAttentionTrainDropout:
+    # As TestAttentionTrain: the kernels and the twin draw the same keep
+    # mask (ops/dropout.py), so dropout changes no rounding point; a kernel
+    # that drew or replayed another mask would miss by whole values. 2 bf16
+    # ulps of the largest output.
+    TOL = 2 * 2.0 ** -7
+
+    @pytest.mark.parametrize("b,n", [(8, 499), (2, 37)])
+    @pytest.mark.parametrize("p", [0.0, 0.1])
+    def test_fwd_bwd(self, dev, b, n, p):
+        from triad_tpu_torch.ops import attention as A
+
+        q, k, v, do = (_randn((b, n, 768), dev, s) for s in (51, 52, 53, 54))
+        keys = torch.ones((b, n), device=dev)
+        got = A.attention_train_fwd(q, k, v, keys, 0.125, 1234, p)
+        torch.cuda.synchronize()
+        err, mx = _max_err(got, A.attention_train_plain(q, k, v, keys, 0.125, 1234, p))
+        assert err <= self.TOL * mx, ("fwd", err, mx)
+        grads = A.attention_train_bwd(q, k, v, keys, do, 0.125, 1234, p)
+        torch.cuda.synchronize()
+        refs = A.attention_train_bwd_plain(q, k, v, keys, do, 0.125, 1234, p)
+        for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            err, mx = _max_err(g, r)
+            assert err <= self.TOL * mx, (name, err, mx)
+
+
+class TestMlpDropout:
+    # As TestMlp / TestMlpBwd, with the same keep mask in both. 2 bf16
+    # ulps of each output's largest magnitude.
+    TOL = 2 * 2.0 ** -7
+
+    @pytest.mark.parametrize("m", [8 * 499, 45])
+    @pytest.mark.parametrize("form", ["tanh", "erf"])
+    def test_fwd_bwd(self, dev, m, form):
+        from triad_tpu_torch.ops import mlp as M
+
+        x, dy = _randn((m, 768), dev, 61), _randn((m, 768), dev, 62)
+        w1 = _randn((3072, 768), dev, 63, 768 ** -0.5)
+        b1 = _randn((3072,), dev, 64, 0.1)
+        w2 = _randn((768, 3072), dev, 65, 3072 ** -0.5)
+        b2 = _randn((768,), dev, 66, 0.1)
+        got = M.fused_mlp(x, w1, b1, w2, b2, form, 77, 0.1)
+        torch.cuda.synchronize()
+        err, mx = _max_err(got, M.fused_mlp_plain(x, w1, b1, w2, b2, form, 77, 0.1))
+        assert err <= self.TOL * mx, ("y", err, mx)
+        got = M.fused_mlp_bwd(x, w1, b1, w2, dy, form, 77, 0.1)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("dx", "dh", "g"), got,
+                              M.fused_mlp_bwd_plain(x, w1, b1, w2, dy, form, 77, 0.1)):
+            err, mx = _max_err(g, r)
+            assert err <= self.TOL * mx, (name, err, mx)
+
+
+class TestLayerNorm:
+    # y, dx, dh round once to bf16 from fp32 values that differ only in
+    # summation order: 2 bf16 ulps of the largest magnitude. dscale and
+    # dbias are fp32 sums over the rows in another order: 1e-4 of max.
+    TOL = 2 * 2.0 ** -7
+
+    @pytest.mark.parametrize("m", [8 * 499, 45])
+    @pytest.mark.parametrize("p", [0.0, 0.1])
+    def test_fwd_bwd(self, dev, m, p):
+        from triad_tpu_torch.ops import layernorm as L
+
+        x, h, dy = (_randn((m, 768), dev, s) for s in (71, 72, 73))
+        scale = _randn((768,), dev, 74, 0.2, torch.float32) + 1.0
+        bias = _randn((768,), dev, 75, 0.1, torch.float32)
+        got = L.dropout_add_ln(x, h, scale, bias, 1e-5, 99, p)
+        torch.cuda.synchronize()
+        err, mx = _max_err(got, L.dropout_add_ln_plain(x, h, scale, bias, 1e-5, 99, p))
+        assert err <= self.TOL * mx, ("y", err, mx)
+        got = L.dropout_add_ln_bwd(x, h, scale, dy, 1e-5, 99, p)
+        torch.cuda.synchronize()
+        refs = L.dropout_add_ln_bwd_plain(x, h, scale, dy, 1e-5, 99, p)
+        for name, g, r, tol in zip(("dx", "dh", "dscale", "dbias"), got, refs,
+                                   (self.TOL, self.TOL, 1e-4, 1e-4)):
+            err, mx = _max_err(g, r)
+            assert err <= tol * mx, (name, err, mx)
+
+
+class TestPosConv:
+    # Forward and dX: exact bf16 products summed in fp32 (6144 terms per
+    # output) in another order, one rounding to bf16: 2 bf16 ulps of max.
+    # dW: fp32 sums over every row in another order: 1e-4 of max.
+    TOL = 2 * 2.0 ** -7
+
+    @pytest.mark.parametrize("b,n", [(2, 499), (1, 24)])
+    def test_fwd_dx_dw(self, dev, b, n):
+        from triad_tpu_torch.ops import posconv as P
+
+        x, dz = _randn((b, n, 768), dev, 81), _randn((b, n, 768), dev, 82)
+        w = _randn((768, 48, 128), dev, 83, (48 * 128) ** -0.5)
+        bias = _randn((768,), dev, 84, 0.1, torch.float32)
+        for act in ("erf", "id"):
+            got = P.pos_conv(x, w, bias, 16, act)
+            torch.cuda.synchronize()
+            err, mx = _max_err(got, P.pos_conv_plain(x, w, bias, 16, act))
+            assert err <= self.TOL * mx, (act, err, mx)
+        got = P.pos_conv_dx(dz, w, 16)
+        torch.cuda.synchronize()
+        err, mx = _max_err(got, P.pos_conv_dx_plain(dz, w, 16))
+        assert err <= self.TOL * mx, ("dx", err, mx)
+        got = P.pos_conv_dw(x, dz, 16, 128)
+        torch.cuda.synchronize()
+        err, mx = _max_err(got, P.pos_conv_dw_plain(x, dz, 16, 128))
+        assert err <= 1e-4 * mx, ("dw", err, mx)
+
+    def test_autograd_counts_launches(self, dev):
+        from triad_tpu_torch import kernels
+        from triad_tpu_torch.ops.posconv import pos_conv_gelu
+
+        x = _randn((2, 37, 768), dev, 85).requires_grad_()
+        w = _randn((768, 48, 128), dev, 86, 0.01).requires_grad_()
+        bias = torch.zeros(768, device=dev, requires_grad=True)
+        kernels.reset_launches()
+        pos_conv_gelu(x, w, bias, 16).float().sum().backward()
+        torch.cuda.synchronize()
+        assert [kernels.LAUNCHES[k] for k in ("posconv", "posconv_dx", "posconv_dw")] == [1, 1, 1]
+        assert bool(torch.isfinite(w.grad.float()).all()) and x.grad.shape == x.shape

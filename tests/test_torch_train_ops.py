@@ -84,11 +84,20 @@ class TestAttentionTrain:
         torch.testing.assert_close(out, v.mean(dim=1, keepdim=True).expand_as(out))
 
     def test_dropout_not_ported(self):
-        from triad_tpu_torch.ops.attention import attention_train
+        """The dropout form is ported: at p_drop > 0 the output is the
+        masked composition with ops/dropout.py's keep mask (held to JAX in
+        tests/test_torch_hubert_train.py), and the mask changes with the
+        seed."""
+        from triad_tpu_torch.ops.attention import attention_keep, attention_train
 
-        q = torch.zeros(1, 4, 64)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            attention_train(q, q, q, None, 0, 0.1)
+        rng = np.random.default_rng(2)
+        q, k, v = (_t(rng.normal(size=(1, 9, 64)).astype(np.float32)) for _ in range(3))
+        keep = attention_keep(1, 1, 9, 9, 3, 0.5, "cpu")[0, 0]
+        probs = torch.softmax(q[0] @ k[0].T * 0.125, dim=-1)
+        want = torch.where(keep, probs * 2.0, torch.zeros(())) @ v[0]
+        got = attention_train(q, k, v, None, 3, 0.5, 0.125)
+        _close(got[0], want.numpy(), 1e-5)
+        assert not torch.equal(got, attention_train(q, k, v, None, 4, 0.5, 0.125))
 
 
 class TestFusedMlpBwd:

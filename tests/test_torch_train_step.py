@@ -348,13 +348,16 @@ def test_tv_step_bf16():
 
 
 def test_unported_steps_raise():
+    """Every curriculum step is ported now ("av" and "joint" are held to
+    JAX in tests/test_torch_av_step.py); an unknown mode raises."""
     from triad_tpu.core.config import LossConfig
     from triad_tpu_torch.train.step import StepFactory
 
     factory = StepFactory(LossConfig(), OptimConfig())
-    for mode in ("av", "joint"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            factory.make_step(mode)
+    for mode in ("av", "tv", "joint"):
+        assert callable(factory.make_step(mode)) and callable(factory.make_eval_loss(mode))
+    with pytest.raises(ValueError, match="mode"):
+        factory.make_step("audio")
 
 
 # ---------------------------------------------------------------------------

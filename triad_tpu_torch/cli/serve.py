@@ -70,7 +70,7 @@ def main(argv: Optional[list] = None) -> None:
     state_dict = None if args.random_init else load_params_npz(args.params_npz, cfg)
     tokenizer = None
     if args.vocab:
-        from triad_tpu.data.tokenizer import WordPieceTokenizer
+        from triad_tpu_torch.data.tokenizer import WordPieceTokenizer
 
         tokenizer = WordPieceTokenizer.from_vocab_file(args.vocab)
 

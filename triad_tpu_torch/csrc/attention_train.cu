@@ -1,9 +1,19 @@
-// Training attention on the packed (B, N, H*64) layout at p_drop = 0:
-// a forward kernel and a recompute backward in two kernels.
+// Training attention on the packed (B, N, H*64) layout with in-kernel
+// attention dropout: a forward kernel and a recompute backward in two
+// kernels.
 //
 // Replaces triad_tpu/ops/pallas_attention.py:fused_attention_packed
 // (_pk_call :564, pallas_call "fwd" :575 and "bwd" :585), whose
 // per-head bodies are _head_fwd (:157) and _head_bwd (:177).
+//
+// Dropout (p > 0, pallas_attention.py:15-21): the keep bit of (query i,
+// key j) in head (b, h) is triad::keep4 under key (seed, b * H + h) at
+// row i, column j, so the forward and both backward kernels, which tile
+// the (N, N) matrix differently, draw the same mask. Forward: D =
+// P * keep / (1 - p) in fp32, rounded to bf16, times V. Backward: dD = dO
+// V^T, dP = dD * keep / (1 - p), di = sum_j dP * P, dS = P (dP - di), dV =
+// D^T dO with the fp32 D. Each draw yields the bits of four adjacent keys,
+// so the loops that apply the mask walk the keys four at a time.
 //
 // Numerics kept from _head_fwd: S = q.k^T accumulated in fp32, times
 // sm_scale, plus a key bias of (1 - mask) * -1e30 (a fully masked row
@@ -90,6 +100,10 @@ __device__ inline float key_bias(const float* mask, long long b, int n, int j) {
   return j < n ? (1.0f - mask[b * n + j]) * -1e30f : 0.0f;
 }
 
+__device__ inline bool kept(const triad::Keep4& kb, int u, const triad::Dropout& dp) {
+  return kb.w[u] >= dp.thresh;
+}
+
 // ---------------------------------------------------------------- forward
 
 __host__ inline size_t fwd_smem(int nk_pad) {
@@ -102,7 +116,8 @@ __host__ inline size_t fwd_smem(int nk_pad) {
 __global__ void __launch_bounds__(THREADS)
 attention_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const float* __restrict__ mask,
-                           bf16* __restrict__ out, int n, int h, float sm_scale) {
+                           bf16* __restrict__ out, int n, int h, float sm_scale,
+                           triad::Dropout dp) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int nk_pad = round_up(n, KC);
   const int ldS = nk_pad + 4, ldP = nk_pad + 8;
@@ -160,7 +175,21 @@ attention_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     }
     sum = warp_sum(sum);
     bf16* prow = sP + (warp * 16 + rr) * ldP;
-    for (int j = lane; j < nk_pad; j += 32) prow[j] = __float2bfloat16(j < n ? srow[j] / sum : 0.0f);
+    if (!dp.active) {
+      for (int j = lane; j < nk_pad; j += 32)
+        prow[j] = __float2bfloat16(j < n ? srow[j] / sum : 0.0f);
+      continue;
+    }
+    // D = P * keep / (1 - p), four keys per draw (nk_pad % 4 == 0).
+    const uint32_t stream = (uint32_t)(b * h + hh), row = (uint32_t)(q0 + warp * 16 + rr);
+    for (int j0 = lane * 4; j0 < nk_pad; j0 += 128) {
+      const triad::Keep4 kb = triad::keep4(dp.seed, stream, row, (uint32_t)j0 >> 2);
+      for (int u = 0; u < 4; ++u) {
+        const int j = j0 + u;
+        const float p = j < n ? srow[j] / sum : 0.0f;
+        prow[j] = __float2bfloat16(kept(kb, u, dp) ? p * dp.scale : 0.0f);
+      }
+    }
   }
 
   // Pass 2: O = bf16(P) V, fp32 accumulation.
@@ -205,7 +234,8 @@ attention_train_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restri
                                 const bf16* __restrict__ v, const float* __restrict__ mask,
                                 const bf16* __restrict__ dout, bf16* __restrict__ dq,
                                 float* __restrict__ row_max, float* __restrict__ row_sum,
-                                float* __restrict__ row_di, int n, int h, float sm_scale) {
+                                float* __restrict__ row_di, int n, int h, float sm_scale,
+                                triad::Dropout dp) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int nk_pad = round_up(n, KC);
   const int ldS = nk_pad + 4;
@@ -282,10 +312,26 @@ attention_train_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restri
     }
     sum = warp_sum(sum);
     float di = 0.0f;
-    for (int j = lane; j < n; j += 32) {
-      const float p = srow[j] / sum;
-      srow[j] = p;
-      di += drow[j] * p;
+    if (!dp.active) {
+      for (int j = lane; j < n; j += 32) {
+        const float p = srow[j] / sum;
+        srow[j] = p;
+        di += drow[j] * p;
+      }
+    } else {
+      // dP = dD * keep / (1 - p), replacing dD in place.
+      const uint32_t stream = (uint32_t)(b * h + hh), row = (uint32_t)(q0 + r);
+      for (int j0 = lane * 4; j0 < n; j0 += 128) {
+        const triad::Keep4 kb = triad::keep4(dp.seed, stream, row, (uint32_t)j0 >> 2);
+        for (int u = 0; u < 4 && j0 + u < n; ++u) {
+          const int j = j0 + u;
+          const float p = srow[j] / sum;
+          const float dpj = kept(kb, u, dp) ? drow[j] * dp.scale : 0.0f;
+          srow[j] = p;
+          drow[j] = dpj;
+          di += dpj * p;
+        }
+      }
     }
     di = warp_sum(di);
     for (int j = lane; j < nk_pad; j += 32) drow[j] = j < n ? srow[j] * (drow[j] - di) : 0.0f;
@@ -343,7 +389,8 @@ attention_train_bwd_cols_kernel(const bf16* __restrict__ q, const bf16* __restri
                                 const bf16* __restrict__ dout, const float* __restrict__ row_max,
                                 const float* __restrict__ row_sum,
                                 const float* __restrict__ row_di, bf16* __restrict__ dk,
-                                bf16* __restrict__ dv, int n, int h, float sm_scale) {
+                                bf16* __restrict__ dv, int n, int h, float sm_scale,
+                                triad::Dropout dp) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
   bf16* sV = sK + CK * LDT;
@@ -411,17 +458,41 @@ attention_train_bwd_cols_kernel(const bf16* __restrict__ q, const bf16* __restri
     }
     __syncwarp();
     // P and dS from the row stats (the same expression as the rows
-    // kernel, so P matches it to the bit), split into bf16 halves.
-    for (int i = lane; i < 16 * CK; i += 32) {
-      const int r = warp * 16 + i / CK, c = i % CK;
-      float p = 0.0f, ds = 0.0f;
-      if (qt + r < n && k0 + c < n) {
-        const float s = sS[r * LDF + c] * sm_scale + sBias[c];
-        p = expf(s - sM[r]) / sL[r];
-        ds = p * (sDP[r * LDF + c] - sDI[r]);
+    // kernel, so P matches it to the bit), split into bf16 halves. With
+    // dropout, D = P * keep / (1 - p) takes P's place in dV and dP =
+    // dD * keep / (1 - p) enters dS, from the forward's keep bits.
+    if (!dp.active) {
+      for (int i = lane; i < 16 * CK; i += 32) {
+        const int r = warp * 16 + i / CK, c = i % CK;
+        float p = 0.0f, ds = 0.0f;
+        if (qt + r < n && k0 + c < n) {
+          const float s = sS[r * LDF + c] * sm_scale + sBias[c];
+          p = expf(s - sM[r]) / sL[r];
+          ds = p * (sDP[r * LDF + c] - sDI[r]);
+        }
+        triad::split_bf16(p, sPhi + r * LDT + c, sPlo + r * LDT + c);
+        triad::split_bf16(ds, sDhi + r * LDT + c, sDlo + r * LDT + c);
       }
-      triad::split_bf16(p, sPhi + r * LDT + c, sPlo + r * LDT + c);
-      triad::split_bf16(ds, sDhi + r * LDT + c, sDlo + r * LDT + c);
+    } else {
+      const uint32_t stream = (uint32_t)(b * h + hh);
+      for (int i = lane; i < 16 * CK / 4; i += 32) {
+        const int r = warp * 16 + i / (CK / 4), c0 = (i % (CK / 4)) * 4;
+        const triad::Keep4 kb =
+            triad::keep4(dp.seed, stream, (uint32_t)(qt + r), (uint32_t)(k0 + c0) >> 2);
+        for (int u = 0; u < 4; ++u) {
+          const int c = c0 + u;
+          float d = 0.0f, ds = 0.0f;
+          if (qt + r < n && k0 + c < n) {
+            const float s = sS[r * LDF + c] * sm_scale + sBias[c];
+            const float p = expf(s - sM[r]) / sL[r];
+            const bool keep = kept(kb, u, dp);
+            d = keep ? p * dp.scale : 0.0f;
+            ds = p * ((keep ? sDP[r * LDF + c] * dp.scale : 0.0f) - sDI[r]);
+          }
+          triad::split_bf16(d, sPhi + r * LDT + c, sPlo + r * LDT + c);
+          triad::split_bf16(ds, sDhi + r * LDT + c, sDlo + r * LDT + c);
+        }
+      }
     }
     __syncthreads();
     // dV += P^T dO and dK += dS^T Q over the tile's query rows.
@@ -469,10 +540,12 @@ int prepare(K kernel, size_t smem) {
 }  // namespace
 
 // q, k, v, out: contiguous bf16 (B, N, H*64); mask: (B, N) fp32 key mask
-// (1 = attend). Returns a cudaError_t.
+// (1 = attend); dropout: keep iff bits >= thresh, kept values times
+// keep_scale, none when active == 0. Returns a cudaError_t.
 extern "C" int triad_attention_train_fwd(const void* q, const void* k, const void* v,
                                          const void* mask, void* out, int b, int h, int n,
-                                         float sm_scale, void* stream) {
+                                         float sm_scale, unsigned seed, unsigned thresh,
+                                         float keep_scale, int active, void* stream) {
   if (b <= 0 || h <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = fwd_smem(round_up(n, KC));
   int err = prepare(attention_train_fwd_kernel, smem);
@@ -480,26 +553,29 @@ extern "C" int triad_attention_train_fwd(const void* q, const void* k, const voi
   attention_train_fwd_kernel<<<dim3((n + FQ - 1) / FQ, h, b), THREADS, smem,
                                (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (bf16*)out, n, h,
-      sm_scale);
+      sm_scale, triad::Dropout{seed, thresh, keep_scale, active});
   return (int)cudaGetLastError();
 }
 
 // Adds dout (the output gradient, same layout) and writes dq, dk, dv (same
 // layout) and the (B, H, N) fp32 row stats scratch (max, sum, di) that
-// the second kernel reads. Returns a cudaError_t.
+// the second kernel reads; the dropout arguments are the forward's.
+// Returns a cudaError_t.
 extern "C" int triad_attention_train_bwd(const void* q, const void* k, const void* v,
                                          const void* mask, const void* dout, void* dq,
                                          void* dk, void* dv, void* row_max, void* row_sum,
                                          void* row_di, int b, int h, int n, float sm_scale,
-                                         void* stream) {
+                                         unsigned seed, unsigned thresh, float keep_scale,
+                                         int active, void* stream) {
   if (b <= 0 || h <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const triad::Dropout dp{seed, thresh, keep_scale, active};
   const size_t smem = rows_smem(round_up(n, KC));
   int err = prepare(attention_train_bwd_rows_kernel, smem);
   if (err) return err;
   attention_train_bwd_rows_kernel<<<dim3((n + RQ - 1) / RQ, h, b), THREADS, smem, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (const bf16*)dout,
-      (bf16*)dq, (float*)row_max, (float*)row_sum, (float*)row_di, n, h, sm_scale);
+      (bf16*)dq, (float*)row_max, (float*)row_sum, (float*)row_di, n, h, sm_scale, dp);
   err = (int)cudaGetLastError();
   if (err) return err;
   err = prepare(attention_train_bwd_cols_kernel, COLS_SMEM);
@@ -507,7 +583,7 @@ extern "C" int triad_attention_train_bwd(const void* q, const void* k, const voi
   attention_train_bwd_cols_kernel<<<dim3((n + CK - 1) / CK, h, b), THREADS, COLS_SMEM, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (const bf16*)dout,
       (const float*)row_max, (const float*)row_sum, (const float*)row_di, (bf16*)dk, (bf16*)dv,
-      n, h, sm_scale);
+      n, h, sm_scale, dp);
   return (int)cudaGetLastError();
 }
 

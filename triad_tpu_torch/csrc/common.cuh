@@ -55,6 +55,54 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+// Dropout keep bits: Philox4x32-10 of counter (col / 4, row, 0, 0) under
+// key (seed, stream); word col % 4 of the output belongs to col. The
+// torch twin is triad_tpu_torch/ops/dropout.py:keep_bits; the two give the
+// same bits for the same coordinates. keep4 returns the four words of
+// columns 4q .. 4q + 3 at once.
+struct Keep4 {
+  uint32_t w[4];
+};
+
+__device__ __forceinline__ Keep4 keep4(uint32_t seed, uint32_t stream, uint32_t row,
+                                      uint32_t quad) {
+  uint32_t c0 = quad, c1 = row, c2 = 0u, c3 = 0u, k0 = seed, k1 = stream;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+  }
+  Keep4 out;
+  out.w[0] = c0;
+  out.w[1] = c1;
+  out.w[2] = c2;
+  out.w[3] = c3;
+  return out;
+}
+
+// The word of column col among the four keep4 gives for col / 4.
+__device__ __forceinline__ uint32_t keep_word(const Keep4& kb, int col) {
+  const int u = col & 3;
+  return u == 0 ? kb.w[0] : u == 1 ? kb.w[1] : u == 2 ? kb.w[2] : kb.w[3];
+}
+
+// The dropout parameters a kernel takes: keep iff bits >= thresh
+// (floor(p * 2^32), the JAX rule), kept values times scale = 1 / (1 - p).
+// p = 0 is active == 0: nothing is drawn.
+struct Dropout {
+  uint32_t seed, thresh;
+  float scale;
+  int active;
+};
+
 // 16-byte copy global -> shared, zero-filled when `valid` is false.
 __device__ __forceinline__ void copy16(void* dst, const void* src, bool valid) {
   uint4 v = make_uint4(0u, 0u, 0u, 0u);

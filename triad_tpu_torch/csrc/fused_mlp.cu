@@ -1,9 +1,15 @@
-// Fused transformer MLP forward: y = gelu(x W1^T + b1) W2^T + b2, bf16
-// in and out, fp32 accumulation, no dropout; its backward (dx, dh, g)
-// follows further down.
+// Fused transformer MLP forward: y = dropout(gelu(x W1^T + b1)) W2^T + b2,
+// bf16 in and out, fp32 accumulation; its backward (dx, dh, g) follows
+// further down.
 //
 // Replaces triad_tpu/ops/pallas_mlp.py:fused_mlp's forward (_fwd :174,
-// body _fwd_kernel :88) at p_drop = 0. The TPU kernel holds a whole
+// body _fwd_kernel :88). Activation dropout (p > 0): the keep bit of
+// (row b * N + t, hidden unit c) is triad::keep4 under key (seed, 0), so
+// the backward replays it whatever its tiling; a kept GELU output is
+// multiplied by 1 / (1 - p) in fp32 before the bf16 rounding, a dropped
+// one is 0. The GELU pass keeps one element per thread, so every thread
+// draws the four words of its unit's group of four and keeps its own
+// (four times the draws, none of the threads idle). The TPU kernel holds a whole
 // (T, 3072) hidden tile in ~100 MB of VMEM; a Hopper SM has 227 KB of
 // shared memory, so this kernel walks the hidden dimension in 16-wide
 // chunks instead: for each chunk it computes h = x W1[chunk]^T + b1 with
@@ -65,7 +71,7 @@ __global__ void __launch_bounds__(THREADS)
 fused_mlp_kernel(const triad::bf16* __restrict__ x, const triad::bf16* __restrict__ w1,
                  const triad::bf16* __restrict__ b1, const triad::bf16* __restrict__ w2,
                  const triad::bf16* __restrict__ b2, triad::bf16* __restrict__ y, int m,
-                 int din, int dh, int tanh_form) {
+                 int din, int dh, int tanh_form, triad::Dropout dp) {
   using triad::bf16;
   constexpr int WR = BM / 16;       // warp rows in GEMM 2
   constexpr int WC = 8 / WR;        // warp columns in GEMM 2
@@ -144,7 +150,13 @@ fused_mlp_kernel(const triad::bf16* __restrict__ x, const triad::bf16* __restric
       const int r = i / HC, c = i % HC;
       float h = __bfloat162float(b1[c0 + c]);
       for (int k = 0; k < KS; ++k) h += sH[(k * BM + r) * LDH + c];
-      sG[r * LDG + c] = __float2bfloat16(triad::gelu(h, tanh_form));
+      float g = triad::gelu(h, tanh_form);
+      if (dp.active) {
+        const triad::Keep4 kb =
+            triad::keep4(dp.seed, 0u, (uint32_t)(m0 + r), (uint32_t)(c0 + c) >> 2);
+        g = triad::keep_word(kb, c0 + c) >= dp.thresh ? g * dp.scale : 0.0f;
+      }
+      sG[r * LDG + c] = __float2bfloat16(g);
     }
     __syncthreads();
     wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ga;
@@ -174,7 +186,8 @@ fused_mlp_kernel(const triad::bf16* __restrict__ x, const triad::bf16* __restric
 
 template <int BM, int DOUT>
 int launch(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-           void* y, int m, int din, int dh, int tanh_form, cudaStream_t stream) {
+           void* y, int m, int din, int dh, int tanh_form, triad::Dropout dp,
+           cudaStream_t stream) {
   const Layout L = layout<BM>(din, DOUT);
   if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -182,30 +195,33 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2, const 
   if (err != cudaSuccess) return (int)err;
   fused_mlp_kernel<BM, DOUT><<<(m + BM - 1) / BM, THREADS, L.total, stream>>>(
       (const triad::bf16*)x, (const triad::bf16*)w1, (const triad::bf16*)b1,
-      (const triad::bf16*)w2, (const triad::bf16*)b2, (triad::bf16*)y, m, din, dh, tanh_form);
+      (const triad::bf16*)w2, (const triad::bf16*)b2, (triad::bf16*)y, m, din, dh, tanh_form, dp);
   return (int)cudaGetLastError();
 }
 
 template <int DOUT>
 int launch_rows(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-                void* y, int m, int din, int dh, int tanh_form, cudaStream_t stream) {
+                void* y, int m, int din, int dh, int tanh_form, triad::Dropout dp,
+                cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if ((m + 15) / 16 <= sms)  // one wave of 16-row blocks
-    return launch<16, DOUT>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, stream);
-  return launch<32, DOUT>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, stream);
+    return launch<16, DOUT>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, dp, stream);
+  return launch<32, DOUT>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, dp, stream);
 }
 
 // ------------------------------------------------------------------------
-// Backward: replaces pallas_mlp._bwd_call (:197, body _bwd_kernel :114) at
-// p_drop = 0. Per 16-row block it walks the hidden dimension in the
-// forward's 16-wide chunks through the same two-stage cp.async ring:
+// Backward: replaces pallas_mlp._bwd_call (:197, body _bwd_kernel :114).
+// Per 16-row block it walks the hidden dimension in the forward's 16-wide
+// chunks through the same two-stage cp.async ring:
 //   h  = x W1[c]^T + b1        (fp32 accumulation)
 //   dg = dy W2[:, c]           (fp32 accumulation of exact bf16 products,
 //                               the TPU body's fp32 dy . W2^T)
+//   with dropout, the forward's keep bits replayed: g = gelu(h) * keep /
+//   (1 - p) and dg = dg * keep / (1 - p)
 //   dh = dg * gelu'(h)         (fp32; tanh or erf form)
-//   writes bf16 dh and g = gelu(h) for the weight gradients, and
+//   writes bf16 dh and the dropped g for the weight gradients, and
 //   dx += bf16(dh) W1[c]       (fp32 accumulator tile in registers)
 // x and dy stay resident in shared memory, so 32-row blocks no longer fit
 // beside the ring; every 16-row block re-streams W1 and W2 from L2 (the
@@ -242,7 +258,7 @@ fused_mlp_bwd_kernel(const triad::bf16* __restrict__ x, const triad::bf16* __res
                      const triad::bf16* __restrict__ b1, const triad::bf16* __restrict__ w2,
                      const triad::bf16* __restrict__ dy, triad::bf16* __restrict__ dx,
                      triad::bf16* __restrict__ dh_out, triad::bf16* __restrict__ g_out, int m,
-                     int dout, int dh, int tanh_form) {
+                     int dout, int dh, int tanh_form, triad::Dropout dp) {
   using triad::bf16;
   constexpr int NF = DIN / 16 / 8;  // dx fragments per warp (8 warps side by side)
   extern __shared__ __align__(128) unsigned char smem[];
@@ -334,12 +350,20 @@ fused_mlp_bwd_kernel(const triad::bf16* __restrict__ x, const triad::bf16* __res
         h += sH[(k * BBM + r) * LDH + c];
         dg += sDG[(k * BBM + r) * LDH + c];
       }
+      float g = triad::gelu(h, tanh_form);
+      if (dp.active) {
+        const triad::Keep4 kb =
+            triad::keep4(dp.seed, 0u, (uint32_t)(m0 + r), (uint32_t)(c0 + c) >> 2);
+        const bool keep = triad::keep_word(kb, c0 + c) >= dp.thresh;
+        g = keep ? g * dp.scale : 0.0f;
+        dg = keep ? dg * dp.scale : 0.0f;
+      }
       const bf16 dhb = __float2bfloat16(dg * triad::gelu_grad(h, tanh_form));
       sDH[r * LDG + c] = dhb;
       if (m0 + r < m) {
         const long long o = (long long)(m0 + r) * dh + c0 + c;
         dh_out[o] = dhb;
-        g_out[o] = __float2bfloat16(triad::gelu(h, tanh_form));
+        g_out[o] = __float2bfloat16(g);
       }
     }
     __syncthreads();
@@ -368,7 +392,7 @@ fused_mlp_bwd_kernel(const triad::bf16* __restrict__ x, const triad::bf16* __res
 template <int DIN>
 int launch_bwd(const void* x, const void* w1, const void* b1, const void* w2, const void* dy,
                void* dx, void* dh_out, void* g_out, int m, int dout, int dh, int tanh_form,
-               cudaStream_t stream) {
+               triad::Dropout dp, cudaStream_t stream) {
   const BwdLayout L = bwd_layout(DIN, dout);
   if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -377,7 +401,7 @@ int launch_bwd(const void* x, const void* w1, const void* b1, const void* w2, co
   fused_mlp_bwd_kernel<DIN><<<(m + BBM - 1) / BBM, THREADS, L.total, stream>>>(
       (const triad::bf16*)x, (const triad::bf16*)w1, (const triad::bf16*)b1,
       (const triad::bf16*)w2, (const triad::bf16*)dy, (triad::bf16*)dx, (triad::bf16*)dh_out,
-      (triad::bf16*)g_out, m, dout, dh, tanh_form);
+      (triad::bf16*)g_out, m, dout, dh, tanh_form, dp);
   return (int)cudaGetLastError();
 }
 
@@ -385,33 +409,40 @@ int launch_bwd(const void* x, const void* w1, const void* b1, const void* w2, co
 
 // x (m, din), w1 (dh, din), b1 (dh), w2 (dout, dh), dy (m, dout); outputs
 // dx (m, din), dh_out and g (m, dh): contiguous bf16. din == 768 (the
-// ViT's width, the only one on a path), dout % 128 == 0, dh % 16 == 0.
-// Returns a cudaError_t.
+// width of the ViT and HuBERT, the only one on a path), dout % 128 == 0,
+// dh % 16 == 0; the dropout arguments are the forward's. Returns a
+// cudaError_t.
 extern "C" int triad_fused_mlp_bwd(const void* x, const void* w1, const void* b1,
                                    const void* w2, const void* dy, void* dx, void* dh_out,
                                    void* g_out, int m, int din, int dh, int dout, int tanh_form,
+                                   unsigned seed, unsigned thresh, float keep_scale, int active,
                                    void* stream) {
   if (m <= 0 || dout % 128 || dh % HC) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const triad::Dropout dp{seed, thresh, keep_scale, active};
   switch (din) {
-    case 768: return launch_bwd<768>(x, w1, b1, w2, dy, dx, dh_out, g_out, m, dout, dh, tanh_form, s);
+    case 768:
+      return launch_bwd<768>(x, w1, b1, w2, dy, dx, dh_out, g_out, m, dout, dh, tanh_form, dp, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // x (m, din), w1 (dh, din), b1 (dh), w2 (dout, dh), b2 (dout), y (m, dout):
 // contiguous bf16. din % 128 == 0, dh % 16 == 0, dout in {256, 512, 768,
-// 1024}. Returns a cudaError_t.
+// 1024}; dropout: keep iff bits >= thresh, kept values times keep_scale,
+// none when active == 0. Returns a cudaError_t.
 extern "C" int triad_fused_mlp(const void* x, const void* w1, const void* b1,
                                const void* w2, const void* b2, void* y, int m, int din,
-                               int dh, int dout, int tanh_form, void* stream) {
+                               int dh, int dout, int tanh_form, unsigned seed, unsigned thresh,
+                               float keep_scale, int active, void* stream) {
   if (m <= 0 || din % 128 || dh % HC) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const triad::Dropout dp{seed, thresh, keep_scale, active};
   switch (dout) {
-    case 256: return launch_rows<256>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, s);
-    case 512: return launch_rows<512>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, s);
-    case 768: return launch_rows<768>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, s);
-    case 1024: return launch_rows<1024>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, s);
+    case 256: return launch_rows<256>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, dp, s);
+    case 512: return launch_rows<512>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, dp, s);
+    case 768: return launch_rows<768>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, dp, s);
+    case 1024: return launch_rows<1024>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, dp, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -30,6 +30,8 @@ from typing import Dict
 
 import torch
 
+from triad_tpu_torch.ops.dropout import keep_scale, threshold
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -48,25 +50,44 @@ LAUNCHES: Dict[str, int] = {
     "attention_train": 0,
     "attention_train_bwd": 0,
     "fused_mlp_bwd": 0,
+    "layernorm": 0,
+    "layernorm_bwd": 0,
+    "posconv": 0,
+    "posconv_dx": 0,
+    "posconv_dw": 0,
 }
 
-_VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_VP, _I, _LL, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_uint
+_DROP = [_U, _U, _F, _I]  # seed, threshold, keep scale, active (dropout_args)
 _SIGNATURES = {
     "triad_attention_eval": [_VP] * 5 + [_I] * 4 + [_LL] * 9 + [_F, _VP],
     "triad_attention_eval_max_keys": [],
-    "triad_attention_train_fwd": [_VP] * 5 + [_I] * 3 + [_F, _VP],
-    "triad_attention_train_bwd": [_VP] * 11 + [_I] * 3 + [_F, _VP],
+    "triad_attention_train_fwd": [_VP] * 5 + [_I] * 3 + [_F] + _DROP + [_VP],
+    "triad_attention_train_bwd": [_VP] * 11 + [_I] * 3 + [_F] + _DROP + [_VP],
     "triad_attention_train_max_keys": [],
-    "triad_fused_mlp": [_VP] * 6 + [_I] * 5 + [_VP],
-    "triad_fused_mlp_bwd": [_VP] * 8 + [_I] * 5 + [_VP],
+    "triad_fused_mlp": [_VP] * 6 + [_I] * 5 + _DROP + [_VP],
+    "triad_fused_mlp_bwd": [_VP] * 8 + [_I] * 5 + _DROP + [_VP],
     "triad_frontend_stats": [_VP, _LL, _VP, _VP, _VP, _I, _I, _VP],
     "triad_frontend_conv0": [_VP, _LL] + [_VP] * 4 + [_I] * 3 + [_VP],
     "triad_frontend_conv": [_VP, _I, _VP, _VP] + [_I] * 4 + [_VP],
+    "triad_layernorm_fwd": [_VP] * 5 + [_I] * 2 + [_F] + _DROP + [_VP],
+    "triad_layernorm_bwd": [_VP] * 8 + [_I] * 3 + [_F] + _DROP + [_VP],
+    "triad_layernorm_bwd_blocks": [_I],
+    "triad_posconv": [_VP] * 4 + [_I] * 7 + [_VP],
+    "triad_posconv_dw": [_VP] * 3 + [_I] * 5 + [_VP],
 }
 
 _lock = threading.Lock()
 _lib = None
 build_log = ""
+
+
+def dropout_args(seed: int, p: float):
+    """The C arguments of a dropout kernel: (seed, threshold, 1 / (1 - p),
+    active), with the keep rule of ops/dropout.py."""
+    if p <= 0.0:
+        return 0, 0, 1.0, 0
+    return int(seed) & 0xFFFFFFFF, threshold(p), keep_scale(p), 1
 
 
 def reset_launches() -> None:

@@ -1,8 +1,9 @@
 """nn.Module encoders of the port (mirroring ``triad_tpu/models``).
 
-Configs are the JAX package's dataclasses (``triad_tpu.core.config``,
-through ``triad_tpu_torch.config``), used as they are. Some of their fields choose TPU tilings, not
-semantics; the port accepts them and ignores them (IGNORED_TPU_KNOBS).
+Configs are the port's copies of the JAX package's dataclasses
+(``triad_tpu_torch.config``). Some of their fields choose TPU tilings,
+not semantics; the port accepts them and ignores them
+(IGNORED_TPU_KNOBS).
 """
 
 # Config fields that only choose a TPU tiling or layout (VMEM block rows,

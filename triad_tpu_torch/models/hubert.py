@@ -1,26 +1,39 @@
-"""HuBERT-base audio encoder, eval only (mirrors
-``triad_tpu/models/hubert.py``; no SpecAugment, no layerdrop):
+"""HuBERT-base audio encoder, eval and training (mirrors
+``triad_tpu/models/hubert.py``):
 
   7-layer conv waveform frontend (GroupNorm on conv_0, GELU after each)
-  -> LayerNorm -> Dense(512 -> 768) -> + grouped positional conv
-  (kernel 128, 16 groups, trailing trim for an even kernel, GELU)
-  -> LayerNorm -> post-LN transformer layers
+  -> LayerNorm -> Dense(512 -> 768) [-> feat_proj dropout -> SpecAugment]
+  -> + grouped positional conv (kernel 128, 16 groups, trailing trim for
+  an even kernel, GELU) -> LayerNorm [-> dropout] -> post-LN transformer
+  layers [each skipped with probability layerdrop]
 
 ``frontend_impl="monolithic"`` runs the frontend kernels
-(``ops/frontend.py``); ``"conv"`` runs plain convolutions in the compute
-dtype with exact GELU. ``attention_impl="packed"`` runs the packed eval
-kernel; ``mlp_impl="auto"`` runs the fused MLP kernel on a CUDA tensor
-and the plain Dense/GELU/Dense elsewhere, as the JAX package picks its
-Pallas kernel on the accelerator only.
+(``ops/frontend.py``, with a recompute backward); ``"conv"`` runs plain
+convolutions in the compute dtype with exact GELU. ``posconv_impl=
+"pallas"`` runs the positional conv kernels (``ops/posconv.py``).
+Attention: ``"packed"`` the packed eval kernel, ``"fused_packed"`` the
+packed training kernel with in-kernel attention dropout.
 
-The training-kernel options of ``perf_train_model_config()`` (packed
-training attention, the Pallas positional conv) build the same
-parameters, so a text-visual training run can carry HuBERT; running
-HuBERT with them raises NotImplementedError (ROADMAP.md slice 3).
+Training mode takes a ``torch.Generator`` (SpecAugment and the plain
+dropouts) and an ``ops.dropout.HostSeeds`` (the int32 seed of each kernel
+call site, and the layerdrop draws, on the host). The "auto" rules are
+the JAX ones with "on a CUDA tensor" for "on a TPU backend":
+``mlp_impl`` takes the fused MLP kernel on a CUDA tensor; ``ln_impl``
+takes the fused dropout + add + LayerNorm kernel while training with
+live hidden dropout on a CUDA tensor; ``attention_impl`` takes the
+strided training kernel ("fused", not ported: it raises) while training
+with live attention dropout on a CUDA tensor. Elsewhere they run plain
+ops. An explicit kernel impl takes the kernel route everywhere (its
+plain twin on the CPU). Layerdrop skips a dropped layer's compute (JAX
+computes and discards it): its parameters get no gradient, which the
+optimizer bank treats as zero, as the JAX step's gradient is.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -30,12 +43,16 @@ from triad_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
     dot_product_attention,
+    dropout,
     mlp_forward,
     not_ported,
 )
 from triad_tpu_torch.ops.attention import HEAD_DIM, attention_eval_merged
-from triad_tpu_torch.ops.frontend import frontend
+from triad_tpu_torch.ops.dropout import HostSeeds
+from triad_tpu_torch.ops.frontend import frontend_vjp
+from triad_tpu_torch.ops.layernorm import fused_dropout_add_ln
 from triad_tpu_torch.ops.mlp import gelu
+from triad_tpu_torch.ops.posconv import pos_conv_gelu
 
 
 def normalize_waveform(audio: torch.Tensor) -> torch.Tensor:
@@ -80,7 +97,7 @@ class ConvFeatureEncoder(nn.Module):
     def forward(self, audio):
         c, d = self.cfg, self.dtype
         if c.frontend_impl == "monolithic":
-            return frontend(
+            return frontend_vjp(
                 audio, self.convs[0].weight, self.group_norm.weight, self.group_norm.bias,
                 [conv.weight for conv in self.convs[1:]], form=c.frontend_gelu, out_dtype=d,
             )
@@ -113,10 +130,12 @@ class PositionalConvEmbedding(nn.Module):
         self.conv = nn.Conv1d(c.hidden_size, c.hidden_size, k, padding=k // 2,
                               groups=c.num_conv_pos_embedding_groups, device=device,
                               dtype=param_dtype)
-        self.dtype = dtype
+        self.dtype, self.impl = dtype, c.posconv_impl
 
     def forward(self, x):
         d, m = self.dtype, self.conv
+        if self.impl == "pallas":
+            return pos_conv_gelu(x.to(d), m.weight.to(d), m.bias, m.groups).to(d)
         h = F.conv1d(x.to(d).transpose(1, 2), m.weight.to(d), m.bias.to(d),
                      padding=m.padding, groups=m.groups)
         if m.kernel_size[0] % 2 == 0:
@@ -138,26 +157,41 @@ class HubertSelfAttention(nn.Module):
             raise not_ported(f"HuBERT attention_impl {impl!r}", "Queue 2 item 6")
         if impl == "packed_merged" and c.hidden_size // c.num_heads != HEAD_DIM:
             raise ValueError(f"merged attention kernels require head_dim {HEAD_DIM}")
-        # "auto" is XLA at eval (the fused kernel is chosen only while
-        # attention dropout is live, in training).
-        self.impl = "xla" if impl == "auto" else impl
         self.cfg, self.dtype = cfg, dtype
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                seeds: Optional[HostSeeds] = None):
         c, d = self.cfg, self.dtype
         b, n, _ = x.shape
-        if self.impl == "packed_merged":
+        impl = c.attention_impl
+        rate = c.attention_dropout if generator is not None else 0.0
+        if impl == "packed_merged":
+            if generator is not None:  # JAX trains it with the merged training kernel
+                raise not_ported("HuBERT attention_impl 'packed_merged' in training",
+                                 "Queue 2 item 1")
             w = torch.cat([self.q_proj.weight, self.k_proj.weight, self.v_proj.weight])
             bias = torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias])
             qkv = F.linear(x.to(d), w.to(d), bias.to(d))
             return self.out_proj(attention_eval_merged(qkv))
+        on_cuda = x.device.type == "cuda"
+        if impl == "auto" or (impl == "packed" and rate > 0.0):
+            impl = "fused" if rate > 0.0 and on_cuda else "xla"
         hd = c.hidden_size // c.num_heads
         q, k, v = (p(x).reshape(b, n, c.num_heads, hd)
                    for p in (self.q_proj, self.k_proj, self.v_proj))
-        out = dot_product_attention(
-            q, k, v, None, d, scores_dtype=getattr(torch, c.attention_scores_dtype),
-            impl=self.impl,
-        )
+        if impl in ("fused", "fused_packed", "fused_packed_merged"):
+            seed = seeds.seed() if rate > 0.0 else 0
+            out = dot_product_attention(q, k, v, None, d, impl=impl, dropout_rate=rate,
+                                        dropout_seed=seed)
+        else:
+            probs_dropout = None
+            if rate > 0.0:
+                def probs_dropout(p):
+                    return dropout(p, rate, generator)
+            out = dot_product_attention(
+                q, k, v, None, d, scores_dtype=getattr(torch, c.attention_scores_dtype),
+                impl=impl, probs_dropout=probs_dropout,
+            )
         return self.out_proj(out.reshape(b, n, c.hidden_size))
 
 
@@ -167,9 +201,7 @@ class HubertEncoderLayer(nn.Module):
     def __init__(self, cfg: HubertConfig, dtype, param_dtype, device=None):
         super().__init__()
         c = cfg
-        if c.ln_impl == "fused":
-            raise not_ported("ln_impl 'fused'", "Queue 2 item 3")
-        if c.ln_impl not in ("auto", "xla"):
+        if c.ln_impl not in ("auto", "xla", "fused"):
             raise ValueError(f"unknown ln_impl {c.ln_impl!r}")
         if c.mlp_impl not in ("auto", "xla", "fused"):
             raise ValueError(f"unknown mlp_impl {c.mlp_impl!r}")
@@ -179,15 +211,57 @@ class HubertEncoderLayer(nn.Module):
         self.intermediate_dense = Dense(c.hidden_size, c.intermediate_size, **kw)
         self.output_dense = Dense(c.intermediate_size, c.hidden_size, **kw)
         self.final_layer_norm = LayerNorm(c.hidden_size, c.layer_norm_eps, **kw)
-        self.cfg = cfg
+        self.cfg, self.dtype = cfg, dtype
 
-    def forward(self, x):
-        x = self.layer_norm(x + self.attention(x))
-        impl = self.cfg.mlp_impl
+    def _residual_ln(self, ln: LayerNorm, x, h, generator, seeds):
+        """LN(x + dropout(h, hidden_dropout)): the fused kernel or plain ops."""
+        c = self.cfg
+        rate = c.hidden_dropout if generator is not None else 0.0
+        impl = c.ln_impl
+        if impl == "auto":
+            impl = "fused" if rate > 0.0 and x.device.type == "cuda" else "xla"
+        if impl == "fused":
+            seed = seeds.seed() if rate > 0.0 else 0
+            return fused_dropout_add_ln(x.to(self.dtype), h.to(self.dtype), ln.weight, ln.bias,
+                                        seed, rate, c.layer_norm_eps)
+        return ln(x + dropout(h, rate, generator))
+
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                seeds: Optional[HostSeeds] = None):
+        c = self.cfg
+        x = self._residual_ln(self.layer_norm, x, self.attention(x, generator, seeds),
+                              generator, seeds)
+        rate = c.activation_dropout if generator is not None else 0.0
+        impl = c.mlp_impl
         if impl == "auto":
             impl = "fused" if x.device.type == "cuda" else "xla"
-        return self.final_layer_norm(x + mlp_forward(
-            x, self.intermediate_dense, self.output_dense, impl, self.cfg.mlp_gelu))
+        seed = seeds.seed() if impl == "fused" and rate > 0.0 else 0
+        h = mlp_forward(x, self.intermediate_dense, self.output_dense, impl, c.mlp_gelu, rate,
+                        seed, generator)
+        return self._residual_ln(self.final_layer_norm, x, h, generator, seeds)
+
+
+def spec_augment_time_mask(x: torch.Tensor, masked_embed: torch.Tensor,
+                           generator: torch.Generator, mask_prob: float, mask_length: int,
+                           min_masks: int) -> torch.Tensor:
+    """hubert.py:_spec_augment_time_mask (HF _compute_mask_indices time
+    masking): per batch row max(min_masks, floor(mask_prob T / L + U[0,
+    1))) spans of L = min(mask_length, T) steps, starts uniform over [0, T
+    - L], overlaps allowed; masked steps take ``masked_embed``."""
+    b, t, _ = x.shape
+    length = min(mask_length, t)
+    mean_spans = mask_prob * t / length
+    max_spans = max(min_masks, int(np.ceil(mean_spans)) + 1)
+    dev = x.device
+    eps = torch.rand((b,), generator=generator, device=dev)
+    num_spans = torch.clamp(torch.floor(mean_spans + eps).to(torch.int64), min=min_masks)
+    starts = torch.randint(0, max(1, t - length + 1), (b, max_spans), generator=generator,
+                           device=dev)
+    active = torch.arange(max_spans, device=dev)[None, :] < num_spans[:, None]
+    pos = torch.arange(t, device=dev)[None, None, :]
+    in_span = (pos >= starts[..., None]) & (pos < starts[..., None] + length)
+    time_mask = (in_span & active[..., None]).any(dim=1)
+    return torch.where(time_mask[..., None], masked_embed.to(x.dtype), x)
 
 
 class HubertModel(nn.Module):
@@ -210,16 +284,24 @@ class HubertModel(nn.Module):
         self.layers = nn.ModuleList(HubertEncoderLayer(c, **kw) for _ in range(c.num_layers))
         self.cfg = cfg
 
-    def forward(self, audio):
+    def forward(self, audio, generator: Optional[torch.Generator] = None,
+                seeds: Optional[HostSeeds] = None):
+        """Eval without ``generator``; training with it and ``seeds``."""
         c = self.cfg
-        if c.attention_impl in ("fused", "fused_packed", "fused_packed_merged"):
-            raise not_ported(f"HuBERT attention_impl {c.attention_impl!r} (training kernel)",
-                             "slice 3")
-        if c.posconv_impl == "pallas":
-            raise not_ported("posconv_impl 'pallas'", "Queue 2 item 4")
+        train = generator is not None
+        if train and seeds is None:
+            raise ValueError("HuBERT training draws kernel seeds and layerdrop on the host: "
+                             "pass seeds (ops.dropout.HostSeeds)")
         x = self.feature_extractor(audio)
         x = self.feature_projection(self.feature_projection_norm(x))
+        x = dropout(x, c.feat_proj_dropout, generator)
+        if train and c.mask_time_prob > 0 and c.apply_spec_augment:
+            x = spec_augment_time_mask(x, self.masked_spec_embed, generator, c.mask_time_prob,
+                                       c.mask_time_length, c.mask_time_min_masks)
         x = self.encoder_layer_norm(x + self.pos_conv_embed(x))
+        x = dropout(x, c.hidden_dropout, generator)
         for layer in self.layers:
-            x = layer(x)
+            if train and c.layerdrop > 0 and seeds.uniform() < c.layerdrop:
+                continue  # LayerDrop: one draw per layer for the whole batch
+            x = layer(x, generator, seeds)
         return x

@@ -113,16 +113,18 @@ def patch_dropout_mask(generator: torch.Generator, shape, drop_rate: float,
     return torch.rand(shape, generator=generator, device=device) < 1.0 - drop_rate
 
 
-def mlp_forward(x, fc1: Dense, fc2: Dense, impl: str, gelu_form: str):
-    """fc2(gelu(fc1(x))). impl "fused" runs ops.mlp.FusedMlp (the CUDA
-    kernels on the card, forward and backward) with ``gelu_form``; "xla"
-    runs the two Dense layers around an exact GELU, as the JAX package's
-    unfused path does."""
+def mlp_forward(x, fc1: Dense, fc2: Dense, impl: str, gelu_form: str, rate: float = 0.0,
+                seed: int = 0, generator: Optional[torch.Generator] = None):
+    """fc2(dropout(gelu(fc1(x)))). impl "fused" runs ops.mlp.FusedMlp (the
+    CUDA kernels on the card, forward and backward) with ``gelu_form`` and
+    the in-kernel activation dropout at ``rate`` from the int32 ``seed``;
+    "xla" runs the two Dense layers around an exact GELU and a plain
+    dropout from ``generator``, as the JAX package's unfused path does."""
     if impl == "fused":
         d = fc1.compute_dtype
         return FusedMlp.apply(x.to(d), fc1.weight.to(d), fc1.bias.to(d), fc2.weight.to(d),
-                              fc2.bias.to(d), gelu_form)
-    return fc2(gelu(fc1(x), "erf"))
+                              fc2.bias.to(d), gelu_form, seed, rate)
+    return fc2(dropout(gelu(fc1(x), "erf"), rate, generator))
 
 
 class Mlp(nn.Module):
@@ -160,28 +162,30 @@ class ProjectionHead(nn.Module):
 
 def dot_product_attention(q, k, v, mask: Optional[torch.Tensor], dtype,
                           scores_dtype=torch.float32, impl: str = "xla",
-                          probs_dropout=None):
+                          probs_dropout=None, dropout_rate: float = 0.0, dropout_seed: int = 0):
     """Attention dispatch of layers.py:148-211 and 385-450.
 
     q, k, v: (B, N, H, Dh); mask: optional (B, 1, 1, Nk) bool. impl
     "xla": plain masked softmax, with ``probs_dropout`` (a function of
     the probs) when given; "packed": the packed eval kernel on the
     (B, N, H*Dh) layout; "fused_packed": the packed training kernel
-    (differentiable, p = 0, ragged N, so ``attention_pad`` stays
-    ignored). Attention dropout runs on "xla" only: every other impl
-    with a live ``probs_dropout`` raises."""
+    (differentiable, ragged N, so ``attention_pad`` stays ignored) with
+    its in-kernel dropout at ``dropout_rate`` from the int32
+    ``dropout_seed``. A plain ``probs_dropout`` runs on "xla" only: every
+    other impl given one raises."""
     if impl == "xla":
         return masked_attention(q, k, v, mask, dtype, scores_dtype, probs_dropout)
     if probs_dropout is not None:
-        raise not_ported(f"attention impl {impl!r} with attention dropout", "slice 3")
+        raise not_ported(f"attention impl {impl!r} with a plain attention dropout",
+                         "Queue 2 item 1")
     if impl == "fused_packed":
         b, n, h, d = q.shape
         if d != 64:
             raise ValueError(f"the packed training kernel needs head_dim 64, got {d}")
         key_mask = None if mask is None else mask.reshape(b, n)
         out = attention_train(
-            *(x.reshape(b, n, h * d).to(dtype) for x in (q, k, v)), key_mask, 0, 0.0,
-            1.0 / d ** 0.5,
+            *(x.reshape(b, n, h * d).to(dtype) for x in (q, k, v)), key_mask, dropout_seed,
+            dropout_rate, 1.0 / d ** 0.5,
         )
         return out.reshape(b, n, h, d)
     if impl == "packed":

@@ -6,8 +6,9 @@ stay in ``cfg.param_dtype``. The ViT base is frozen (only its LoRA
 factors take gradients).
 
 Training mode (``train=True``) takes a ``torch.Generator`` for its random
-draws: patch dropout on the visual tokens and DistilBERT's dropouts.
-HuBERT's training mode is not ported yet (ROADMAP.md slice 3)."""
+draws: patch dropout on the visual tokens, DistilBERT's dropouts and
+HuBERT's plain dropouts and SpecAugment; HuBERT also takes an
+``ops.dropout.HostSeeds`` for its kernel seeds and layerdrop."""
 
 from __future__ import annotations
 
@@ -19,8 +20,9 @@ import torch.nn as nn
 from triad_tpu_torch.config import ModelConfig
 from triad_tpu_torch.models.distilbert import DistilBertModel
 from triad_tpu_torch.models.hubert import HubertModel, normalize_waveform
-from triad_tpu_torch.models.layers import ProjectionHead, not_ported, patch_dropout_mask
+from triad_tpu_torch.models.layers import ProjectionHead, patch_dropout_mask
 from triad_tpu_torch.models.vit import DinoViT
+from triad_tpu_torch.ops.dropout import HostSeeds
 from triad_tpu_torch.ops.similarity import pairwise_similarity
 
 
@@ -60,14 +62,15 @@ class TriadModel(nn.Module):
         return feats
 
     def encode_audio(self, audio: torch.Tensor, train: bool = False,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """audio (B, T) raw 16 kHz waveform -> (B, Na, D)."""
-        del generator
-        if train:
-            raise not_ported("HuBERT training mode", "slice 3")
+                     generator: Optional[torch.Generator] = None,
+                     seeds: Optional[HostSeeds] = None) -> torch.Tensor:
+        """audio (B, T) raw 16 kHz waveform -> (B, Na, D); training runs
+        HuBERT's dropouts, SpecAugment and layerdrop from ``generator`` and
+        ``seeds``."""
         if self.cfg.hubert.normalize_waveform:
             audio = normalize_waveform(audio)
-        return self.audio_projection(self.audio_backbone(audio))
+        gen = _needs(generator) if train else None
+        return self.audio_projection(self.audio_backbone(audio, gen, seeds if train else None))
 
     def encode_text(self, token_ids, attention_mask, train: bool = False,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:

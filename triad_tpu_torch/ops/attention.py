@@ -10,7 +10,9 @@ the XLA branch of ``triad_tpu/models/layers.py:dot_product_attention``.
 ``csrc/attention_eval.cu``, and ``attention_train`` (an autograd
 Function) ``csrc/attention_train.cu``, for a CUDA tensor; a CPU tensor
 runs the plain version (``*_plain``). There is no fallback from one to
-the other: a CUDA tensor the kernel does not take raises.
+the other: a CUDA tensor the kernel does not take raises. The training
+attention's dropout keep mask is ``ops/dropout.py``'s, keyed by (seed,
+b * H + h) at (query, key), in the kernels and the plain versions alike.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Optional
 import torch
 
 from triad_tpu_torch import kernels
+from triad_tpu_torch.ops import dropout
 
 HEAD_DIM = 64  # the eval kernels slice heads as 64-wide column windows
 
@@ -140,7 +143,7 @@ def masked_attention(q, k, v, mask, dtype, scores_dtype=torch.float32, probs_dro
 
 
 # ---------------------------------------------------------------------------
-# Training attention (pallas_attention.fused_attention_packed at p = 0)
+# Training attention (pallas_attention.fused_attention_packed)
 # ---------------------------------------------------------------------------
 
 
@@ -164,26 +167,41 @@ def _train_packed(x, like):
     return x.transpose(1, 2).reshape(b, n, h * d).to(like.dtype)
 
 
-def attention_train_plain(q, k, v, mask, sm_scale: float) -> torch.Tensor:
-    """_head_fwd for every head at p = 0: q (B, Nq, H*64), k/v (B, Nk,
-    H*64), mask (B, Nk) fp32 -> (B, Nq, H*64) in q's dtype. fp32 scores
-    and softmax, P normalised in fp32 and then rounded to v's dtype
-    before P.V (fp32 accumulation)."""
+def attention_keep(b: int, h: int, nq: int, nk: int, seed: int, p_drop: float, device):
+    """The (B, H, Nq, Nk) keep mask of the training attention (stream
+    b * H + h, row = query, col = key)."""
+    keep = dropout.keep_mask(seed, list(range(b * h)), nq, nk, p_drop, device)
+    return keep.reshape(b, h, nq, nk)
+
+
+def attention_train_plain(q, k, v, mask, sm_scale: float, seed: int = 0,
+                          p_drop: float = 0.0) -> torch.Tensor:
+    """_head_fwd for every head: q (B, Nq, H*64), k/v (B, Nk, H*64), mask
+    (B, Nk) fp32 -> (B, Nq, H*64) in q's dtype. fp32 scores and softmax,
+    P normalised in fp32, D = P * keep / (1 - p) in fp32 and then rounded
+    to v's dtype before D.V (fp32 accumulation)."""
+    b, nq, hd = q.shape
+    h = hd // HEAD_DIM
     p = _train_probs(q, k, mask, sm_scale)
-    o = p.to(v.dtype).to(torch.float32) @ _train_heads(v, q.shape[-1] // HEAD_DIM)
+    p = dropout.apply_keep(p, attention_keep(b, h, nq, k.shape[1], seed, p_drop, q.device),
+                           p_drop)
+    o = p.to(v.dtype).to(torch.float32) @ _train_heads(v, h)
     return _train_packed(o, q)
 
 
-def attention_train_bwd_plain(q, k, v, mask, do, sm_scale: float):
-    """_head_bwd for every head at p = 0, written out in fp32 (not
-    autograd): dP = dO V^T, dV = P^T dO, di = rowsum(dP * P), dS = P (dP
-    - di), dQ = dS K s, dK = dS^T Q s. Returns (dq, dk, dv) in the dtypes
-    of q, k, v."""
-    h = q.shape[-1] // HEAD_DIM
+def attention_train_bwd_plain(q, k, v, mask, do, sm_scale: float, seed: int = 0,
+                              p_drop: float = 0.0):
+    """_head_bwd for every head, written out in fp32 (not autograd): dD =
+    dO V^T, dP = dD * keep / (1 - p), D = P * keep / (1 - p), dV = D^T dO,
+    di = rowsum(dP * P), dS = P (dP - di), dQ = dS K s, dK = dS^T Q s.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    b, nq, hd = q.shape
+    h = hd // HEAD_DIM
     p = _train_probs(q, k, mask, sm_scale)
+    keep = attention_keep(b, h, nq, k.shape[1], seed, p_drop, q.device)
     dof = _train_heads(do, h)
-    dp = dof @ _train_heads(v, h).transpose(-1, -2)
-    dv = p.transpose(-1, -2) @ dof
+    dp = dropout.apply_keep(dof @ _train_heads(v, h).transpose(-1, -2), keep, p_drop)
+    dv = dropout.apply_keep(p, keep, p_drop).transpose(-1, -2) @ dof
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
     dq = ds @ _train_heads(k, h) * sm_scale
     dk = ds.transpose(-1, -2) @ _train_heads(q, h) * sm_scale
@@ -204,30 +222,32 @@ def _train_launch_args(name, q, k, v, mask):
     return b, hd // HEAD_DIM, n, _key_mask(mask, b, n, q.device)
 
 
-def attention_train_fwd(q, k, v, mask, sm_scale: float) -> torch.Tensor:
+def attention_train_fwd(q, k, v, mask, sm_scale: float, seed: int = 0,
+                        p_drop: float = 0.0) -> torch.Tensor:
     """Forward of the training attention: the plain version for a CPU
     tensor, csrc/attention_train.cu for a CUDA one. mask: (B, Nk) key
-    mask (1 = attend)."""
+    mask (1 = attend); seed, p_drop: the attention dropout."""
     if q.device.type == "cpu":
-        return attention_train_plain(q, k, v, mask, sm_scale)
+        return attention_train_plain(q, k, v, mask, sm_scale, seed, p_drop)
     b, h, n, mask = _train_launch_args("attention_train", q, k, v, mask)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     kernels.call("attention_train_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  mask.data_ptr(), out.data_ptr(), b, h, n, float(sm_scale),
-                 kernels.stream_ptr(out))
+                 *kernels.dropout_args(seed, p_drop), kernels.stream_ptr(out))
     kernels.LAUNCHES["attention_train"] += 1
     return out
 
 
-def attention_train_bwd(q, k, v, mask, do, sm_scale: float):
+def attention_train_bwd(q, k, v, mask, do, sm_scale: float, seed: int = 0,
+                        p_drop: float = 0.0):
     """(dq, dk, dv) of the training attention: the plain version for a
     CPU tensor, the two backward kernels of csrc/attention_train.cu for
-    a CUDA one (with a (3, B, H, N) fp32 scratch of row stats). One call
-    adds one to the count and launches both kernels (rows, then
-    columns)."""
+    a CUDA one (with a (3, B, H, N) fp32 scratch of row stats); seed and
+    p_drop are the forward's. One call adds one to the count and launches
+    both kernels (rows, then columns)."""
     if q.device.type == "cpu":
-        return attention_train_bwd_plain(q, k, v, mask, do, sm_scale)
+        return attention_train_bwd_plain(q, k, v, mask, do, sm_scale, seed, p_drop)
     b, h, n, mask = _train_launch_args("attention_train_bwd", q, k, v, mask)
     kernels.require_cuda("attention_train_bwd", q, do, dtype=torch.bfloat16)
     q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
@@ -236,41 +256,39 @@ def attention_train_bwd(q, k, v, mask, do, sm_scale: float):
     kernels.call("attention_train_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  mask.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-                 stats[2].data_ptr(), b, h, n, float(sm_scale), kernels.stream_ptr(dq))
+                 stats[2].data_ptr(), b, h, n, float(sm_scale),
+                 *kernels.dropout_args(seed, p_drop), kernels.stream_ptr(dq))
     kernels.LAUNCHES["attention_train_bwd"] += 1
     return dq, dk, dv
 
 
 class AttentionTrain(torch.autograd.Function):
     """fused_attention_packed's custom VJP: the backward recomputes P from
-    q, k and the mask (no probabilities are saved)."""
+    q, k and the mask and replays the dropout mask from the seed (no
+    probabilities or masks are saved)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, sm_scale):
+    def forward(ctx, q, k, v, mask, sm_scale, seed, p_drop):
         ctx.save_for_backward(q, k, v, mask)
-        ctx.sm_scale = sm_scale
-        return attention_train_fwd(q, k, v, mask, sm_scale)
+        ctx.args = (sm_scale, seed, p_drop)
+        return attention_train_fwd(q, k, v, mask, sm_scale, seed, p_drop)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, mask = ctx.saved_tensors
-        dq, dk, dv = attention_train_bwd(q, k, v, mask, do, ctx.sm_scale)
-        return dq, dk, dv, None, None
+        dq, dk, dv = attention_train_bwd(q, k, v, mask, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
-def attention_train(q, k, v, mask=None, seed=0, p_drop: float = 0.0,
+def attention_train(q, k, v, mask=None, seed: int = 0, p_drop: float = 0.0,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Differentiable packed training attention (fused_attention_packed
     with ragged N): q (B, Nq, H*64), k/v (B, Nk, H*64), mask (B, Nk) key
-    mask (1 = attend) -> (B, Nq, H*64). ``seed`` and ``p_drop`` are the
-    TPU kernel's dropout arguments; only p_drop = 0 is ported."""
-    del seed  # draws no bits at p_drop = 0
-    if p_drop > 0.0:
-        raise NotImplementedError(
-            "attention_train with p_drop > 0 (in-kernel attention dropout) is not "
-            "ported to triad_tpu_torch yet (ROADMAP.md slice 3)")
+    mask (1 = attend) -> (B, Nq, H*64), with attention dropout at rate
+    ``p_drop`` drawn from the int32 ``seed``."""
     b, _, hd = q.shape
     if hd % HEAD_DIM:
         raise ValueError(f"packed width {hd} not a multiple of {HEAD_DIM}")
     scale = 1.0 / math.sqrt(HEAD_DIM) if sm_scale is None else sm_scale
-    return AttentionTrain.apply(q, k, v, _key_mask(mask, b, k.shape[1], q.device), scale)
+    return AttentionTrain.apply(q, k, v, _key_mask(mask, b, k.shape[1], q.device), scale,
+                                int(seed), float(p_drop))

@@ -14,6 +14,14 @@ Three wrappers, each launching its kernel from ``csrc/frontend.cu`` for a
 CUDA tensor and running its ``*_plain`` twin for a CPU tensor:
 ``conv0_stats``, ``conv0_norm_gelu`` and ``conv_s2_gelu``. ``frontend``
 chains them. Conv weights take torch's Conv1d layout (Cout, Cin, k).
+
+The gradient (``frontend_vjp``, ``pallas_frontend.monolithic_frontend_vjp``)
+runs the kernels forward and, in the backward, differentiates the plain
+composition recomputed in the output dtype (``recompute_frontend``,
+``pallas_frontend.reference_frontend`` with ``compute_dtype = out_dtype``,
+as ``_mf_bwd`` does): bf16 convolutions with fp32 GroupNorm statistics in
+training. The JAX package computes this backward outside any kernel, so
+it stays plain here too. The waveform takes no gradient.
 """
 
 from __future__ import annotations
@@ -195,3 +203,57 @@ def reference_frontend(wave, w0, gn_scale, gn_bias, ws, form: str = "tanh",
     comparison target for the kernels on the card)."""
     return _stack(wave, w0, gn_scale, gn_bias, ws, form, out_dtype,
                   conv0_stats_plain, conv0_norm_gelu_plain, conv_s2_gelu_plain)
+
+
+# ------------------------------------------------------------- gradient
+
+
+def recompute_frontend(wave, w0, gn_scale, gn_bias, ws, form: str, dtype) -> torch.Tensor:
+    """pallas_frontend.reference_frontend with compute_dtype = dtype, on the
+    whole waveform: conv_0 on dtype operands, GroupNorm with fp32 mean and
+    (two-pass) variance, the affine in fp32 rounded to dtype, then GELU in
+    fp32 rounded to dtype before each stride-2 conv and after the last.
+    Differentiable; the backward of frontend_vjp."""
+    y = F.conv1d(wave.to(dtype)[:, None, :], w0.to(dtype), stride=STRIDES[0]).to(torch.float32)
+    mean = y.mean(dim=-1, keepdim=True)
+    var = (y - mean).square().mean(dim=-1, keepdim=True)
+    y = (y - mean) * torch.rsqrt(var + GN_EPS)
+    y = (y * gn_scale.to(torch.float32)[:, None] + gn_bias.to(torch.float32)[:, None]).to(dtype)
+    for w in ws:
+        y = gelu(y.to(torch.float32), form).to(dtype)
+        y = F.conv1d(y, w.to(dtype), stride=2)
+    return gelu(y.to(torch.float32), form).to(dtype).transpose(1, 2)
+
+
+class FrontendVjp(torch.autograd.Function):
+    """monolithic_frontend_vjp: the kernels forward; the backward recomputes
+    the plain composition in the output dtype and differentiates it with
+    torch.autograd.grad. Apply as FrontendVjp.apply(wave, w0, gn_scale,
+    gn_bias, form, out_dtype, *ws)."""
+
+    @staticmethod
+    def forward(ctx, wave, w0, gn_scale, gn_bias, form, out_dtype, *ws):
+        ctx.save_for_backward(wave, w0, gn_scale, gn_bias, *ws)
+        ctx.form, ctx.out_dtype = form, out_dtype
+        return frontend(wave, w0, gn_scale, gn_bias, ws, form, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        wave, *params = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:4] + ctx.needs_input_grad[6:]
+        leaves = [p.detach().requires_grad_(n) for p, n in zip(params, need)]
+        wanted = [leaf for leaf in leaves if leaf.requires_grad]
+        grads = iter(())
+        if wanted:
+            with torch.enable_grad():
+                out = recompute_frontend(wave.detach(), *leaves[:3], leaves[3:], ctx.form,
+                                         ctx.out_dtype)
+                grads = iter(torch.autograd.grad(out, wanted, dy.to(out.dtype)))
+        got = [next(grads) if leaf.requires_grad else None for leaf in leaves]
+        return (None, *got[:3], None, None, *got[3:])
+
+
+def frontend_vjp(wave, w0, gn_scale, gn_bias, ws, form: str = "tanh",
+                 out_dtype=torch.bfloat16) -> torch.Tensor:
+    """frontend with a gradient for the weights (FrontendVjp)."""
+    return FrontendVjp.apply(wave, w0, gn_scale, gn_bias, form, out_dtype, *ws)

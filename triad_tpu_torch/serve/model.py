@@ -1,9 +1,10 @@
-"""A live TriadModel behind the serving methods of
-``triad_tpu.serve.export.ServingBundle`` (embed_audio, embed_visual,
-embed_text_ids, embed_texts, pair_scores, meta), so the JAX package's
-HTTP handler serves it unchanged. Arrays go in and out as numpy; the
-model runs under ``torch.inference_mode()`` on ``device``. Without a
-``state_dict`` the weights are random, drawn from seed 0."""
+"""A live TriadModel behind the serving methods of the JAX package's
+``ServingBundle`` (embed_audio, embed_visual, embed_text_ids,
+embed_texts, pair_scores, meta), which ``serve/server.py`` serves.
+Arrays go in and out as numpy; the model runs under
+``torch.inference_mode()`` on ``device``, the card unless the caller
+asks for the CPU. Without a ``state_dict`` the weights are random, drawn
+from seed 0."""
 
 from __future__ import annotations
 
@@ -24,12 +25,15 @@ class ServingModel:
         self,
         cfg: ModelConfig,
         state_dict: Optional[Dict[str, torch.Tensor]] = None,
-        device="cpu",
+        device="cuda",
         audio_num_samples: int = 160_000,
         max_text_tokens: int = 128,
         tokenizer=None,
     ):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ServingModel: no CUDA device (pass device='cpu' to serve "
+                               "from the CPU)")
         if state_dict is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
             self.model = init_triad_model(cfg, gen, device=self.device)
