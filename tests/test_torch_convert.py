@@ -114,36 +114,57 @@ def test_package_imports_without_jax():
 
 
 _PORTED_TRAINING_IMPLS = {
+    ("hubert", "attention_impl", "fused"),
     ("hubert", "attention_impl", "fused_packed"),
     ("hubert", "posconv_impl", "pallas"),
     ("hubert", "ln_impl", "fused"),
+    ("vit", "attention_impl", "fused"),
+    ("vit", "attention_impl", "fused_packed_merged"),
 }
 
 
-def _check_runs_in_training(field, value):
-    """A HuBERT of 2 heads of 64 (the packed kernel's head width) with the
-    option set trains on the CPU through the kernel's plain twin: finite
-    features, and a gradient reaches the parameters the option touches."""
+def _check_runs_in_training(section, field, value):
+    """A HuBERT or ViT of 2 heads of 64 (the training kernels' head width)
+    with the option set trains on the CPU through the kernel's plain twin:
+    finite features, and a gradient reaches the parameters the option
+    touches."""
     from triad_tpu_torch.config import ModelConfig
     from triad_tpu_torch.models.convert import init_triad_model
     from triad_tpu_torch.ops.dropout import HostSeeds
 
     port_cfg = ModelConfig(**{k: v for k, v in dataclasses.asdict(small_model_config()).items()
                               if k not in ("vit", "hubert", "text")})
-    hub = dataclasses.replace(port_cfg.hubert, hidden_size=128, num_heads=2,
-                              intermediate_size=64, conv_dim=(16, 16), conv_kernel=(10, 3),
-                              conv_stride=(5, 2), num_conv_pos_embeddings=16,
-                              num_conv_pos_embedding_groups=4, layerdrop=0.0,
-                              **{field: value})
-    model = init_triad_model(dataclasses.replace(port_cfg, hubert=hub),
-                             torch.Generator().manual_seed(0))
-    audio = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 400)).astype(np.float32))
-    feats = model.encode_audio(audio, True, torch.Generator().manual_seed(1), HostSeeds(1, 0))
+    rng = np.random.default_rng(0)
+    if section == "vit":
+        vit = dataclasses.replace(port_cfg.vit, image_size=28, hidden_size=128, num_heads=2,
+                                  num_layers=2, mlp_ratio=0.5, **{field: value})
+        model = init_triad_model(dataclasses.replace(port_cfg, vit=vit),
+                                 torch.Generator().manual_seed(0))
+        with torch.no_grad():  # lora_b starts at zero: give lora_a a gradient path
+            for name, p in model.named_parameters():
+                if name.endswith("lora_b"):
+                    p.normal_(0.0, 0.05)
+        images = torch.from_numpy(rng.normal(size=(2, 28, 28, 3)).astype(np.float32))
+        feats = model.encode_visual(images, True, torch.Generator().manual_seed(1))
+        backbone, touched = model.visual_backbone, "attn.qkv.lora_"
+    else:
+        hub = dataclasses.replace(port_cfg.hubert, hidden_size=128, num_heads=2,
+                                  intermediate_size=64, conv_dim=(16, 16), conv_kernel=(10, 3),
+                                  conv_stride=(5, 2), num_conv_pos_embeddings=16,
+                                  num_conv_pos_embedding_groups=4, layerdrop=0.0,
+                                  **{field: value})
+        model = init_triad_model(dataclasses.replace(port_cfg, hubert=hub),
+                                 torch.Generator().manual_seed(0))
+        audio = torch.from_numpy(rng.normal(size=(2, 400)).astype(np.float32))
+        feats = model.encode_audio(audio, True, torch.Generator().manual_seed(1),
+                                   HostSeeds(1, 0))
+        backbone = model.audio_backbone
+        touched = {"attention_impl": "attention.q_proj.weight",
+                   "posconv_impl": "pos_conv_embed.conv",
+                   "ln_impl": "final_layer_norm.weight"}[field]
     assert bool(torch.isfinite(feats).all())
     feats.square().sum().backward()
-    touched = {"attention_impl": "attention.q_proj.weight", "posconv_impl": "pos_conv_embed.conv",
-               "ln_impl": "final_layer_norm.weight"}[field]
-    grads = [p.grad for n, p in model.audio_backbone.named_parameters() if touched in n]
+    grads = [p.grad for n, p in backbone.named_parameters() if touched in n]
     assert grads and all(g is not None and bool(g.abs().sum() > 0) for g in grads)
 
 
@@ -201,14 +222,15 @@ class TestRefusals:
         ("hubert", "ln_impl", "fused"),
     ])
     def test_unported_impls_raise(self, section, field, value):
-        """Unported impl values raise; the three HuBERT training options
-        that this port now has (fused_packed attention, the posconv and
-        fused LayerNorm kernels) run in training mode instead."""
+        """Unported impl values raise; the training options that this port
+        now has (HuBERT's fused and fused_packed attention, the posconv and
+        fused LayerNorm kernels; the ViT's fused and fused_packed_merged
+        attention) run in training mode instead."""
         from triad_tpu_torch.models.multimodal import TriadModel
 
         cfg = small_model_config()
         if (section, field, value) in _PORTED_TRAINING_IMPLS:
-            _check_runs_in_training(field, value)
+            _check_runs_in_training(section, field, value)
             return
         sub = dataclasses.replace(getattr(cfg, section), **{field: value})
         # The model builds and HuBERT raises when it runs, or the model

@@ -351,3 +351,158 @@ class TestPosConv:
         torch.cuda.synchronize()
         assert [kernels.LAUNCHES[k] for k in ("posconv", "posconv_dx", "posconv_dw")] == [1, 1, 1]
         assert bool(torch.isfinite(w.grad.float()).all()) and x.grad.shape == x.shape
+
+
+class TestAttentionLayouts:
+    # The strided, packed and merged layouts are three sets of strides to
+    # the same kernels with the same keep mask (seed, b * H + h, query,
+    # key): on the same values and seed they agree bit for bit, forward and
+    # backward. Against the twin: 2 bf16 ulps of the largest output, as
+    # TestAttentionTrain.
+    TOL = 2 * 2.0 ** -7
+
+    @pytest.mark.parametrize("b,n,p", [(2, 37, 0.1), (4, 499, 0.1), (3, 261, 0.0)])
+    def test_layouts_agree(self, dev, b, n, p):
+        from triad_tpu_torch.ops import attention as A
+
+        qkv, do = _randn((b, n, 2304), dev, 61), _randn((b, n, 768), dev, 62)
+        q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+        heads = lambda t: t.view(b, n, 12, 64).transpose(1, 2)  # noqa: E731
+        unheads = lambda t: t.transpose(1, 2).reshape(b, n, 768)  # noqa: E731
+        mask = torch.ones((b, n), device=dev)
+        packed = A.attention_train_fwd(q, k, v, mask, 0.125, 77, p)
+        strided = A.attention_train_strided_fwd(heads(q), heads(k), heads(v), mask, 0.125, 77, p)
+        merged = A.attention_train_merged_fwd(qkv, mask, 0.125, 77, p)
+        torch.cuda.synchronize()
+        assert torch.equal(unheads(strided), packed) and torch.equal(merged, packed)
+        err, mx = _max_err(merged, A.attention_train_merged_plain(qkv, mask, 0.125, 77, p))
+        assert err <= self.TOL * mx, ("fwd", err, mx)
+        g_packed = A.attention_train_bwd(q, k, v, mask, do, 0.125, 77, p)
+        g_strided = A.attention_train_strided_bwd(heads(q), heads(k), heads(v), mask, heads(do),
+                                                  0.125, 77, p)
+        g_merged = A.attention_train_merged_bwd(qkv, mask, do, 0.125, 77, p)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat(g_packed, dim=-1), g_merged)
+        assert all(torch.equal(unheads(s), g) for s, g in zip(g_strided, g_packed))
+        ref = A.attention_train_merged_bwd_plain(qkv, mask, do, 0.125, 77, p)
+        for name, g, r in zip(("dq", "dk", "dv"), g_merged.chunk(3, -1), ref.chunk(3, -1)):
+            err, mx = _max_err(g, r)
+            assert err <= self.TOL * mx, (name, err, mx)
+
+    def test_strided_takes_any_strides(self, dev):
+        """A contiguous (B, H, T, 64) tensor and a permuted view of (B, T,
+        H, 64) projections give the same values; the output and gradients
+        come as views of (B, T, H, 64) memory either way; a key mask is
+        honoured."""
+        from triad_tpu_torch.ops import attention as A
+
+        q, k, v, do = (_randn((2, 45, 4, 64), dev, s) for s in (63, 64, 65, 66))
+        mask = torch.ones((2, 45), device=dev)
+        mask[1, 30:] = 0.0
+        views = [t.transpose(1, 2) for t in (q, k, v, do)]
+        dense = [t.contiguous() for t in views]
+        out_v = A.attention_train_strided_fwd(*views[:3], mask, 0.125)
+        out_d = A.attention_train_strided_fwd(*dense[:3], mask, 0.125)
+        assert out_v.stride() == out_d.stride() == views[0].stride()
+        assert torch.equal(out_v, out_d)
+        gv = A.attention_train_strided_bwd(*views[:3], mask, views[3], 0.125)
+        gd = A.attention_train_strided_bwd(*dense[:3], mask, dense[3], 0.125)
+        assert all(torch.equal(a, b) and a.stride() == views[0].stride() for a, b in zip(gv, gd))
+        err, mx = _max_err(out_v, A.heads_train_plain(*views[:3], mask, 0.125).to(q.dtype))
+        assert err <= self.TOL * mx, (err, mx)
+
+    def test_autograd_counts_launches(self, dev):
+        from triad_tpu_torch import kernels
+        from triad_tpu_torch.ops.attention import attention_train_merged, attention_train_strided
+
+        qkv = _randn((2, 37, 384), dev, 67).requires_grad_()
+        q, k, v = (_randn((2, 2, 37, 64), dev, s).requires_grad_() for s in (68, 69, 70))
+        kernels.reset_launches()
+        attention_train_merged(qkv, None, 5, 0.1).float().sum().backward()
+        attention_train_strided(q, k, v, None, 5, 0.1).float().sum().backward()
+        torch.cuda.synchronize()
+        for name in ("attention_train_merged", "attention_train_merged_bwd",
+                     "attention_train_strided", "attention_train_strided_bwd"):
+            assert kernels.LAUNCHES[name] == 1, name
+        assert qkv.grad.shape == qkv.shape and bool(torch.isfinite(qkv.grad.float()).all())
+        assert q.grad.shape == q.shape and bool(torch.isfinite(q.grad.float()).all())
+
+
+def _grid(shape, dev, seed, dtype=torch.bfloat16):
+    """Values k / 4 for integers k in [-4, 4]: exact in bf16, and every sum
+    of 512 products of two of them is exact in fp32 in any order, so the
+    kernels and the twin see the same sims bit for bit (same maxima, same
+    first argmax on ties, same clamp window)."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-4, 5, size=shape).astype(np.float32) / 4).to(dev, dtype)
+
+
+class TestMaxMean:
+    # Sims are exact on _grid inputs; the clip sums and the clamp^2 / window
+    # sums are fp32 sums in another order; dQ and dK take dts as bf16 hi +
+    # lo halves (~2^-17 relative) and sum in another order: 1e-4 of each
+    # output's largest magnitude.
+    TOL = 1e-4
+
+    @pytest.mark.parametrize("bq,bk,nq,nk,d,masked", [(3, 2, 37, 128, 128, True),
+                                                      (4, 3, 499, 256, 512, False),
+                                                      (5, 4, 32, 256, 512, True)])
+    def test_matches_plain(self, dev, bq, bk, nq, nk, d, masked):
+        from triad_tpu_torch.ops import maxmean as MM
+
+        q, k = _grid((bq, nq, d), dev, 71), _grid((bk, nk, d), dev, 72)
+        mask = None
+        if masked:
+            mask = torch.ones((bq, nq), device=dev)
+            mask[0, nq // 2:] = 0.0
+        coeff = MM.coefficients(bq, nq, mask, dev)
+        temp = torch.tensor(1.5, device=dev)
+        got = MM.maxmean_fwd(q, k, temp, coeff, -20.0)
+        ref = MM.maxmean_plain(q, k, temp, coeff, -20.0)
+        torch.cuda.synchronize()
+        assert torch.equal(got[3], ref[3])  # the first argmax of every row
+        for name, g, r in zip(("clip", "nonneg", "tsq"), got[:3], ref[:3]):
+            err, mx = _max_err(g, r)
+            assert err <= self.TOL * mx, (name, err, mx)
+        g_clip = _randn((bq, bk), dev, 73, dtype=torch.float32)
+        g_nn = torch.tensor(0.37, device=dev)
+        args = (q, k, temp, coeff, -20.0, ref[3], g_clip, g_nn)
+        refs = MM.maxmean_dq_plain(*args), MM.maxmean_dk_plain(*args)
+        for name, g, r in zip(("dq", "dk"), (MM.maxmean_dq(*args), MM.maxmean_dk(*args)), refs):
+            err, mx = _max_err(g, r)
+            assert err <= self.TOL * mx, (name, err, mx)
+
+    def test_fp32_features_split(self, dev):
+        """fp32 features run as bf16 hi + lo halves: sims at fp32 level, not
+        bf16 (a bf16-rounded run would miss by ~1e-3 of the largest clip)."""
+        from triad_tpu_torch.ops import maxmean as MM
+
+        q = _randn((2, 40, 128), dev, 74, 0.3, torch.float32)
+        k = _randn((3, 128, 128), dev, 75, 0.3, torch.float32)
+        coeff = MM.coefficients(2, 40, None, dev)
+        temp = torch.tensor(1.5, device=dev)
+        got, ref = MM.maxmean_fwd(q, k, temp, coeff, -2.0), MM.maxmean_plain(q, k, temp, coeff, -2.0)
+        for name, g, r in zip(("clip", "nonneg"), got[:2], ref[:2]):
+            err, mx = _max_err(g, r)
+            assert err <= self.TOL * mx, (name, err, mx)
+        args = (q, k, temp, coeff, -2.0, ref[3], _randn((2, 3), dev, 76, dtype=torch.float32),
+                torch.tensor(0.5, device=dev))
+        for name, g, r in zip(("dq", "dk"), (MM.maxmean_dq(*args), MM.maxmean_dk(*args)),
+                              (MM.maxmean_dq_plain(*args), MM.maxmean_dk_plain(*args))):
+            err, mx = _max_err(g, r)
+            assert err <= self.TOL * mx, (name, err, mx)
+
+    def test_autograd_counts_launches(self, dev):
+        from triad_tpu_torch import kernels
+        from triad_tpu_torch.ops.similarity import aggregate_crossbatch
+
+        q = _grid((2, 37, 128), dev, 77).requires_grad_()
+        k = _grid((2, 128, 128), dev, 78).requires_grad_()
+        temp = torch.tensor(1.5, device=dev, requires_grad=True)
+        kernels.reset_launches()
+        agg = aggregate_crossbatch(q, k, temp, clamp_min=-20.0, implementation="pallas")
+        (agg.clip_sims.sum() + agg.nonneg_sq_sum).backward()
+        torch.cuda.synchronize()
+        for name in ("maxmean", "maxmean_dq", "maxmean_dk"):
+            assert kernels.LAUNCHES[name] == 1, name
+        assert q.grad.dtype == torch.bfloat16 and bool(torch.isfinite(temp.grad))

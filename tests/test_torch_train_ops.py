@@ -216,12 +216,19 @@ class TestAggregate:
         _close(port_side[4], jax_side[4], 1e-5)
 
     def test_pallas_not_ported(self):
+        """The "pallas" aggregation is ported (tests/test_torch_maxmean.py
+        holds it to the JAX kernel); it keeps the reference's refusals: Nk
+        and D multiples of 128, and no bf16 volume."""
         from triad_tpu_torch.ops.similarity import aggregate_crossbatch
 
         x = torch.zeros(2, 3, 4)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="multiples of 128"):
             aggregate_crossbatch(x, x, torch.tensor(1.0), clamp_min=-1.0,
                                  implementation="pallas")
+        y = torch.zeros(2, 128, 128)
+        with pytest.raises(ValueError, match="volume_dtype"):
+            aggregate_crossbatch(y, y, torch.tensor(1.0), clamp_min=-1.0,
+                                 implementation="pallas", volume_dtype="bfloat16")
 
 
 class TestLosses:

@@ -5,7 +5,8 @@ defaults and values, so a config written by either package loads in the
 other (``tests/test_torch_isolation.py`` holds the two equal field for
 field). Every module of the port takes its configs from here. Fields that
 only choose a TPU tiling are kept so configs load the same; the port
-ignores them (``models/__init__.py:IGNORED_TPU_KNOBS``).
+ignores them (``IGNORED_TPU_KNOBS``), and ``apply_train_knobs`` refuses
+the knobs that set them.
 """
 
 from __future__ import annotations
@@ -14,6 +15,21 @@ import dataclasses
 import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
+
+
+# Config fields that only choose a TPU tiling or layout (VMEM block rows,
+# token padding, waveform wire layout, frontend block size). They do not
+# change what a model computes, and the CUDA kernels choose their own
+# tiles, so the port reads none of them.
+IGNORED_TPU_KNOBS = (
+    "frontend_wave_layout",
+    "frontend_tb",
+    "mlp_block_rows",
+    "ln_block_rows",
+    "attention_pad",
+)
+# ... nor HuBERT's rematerialisation policy (memory only; not ported).
+_UNREAD_FIELDS = frozenset(IGNORED_TPU_KNOBS) | {"remat"}
 
 
 # ---------------------------------------------------------------------------
@@ -414,3 +430,105 @@ def perf_eval_loss_config() -> LossConfig:
         implementation="chunked_unrolled", chunk_size=32,
         matmul_precision="default", volume_dtype="bfloat16",
     )
+
+
+# knob -> (HubertConfig fields, ViTConfig fields), in the order they apply.
+_KNOBS: Dict[str, Tuple[Dict[str, Any], Dict[str, Any]]] = {
+    "perf": ({}, {}),
+    "tanh": ({"mlp_gelu": "tanh"}, {"mlp_impl": "fused", "mlp_gelu": "tanh"}),
+    "pkattn": ({"attention_impl": "fused_packed"}, {}),
+    "mqkv": ({"attention_impl": "fused_packed_merged"}, {}),
+    "vitpk": ({}, {"attention_impl": "fused_packed"}),
+    "vitmq": ({}, {"attention_impl": "fused_packed_merged"}),
+    "monofe": ({"frontend_impl": "monolithic", "frontend_gelu": "tanh"}, {}),
+    "posconv": ({"posconv_impl": "pallas"}, {}),
+    "wave640": ({"frontend_wave_layout": "x640"}, {}),
+    "wavext": ({"frontend_wave_layout": "xt"}, {}),
+    "rematconv": ({"remat": "conv"}, {}),
+    "noremat": ({"remat": "none"}, {}),
+    "attnpad": ({"attention_pad": "none"}, {"attention_pad": "none"}),
+    "pad128": ({"attention_pad": "hbm"}, {"attention_pad": "hbm"}),
+    "lorasep": ({}, {"lora_compute": "separate"}),
+    "mlprows2": ({"mlp_block_rows": 2}, {"mlp_block_rows": 2}),
+    "mlprows4": ({"mlp_block_rows": 4}, {"mlp_block_rows": 4}),
+    "vitrows2": ({}, {"mlp_block_rows": 2}),
+}
+
+
+def apply_train_knobs(model_cfg: ModelConfig, knobs) -> ModelConfig:
+    """Apply a comma-separated set of training A/B knobs (the JAX package's
+    ``apply_train_knobs``, shared there by its train bench and profiler).
+    knobs: iterable of strings or a comma-separated string; an unknown
+    knob raises ValueError, and a knob that only sets fields the port does
+    not read (TPU tilings, remat: wave640, wavext, attnpad, pad128,
+    mlprows2, mlprows4, vitrows2, rematconv, noremat) raises
+    NotImplementedError, so an A/B run cannot measure a knob that changes
+    nothing. "perf" starts from perf_train_model_config(); the others
+    replace fields of the config in the order below, so "mqkv" supersedes
+    "pkattn"."""
+    if isinstance(knobs, str):
+        knobs = [k for k in knobs.split(",") if k]
+    knobs = set(knobs)
+    unknown = knobs - set(_KNOBS)
+    if unknown:
+        raise ValueError(f"unknown train knobs {sorted(unknown)}")
+    unread = sorted(k for k in knobs if _UNREAD_FIELDS & {*_KNOBS[k][0], *_KNOBS[k][1]})
+    if unread:
+        raise NotImplementedError(
+            f"train knobs {unread} set only fields triad_tpu_torch does not read (TPU tilings "
+            "and layouts, or HuBERT's remat policy, in the JAX package)")
+    if "perf" in knobs:
+        model_cfg = perf_train_model_config()
+    for knob, (hubert, vit) in _KNOBS.items():
+        if knob in knobs:
+            model_cfg = dataclasses.replace(
+                model_cfg,
+                hubert=dataclasses.replace(model_cfg.hubert, **hubert),
+                vit=dataclasses.replace(model_cfg.vit, **vit),
+            )
+    return model_cfg
+
+
+# configs/default.yaml as a dict (the port reads no YAML): the reference
+# run envelope; every other field keeps its dataclass default.
+DEFAULT_TRAIN_CONFIG: Dict[str, Any] = {
+    "data": {
+        "audio_visual_data_root": None,
+        "text_dataset_path": None,
+        "audio_visual_val_data_root": None,
+        "text_dataset_val_path": None,
+        "tokenizer_vocab": None,
+        "batch_size_av": 22,
+        "batch_size_tv": 22,
+        "audio_num_samples": 160000,
+        "max_text_tokens": 128,
+        "num_workers": 10,
+    },
+    "train": {
+        "num_epochs": 10,
+        "av_focus_epochs": 1,
+        "tv_warmup_epochs": 1,
+        "weighted_joint_epochs": 2,
+        "av_weight_start": 0.8,
+        "av_weight_end": 0.5,
+        "vis_every": 20000,
+        "save_every_steps": 10000,
+        "validation_frequency": 20000,
+        "optim": {
+            "learning_rate": 1.0e-4,
+            "gradient_accumulation_steps": 4,
+            "unfreeze_audio_step": 5000,
+            "unfreeze_text_step": 5000,
+            "unfreeze_vit_step": 5000,
+        },
+    },
+    "loss": {
+        "implementation": "chunked",
+        "matmul_precision": "highest",
+    },
+}
+
+
+def default_train_config() -> Config:
+    """The Config of configs/default.yaml."""
+    return Config.from_dict(DEFAULT_TRAIN_CONFIG)

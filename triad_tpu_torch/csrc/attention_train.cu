@@ -1,19 +1,34 @@
-// Training attention on the packed (B, N, H*64) layout with in-kernel
-// attention dropout: a forward kernel and a recompute backward in two
-// kernels.
+// Training attention with in-kernel attention dropout: a forward kernel
+// and a recompute backward in two kernels, for any layout whose heads are
+// 64 contiguous columns.
 //
-// Replaces triad_tpu/ops/pallas_attention.py:fused_attention_packed
-// (_pk_call :564, pallas_call "fwd" :575 and "bwd" :585), whose
-// per-head bodies are _head_fwd (:157) and _head_bwd (:177).
+// Replaces three TPU kernels of triad_tpu/ops/pallas_attention.py that
+// share the per-head bodies _head_fwd (:157) and _head_bwd (:177) and
+// differ only in addressing (:60-66):
+//   strided (B, H, T, D)   fused_attention (:319): _fwd :269 (pallas_call
+//                          :277), _bwd :294 (:301);
+//   packed (B, N, H*64)    fused_attention_packed: _pk_call :564 (pallas_call
+//                          "fwd" :575, "bwd" :585);
+//   merged (B, N, 3*H*64)  fused_attention_packed_merged (:797): _pkm_call
+//                          :763 ("fwd" :774, "bwd" :784), q|k|v at column
+//                          offsets 0, C, 2C and one merged d(qkv).
+// Here every operand (q, k, v, out; dout, dq, dk, dv) is addressed through
+// its own element strides of batch, head and row (View); a column offset
+// is the operand's base pointer. So the three layouts are three sets of
+// arguments to the same kernels, and the merged backward writes dq, dk
+// and dv into one (B, N, 3C) tensor at offsets 0, C and 2C.
 //
 // Dropout (p > 0, pallas_attention.py:15-21): the keep bit of (query i,
 // key j) in head (b, h) is triad::keep4 under key (seed, b * H + h) at
 // row i, column j, so the forward and both backward kernels, which tile
-// the (N, N) matrix differently, draw the same mask. Forward: D =
-// P * keep / (1 - p) in fp32, rounded to bf16, times V. Backward: dD = dO
-// V^T, dP = dD * keep / (1 - p), di = sum_j dP * P, dS = P (dP - di), dV =
-// D^T dO with the fp32 D. Each draw yields the bits of four adjacent keys,
-// so the loops that apply the mask walk the keys four at a time.
+// the (N, N) matrix differently, draw the same mask, and so do the three
+// layouts: strided, packed and merged agree bit for bit on the same
+// inputs and seed (the TPU kernels cannot promise that,
+// pallas_attention.py:646-653). Forward: D = P * keep / (1 - p) in fp32,
+// rounded to bf16, times V. Backward: dD = dO V^T, dP = dD * keep / (1 -
+// p), di = sum_j dP * P, dS = P (dP - di), dV = D^T dO with the fp32 D.
+// Each draw yields the bits of four adjacent keys, so the loops that apply
+// the mask walk the keys four at a time.
 //
 // Numerics kept from _head_fwd: S = q.k^T accumulated in fp32, times
 // sm_scale, plus a key bias of (1 - mask) * -1e30 (a fully masked row
@@ -37,7 +52,9 @@
 //   forward    one block per (b, h, 64-query tile), the eval kernel's
 //              structure: the tile's whole fp32 score row in shared
 //              memory, so the softmax is the exact two-pass one (512-key
-//              cap).
+//              cap). Those rows leave room for one block per SM, so the
+//              kernel declares a minimum of 1 block: without it ptxas held
+//              it at 72 registers and spilled (13% slower at (64, 499)).
 //   backward 1 ("rows") one block per (b, h, 32-query tile): full S and
 //              dP rows in shared memory give the row max, sum and di,
 //              then dS and dQ over all keys; writes dQ and the row stats.
@@ -74,6 +91,19 @@ constexpr int CQ = 64;         // backward columns: query rows per step
 constexpr int MAX_SMEM = 232448;
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Element strides of one operand seen as (B, H, N, 64): batch, head, row.
+struct View {
+  long long b, h, r;
+};
+
+// The views of every operand: q, k, v, o (the output in the forward, its
+// gradient dout in the backward), dq, dk, dv.
+struct Views {
+  View q, k, v, o, dq, dk, dv;
+};
+
+__device__ inline long long at(const View& s, int b, int hh) { return b * s.b + hh * s.h; }
 
 // Rows [r0, r0 + rows) of one head's 64 columns -> shared memory with
 // row stride LDT; rows >= n are zero-filled.
@@ -113,10 +143,10 @@ __host__ inline size_t fwd_smem(int nk_pad) {
          + sizeof(float) * (size_t)nk_pad;              // sBias
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 attention_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const float* __restrict__ mask,
-                           bf16* __restrict__ out, int n, int h, float sm_scale,
+                           bf16* __restrict__ out, Views vw, int n, int h, float sm_scale,
                            triad::Dropout dp) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int nk_pad = round_up(n, KC);
@@ -129,17 +159,18 @@ attention_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 
   const int q0 = blockIdx.x * FQ, hh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long rs = (long long)h * D;
-  const long long off = (long long)b * n * rs + hh * D;
 
-  load_rows(sQ, q + off, rs, q0, FQ, n, tid);
+  const bf16* __restrict__ kb = k + at(vw.k, b, hh);
+  const bf16* __restrict__ vb = v + at(vw.v, b, hh);
+  const int kr = (int)vw.k.r, vr = (int)vw.v.r;  // row strides < 2^31 (checked by the wrapper)
+  load_rows(sQ, q + at(vw.q, b, hh), vw.q.r, q0, FQ, n, tid);
   for (int j = tid; j < nk_pad; j += THREADS) sBias[j] = key_bias(mask, b, n, j);
 
   // Pass 1: S = Q K^T, one 64-key chunk at a time; warp w owns rows 16w.
   FragA qa[D / 16];
   for (int kc = 0; kc < nk_pad; kc += KC) {
     __syncthreads();
-    load_rows(sKV, k + off, rs, kc, KC, n, tid);
+    load_rows(sKV, kb, kr, kc, KC, n, tid);
     __syncthreads();
     if (kc == 0)
       for (int kk = 0; kk < D / 16; ++kk)
@@ -197,7 +228,7 @@ attention_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   for (int t = 0; t < D / 16; ++t) wmma::fill_fragment(o[t], 0.0f);
   for (int kc = 0; kc < nk_pad; kc += KC) {
     __syncthreads();
-    load_rows(sKV, v + off, rs, kc, KC, n, tid);
+    load_rows(sKV, vb, vr, kc, KC, n, tid);
     __syncthreads();
     for (int kk = 0; kk < KC / 16; ++kk) {
       FragA pa;
@@ -217,8 +248,8 @@ attention_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     if (q0 + r >= n) break;
     const float* orow = sS + r * ldS;
     const int c = lane * 2;
-    *reinterpret_cast<__nv_bfloat162*>(out + off + (long long)(q0 + r) * rs + c) =
-        __floats2bfloat162_rn(orow[c], orow[c + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(out + at(vw.o, b, hh) + (long long)(q0 + r) * vw.o.r +
+                                       c) = __floats2bfloat162_rn(orow[c], orow[c + 1]);
   }
 }
 
@@ -234,8 +265,8 @@ attention_train_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restri
                                 const bf16* __restrict__ v, const float* __restrict__ mask,
                                 const bf16* __restrict__ dout, bf16* __restrict__ dq,
                                 float* __restrict__ row_max, float* __restrict__ row_sum,
-                                float* __restrict__ row_di, int n, int h, float sm_scale,
-                                triad::Dropout dp) {
+                                float* __restrict__ row_di, Views vw, int n, int h,
+                                float sm_scale, triad::Dropout dp) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int nk_pad = round_up(n, KC);
   const int ldS = nk_pad + 4;
@@ -251,12 +282,12 @@ attention_train_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restri
 
   const int q0 = blockIdx.x * RQ, hh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long rs = (long long)h * D;
-  const long long off = (long long)b * n * rs + hh * D;
   const long long stat = ((long long)b * h + hh) * n;
+  const bf16* kb = k + at(vw.k, b, hh);
+  const bf16* vb = v + at(vw.v, b, hh);
 
-  load_rows(sQ, q + off, rs, q0, RQ, n, tid);
-  load_rows(sDO, dout + off, rs, q0, RQ, n, tid);
+  load_rows(sQ, q + at(vw.q, b, hh), vw.q.r, q0, RQ, n, tid);
+  load_rows(sDO, dout + at(vw.o, b, hh), vw.o.r, q0, RQ, n, tid);
   for (int j = tid; j < nk_pad; j += THREADS) sBias[j] = key_bias(mask, b, n, j);
 
   // S = Q K^T and dP = dO V^T over all keys. The 32 x 64 output of a
@@ -266,8 +297,8 @@ attention_train_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restri
   FragA qa[D / 16], da[D / 16];
   for (int kc = 0; kc < nk_pad; kc += KC) {
     __syncthreads();
-    load_rows(sK, k + off, rs, kc, KC, n, tid);
-    load_rows(sV, v + off, rs, kc, KC, n, tid);
+    load_rows(sK, kb, vw.k.r, kc, KC, n, tid);
+    load_rows(sV, vb, vw.v.r, kc, KC, n, tid);
     __syncthreads();
     if (kc == 0)
       for (int kk = 0; kk < D / 16; ++kk) {
@@ -348,7 +379,7 @@ attention_train_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restri
   wmma::fill_fragment(dqa[1], 0.0f);
   for (int kc = 0; kc < nk_pad; kc += KC) {
     __syncthreads();
-    load_rows(sK, k + off, rs, kc, KC, n, tid);
+    load_rows(sK, kb, vw.k.r, kc, KC, n, tid);
     for (int i = tid; i < RQ * KC; i += THREADS) {
       const int r = i / KC, c = i % KC;
       triad::split_bf16(sDP[r * ldS + kc + c], sHi + r * LDT + c, sLo + r * LDT + c);
@@ -373,7 +404,8 @@ attention_train_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restri
   for (int i = tid; i < RQ * (D / 2); i += THREADS) {
     const int r = i / (D / 2), c = (i % (D / 2)) * 2;
     if (q0 + r >= n) continue;
-    *reinterpret_cast<__nv_bfloat162*>(dq + off + (long long)(q0 + r) * rs + c) =
+    *reinterpret_cast<__nv_bfloat162*>(dq + at(vw.dq, b, hh) + (long long)(q0 + r) * vw.dq.r +
+                                       c) =
         __floats2bfloat162_rn(sS[r * ldS + c] * sm_scale, sS[r * ldS + c + 1] * sm_scale);
   }
 }
@@ -389,7 +421,7 @@ attention_train_bwd_cols_kernel(const bf16* __restrict__ q, const bf16* __restri
                                 const bf16* __restrict__ dout, const float* __restrict__ row_max,
                                 const float* __restrict__ row_sum,
                                 const float* __restrict__ row_di, bf16* __restrict__ dk,
-                                bf16* __restrict__ dv, int n, int h, float sm_scale,
+                                bf16* __restrict__ dv, Views vw, int n, int h, float sm_scale,
                                 triad::Dropout dp) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
@@ -409,12 +441,12 @@ attention_train_bwd_cols_kernel(const bf16* __restrict__ q, const bf16* __restri
 
   const int k0 = blockIdx.x * CK, hh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long rs = (long long)h * D;
-  const long long off = (long long)b * n * rs + hh * D;
   const long long stat = ((long long)b * h + hh) * n;
+  const bf16* qb = q + at(vw.q, b, hh);
+  const bf16* dob = dout + at(vw.o, b, hh);
 
-  load_rows(sK, k + off, rs, k0, CK, n, tid);
-  load_rows(sV, v + off, rs, k0, CK, n, tid);
+  load_rows(sK, k + at(vw.k, b, hh), vw.k.r, k0, CK, n, tid);
+  load_rows(sV, v + at(vw.v, b, hh), vw.v.r, k0, CK, n, tid);
   for (int j = tid; j < CK; j += THREADS) sBias[j] = key_bias(mask, b, n, k0 + j);
 
   // Warp w accumulates dK and dV for keys 16w..16w+15 of the tile.
@@ -425,8 +457,8 @@ attention_train_bwd_cols_kernel(const bf16* __restrict__ q, const bf16* __restri
   }
   for (int qt = 0; qt < n; qt += CQ) {
     __syncthreads();
-    load_rows(sQ, q + off, rs, qt, CQ, n, tid);
-    load_rows(sDO, dout + off, rs, qt, CQ, n, tid);
+    load_rows(sQ, qb, vw.q.r, qt, CQ, n, tid);
+    load_rows(sDO, dob, vw.o.r, qt, CQ, n, tid);
     for (int i = tid; i < CQ; i += THREADS) {
       const bool ok = qt + i < n;
       sM[i] = ok ? row_max[stat + qt + i] : 0.0f;
@@ -522,11 +554,12 @@ attention_train_bwd_cols_kernel(const bf16* __restrict__ q, const bf16* __restri
   for (int i = tid; i < CK * (D / 2); i += THREADS) {
     const int r = i / (D / 2), c = (i % (D / 2)) * 2;
     if (k0 + r >= n) continue;
-    const long long o = off + (long long)(k0 + r) * rs + c;
-    *reinterpret_cast<__nv_bfloat162*>(dk + o) =
+    *reinterpret_cast<__nv_bfloat162*>(dk + at(vw.dk, b, hh) + (long long)(k0 + r) * vw.dk.r +
+                                       c) =
         __floats2bfloat162_rn(sS[r * LDF + c] * sm_scale, sS[r * LDF + c + 1] * sm_scale);
-    *reinterpret_cast<__nv_bfloat162*>(dv + o) =
-        __floats2bfloat162_rn(sDP[r * LDF + c], sDP[r * LDF + c + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(dv + at(vw.dv, b, hh) + (long long)(k0 + r) * vw.dv.r +
+                                       c) = __floats2bfloat162_rn(sDP[r * LDF + c],
+                                                                  sDP[r * LDF + c + 1]);
   }
 }
 
@@ -537,45 +570,60 @@ int prepare(K kernel, size_t smem) {
                                    MAX_SMEM);
 }
 
+// The views of `count` operands from their element strides, three per
+// operand in the order of Views (q, k, v, o, dq, dk, dv).
+Views views_of(const long long* strides, int count) {
+  View s[7] = {};
+  for (int i = 0; i < count; ++i)
+    s[i] = View{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  return Views{s[0], s[1], s[2], s[3], s[4], s[5], s[6]};
+}
+
 }  // namespace
 
-// q, k, v, out: contiguous bf16 (B, N, H*64); mask: (B, N) fp32 key mask
-// (1 = attend); dropout: keep iff bits >= thresh, kept values times
-// keep_scale, none when active == 0. Returns a cudaError_t.
+// q, k, v, out: bf16 operands seen as (B, H, N, 64) with unit column
+// stride; strides: their (batch, head, row) element strides, 3 x 4 in the
+// order q, k, v, out (every stride a multiple of 8 and every base pointer
+// 16-byte aligned); mask: (B, N) contiguous fp32 key mask (1 = attend);
+// dropout: keep iff bits >= thresh, kept values times keep_scale, none
+// when active == 0. Returns a cudaError_t.
 extern "C" int triad_attention_train_fwd(const void* q, const void* k, const void* v,
-                                         const void* mask, void* out, int b, int h, int n,
-                                         float sm_scale, unsigned seed, unsigned thresh,
-                                         float keep_scale, int active, void* stream) {
+                                         const void* mask, void* out, const long long* strides,
+                                         int b, int h, int n, float sm_scale, unsigned seed,
+                                         unsigned thresh, float keep_scale, int active,
+                                         void* stream) {
   if (b <= 0 || h <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = fwd_smem(round_up(n, KC));
   int err = prepare(attention_train_fwd_kernel, smem);
   if (err) return err;
   attention_train_fwd_kernel<<<dim3((n + FQ - 1) / FQ, h, b), THREADS, smem,
                                (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (bf16*)out, n, h,
-      sm_scale, triad::Dropout{seed, thresh, keep_scale, active});
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (bf16*)out,
+      views_of(strides, 4), n, h, sm_scale, triad::Dropout{seed, thresh, keep_scale, active});
   return (int)cudaGetLastError();
 }
 
-// Adds dout (the output gradient, same layout) and writes dq, dk, dv (same
-// layout) and the (B, H, N) fp32 row stats scratch (max, sum, di) that
+// Adds dout (the output gradient) and writes dq, dk, dv, all addressed like
+// the forward's operands (strides: 3 x 7 in the order q, k, v, dout, dq,
+// dk, dv), and the (B, H, N) fp32 row stats scratch (max, sum, di) that
 // the second kernel reads; the dropout arguments are the forward's.
 // Returns a cudaError_t.
 extern "C" int triad_attention_train_bwd(const void* q, const void* k, const void* v,
                                          const void* mask, const void* dout, void* dq,
                                          void* dk, void* dv, void* row_max, void* row_sum,
-                                         void* row_di, int b, int h, int n, float sm_scale,
-                                         unsigned seed, unsigned thresh, float keep_scale,
-                                         int active, void* stream) {
+                                         void* row_di, const long long* strides, int b, int h,
+                                         int n, float sm_scale, unsigned seed, unsigned thresh,
+                                         float keep_scale, int active, void* stream) {
   if (b <= 0 || h <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const triad::Dropout dp{seed, thresh, keep_scale, active};
+  const Views vw = views_of(strides, 7);
   const size_t smem = rows_smem(round_up(n, KC));
   int err = prepare(attention_train_bwd_rows_kernel, smem);
   if (err) return err;
   attention_train_bwd_rows_kernel<<<dim3((n + RQ - 1) / RQ, h, b), THREADS, smem, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (const bf16*)dout,
-      (bf16*)dq, (float*)row_max, (float*)row_sum, (float*)row_di, n, h, sm_scale, dp);
+      (bf16*)dq, (float*)row_max, (float*)row_sum, (float*)row_di, vw, n, h, sm_scale, dp);
   err = (int)cudaGetLastError();
   if (err) return err;
   err = prepare(attention_train_bwd_cols_kernel, COLS_SMEM);
@@ -583,7 +631,7 @@ extern "C" int triad_attention_train_bwd(const void* q, const void* k, const voi
   attention_train_bwd_cols_kernel<<<dim3((n + CK - 1) / CK, h, b), THREADS, COLS_SMEM, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (const bf16*)dout,
       (const float*)row_max, (const float*)row_sum, (const float*)row_di, (bf16*)dk, (bf16*)dv,
-      n, h, sm_scale, dp);
+      vw, n, h, sm_scale, dp);
   return (int)cudaGetLastError();
 }
 

@@ -3,7 +3,9 @@
 //
 //   frontend_stats_kernel   conv_0 per-(batch, channel) sum and sum of
 //                           squares over every time step, fp32, for the
-//                           GroupNorm. Replaces pallas_frontend.py:
+//                           GroupNorm: one partial per block of 256 steps,
+//                           summed by the caller in a fixed order (no
+//                           atomics, the same sums every run). Replaces pallas_frontend.py:
 //                           conv0_stats (:324; _stats_gram_kernel :268,
 //                           _stats_kernel :246).
 //   frontend_conv0_kernel   conv_0 (bf16 operands, fp32 accumulation),
@@ -82,10 +84,11 @@ frontend_stats_kernel(const float* __restrict__ wave, long long wave_bs,
     q0 = fmaf(y0, y0, q0);
     q1 = fmaf(y1, y1, q1);
   }
-  atomicAdd(sum + b * C + c, s0);
-  atomicAdd(sum + b * C + c + 1, s1);
-  atomicAdd(sumsq + b * C + c, q0);
-  atomicAdd(sumsq + b * C + c + 1, q1);
+  const long long o = ((long long)b * gridDim.x + blockIdx.x) * C + c;
+  sum[o] = s0;
+  sum[o + 1] = s1;
+  sumsq[o] = q0;
+  sumsq[o + 1] = q1;
 }
 
 // ---------------------------------------------------------------- conv_0
@@ -222,8 +225,8 @@ frontend_conv_kernel(const triad::bf16* __restrict__ x, long long x_bs,
 }  // namespace
 
 // wave: (B, >= 5 * (m0 - 1) + 10) fp32 with batch stride wave_bs; w0:
-// (10, 512) fp32; sum, sumsq: (B, 512) fp32, zeroed by the caller (the
-// blocks add into them atomically). Returns a cudaError_t.
+// (10, 512) fp32; sum, sumsq: (B, ceil(m0 / 256), 512) fp32, each block's
+// partial sums over its 256 conv_0 steps. Returns a cudaError_t.
 extern "C" int triad_frontend_stats(const void* wave, long long wave_bs, const void* w0,
                                     void* sum, void* sumsq, int b, int m0, void* stream) {
   if (m0 <= 0 || b <= 0) return (int)cudaErrorInvalidValue;

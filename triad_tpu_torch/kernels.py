@@ -13,7 +13,9 @@ Every C entry point launches on the stream it is given and returns
 ``LAUNCHES`` counts kernel launches per wrapper name. A wrapper adds one
 where it launches its kernel and nowhere else; a wrapper whose entry
 point runs two grids (``attention_train_bwd``: rows, then columns) adds
-one per call. :func:`reset_launches` zeroes the counts, so a caller can
+one per call; so do the strided and merged training attention
+(``attention_train_strided_bwd``, ``attention_train_merged_bwd``).
+:func:`reset_launches` zeroes the counts, so a caller can
 show that a run went through the kernels.
 """
 
@@ -49,21 +51,29 @@ LAUNCHES: Dict[str, int] = {
     "frontend_conv": 0,
     "attention_train": 0,
     "attention_train_bwd": 0,
+    "attention_train_strided": 0,
+    "attention_train_strided_bwd": 0,
+    "attention_train_merged": 0,
+    "attention_train_merged_bwd": 0,
     "fused_mlp_bwd": 0,
     "layernorm": 0,
     "layernorm_bwd": 0,
     "posconv": 0,
     "posconv_dx": 0,
     "posconv_dw": 0,
+    "maxmean": 0,
+    "maxmean_dq": 0,
+    "maxmean_dk": 0,
 }
 
 _VP, _I, _LL, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_uint
+_LLP = ctypes.POINTER(ctypes.c_longlong)  # a host array of strides
 _DROP = [_U, _U, _F, _I]  # seed, threshold, keep scale, active (dropout_args)
 _SIGNATURES = {
     "triad_attention_eval": [_VP] * 5 + [_I] * 4 + [_LL] * 9 + [_F, _VP],
     "triad_attention_eval_max_keys": [],
-    "triad_attention_train_fwd": [_VP] * 5 + [_I] * 3 + [_F] + _DROP + [_VP],
-    "triad_attention_train_bwd": [_VP] * 11 + [_I] * 3 + [_F] + _DROP + [_VP],
+    "triad_attention_train_fwd": [_VP] * 5 + [_LLP] + [_I] * 3 + [_F] + _DROP + [_VP],
+    "triad_attention_train_bwd": [_VP] * 11 + [_LLP] + [_I] * 3 + [_F] + _DROP + [_VP],
     "triad_attention_train_max_keys": [],
     "triad_fused_mlp": [_VP] * 6 + [_I] * 5 + _DROP + [_VP],
     "triad_fused_mlp_bwd": [_VP] * 8 + [_I] * 5 + _DROP + [_VP],
@@ -75,6 +85,9 @@ _SIGNATURES = {
     "triad_layernorm_bwd_blocks": [_I],
     "triad_posconv": [_VP] * 4 + [_I] * 7 + [_VP],
     "triad_posconv_dw": [_VP] * 3 + [_I] * 5 + [_VP],
+    "triad_maxmean_fwd": [_VP] * 9 + [_I] * 5 + [_F, _VP],
+    "triad_maxmean_dq": [_VP] * 10 + [_I] * 5 + [_F, _VP],
+    "triad_maxmean_dk": [_VP] * 10 + [_I] * 5 + [_F, _VP],
 }
 
 _lock = threading.Lock()

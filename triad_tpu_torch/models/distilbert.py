@@ -6,15 +6,21 @@ attention scores.
 Training mode is a ``torch.Generator`` passed to ``forward``: it drives
 the embedding, attention-probs and FFN-output dropouts of HF DistilBERT
 (``config.dropout`` / ``config.attention_dropout``). Without one the
-model is deterministic (eval)."""
+model is deterministic (eval). ``attention_impl="fused"`` runs the
+strided training kernel with the key mask and its in-kernel attention
+dropout, whose int32 seeds come from an ``ops.dropout.HostSeeds``, as in
+HuBERT."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
 
 from triad_tpu_torch.config import DistilBertConfig
 from triad_tpu_torch.models.layers import Dense, LayerNorm, Mlp, dot_product_attention, dropout
+from triad_tpu_torch.ops.dropout import HostSeeds
 
 
 class DistilBertAttention(nn.Module):
@@ -28,13 +34,22 @@ class DistilBertAttention(nn.Module):
         self.out_lin = Dense(c.hidden_size, c.hidden_size, **kw)
         self.cfg, self.dtype = cfg, dtype
 
-    def forward(self, x, attn_mask, generator=None):
+    def forward(self, x, attn_mask, generator=None, seeds: Optional[HostSeeds] = None):
         c = self.cfg
         b, n, _ = x.shape
         hd = c.hidden_size // c.num_heads
         q, k, v = (lin(x).reshape(b, n, c.num_heads, hd)
                    for lin in (self.q_lin, self.k_lin, self.v_lin))
         mask = None if attn_mask is None else attn_mask.to(torch.bool)[:, None, None, :]
+        if c.attention_impl == "fused":  # distilbert.py:54-60
+            rate = c.attention_dropout if generator is not None else 0.0
+            if rate > 0.0 and seeds is None:
+                raise ValueError("the fused attention draws its dropout seed on the host: "
+                                 "pass seeds (ops.dropout.HostSeeds)")
+            out = dot_product_attention(q, k, v, mask, self.dtype, impl="fused",
+                                        dropout_rate=rate,
+                                        dropout_seed=seeds.seed() if rate > 0.0 else 0)
+            return self.out_lin(out.reshape(b, n, c.hidden_size))
         probs_dropout = None
         if generator is not None and c.attention_dropout > 0:
             def probs_dropout(p):
@@ -58,8 +73,8 @@ class DistilBertBlock(nn.Module):
         self.output_layer_norm = LayerNorm(c.hidden_size, c.layer_norm_eps, **kw)
         self.cfg = cfg
 
-    def forward(self, x, attn_mask, generator=None):
-        x = self.sa_layer_norm(x + self.attention(x, attn_mask, generator))
+    def forward(self, x, attn_mask, generator=None, seeds: Optional[HostSeeds] = None):
+        x = self.sa_layer_norm(x + self.attention(x, attn_mask, generator, seeds))
         return self.output_layer_norm(x + dropout(self.ffn(x), self.cfg.dropout, generator))
 
 
@@ -79,10 +94,11 @@ class DistilBertModel(nn.Module):
         self.layers = nn.ModuleList(DistilBertBlock(c, **kw) for _ in range(c.num_layers))
         self.cfg, self.dtype = cfg, dtype
 
-    def forward(self, input_ids, attention_mask=None, generator=None):
+    def forward(self, input_ids, attention_mask=None, generator=None,
+                seeds: Optional[HostSeeds] = None):
         n = input_ids.shape[1]
         x = self.word_embeddings[input_ids.long()] + self.position_embeddings[None, :n]
         x = dropout(self.emb_layer_norm(x.to(self.dtype)), self.cfg.dropout, generator)
         for layer in self.layers:
-            x = layer(x, attention_mask, generator)
+            x = layer(x, attention_mask, generator, seeds)
         return x

@@ -11,8 +11,11 @@
 (``ops/frontend.py``, with a recompute backward); ``"conv"`` runs plain
 convolutions in the compute dtype with exact GELU. ``posconv_impl=
 "pallas"`` runs the positional conv kernels (``ops/posconv.py``).
-Attention: ``"packed"`` the packed eval kernel, ``"fused_packed"`` the
-packed training kernel with in-kernel attention dropout.
+Attention: ``"packed"`` the packed eval kernel; ``"fused"`` (strided) and
+``"fused_packed"`` the training kernels with in-kernel attention dropout;
+``"packed_merged"`` / ``"fused_packed_merged"`` one (C, 3C) product of the
+concatenated q/k/v weights feeding the merged kernels (eval kernel at
+eval, training kernel in training).
 
 Training mode takes a ``torch.Generator`` (SpecAugment and the plain
 dropouts) and an ``ops.dropout.HostSeeds`` (the int32 seed of each kernel
@@ -21,10 +24,9 @@ the JAX ones with "on a CUDA tensor" for "on a TPU backend":
 ``mlp_impl`` takes the fused MLP kernel on a CUDA tensor; ``ln_impl``
 takes the fused dropout + add + LayerNorm kernel while training with
 live hidden dropout on a CUDA tensor; ``attention_impl`` takes the
-strided training kernel ("fused", not ported: it raises) while training
-with live attention dropout on a CUDA tensor. Elsewhere they run plain
-ops. An explicit kernel impl takes the kernel route everywhere (its
-plain twin on the CPU). Layerdrop skips a dropped layer's compute (JAX
+strided training kernel ("fused") while training with live attention
+dropout on a CUDA tensor. Elsewhere they run plain ops. An explicit
+kernel impl takes the kernel route everywhere (its plain twin on the CPU). Layerdrop skips a dropped layer's compute (JAX
 computes and discards it): its parameters get no gradient, which the
 optimizer bank treats as zero, as the JAX step's gradient is.
 """
@@ -44,10 +46,11 @@ from triad_tpu_torch.models.layers import (
     LayerNorm,
     dot_product_attention,
     dropout,
+    merged_attention,
     mlp_forward,
     not_ported,
 )
-from triad_tpu_torch.ops.attention import HEAD_DIM, attention_eval_merged
+from triad_tpu_torch.ops.attention import HEAD_DIM
 from triad_tpu_torch.ops.dropout import HostSeeds
 from triad_tpu_torch.ops.frontend import frontend_vjp
 from triad_tpu_torch.ops.layernorm import fused_dropout_add_ln
@@ -79,10 +82,15 @@ class ConvFeatureEncoder(nn.Module):
     def __init__(self, cfg: HubertConfig, dtype, param_dtype, device=None):
         super().__init__()
         c = cfg
-        if c.frontend_impl in ("pallas", "conv_act"):
-            raise not_ported(f"frontend_impl {c.frontend_impl!r}", "Queue 2 item 6")
+        if c.frontend_impl == "pallas":
+            raise not_ported("frontend_impl 'pallas'",
+                             "the TPU kernel pallas_conv.fused_frontend_conv")
+        if c.frontend_impl == "conv_act":
+            raise not_ported("frontend_impl 'conv_act'",
+                             "the TPU kernel pallas_conv.pallas_activation")
         if c.frontend_impl not in ("conv", "monolithic"):
-            raise not_ported(f"frontend_impl {c.frontend_impl!r}", "Queue 1 item 3")
+            raise not_ported(f"frontend_impl {c.frontend_impl!r}",
+                             "an XLA lowering of the conv frontend (models/hubert.py)")
         if c.frontend_impl == "monolithic" and c.conv_bias:
             raise ValueError("monolithic frontend: no conv bias")
         dims = (1,) + tuple(c.conv_dim)
@@ -153,9 +161,14 @@ class HubertSelfAttention(nn.Module):
         self.v_proj = Dense(c.hidden_size, c.hidden_size, **kw)
         self.out_proj = Dense(c.hidden_size, c.hidden_size, **kw)
         impl = c.attention_impl
-        if impl in ("packed_pair", "packed_merged_pair"):
-            raise not_ported(f"HuBERT attention_impl {impl!r}", "Queue 2 item 6")
-        if impl == "packed_merged" and c.hidden_size // c.num_heads != HEAD_DIM:
+        if impl == "packed_pair":
+            raise not_ported("HuBERT attention_impl 'packed_pair'",
+                             "the TPU kernel pallas_attention.fused_attention_eval_pair")
+        if impl == "packed_merged_pair":
+            raise not_ported("HuBERT attention_impl 'packed_merged_pair'",
+                             "the TPU kernel pallas_attention.fused_attention_eval_merged_pair")
+        if impl in ("packed_merged", "fused_packed_merged") \
+                and c.hidden_size // c.num_heads != HEAD_DIM:
             raise ValueError(f"merged attention kernels require head_dim {HEAD_DIM}")
         self.cfg, self.dtype = cfg, dtype
 
@@ -164,15 +177,16 @@ class HubertSelfAttention(nn.Module):
         c, d = self.cfg, self.dtype
         b, n, _ = x.shape
         impl = c.attention_impl
-        rate = c.attention_dropout if generator is not None else 0.0
-        if impl == "packed_merged":
-            if generator is not None:  # JAX trains it with the merged training kernel
-                raise not_ported("HuBERT attention_impl 'packed_merged' in training",
-                                 "Queue 2 item 1")
+        train = generator is not None
+        rate = c.attention_dropout if train else 0.0
+        if impl in ("packed_merged", "fused_packed_merged"):
+            # One (C, 3C) product (hubert.py:596-619); gradients reach
+            # q_proj, k_proj and v_proj through the concatenation.
             w = torch.cat([self.q_proj.weight, self.k_proj.weight, self.v_proj.weight])
             bias = torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias])
             qkv = F.linear(x.to(d), w.to(d), bias.to(d))
-            return self.out_proj(attention_eval_merged(qkv))
+            seed = seeds.seed() if rate > 0.0 else 0
+            return self.out_proj(merged_attention(qkv, d, train, rate, seed))
         on_cuda = x.device.type == "cuda"
         if impl == "auto" or (impl == "packed" and rate > 0.0):
             impl = "fused" if rate > 0.0 and on_cuda else "xla"

@@ -15,14 +15,24 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from triad_tpu_torch.ops.attention import attention_eval, attention_train, masked_attention
+from triad_tpu_torch.ops.attention import (
+    attention_eval,
+    attention_eval_merged,
+    attention_train,
+    attention_train_merged,
+    attention_train_strided,
+    masked_attention,
+)
 from triad_tpu_torch.ops.mlp import FusedMlp, gelu
 
 
-def not_ported(option: str, roadmap_item: str):
-    """An impl value this slice does not port: raise, never fall back."""
+def not_ported(option: str, reference: str):
+    """An impl value the port does not run: raise, never fall back.
+    ``reference`` names what the option runs in the JAX package (a TPU
+    kernel's function, or an XLA lowering); ROADMAP.md lists what is left."""
     return NotImplementedError(
-        f"{option} is not ported to triad_tpu_torch yet (ROADMAP.md {roadmap_item})"
+        f"{option} is not ported to triad_tpu_torch: it runs {reference} in the JAX "
+        f"package (see ROADMAP.md)"
     )
 
 
@@ -163,46 +173,63 @@ class ProjectionHead(nn.Module):
 def dot_product_attention(q, k, v, mask: Optional[torch.Tensor], dtype,
                           scores_dtype=torch.float32, impl: str = "xla",
                           probs_dropout=None, dropout_rate: float = 0.0, dropout_seed: int = 0):
-    """Attention dispatch of layers.py:148-211 and 385-450.
+    """Attention dispatch of layers.py:99-211 and 385-450.
 
     q, k, v: (B, N, H, Dh); mask: optional (B, 1, 1, Nk) bool. impl
     "xla": plain masked softmax, with ``probs_dropout`` (a function of
     the probs) when given; "packed": the packed eval kernel on the
-    (B, N, H*Dh) layout; "fused_packed": the packed training kernel
-    (differentiable, ragged N, so ``attention_pad`` stays ignored) with
-    its in-kernel dropout at ``dropout_rate`` from the int32
+    (B, N, H*Dh) layout; "fused" (fused_attention, on the (B, H, N, Dh)
+    views) and "fused_packed" (fused_attention_packed): the training
+    kernels (differentiable, ragged N, so ``attention_pad`` stays ignored)
+    with their in-kernel dropout at ``dropout_rate`` from the int32
     ``dropout_seed``. A plain ``probs_dropout`` runs on "xla" only: every
-    other impl given one raises."""
+    other impl given one raises. The merged impls take one qkv tensor:
+    see merged_attention."""
     if impl == "xla":
         return masked_attention(q, k, v, mask, dtype, scores_dtype, probs_dropout)
     if probs_dropout is not None:
         raise not_ported(f"attention impl {impl!r} with a plain attention dropout",
-                         "Queue 2 item 1")
+                         "the kernels' own dropout (dropout_rate, dropout_seed)")
+    b, n, h, d = q.shape
+    key_mask = None if mask is None else mask.reshape(b, n)
+    if impl in ("fused", "fused_packed", "packed") and d != 64:
+        raise ValueError(f"the attention kernels need head_dim 64, got {d}")
+    if impl == "fused":
+        out = attention_train_strided(
+            *(x.to(dtype).transpose(1, 2) for x in (q, k, v)), key_mask, dropout_seed,
+            dropout_rate, 1.0 / d ** 0.5,
+        )
+        return out.transpose(1, 2)
     if impl == "fused_packed":
-        b, n, h, d = q.shape
-        if d != 64:
-            raise ValueError(f"the packed training kernel needs head_dim 64, got {d}")
-        key_mask = None if mask is None else mask.reshape(b, n)
         out = attention_train(
             *(x.reshape(b, n, h * d).to(dtype) for x in (q, k, v)), key_mask, dropout_seed,
             dropout_rate, 1.0 / d ** 0.5,
         )
         return out.reshape(b, n, h, d)
     if impl == "packed":
-        b, n, h, d = q.shape
-        if d != 64:
-            raise ValueError(f"the packed eval kernel needs head_dim 64, got {d}")
-        key_mask = None if mask is None else mask.reshape(b, n)
         out = attention_eval(
             *(x.reshape(b, n, h * d).to(dtype) for x in (q, k, v)), key_mask,
             1.0 / d ** 0.5,
         )
         return out.reshape(b, n, h, d)
     if impl == "flash":
-        raise not_ported("attention impl 'flash' (JAX's library flash kernel)",
-                         "Queue 2 item 1")
+        raise not_ported("attention impl 'flash'",
+                         "JAX's library flash-attention kernel (not one of this repo's)")
     if impl == "packed_pair":
-        raise not_ported("attention impl 'packed_pair'", "Queue 2 item 6")
-    if impl in ("fused", "fused_packed_merged"):
-        raise not_ported(f"attention impl {impl!r} (training kernel)", "Queue 2 item 1")
-    raise ValueError(f"unknown attention impl {impl!r}")
+        raise not_ported("attention impl 'packed_pair'",
+                         "the TPU kernel pallas_attention.fused_attention_eval_pair")
+    raise ValueError(f"unknown attention impl {impl!r} (the merged impls take one qkv "
+                     f"tensor: merged_attention)")
+
+
+def merged_attention(qkv, dtype, train: bool, dropout_rate: float = 0.0,
+                     dropout_seed: int = 0):
+    """merged_packed_dot_product_attention (layers.py:286-382) with ragged N
+    and no key mask: qkv (B, N, 3*H*64) -> (B, N, H*64). ``train``: the
+    differentiable merged training kernel with its in-kernel dropout (the
+    JAX ``differentiable`` flag, so a dropout-free caller still gets
+    d(qkv)); else the merged eval kernel."""
+    qkv = qkv.to(dtype)
+    if train:
+        return attention_train_merged(qkv, None, dropout_seed, dropout_rate)
+    return attention_eval_merged(qkv)

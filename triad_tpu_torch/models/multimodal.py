@@ -7,8 +7,9 @@ factors take gradients).
 
 Training mode (``train=True``) takes a ``torch.Generator`` for its random
 draws: patch dropout on the visual tokens, DistilBERT's dropouts and
-HuBERT's plain dropouts and SpecAugment; HuBERT also takes an
-``ops.dropout.HostSeeds`` for its kernel seeds and layerdrop."""
+HuBERT's plain dropouts and SpecAugment; HuBERT (and DistilBERT's fused
+attention) also take an ``ops.dropout.HostSeeds`` for their kernel seeds
+and HuBERT's layerdrop."""
 
 from __future__ import annotations
 
@@ -73,11 +74,14 @@ class TriadModel(nn.Module):
         return self.audio_projection(self.audio_backbone(audio, gen, seeds if train else None))
 
     def encode_text(self, token_ids, attention_mask, train: bool = False,
-                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None,
+                    seeds: Optional[HostSeeds] = None) -> torch.Tensor:
         """token_ids, attention_mask (B, Nt) -> (B, Nt, D); training runs
-        DistilBERT's dropouts from ``generator``."""
+        DistilBERT's dropouts from ``generator`` (and the fused attention's
+        from ``seeds``)."""
         gen = _needs(generator) if train else None
-        return self.text_projection(self.text_backbone(token_ids, attention_mask, gen))
+        return self.text_projection(self.text_backbone(token_ids, attention_mask, gen,
+                                                       seeds if train else None))
 
     def forward(self, images, audio, token_ids, attention_mask) -> Dict[str, torch.Tensor]:
         return {

@@ -6,9 +6,12 @@
 
 LoRA sits on the fused qkv projection and the output projection (folded
 into the weight by default). ``attention_impl="packed_merged"`` feeds the
-(B, N, 3C) qkv projection straight into the merged eval kernel;
-``"fused_packed"`` runs the differentiable training kernel (DINOv2 has no
-dropout, so it is the same at eval and in training). Images are NHWC, as
+(B, N, 3C) qkv projection straight into the merged eval kernel (no
+gradient, as in the JAX package); ``"fused_packed_merged"`` feeds it into
+the differentiable merged training kernel; ``"fused"`` (strided) and
+``"fused_packed"`` run the differentiable training kernels on the split
+q, k, v. DINOv2 has no attention dropout, so the training kernels run at
+p = 0, the same at eval and in training. Images are NHWC, as
 in the JAX package.
 """
 
@@ -24,9 +27,10 @@ from triad_tpu_torch.models.layers import (
     LoRALinear,
     Mlp,
     dot_product_attention,
+    merged_attention,
     not_ported,
 )
-from triad_tpu_torch.ops.attention import HEAD_DIM, attention_eval_merged
+from triad_tpu_torch.ops.attention import HEAD_DIM
 
 
 class LayerScale(nn.Module):
@@ -51,11 +55,11 @@ class ViTAttention(nn.Module):
         self.qkv = LoRALinear(c.hidden_size, 3 * c.hidden_size, bias=c.qkv_bias, **kw)
         self.proj = LoRALinear(c.hidden_size, c.hidden_size, **kw)
         impl = c.attention_impl
-        if impl in ("fused", "fused_packed_merged"):
-            raise not_ported(f"ViT attention_impl {impl!r} (training kernel)", "Queue 2 item 1")
         if impl == "packed_merged_pair":
-            raise not_ported("ViT attention_impl 'packed_merged_pair'", "Queue 2 item 6")
-        if impl == "packed_merged" and c.hidden_size // c.num_heads != HEAD_DIM:
+            raise not_ported("ViT attention_impl 'packed_merged_pair'",
+                             "the TPU kernel pallas_attention.fused_attention_eval_merged_pair")
+        if impl in ("packed_merged", "fused_packed_merged") \
+                and c.hidden_size // c.num_heads != HEAD_DIM:
             raise ValueError(f"merged attention kernels require head_dim {HEAD_DIM}")
         self.cfg, self.dtype = cfg, dtype
 
@@ -63,8 +67,9 @@ class ViTAttention(nn.Module):
         c = self.cfg
         b, n, d = x.shape
         qkv = self.qkv(x)
-        if c.attention_impl == "packed_merged":
-            return self.proj(attention_eval_merged(qkv.to(self.dtype)))
+        if c.attention_impl in ("packed_merged", "fused_packed_merged"):
+            train = c.attention_impl == "fused_packed_merged"  # JAX's differentiable flag
+            return self.proj(merged_attention(qkv, self.dtype, train))
         hd = d // c.num_heads
         q, k, v = (t.reshape(b, n, c.num_heads, hd) for t in qkv.split(d, dim=-1))
         out = dot_product_attention(

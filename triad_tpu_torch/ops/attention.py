@@ -1,15 +1,19 @@
-"""Attention: the packed and merged eval kernels, the packed training
-kernels (forward and backward) and the plain masked softmax attention.
+"""Attention: the packed and merged eval kernels, the training kernels
+(forward and backward) on the strided, packed and merged layouts, and the
+plain masked softmax attention.
 
 Mirrors ``triad_tpu/ops/pallas_attention.py`` (``fused_attention_eval``
 and ``fused_attention_eval_merged``, both running ``_head_eval``;
-``fused_attention_packed``, running ``_head_fwd`` / ``_head_bwd``) and
-the XLA branch of ``triad_tpu/models/layers.py:dot_product_attention``.
+``fused_attention``, ``fused_attention_packed`` and
+``fused_attention_packed_merged``, running ``_head_fwd`` / ``_head_bwd``)
+and the XLA branch of ``triad_tpu/models/layers.py:dot_product_attention``.
 
 ``attention_eval`` / ``attention_eval_merged`` launch
-``csrc/attention_eval.cu``, and ``attention_train`` (an autograd
-Function) ``csrc/attention_train.cu``, for a CUDA tensor; a CPU tensor
-runs the plain version (``*_plain``). There is no fallback from one to
+``csrc/attention_eval.cu``, and ``attention_train_strided`` (on (B, H, N,
+64) views; ``attention_train`` passes it the heads of packed projections)
+and ``attention_train_merged`` (one d(qkv) cotangent)
+``csrc/attention_train.cu``, for a CUDA tensor; a CPU tensor runs the
+plain version (``*_plain``, ``heads_train_*plain``). There is no fallback from one to
 the other: a CUDA tensor the kernel does not take raises. The training
 attention's dropout keep mask is ``ops/dropout.py``'s, keyed by (seed,
 b * H + h) at (query, key), in the kernels and the plain versions alike.
@@ -17,6 +21,7 @@ b * H + h) at (query, key), in the kernels and the plain versions alike.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -143,28 +148,37 @@ def masked_attention(q, k, v, mask, dtype, scores_dtype=torch.float32, probs_dro
 
 
 # ---------------------------------------------------------------------------
-# Training attention (pallas_attention.fused_attention_packed)
+# Training attention: one math (_head_fwd / _head_bwd), three layouts
 # ---------------------------------------------------------------------------
+#
+# pallas_attention.py runs the same per-head bodies on three layouts:
+# fused_attention on strided (B, H, T, D) tensors, fused_attention_packed on
+# packed (B, N, H*64) projections and fused_attention_packed_merged on one
+# merged (B, N, 3*H*64) qkv tensor. Here every layout is seen as (B, H, N,
+# 64) views: the plain twins compute on those views, and the kernels of
+# csrc/attention_train.cu take each view's (batch, head, row) strides. The
+# keep mask depends on (seed, b * H + h, query, key) only, so the three
+# layouts give the same outputs on the same inputs and seed.
 
 
-def _train_heads(x, h):
-    b, n, _ = x.shape
-    return x.reshape(b, n, h, HEAD_DIM).transpose(1, 2).to(torch.float32)
+def _heads(x, h):
+    """(B, N, h*64) -> its (B, h, N, 64) view (no copy)."""
+    return x.unflatten(-1, (h, HEAD_DIM)).transpose(1, 2)
+
+
+def _packed(x):
+    """(B, h, N, 64) -> (B, N, h*64)."""
+    b, h, n, d = x.shape
+    return x.transpose(1, 2).reshape(b, n, h * d)
 
 
 def _train_probs(q, k, mask, sm_scale):
     """_head_fwd's fp32 P per head: softmax(q k^T s + (1 - mask) * -1e30)."""
-    h = q.shape[-1] // HEAD_DIM
     bias = (1.0 - mask.to(torch.float32)) * -1e30
-    s = _train_heads(q, h) @ _train_heads(k, h).transpose(-1, -2) * sm_scale
+    s = q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2) * sm_scale
     s = s + bias[:, None, None, :]
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     return e / e.sum(dim=-1, keepdim=True)
-
-
-def _train_packed(x, like):
-    b, h, n, d = x.shape
-    return x.transpose(1, 2).reshape(b, n, h * d).to(like.dtype)
 
 
 def attention_keep(b: int, h: int, nq: int, nk: int, seed: int, p_drop: float, device):
@@ -174,121 +188,293 @@ def attention_keep(b: int, h: int, nq: int, nk: int, seed: int, p_drop: float, d
     return keep.reshape(b, h, nq, nk)
 
 
+def heads_train_plain(q, k, v, mask, sm_scale: float, seed: int = 0,
+                      p_drop: float = 0.0) -> torch.Tensor:
+    """_head_fwd for every head: q (B, H, Nq, 64), k/v (B, H, Nk, 64) of any
+    strides, mask (B, Nk) fp32 -> (B, H, Nq, 64) fp32. fp32 scores and
+    softmax, P normalised in fp32, D = P * keep / (1 - p) in fp32 and then
+    rounded to v's dtype before D.V (fp32 accumulation)."""
+    b, h, nq, _ = q.shape
+    p = _train_probs(q, k, mask, sm_scale)
+    p = dropout.apply_keep(p, attention_keep(b, h, nq, k.shape[2], seed, p_drop, q.device),
+                           p_drop)
+    return p.to(v.dtype).to(torch.float32) @ v.to(torch.float32)
+
+
+def heads_train_bwd_plain(q, k, v, mask, do, sm_scale: float, seed: int = 0,
+                          p_drop: float = 0.0):
+    """_head_bwd for every head, written out in fp32 (not autograd), on
+    (B, H, N, 64) views: dD = dO V^T, dP = dD * keep / (1 - p), D = P *
+    keep / (1 - p), dV = D^T dO, di = rowsum(dP * P), dS = P (dP - di), dQ =
+    dS K s, dK = dS^T Q s. Returns fp32 (dq, dk, dv)."""
+    b, h, nq, _ = q.shape
+    f32 = torch.float32
+    p = _train_probs(q, k, mask, sm_scale)
+    keep = attention_keep(b, h, nq, k.shape[2], seed, p_drop, q.device)
+    dof = do.to(f32)
+    dp = dropout.apply_keep(dof @ v.to(f32).transpose(-1, -2), keep, p_drop)
+    dv = dropout.apply_keep(p, keep, p_drop).transpose(-1, -2) @ dof
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = ds @ k.to(f32) * sm_scale
+    dk = ds.transpose(-1, -2) @ q.to(f32) * sm_scale
+    return dq, dk, dv
+
+
 def attention_train_plain(q, k, v, mask, sm_scale: float, seed: int = 0,
                           p_drop: float = 0.0) -> torch.Tensor:
-    """_head_fwd for every head: q (B, Nq, H*64), k/v (B, Nk, H*64), mask
-    (B, Nk) fp32 -> (B, Nq, H*64) in q's dtype. fp32 scores and softmax,
-    P normalised in fp32, D = P * keep / (1 - p) in fp32 and then rounded
-    to v's dtype before D.V (fp32 accumulation)."""
-    b, nq, hd = q.shape
-    h = hd // HEAD_DIM
-    p = _train_probs(q, k, mask, sm_scale)
-    p = dropout.apply_keep(p, attention_keep(b, h, nq, k.shape[1], seed, p_drop, q.device),
-                           p_drop)
-    o = p.to(v.dtype).to(torch.float32) @ _train_heads(v, h)
-    return _train_packed(o, q)
+    """The packed layout: q (B, Nq, H*64), k/v (B, Nk, H*64), mask (B, Nk)
+    fp32 -> (B, Nq, H*64) in q's dtype (heads_train_plain)."""
+    h = q.shape[-1] // HEAD_DIM
+    o = heads_train_plain(_heads(q, h), _heads(k, h), _heads(v, h), mask, sm_scale, seed,
+                          p_drop)
+    return _packed(o).to(q.dtype)
 
 
 def attention_train_bwd_plain(q, k, v, mask, do, sm_scale: float, seed: int = 0,
                               p_drop: float = 0.0):
-    """_head_bwd for every head, written out in fp32 (not autograd): dD =
-    dO V^T, dP = dD * keep / (1 - p), D = P * keep / (1 - p), dV = D^T dO,
-    di = rowsum(dP * P), dS = P (dP - di), dQ = dS K s, dK = dS^T Q s.
-    Returns (dq, dk, dv) in the dtypes of q, k, v."""
-    b, nq, hd = q.shape
-    h = hd // HEAD_DIM
-    p = _train_probs(q, k, mask, sm_scale)
-    keep = attention_keep(b, h, nq, k.shape[1], seed, p_drop, q.device)
-    dof = _train_heads(do, h)
-    dp = dropout.apply_keep(dof @ _train_heads(v, h).transpose(-1, -2), keep, p_drop)
-    dv = dropout.apply_keep(p, keep, p_drop).transpose(-1, -2) @ dof
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    dq = ds @ _train_heads(k, h) * sm_scale
-    dk = ds.transpose(-1, -2) @ _train_heads(q, h) * sm_scale
-    return _train_packed(dq, q), _train_packed(dk, k), _train_packed(dv, v)
+    """(dq, dk, dv) of the packed layout in the dtypes of q, k, v."""
+    h = q.shape[-1] // HEAD_DIM
+    grads = heads_train_bwd_plain(*(_heads(x, h) for x in (q, k, v)), mask, _heads(do, h),
+                                  sm_scale, seed, p_drop)
+    return tuple(_packed(g).to(x.dtype) for g, x in zip(grads, (q, k, v)))
+
+
+def attention_train_merged_plain(qkv, mask, sm_scale: float, seed: int = 0,
+                                 p_drop: float = 0.0) -> torch.Tensor:
+    """The merged layout (fused_attention_packed_merged): qkv (B, N, 3C)
+    with q|k|v at column offsets 0, C, 2C -> (B, N, C) in qkv's dtype."""
+    return attention_train_plain(*qkv.chunk(3, dim=-1), mask, sm_scale, seed, p_drop)
+
+
+def attention_train_merged_bwd_plain(qkv, mask, do, sm_scale: float, seed: int = 0,
+                                     p_drop: float = 0.0) -> torch.Tensor:
+    """The one merged d(qkv) (B, N, 3C) in qkv's dtype."""
+    grads = attention_train_bwd_plain(*qkv.chunk(3, dim=-1), mask, do, sm_scale, seed, p_drop)
+    return torch.cat(grads, dim=-1)
+
+
+def _addressable(x: torch.Tensor) -> torch.Tensor:
+    """x itself if the kernels can address it (unit column stride, every
+    stride a multiple of 8 elements, a 16-byte aligned base), else a
+    contiguous copy."""
+    if x.stride(-1) == 1 and all(s % 8 == 0 for s in x.stride()[:-1]) \
+            and x.data_ptr() % 16 == 0:
+        return x
+    return x.contiguous()
+
+
+def _strides(*views):
+    """The (batch, head, row) element strides of (B, H, N, 64) views, as
+    the C array the kernels take (a row stride must fit in 32 bits)."""
+    if any(x.stride(2) >= 2 ** 31 for x in views):
+        raise ValueError("attention_train: a row stride of 2^31 elements or more")
+    flat = [s for x in views for s in x.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
 
 
 def _train_launch_args(name, q, k, v, mask):
-    """(b, h, n, mask): the kernel's shape arguments and the key mask as
-    a contiguous (B, N) fp32 tensor on q's device."""
+    """Check (B, H, N, 64) views for the kernels (bf16 on one CUDA device,
+    self-attention shapes, at most the kernel's key count) and return the
+    key mask as a contiguous (B, N) fp32 tensor on q's device."""
     kernels.require_cuda(name, q, k, v, dtype=torch.bfloat16)
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"{name}: the kernel takes self-attention shapes, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    b, n, hd = q.shape
+    if k.shape != q.shape or v.shape != q.shape or q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"{name}: the kernel takes self-attention shapes with heads of "
+                         f"{HEAD_DIM}, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, _, n, _ = q.shape
     max_keys = kernels.library().triad_attention_train_max_keys()
     if n > max_keys:
         raise ValueError(f"{name}: {n} keys > the kernel's {max_keys}")
-    return b, hd // HEAD_DIM, n, _key_mask(mask, b, n, q.device)
+    return _key_mask(mask, b, n, q.device)
+
+
+def _train_fwd_kernel(name, q, k, v, out, mask, sm_scale, seed, p_drop):
+    """csrc/attention_train.cu forward on (B, H, N, 64) views; out written
+    through its own view."""
+    mask = _train_launch_args(name, q, k, v, mask)
+    b, h, n, _ = q.shape
+    kernels.call("attention_train_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 mask.data_ptr(), out.data_ptr(), _strides(q, k, v, out), b, h, n,
+                 float(sm_scale), *kernels.dropout_args(seed, p_drop), kernels.stream_ptr(out))
+    kernels.LAUNCHES[name] += 1
+
+
+def _train_bwd_kernel(name, q, k, v, do, dq, dk, dv, mask, sm_scale, seed, p_drop):
+    """The two backward kernels (rows, then columns) on (B, H, N, 64) views,
+    with a (3, B, H, N) fp32 scratch of row stats; one count per call."""
+    mask = _train_launch_args(name, q, k, v, mask)
+    kernels.require_cuda(name, q, do, dtype=torch.bfloat16)
+    b, h, n, _ = q.shape
+    stats = torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)
+    kernels.call("attention_train_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 mask.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(),
+                 _strides(q, k, v, do, dq, dk, dv), b, h, n, float(sm_scale),
+                 *kernels.dropout_args(seed, p_drop), kernels.stream_ptr(dq))
+    kernels.LAUNCHES[name] += 1
+
+
+def _heads_major(x: torch.Tensor) -> torch.Tensor:
+    """An empty (B, H, N, 64) tensor like x, laid out as (B, N, H, 64)."""
+    b, h, n, d = x.shape
+    return torch.empty((b, n, h, d), dtype=x.dtype, device=x.device).transpose(1, 2)
+
+
+def attention_train_strided_fwd(q, k, v, mask, sm_scale: float, seed: int = 0,
+                                p_drop: float = 0.0,
+                                count: str = "attention_train_strided") -> torch.Tensor:
+    """Forward on (B, H, N, 64) views of any strides the kernels can address
+    (fused_attention's (B, H, T, D) tensors, or the heads of packed (B, N,
+    H*64) projections: no copy): heads_train_plain for a CPU tensor, the
+    kernel for a CUDA one, counted under ``count`` in kernels.LAUNCHES. On
+    the card the output is a (B, H, N, 64) view of (B, N, H, 64) memory,
+    the packed layout, which _packed reshapes with no copy."""
+    if q.device.type == "cpu":
+        return heads_train_plain(q, k, v, mask, sm_scale, seed, p_drop).to(q.dtype)
+    q, k, v = (_addressable(x) for x in (q, k, v))
+    out = _heads_major(q)
+    _train_fwd_kernel(count, q, k, v, out, mask, sm_scale, seed, p_drop)
+    return out
+
+
+def attention_train_strided_bwd(q, k, v, mask, do, sm_scale: float, seed: int = 0,
+                                p_drop: float = 0.0, count: str = "attention_train_strided_bwd"):
+    """(dq, dk, dv) of attention_train_strided_fwd in the dtypes of q, k, v
+    (on the card in the forward output's layout); seed and p_drop are the
+    forward's."""
+    if q.device.type == "cpu":
+        grads = heads_train_bwd_plain(q, k, v, mask, do, sm_scale, seed, p_drop)
+        return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
+    q, k, v, do = (_addressable(x) for x in (q, k, v, do))
+    grads = [_heads_major(x) for x in (q, k, v)]
+    _train_bwd_kernel(count, q, k, v, do, *grads, mask, sm_scale, seed, p_drop)
+    return tuple(grads)
 
 
 def attention_train_fwd(q, k, v, mask, sm_scale: float, seed: int = 0,
                         p_drop: float = 0.0) -> torch.Tensor:
-    """Forward of the training attention: the plain version for a CPU
-    tensor, csrc/attention_train.cu for a CUDA one. mask: (B, Nk) key
+    """Packed forward (fused_attention_packed): q (B, Nq, H*64), k/v (B, Nk,
+    H*64) -> (B, Nq, H*64), through the heads' views. mask: (B, Nk) key
     mask (1 = attend); seed, p_drop: the attention dropout."""
-    if q.device.type == "cpu":
-        return attention_train_plain(q, k, v, mask, sm_scale, seed, p_drop)
-    b, h, n, mask = _train_launch_args("attention_train", q, k, v, mask)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
-    kernels.call("attention_train_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 mask.data_ptr(), out.data_ptr(), b, h, n, float(sm_scale),
-                 *kernels.dropout_args(seed, p_drop), kernels.stream_ptr(out))
-    kernels.LAUNCHES["attention_train"] += 1
-    return out
+    h = q.shape[-1] // HEAD_DIM
+    return _packed(attention_train_strided_fwd(*(_heads(x, h) for x in (q, k, v)), mask,
+                                               sm_scale, seed, p_drop, "attention_train"))
 
 
 def attention_train_bwd(q, k, v, mask, do, sm_scale: float, seed: int = 0,
                         p_drop: float = 0.0):
-    """(dq, dk, dv) of the training attention: the plain version for a
-    CPU tensor, the two backward kernels of csrc/attention_train.cu for
-    a CUDA one (with a (3, B, H, N) fp32 scratch of row stats); seed and
-    p_drop are the forward's. One call adds one to the count and launches
-    both kernels (rows, then columns)."""
-    if q.device.type == "cpu":
-        return attention_train_bwd_plain(q, k, v, mask, do, sm_scale, seed, p_drop)
-    b, h, n, mask = _train_launch_args("attention_train_bwd", q, k, v, mask)
-    kernels.require_cuda("attention_train_bwd", q, do, dtype=torch.bfloat16)
-    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)
-    kernels.call("attention_train_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 mask.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-                 stats[2].data_ptr(), b, h, n, float(sm_scale),
-                 *kernels.dropout_args(seed, p_drop), kernels.stream_ptr(dq))
-    kernels.LAUNCHES["attention_train_bwd"] += 1
-    return dq, dk, dv
+    """(dq, dk, dv) of the packed layout; seed and p_drop are the forward's."""
+    h = q.shape[-1] // HEAD_DIM
+    grads = attention_train_strided_bwd(*(_heads(x, h) for x in (q, k, v)), mask, _heads(do, h),
+                                        sm_scale, seed, p_drop, "attention_train_bwd")
+    return tuple(_packed(g) for g in grads)
+
+
+def attention_train_merged_fwd(qkv, mask, sm_scale: float, seed: int = 0,
+                               p_drop: float = 0.0) -> torch.Tensor:
+    """Merged forward (fused_attention_packed_merged): q, k, v read at
+    column offsets 0, C, 2C of one (B, N, 3C) tensor -> (B, N, C)."""
+    if qkv.device.type == "cpu":
+        return attention_train_merged_plain(qkv, mask, sm_scale, seed, p_drop)
+    qkv = _addressable(qkv)
+    b, n, c3 = qkv.shape
+    out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    h = c3 // 3 // HEAD_DIM
+    _train_fwd_kernel("attention_train_merged",
+                      *(_heads(x, h) for x in (*qkv.chunk(3, dim=-1), out)), mask, sm_scale,
+                      seed, p_drop)
+    return out
+
+
+def attention_train_merged_bwd(qkv, mask, do, sm_scale: float, seed: int = 0,
+                               p_drop: float = 0.0) -> torch.Tensor:
+    """The one merged d(qkv) (B, N, 3C): the backward kernels write dq, dk
+    and dv at column offsets 0, C and 2C of it."""
+    if qkv.device.type == "cpu":
+        return attention_train_merged_bwd_plain(qkv, mask, do, sm_scale, seed, p_drop)
+    qkv, do = _addressable(qkv), _addressable(do)
+    dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+    h = qkv.shape[-1] // 3 // HEAD_DIM
+    views = (*qkv.chunk(3, dim=-1), do, *dqkv.chunk(3, dim=-1))
+    _train_bwd_kernel("attention_train_merged_bwd", *(_heads(x, h) for x in views), mask,
+                      sm_scale, seed, p_drop)
+    return dqkv
 
 
 class AttentionTrain(torch.autograd.Function):
-    """fused_attention_packed's custom VJP: the backward recomputes P from
-    q, k and the mask and replays the dropout mask from the seed (no
-    probabilities or masks are saved)."""
+    """The custom VJP on (B, H, N, 64) views: the backward recomputes P from
+    the inputs and the mask and replays the dropout mask from the seed (no
+    probabilities or masks are saved). apply(q, k, v, mask, sm_scale, seed,
+    p_drop, count): the kernels count under ``count`` and ``count + "_bwd"``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, sm_scale, seed, p_drop):
+    def forward(ctx, q, k, v, mask, sm_scale, seed, p_drop, count):
         ctx.save_for_backward(q, k, v, mask)
-        ctx.args = (sm_scale, seed, p_drop)
-        return attention_train_fwd(q, k, v, mask, sm_scale, seed, p_drop)
+        ctx.args = (sm_scale, seed, p_drop, count)
+        return attention_train_strided_fwd(q, k, v, mask, sm_scale, seed, p_drop, count)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, mask = ctx.saved_tensors
-        dq, dk, dv = attention_train_bwd(q, k, v, mask, do, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        sm_scale, seed, p_drop, count = ctx.args
+        grads = attention_train_strided_bwd(q, k, v, mask, do, sm_scale, seed, p_drop,
+                                            f"{count}_bwd")
+        return (*grads, None, None, None, None, None)
+
+
+class AttentionTrainMerged(torch.autograd.Function):
+    """The merged layout's VJP, whose one cotangent is the (B, N, 3C)
+    d(qkv) the backward kernels fill. apply(qkv, mask, sm_scale, seed,
+    p_drop)."""
+
+    @staticmethod
+    def forward(ctx, qkv, mask, sm_scale, seed, p_drop):
+        ctx.save_for_backward(qkv, mask)
+        ctx.args = (sm_scale, seed, p_drop)
+        return attention_train_merged_fwd(qkv, mask, sm_scale, seed, p_drop)
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, mask = ctx.saved_tensors
+        return (attention_train_merged_bwd(qkv, mask, do, *ctx.args), None, None, None, None)
+
+
+def _scale(sm_scale: Optional[float]) -> float:
+    return 1.0 / math.sqrt(HEAD_DIM) if sm_scale is None else float(sm_scale)
+
+
+def attention_train_strided(q, k, v, mask=None, seed: int = 0, p_drop: float = 0.0,
+                            sm_scale: Optional[float] = None,
+                            count: str = "attention_train_strided") -> torch.Tensor:
+    """Differentiable training attention (fused_attention with ragged T) on
+    (B, H, T, 64) views of any strides, mask (B, T) key mask (1 = attend)
+    -> (B, H, T, 64), with attention dropout at rate ``p_drop`` drawn from
+    the int32 ``seed``; the kernels count under ``count``."""
+    if q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"the training kernels take heads of {HEAD_DIM}, got {q.shape[-1]}")
+    return AttentionTrain.apply(q, k, v, _key_mask(mask, q.shape[0], k.shape[2], q.device),
+                                _scale(sm_scale), int(seed), float(p_drop), count)
 
 
 def attention_train(q, k, v, mask=None, seed: int = 0, p_drop: float = 0.0,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Differentiable packed training attention (fused_attention_packed
-    with ragged N): q (B, Nq, H*64), k/v (B, Nk, H*64), mask (B, Nk) key
-    mask (1 = attend) -> (B, Nq, H*64), with attention dropout at rate
-    ``p_drop`` drawn from the int32 ``seed``."""
-    b, _, hd = q.shape
+    with ragged N): q (B, Nq, H*64), k/v (B, Nk, H*64), mask (B, Nk) ->
+    (B, Nq, H*64): attention_train_strided on the heads' views."""
+    hd = q.shape[-1]
     if hd % HEAD_DIM:
         raise ValueError(f"packed width {hd} not a multiple of {HEAD_DIM}")
-    scale = 1.0 / math.sqrt(HEAD_DIM) if sm_scale is None else sm_scale
-    return AttentionTrain.apply(q, k, v, _key_mask(mask, b, k.shape[1], q.device), scale,
-                                int(seed), float(p_drop))
+    h = hd // HEAD_DIM
+    return _packed(attention_train_strided(*(_heads(x, h) for x in (q, k, v)), mask, seed, p_drop,
+                                           sm_scale, "attention_train"))
+
+
+def attention_train_merged(qkv, mask=None, seed: int = 0, p_drop: float = 0.0,
+                           sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable merged-qkv training attention
+    (fused_attention_packed_merged with ragged N): qkv (B, N, 3*H*64) ->
+    (B, N, H*64), with one d(qkv) cotangent."""
+    b, n, hd3 = qkv.shape
+    if hd3 % (3 * HEAD_DIM):
+        raise ValueError(f"bad merged width {hd3} (not 3*H*{HEAD_DIM})")
+    return AttentionTrainMerged.apply(qkv, _key_mask(mask, b, n, qkv.device), _scale(sm_scale),
+                                      int(seed), float(p_drop))

@@ -39,6 +39,7 @@ KERNELS = (10, 3, 3, 3, 3, 2, 2)
 STRIDES = (5, 2, 2, 2, 2, 2, 2)
 C = 512
 GN_EPS = 1e-5
+STATS_STEPS = 256  # conv_0 steps per block of csrc/frontend.cu's stats kernel (ST_T)
 
 
 def num_tokens(t: int) -> int:
@@ -83,13 +84,16 @@ def conv0_stats(wave, w0) -> Tuple[torch.Tensor, torch.Tensor]:
     m0 = _m0(t)
     wave = wave.to(torch.float32).contiguous()
     w0k = w0.reshape(C, KERNELS[0]).t().to(torch.float32).contiguous()
-    s = torch.zeros((b, C), dtype=torch.float32, device=wave.device)
-    sq = torch.zeros_like(s)
+    # per-block partials, summed here in a fixed order: the same stats
+    # every run (atomics would add them in launch order)
+    parts = torch.empty((2, b, -(-m0 // STATS_STEPS), C), dtype=torch.float32,
+                        device=wave.device)
     kernels.call(
         "frontend_stats", wave.data_ptr(), wave.stride(0), w0k.data_ptr(),
-        s.data_ptr(), sq.data_ptr(), b, m0, kernels.stream_ptr(s),
+        parts[0].data_ptr(), parts[1].data_ptr(), b, m0, kernels.stream_ptr(parts),
     )
     kernels.LAUNCHES["frontend_stats"] += 1
+    s, sq = parts.sum(dim=2)
     mean = s / m0
     return mean, torch.clamp(sq / m0 - mean * mean, min=0.0)
 

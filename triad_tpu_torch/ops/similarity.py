@@ -1,13 +1,16 @@
 """Token similarities (mirrors ``triad_tpu/ops/similarity.py`` and the
 pair scorer of ``triad_tpu/serve/export.py``): the inference-path
 pairwise sims and retrieval scores, and the training path's cross-batch
-max-mean aggregation with its hand-written backward."""
+max-mean aggregation with its hand-written backward (and, for
+``implementation="pallas"``, the max-mean kernels of ``ops/maxmean.py``)."""
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+
+from triad_tpu_torch.ops.maxmean import coefficients, maxmean_aggregate
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -168,7 +171,10 @@ def aggregate_crossbatch(query, key, temperature, *, clamp_min: float, query_mas
     (multiplied); query_mask optional (Bq, Nq) for the TV masked mean.
     implementation "dense" materializes the volume (autograd through
     amax, which splits ties evenly); "chunked" walks key chunks under
-    activation checkpointing; "chunked_vjp" is MaxMeanChunked."""
+    activation checkpointing; "chunked_vjp" is MaxMeanChunked; "pallas"
+    is ops/maxmean.py's MaxMeanKernel (the max-mean kernels on the card,
+    first-argmax routing; Nk and D multiples of 128; volume_dtype float32
+    only)."""
     vdt = _volume_pet(volume_dtype)
     bq, nq, _ = query.shape
     bk, nk = key.shape[0], key.shape[1]
@@ -180,11 +186,7 @@ def aggregate_crossbatch(query, key, temperature, *, clamp_min: float, query_mas
         clamped = ts.clamp(clamp_min, 0.0)
         nonneg = (clamped * clamped).sum()
     elif implementation in ("chunked", "chunked_vjp"):
-        if query_mask is None:
-            coeff = torch.full((bq, nq), 1.0 / nq, dtype=torch.float32, device=q.device)
-        else:
-            m = query_mask.to(torch.float32)
-            coeff = m / m.sum(dim=1, keepdim=True).clamp(min=1e-7)
+        coeff = coefficients(bq, nq, query_mask, q.device)
         if implementation == "chunked_vjp":
             clip, nonneg = MaxMeanChunked.apply(q, k, temperature, coeff, clamp_min,
                                                 chunk_size, vdt)
@@ -198,9 +200,15 @@ def aggregate_crossbatch(query, key, temperature, *, clamp_min: float, query_mas
             clip = torch.cat([p[0] for p in parts], dim=1)
             nonneg = sum(p[1] for p in parts)
     elif implementation == "pallas":
-        raise NotImplementedError(
-            "aggregate implementation 'pallas' (pallas_maxmean) is not ported to "
-            "triad_tpu_torch yet (ROADMAP.md Queue 2 item 5)")
+        # pallas_maxmean.aggregate_pallas: the max-mean kernels on the
+        # features as they come (no precision resolution), the diagonal at
+        # "highest" as diag_token_sims computes it.
+        if volume_dtype != "float32":
+            raise ValueError("volume_dtype is only supported by the XLA implementations "
+                             "(the pallas kernel is retired)")
+        clip, nonneg = maxmean_aggregate(query, key, temperature, clamp_min, query_mask)
+        q, k = _volume_operands(query, key, "highest")
+        compute_diag = compute_diag and bq == bk
     else:
         raise ValueError(f"Unknown implementation {implementation!r}")
     numel = torch.tensor(float(bq * bk * nq * nk), dtype=torch.float32, device=q.device)

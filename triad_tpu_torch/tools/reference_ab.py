@@ -1,0 +1,149 @@
+"""Run-to-run reproducibility of the train steps, and chip_smoke.py's
+B = 4 reference checks on the weights the steps train, for one or more
+checkouts of this repo, on one CUDA card.
+
+    python3 triad_tpu_torch/tools/reference_ab.py TREE:MODE [TREE:MODE ...]
+
+Each TREE:MODE runs in a fresh process that builds TREE's kernels and
+imports TREE/chip_smoke.py (so an older checkout, unpacked with
+``git archive``, runs its own code); a failed check prints "WOULD FAIL"
+and the run goes on. Modes:
+
+  probe    one audio-visual forward + backward of the joint path's model
+           (perf_train_model_config(), seed 1, B = 64, dropouts live) twice
+           on the same weights and batch, with cudnn.deterministic off and
+           on: are the loss and every gradient bit-equal? (and, where the
+           tree has them, the max-mean kernels on real features and the
+           frontend stats twice);
+  joint    phase 8 (the joint steps) then phase 9 (the B = 4 reference on
+           the trained weights), with a digest of the trained weights;
+  knobs    phase 11 then the B = 4 reference on the trained weights and on
+           the seeded weights of seeds 1, 2 and 3;
+  default  phase 10 then its B = 4 reference on the trained weights.
+"""
+
+import hashlib
+import os
+import subprocess
+import sys
+import time
+
+GROUPS = ("others", "audio", "text", "vit_lora")
+
+
+def digest(model):
+    h = hashlib.sha256()
+    for _, p in model.named_parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def probe(cs, torch):
+    from triad_tpu_torch.config import OptimConfig, perf_train_loss_config
+    from triad_tpu_torch.ops.dropout import HostSeeds
+    from triad_tpu_torch.train.step import StepFactory
+
+    ocfg = OptimConfig(gradient_accumulation_steps=1, unfreeze_audio_step=0,
+                       unfreeze_text_step=0, unfreeze_vit_step=0)
+    state = cs._new_state(ocfg, 1)
+    model = state.model
+    state.bank.set_trainable(0)
+    factory = StepFactory(perf_train_loss_config(), ocfg)
+    av = {k: v.cuda() for k, v in cs._av_batch(cs.TRAIN_B, 5).items()}
+
+    def once():
+        for p in model.parameters():
+            p.grad = None
+        gen = torch.Generator(device="cuda").manual_seed(123)
+        total, _ = factory.compute_losses(model, av, None, gen, seeds=HostSeeds(1, 0))
+        total.backward()
+        return total.detach().clone(), {n: p.grad.clone() for n, p in model.named_parameters()
+                                        if p.grad is not None}
+
+    for det in (False, True):
+        torch.backends.cudnn.deterministic = det
+        l1, g1 = once()
+        l2, g2 = once()
+        diff = [n for n in g1 if not torch.equal(g1[n], g2[n])]
+        print(f"PROBE cudnn.deterministic={det}: AV loss {float(l1):.9f} / {float(l2):.9f} equal "
+              f"{torch.equal(l1, l2)}; {len(diff)} of {len(g1)} gradients differ: {diff[:6]}",
+              flush=True)
+    torch.backends.cudnn.deterministic = False
+    if hasattr(cs, "maxmean_real_case"):
+        import numpy as np
+
+        from triad_tpu_torch.ops import frontend as FE
+        from triad_tpu_torch.ops import maxmean as MM
+
+        cs.maxmean_real_case([], MM, 64, 64, 499, 256, 512, -60.0)
+        rng = np.random.default_rng(11)
+        w0 = torch.from_numpy((rng.standard_normal((512, 1, 10)) * 0.45).astype(np.float32))
+        wave = cs.randn((8, cs.AUDIO), 12, dtype=torch.float32)
+        a, b = FE.conv0_stats(wave, w0.cuda()), FE.conv0_stats(wave, w0.cuda())
+        r = FE.conv0_stats_plain(wave, w0.cuda())
+        print("STATS equal across calls", all(torch.equal(x, y) for x, y in zip(a, b)),
+              "err vs plain", [cs.max_err(x, y) for x, y in zip(a, r)], flush=True)
+
+
+def one(root, mode):
+    os.chdir(root)
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs
+
+    cs.fail = lambda msg: print("WOULD FAIL: " + msg, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from triad_tpu_torch import kernels
+
+    kernels.build()
+    kernels.library()
+    print(f"=== {mode} in {root}", flush=True)
+    t0 = time.time()
+    if mode == "probe":
+        probe(cs, torch)
+    elif mode == "joint":
+        model, *_ = cs.joint_phase()
+        print("DIGEST joint", digest(model), flush=True)
+        cs.train_reference_phase(model, GROUPS, cs._av_batch(4, 7), cs._train_batch(4, 8))
+    elif mode == "knobs":
+        from triad_tpu_torch.models.convert import init_triad_model
+
+        model, loss_cfg, *_ = cs.knobs_phase()
+        print("DIGEST knobs", digest(model), flush=True)
+        print("REF trained", flush=True)
+        cs.train_reference_phase(model, GROUPS, cs._av_batch(4, 15), cs._train_batch(4, 16),
+                                 loss_cfg, {})
+        del model
+        for seed in (1, 2, 3):
+            print(f"REF seed {seed}", flush=True)
+            m = init_triad_model(cs.model_cfg_knobs(),
+                                 torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+            cs.train_reference_phase(m, GROUPS, cs._av_batch(4, 15), cs._train_batch(4, 16),
+                                     loss_cfg, {})
+            del m
+    elif mode == "default":
+        model, loss_cfg, *_ = cs.default_phase()
+        print("DIGEST default", digest(model), flush=True)
+        cs.train_reference_phase(model, GROUPS, cs._av_batch(4, 13),
+                                 cs._train_batch(4, 14, 128), loss_cfg, {"attention_impl": "fused"})
+    else:
+        raise SystemExit(f"unknown mode {mode!r}")
+    print(f"ELAPSED {mode} {time.time() - t0:.1f} s", flush=True)
+
+
+def main(argv):
+    if len(argv) == 3 and argv[0] == "--one":
+        return one(os.path.abspath(argv[1]), argv[2])
+    if not argv:
+        raise SystemExit(__doc__)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    for spec in argv:
+        tree, mode = spec.rsplit(":", 1)
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree, mode])
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

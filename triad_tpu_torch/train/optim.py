@@ -104,7 +104,9 @@ class OptimizerBank:
 
     def __init__(self, cfg: OptimConfig, model: nn.Module, total_updates: int):
         if cfg.mu_dtype != "float32" or cfg.nu_dtype != "float32":
-            raise not_ported(f"Adam moments in {cfg.mu_dtype}/{cfg.nu_dtype}", "Queue 1 item 4")
+            raise not_ported(f"Adam moments in {cfg.mu_dtype}/{cfg.nu_dtype}",
+                             "train/optim.py:scale_by_cycled_adam's low-precision moment "
+                             "storage")
         self.cfg = cfg
         self.named = list(model.named_parameters())
         self.device = self.named[0][1].device

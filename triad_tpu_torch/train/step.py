@@ -10,8 +10,9 @@ w_tv). Each micro step draws its randomness from (seed, global_step), the
 counterpart of ``jax.random.fold_in(state.rng, state.global_step)``: a
 ``torch.Generator`` for the plain dropouts, patch dropout and SpecAugment,
 and an ``ops.dropout.HostSeeds`` for the int32 seed of each kernel call
-site and HuBERT's layerdrop (host draws, so no seed is read back from
-the card). The two frameworks' bits differ. Metrics come back as scalars
+site (HuBERT's, and DistilBERT's fused attention) and HuBERT's layerdrop
+(host draws, so no seed is read back from the card). The two frameworks'
+bits differ. Metrics come back as scalars
 with the JAX step's keys.
 """
 
@@ -88,7 +89,7 @@ class StepFactory:
         if tv_batch is not None:
             visual = model.encode_visual(tv_batch["images"], train, generator)
             text = model.encode_text(tv_batch["token_ids"], tv_batch["text_mask"], train,
-                                     generator)
+                                     generator, seeds)
             tv = tv_loss(text, visual, tv_batch["text_mask"], temp, self.loss_cfg)
             total = total + w_tv * tv.total
             metrics.update({k: v.detach() for k, v in tv.stats.items()})
