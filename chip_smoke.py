@@ -5,7 +5,8 @@ full-width perf_eval_model_config() TriadModel (random weights from a
 seed) over HTTP and checks the answers, then trains the full-width
 text-visual, joint and audio-visual steps of perf_train_model_config(),
 the joint step of configs/default.yaml and the joint step of the
-mqkv + vitmq + loss=pallas set for a few steps each.
+mqkv + vitmq + loss=pallas set for a few steps each, and runs the
+1000-way retrieval eval on the head-pair attention and the fused frontend.
 
     python3 chip_smoke.py
 
@@ -64,20 +65,34 @@ Phases (any failure exits nonzero before the last line):
      the weights phase 11 trained (11b: the loss, and a witness that holds
      the max-mean kernels to their twins on the card's own features; the
      group cosines printed) and on those it started from (11c: every
-     group held).
+     group held);
+ 12. the 1000-way retrieval eval (eval_1000_way_retrieval) of
+     perf_eval_model_config() with the head-pair attention in all three
+     encoders and HuBERT's "pallas" frontend, random weights from a seed:
+     1000 AV items (4-10 s clips padded to 10 s) and 1000 TV items
+     (captions up to 128 tokens) embedded at batch 8 and scored in four
+     directions, every kernel of the path launched (counts zeroed just
+     before it) and the single-head eval attention and the monolithic
+     frontend not; the same eval leg by leg, timed, to the same recalls;
+     the "conv_act" frontend on the same weights (its AV leg, the
+     activation kernel launched) against the "pallas" one within 4 bf16
+     ulps; 8 items against fp32 on the CPU (token cosine > 0.99); and
+     score_matrix on the card against the CPU's (1e-4 of the scale).
 The port's kernels add in a fixed order (no atomics), so phase 8 trains
 the same weights every run (PERF.md) and phase 9 reads the same each run.
 Phase 3 also holds the strided (B, 12, N, 64) and merged (B, N, 2304)
 training attention and the max-mean forward, dQ and dK kernels at the
 shapes of phases 10 and 11 (on grid features with separated maxima, and at
-the AV shape on real L2-normalised features), and checks that the strided,
-packed and merged kernels agree on the same inputs and seed.
+the AV shape on real L2-normalised features), checks that the strided,
+packed and merged kernels agree on the same inputs and seed, and holds the
+head-pair eval attention, the fused frontend conv and the frontend
+activation at the shapes of phase 12.
 The line before the last is one JSON object with one entry per kernel:
-its launches in the paths that run it (phases 4, 6, 8, 10 and 11, each
+its launches in the paths that run it (phases 4, 6, 8, 10, 11 and 12, each
 counted from zero), and its error, times and bound at its main case of
-phase 3 (the shape the train steps give it, else the first), with every
-shape of phase 3 under "cases". The last line is {"ok": true, "device":
-{...}}.
+phase 3 (the shape the train steps give it, else the first); every shape
+of phase 3 goes to chiprun_out/kernel_cases.json. The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -100,6 +115,7 @@ B = 8  # batch of the kernel comparisons
 TXT = 24  # text tokens in the served request
 TRAIN_B, TRAIN_TXT, REF_B = 64, 32, 4  # train batch, its text tokens, reference batch
 DEFAULT_B = 22  # configs/default.yaml's batch_size_av and batch_size_tv
+RETRIEVAL_N = 1000  # the retrieval eval's subset (TrainConfig.retrieval_subset_size)
 AUDIO = 160_000  # 10 s of 16 kHz audio
 P_DROP = 0.1  # HuBERT's attention, activation and hidden dropout
 BF16_ULP = 2.0 ** -7
@@ -219,6 +235,14 @@ KERNELS = {
     "maxmean": ("triad_tpu_torch/csrc/maxmean.cu", "triad_tpu/ops/pallas_maxmean.py:158"),
     "maxmean_dq": ("triad_tpu_torch/csrc/maxmean.cu", "triad_tpu/ops/pallas_maxmean.py:337"),
     "maxmean_dk": ("triad_tpu_torch/csrc/maxmean.cu", "triad_tpu/ops/pallas_maxmean.py:369"),
+    "attention_eval_pair": ("triad_tpu_torch/csrc/attention_eval.cu",
+                            "triad_tpu/ops/pallas_attention.py:428"),
+    "attention_eval_merged_pair": ("triad_tpu_torch/csrc/attention_eval.cu",
+                                   "triad_tpu/ops/pallas_attention.py:490"),
+    "fused_frontend_conv": ("triad_tpu_torch/csrc/frontend_conv.cu",
+                            "triad_tpu/ops/pallas_conv.py:177"),
+    "frontend_activation": ("triad_tpu_torch/csrc/frontend_conv.cu",
+                            "triad_tpu/ops/pallas_conv.py:228"),
 }
 SERVE_KERNELS = ("attention_eval", "attention_eval_merged", "fused_mlp", "frontend_stats",
                  "frontend_conv0", "frontend_conv")
@@ -233,18 +257,25 @@ DEFAULT_KERNELS = ("attention_train_strided", "attention_train_strided_bwd", "fu
 # ViT, the max-mean kernels in both losses, and perf_train's other kernels.
 KNOBS_KERNELS = ("attention_train_merged", "attention_train_merged_bwd", "maxmean",
                  "maxmean_dq", "maxmean_dk") + JOINT_KERNELS[2:]
+# The retrieval eval (phase 12): head-pair attention in all three encoders,
+# HuBERT's "pallas" frontend, and its "conv_act" variant's activation pass.
+RETRIEVAL_KERNELS = ("attention_eval_pair", "attention_eval_merged_pair", "fused_frontend_conv",
+                     "fused_mlp")
+CONV_ACT_KERNELS = ("frontend_activation", "attention_eval_pair")
 
 
-def _sdpa(q, k, v):
+def _sdpa(q, k, v, mask=None):
     """F.scaled_dot_product_attention at p = 0 on the (B, H, N, 64) views
-    of packed (B, N, H*64) tensors: the library call beside attention."""
+    of packed (B, N, H*64) tensors, with a (B, N) key mask if given: the
+    library call beside attention."""
     import torch.nn.functional as F
 
     def heads(x):
         b, n, hd = x.shape
         return x.view(b, n, hd // 64, 64).transpose(1, 2)
 
-    return F.scaled_dot_product_attention(heads(q), heads(k), heads(v))
+    attn_mask = None if mask is None else mask.bool()[:, None, None, :]
+    return F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=attn_mask)
 
 
 def _sdpa_bwd(q, k, v, do):
@@ -621,7 +652,63 @@ def kernel_phase():
     maxmean_cases(res, MM, TRAIN_B, TRAIN_B, 499, 256, 512, False, -60.0, main=True)
     maxmean_cases(res, MM, TRAIN_B, TRAIN_B, TRAIN_TXT, 256, 512, True, -20.0)
     maxmean_real_case(res, MM, TRAIN_B, TRAIN_B, 499, 256, 512, -60.0)
+    eval_slice_cases(res, A)
     return res, agree
+
+
+def eval_slice_cases(res, A):
+    """The kernels of the retrieval eval (phase 12) at its shapes, B = 8:
+    the head-pair attention at HuBERT's (8, 499) (keys 499 -> 512 in the
+    softmax), DistilBERT's (8, 128) with its key mask and the ViT's merged
+    (8, 261) (-> 384); the fused frontend conv at conv_1's (k 3,
+    "norm_gelu"), conv_2's (k 3, "gelu") and conv_5's (k 2, "gelu")
+    inputs; the frontend activation at (8, 31999, 512). 2 bf16 ulps of the
+    largest output (both round the same fp32 values; sums in another
+    order). Library: SDPA (with the key mask), F.gelu for the "gelu"
+    activation; no one call applies a conv's input prologue or the
+    GroupNorm affine + GELU."""
+    import torch.nn.functional as F
+
+    from triad_tpu_torch.ops import frontend_conv as FC
+
+    for n, masked in ((499, False), (128, True)):
+        q, k, v = (randn((B, n, 768), s) for s in (51, 52, 53))
+        mask = torch.ones((B, n), device="cuda")
+        if masked:
+            mask[1::2, n * 3 // 4:] = 0.0  # every other caption padded
+        compare(res, "attention_eval_pair", (B, n, 768) + (("masked",) if masked else ()),
+                lambda: A.attention_eval_pair(q, k, v, mask),
+                lambda: A.attention_eval_pair_plain(q, k, v, mask, 0.125), 2 * BF16_ULP,
+                cost(4 * B * 12 * n ** 2 * 64, 4 * B * n * 768 * 2 + B * n * 4),
+                lambda: _sdpa(q, k, v, mask if masked else None), main=not masked)
+    qkv = randn((B, 261, 2304), 54)
+    ones = torch.ones((B, 261), device="cuda")
+    compare(res, "attention_eval_merged_pair", (B, 261, 2304),
+            lambda: A.attention_eval_merged_pair(qkv),
+            lambda: A.attention_eval_pair_plain(*qkv.split(768, dim=-1), ones, 0.125),
+            2 * BF16_ULP, cost(4 * B * 12 * 261 ** 2 * 64, B * 261 * (2304 + 768) * 2),
+            lambda: _sdpa(*qkv.split(768, dim=-1)), main=True)
+    stats = (randn((B, 1, 512), 55, 0.3, torch.float32),
+             randn((B, 1, 512), 56, 0.2, torch.float32).abs() + 0.5,
+             randn((512,), 57, 0.3, torch.float32) + 1.0, randn((512,), 58, 0.1, torch.float32))
+    for t, k, prologue in ((31999, 3, "norm_gelu"), (15999, 3, "gelu"), (1999, 2, "gelu")):
+        x = randn((B, t, 512), 59)
+        w = randn((512, 512, k), 60, (2 / (k * 512)) ** 0.5, torch.float32)
+        tout = FC.out_rows(t, k)
+        compare(res, "fused_frontend_conv", (B, t, 512, f"k{k}", prologue),
+                lambda: FC.fused_frontend_conv_fwd(x, w, *stats, t, prologue),
+                lambda: FC.fused_frontend_conv_plain(x, w, *stats, t, prologue), 2 * BF16_ULP,
+                cost(2 * B * tout * 512 * 512 * k,
+                     (B * (t + tout) * 512 + k * 512 * 512) * 2 + 2 * B * 512 * 4),
+                None, main=prologue == "norm_gelu")
+    x = randn((B, 31999, 512), 61)
+    for act in ("norm_gelu", "gelu"):
+        compare(res, "frontend_activation", (B, 31999, 512, act),
+                lambda: FC.frontend_activation_fwd(x, *stats, act),
+                lambda: FC.frontend_activation_plain(x, *stats, act), 2 * BF16_ULP,
+                cost(B * 31999 * 512 * (8 if act == "norm_gelu" else 4),
+                     2 * B * 31999 * 512 * 2 + 2 * B * 512 * 4, PEAK_FP32),
+                (lambda: F.gelu(x)) if act == "gelu" else None, main=act == "norm_gelu")
 
 
 def _post(url, body, content_type):
@@ -1149,6 +1236,218 @@ def maxmean_witness(card, ref, av_batch, tv_batch, loss_cfg, train):
             fail(f"the max-mean kernels' {name} gradients miss the twins' on the same features")
 
 
+class SyntheticAV:
+    """A duck-typed AV dataset for embed_av_subset (as
+    scripts/tpu_retrieval_time.py's): random 224^2 pixels and waveforms of
+    4-10 s at 16 kHz, so the audio masks of the 10 s batches cut."""
+
+    def __init__(self, n, seed=0):
+        self.n, self.seed = n, seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i, apply_augmentation=True):
+        rng = np.random.default_rng(self.seed + i)
+        t = int(rng.integers(4 * 16000, 10 * 16000))
+        return {"video_frames": rng.standard_normal((224, 224, 3), dtype=np.float32),
+                "audio": rng.standard_normal(t, dtype=np.float32) * 0.1}
+
+
+class SyntheticTV:
+    """Random 224^2 pixels and captions of 3 to 127 words of 64 (up to the
+    128 text tokens of the eval)."""
+
+    WORDS = [f"word{k}" for k in range(64)]
+
+    def __init__(self, n, seed=1):
+        self.n, self.seed = n, seed
+
+    def __len__(self):
+        return self.n
+
+    def caption(self, i):
+        rng = np.random.default_rng(self.seed * 7919 + i)
+        return " ".join(self.WORDS[j] for j in rng.integers(0, 64, size=int(rng.integers(3, 128))))
+
+    def __getitem__(self, i, apply_augmentation=True):
+        rng = np.random.default_rng(self.seed + i)
+        return rng.standard_normal((224, 224, 3), dtype=np.float32), self.caption(i)
+
+
+def retrieval_model_config(frontend_impl="pallas"):
+    """perf_eval_model_config() with the head-pair attention in all three
+    encoders and HuBERT's frontend on ``frontend_impl``."""
+    from triad_tpu_torch.config import perf_eval_model_config
+
+    cfg = perf_eval_model_config()
+    return dataclasses.replace(
+        cfg,
+        hubert=dataclasses.replace(cfg.hubert, attention_impl="packed_pair",
+                                   frontend_impl=frontend_impl),
+        vit=dataclasses.replace(cfg.vit, attention_impl="packed_merged_pair"),
+        text=dataclasses.replace(cfg.text, attention_impl="packed_pair"))
+
+
+def _token_cosines(got, want):
+    cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(want, axis=-1))
+    return float(cos.min())
+
+
+def retrieval_phase(n):
+    """The 1000-way retrieval eval on the card: the entry point
+    eval_1000_way_retrieval with the launch counts zeroed just before it,
+    then the same eval leg by leg on its persisted subsets, timed on the
+    host clock (every item embedded at batch 8, its data made on the host
+    included; every direction scored), whose recalls must equal the entry
+    point's. Then the "conv_act" frontend on the same weights (its AV leg
+    through the entry point, counted), the two frontends against each
+    other, 8 items against fp32 on the CPU, and score_matrix against the
+    CPU's."""
+    import random
+    import tempfile
+    import time
+
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.config import Config
+    from triad_tpu_torch.data.audio import pad_or_trim
+    from triad_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from triad_tpu_torch.eval import retrieval as R
+    from triad_tpu_torch.models.hubert import normalize_waveform
+    from triad_tpu_torch.models.multimodal import TriadModel
+
+    model_cfg = retrieval_model_config()
+    model = _initial_model(model_cfg, 5)
+    cfg = Config(model=model_cfg)
+    av, tv = SyntheticAV(n), SyntheticTV(n)
+    tok = WordPieceTokenizer.build_from_corpus(tv.caption(i) for i in range(256))
+    samples, text_len = cfg.data.audio_num_samples, cfg.data.max_text_tokens
+    temp = float(model.temperature.detach())
+
+    def encoders(m, device):
+        @torch.inference_mode()
+        def enc_av(images, audio):
+            return m.encode_audio(audio.to(device)), m.encode_visual(images.to(device))
+
+        @torch.inference_mode()
+        def enc_tv(images, ids, mask):
+            return m.encode_text(ids.to(device), mask.to(device)), m.encode_visual(
+                images.to(device))
+        return enc_av, enc_tv
+
+    enc_av, enc_tv = encoders(model, "cuda")
+    timings = {}
+    random.seed(0)  # the persisted subset's shuffle
+    with tempfile.TemporaryDirectory() as out_dir:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        metrics = R.eval_1000_way_retrieval(model, av, tv, tok, cfg, out_dir)
+        torch.cuda.synchronize()
+        timings["eval_1000_way_retrieval_s"] = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        with open(os.path.join(out_dir, "retrieval_subset_av.json")) as f:
+            idx_av = json.load(f)
+        with open(os.path.join(out_dir, "retrieval_subset_tv.json")) as f:
+            idx_tv = json.load(f)
+    print(f"  eval_1000_way_retrieval: {json.dumps(metrics)} in "
+          f"{timings['eval_1000_way_retrieval_s']:.3f} s", flush=True)
+    print(f"  launches during it: {launches}", flush=True)
+    _check_launches(launches, RETRIEVAL_KERNELS, "retrieval")
+    for name in ("attention_eval", "attention_eval_merged", "frontend_stats", "frontend_conv0",
+                 "frontend_conv", "frontend_activation"):
+        if launches[name]:
+            fail(f"the retrieval path launched {name}, which its configuration does not run")
+    if not (len(metrics) == 16 and all(0.0 <= x <= 1.0 for x in metrics.values())):
+        fail(f"retrieval metrics {metrics}: not R@1/5/10/20 of four directions in [0, 1]")
+
+    # The same eval leg by leg on the persisted subsets, timed: every item
+    # embedded at batch 8, every direction scored; the recalls must equal
+    # the entry point's (the kernels add in a fixed order).
+    t0 = time.perf_counter()
+    a, am, v = R.embed_av_subset(enc_av, av, idx_av, samples,
+                                 num_tokens_fn=model_cfg.hubert.num_audio_tokens)
+    timings["embed_av_ms_per_batch"] = (time.perf_counter() - t0) * 1e3 / -(-n // 8)
+    t0 = time.perf_counter()
+    t, tm, vt = R.embed_tv_subset(enc_tv, tv, idx_tv, tok, text_len)
+    timings["embed_tv_ms_per_batch"] = (time.perf_counter() - t0) * 1e3 / -(-n // 8)
+    print(f"  embedded {n} AV items: audio {a.shape}, {int(am.sum())} of {am.size} frames real; "
+          f"{n} TV items: text {t.shape}, {int(tm.sum())} of {tm.size} tokens real", flush=True)
+    legs = {}
+    v_mask, vt_mask = np.ones(v.shape[:2], np.float32), np.ones(vt.shape[:2], np.float32)
+    directions = (("A->V", (a, am, v, v_mask)), ("V->A", (v, v_mask, a, am)),
+                  ("T->V", (t, tm, vt, vt_mask)), ("V->T", (vt, vt_mask, t, tm)))
+    for name, (q, qm, k, km) in directions:
+        t0 = time.perf_counter()
+        sims = R.score_matrix(q, qm, k, km, temp)
+        timings[f"score_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        if not (sims.shape == (n, n) and np.isfinite(sims).all()):
+            fail(f"retrieval {name}: scores of shape {sims.shape}, not all finite")
+        legs.update({f"{name}_r{k[1:]}": x for k, x in R.compute_recall_at_k(sims).items()})
+    print(f"  legs: {json.dumps(timings)}", flush=True)
+    if metrics != legs:
+        fail(f"eval_1000_way_retrieval's metrics {metrics} differ from its legs' {legs}")
+
+    # The "conv_act" frontend on the same weights: its AV leg through the
+    # entry point, counted; the two frontends' features on one batch.
+    act_model = TriadModel(retrieval_model_config("conv_act"), device="cuda")
+    act_model.load_state_dict(model.state_dict())
+    act_model.eval()
+    with tempfile.TemporaryDirectory() as out_dir:
+        kernels.reset_launches()
+        act_metrics = R.eval_1000_way_retrieval(act_model, av, None, tok, cfg, out_dir)
+        torch.cuda.synchronize()
+        act_launches = dict(kernels.LAUNCHES)
+    print(f"  conv_act frontend, AV leg: {json.dumps(act_metrics)}", flush=True)
+    print(f"  launches during it: {act_launches}", flush=True)
+    _check_launches(act_launches, CONV_ACT_KERNELS, "conv_act retrieval")
+    if act_launches["fused_frontend_conv"]:
+        fail("the conv_act frontend launched the fused frontend conv")
+    audio = torch.from_numpy(np.stack([pad_or_trim(av[i]["audio"], samples)
+                                       for i in idx_av[:8]])).cuda()
+    with torch.inference_mode():
+        wave = normalize_waveform(audio)
+        f_pallas = model.audio_backbone.feature_extractor(wave)
+        f_act = act_model.audio_backbone.feature_extractor(wave)
+    err, mx = max_err(f_pallas, f_act)
+    print(f"  frontends pallas vs conv_act at {tuple(f_pallas.shape)}: max abs difference "
+          f"{err:.4g} (bound 4 bf16 ulps of {mx:.4g}: six bf16 conv layers, sums in another "
+          f"order)", flush=True)
+    if not err <= 4 * BF16_ULP * mx:
+        fail("the pallas and conv_act frontends disagree")
+    del act_model
+
+    # 8 items in fp32 on the CPU (plain twins there) against the card.
+    ref = TriadModel(dataclasses.replace(model_cfg, compute_dtype="float32"), device="cpu")
+    ref.load_state_dict({k: p.cpu() for k, p in model.state_dict().items()})
+    ref.eval()
+    ref_av, ref_tv = encoders(ref, "cpu")
+    ra, _, rv = R.embed_av_subset(ref_av, av, idx_av[:8], samples,
+                                  num_tokens_fn=model_cfg.hubert.num_audio_tokens)
+    rt, _, rvt = R.embed_tv_subset(ref_tv, tv, idx_tv[:8], tok, text_len)
+    for name, got, want in (("audio", a[:8], ra), ("visual (AV)", v[:8], rv),
+                            ("text", t[:8], rt), ("visual (TV)", vt[:8], rvt)):
+        cos = _token_cosines(got, want)
+        print(f"  {name:11s} vs fp32 CPU: min token cosine {cos:.5f}", flush=True)
+        if not cos > 0.99:
+            fail(f"retrieval {name} embeddings disagree with the fp32 CPU reference")
+    del ref
+
+    # score_matrix on the card's own embeddings against the CPU's: 40 items
+    # (padded to 48 by the 8 x 16 blocks), both sides' masks.
+    m = 40
+    for name, (q, qm, k, km) in directions:
+        args = (q[:m], qm[:m], k[:m], km[:m], temp)
+        got, want = R.score_matrix(*args), R.score_matrix(*args, device="cpu")
+        diff, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+        print(f"  score_matrix {name} card vs CPU ({m} items): max abs difference {diff:.4g} "
+              f"(bound 1e-4 of {scale:.4g})", flush=True)
+        if not diff <= 1e-4 * scale:
+            fail(f"score_matrix {name} on the card disagrees with the CPU's")
+    timings["frontends_max_abs_diff"] = err
+    return {"metrics": metrics, "conv_act_metrics": act_metrics, **timings}, launches, \
+        act_launches
+
+
 def _kernel_entry(name, results, launches_by_path):
     src, replaces = KERNELS[name]
     cases = [r for r in results if r["name"] == name]
@@ -1157,9 +1456,9 @@ def _kernel_entry(name, results, launches_by_path):
     return {
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": sum(counts[name] for counts in launches_by_path.values()),
-        "launches_by_path": {path: counts[name] for path, counts in launches_by_path.items()},
-        **{k: head[k] for k in keys[1:]}, "shape": head["shape"],
-        "cases": [{k: r[k] for k in keys} for r in cases],
+        "launches_by_path": {path: counts[name] for path, counts in launches_by_path.items()
+                             if counts[name]},
+        **{k: head[k] for k in keys},
     }
 
 
@@ -1266,13 +1565,24 @@ def main():
                           {})
     torch.cuda.empty_cache()
 
+    phase(f"12. 1000-way retrieval eval, head-pair attention and the pallas frontend, "
+          f"perf_eval_model_config() at full width, N = {RETRIEVAL_N}")
+    retrieval, retrieval_launches, conv_act_launches = retrieval_phase(RETRIEVAL_N)
+    torch.cuda.empty_cache()
+
     by_path = {"serve": serve_launches, "train_tv": tv_launches, "train_joint": joint_launches,
-               "train_default": default_launches, "train_knobs": knobs_launches}
+               "train_default": default_launches, "train_knobs": knobs_launches,
+               "retrieval": retrieval_launches, "retrieval_conv_act": conv_act_launches}
     kernels_json = [_kernel_entry(name, results, by_path) for name in KERNELS]
+    # every shape of phase 3, too long for the line the kernels entries take
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "kernel_cases.json"), "w") as f:
+        json.dump(results, f, indent=1)
     print(json.dumps({"kernels": kernels_json, "train_step_ms": tv_ms, "joint_step_ms": joint_ms,
                       "joint_peak_bytes": peak, "default_micro_step_ms": default_ms,
                       "default_peak_bytes": default_peak, "knobs_step_ms": knobs_ms,
-                      "knobs_peak_bytes": knobs_peak, "layouts_agree": agree}), flush=True)
+                      "knobs_peak_bytes": knobs_peak, "layouts_agree": agree,
+                      "retrieval": retrieval}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -90,6 +91,43 @@ class TestConvert:
         np.testing.assert_array_equal(
             sd["audio_backbone.feature_extractor.convs.1.weight"].numpy(), c1.transpose(2, 1, 0))
 
+    def test_pallas_frontend_tree_converts(self):
+        """A Flax tree of a JAX model on frontend_impl="pallas" (its conv_<i>
+        after conv_0 are bias-free _ConvParams kernels (k, C, Cout)) converts,
+        round-trips exactly and computes the same audio features."""
+        from jax.experimental.pallas import tpu as pltpu
+
+        from triad_tpu.models import TriadModel as JaxTriad
+        from triad_tpu.models import init_triad_model
+        from triad_tpu_torch.models.convert import flax_to_torch, torch_to_flax
+        from triad_tpu_torch.models.multimodal import TriadModel
+
+        cfg = small_model_config()
+        cfg = dataclasses.replace(cfg, hubert=dataclasses.replace(cfg.hubert,
+                                                                  frontend_impl="pallas"))
+        with pltpu.force_tpu_interpret_mode():  # the init traces the kernel
+            shapes = jax.eval_shape(lambda key: init_triad_model(cfg, key), jax.random.key(1))
+        rng = np.random.default_rng(1)
+        params = jax.tree.map(
+            lambda s: (rng.normal(size=s.shape) * 0.2).astype(np.float32), shapes)
+        fe = params["audio_backbone"]["feature_extractor"]
+        assert sorted(fe["conv_1"]) == ["kernel"]
+        sd = flax_to_torch(params, cfg)
+        back = _flat(torch_to_flax(sd))
+        for k, v in _flat(params).items():
+            np.testing.assert_array_equal(back[k], v, err_msg=str(k))
+        model = TriadModel(cfg)
+        model.load_state_dict(sd)
+        audio = np.random.default_rng(2).normal(size=(2, 400)).astype(np.float32)
+        with pltpu.force_tpu_interpret_mode():
+            ref = jax.jit(lambda p, a: JaxTriad(cfg).apply({"params": p}, a,
+                                                           method=JaxTriad.encode_audio))(
+                params, jnp.asarray(audio))
+        with torch.inference_mode():
+            got = model.encode_audio(torch.from_numpy(audio)).numpy()
+        np.testing.assert_allclose(got, np.asarray(ref), rtol=0,
+                                   atol=1e-4 * float(np.abs(np.asarray(ref)).max()))
+
 
 def test_package_imports_without_jax():
     """triad_tpu_torch and its serving stack import with jax and flax
@@ -121,6 +159,50 @@ _PORTED_TRAINING_IMPLS = {
     ("vit", "attention_impl", "fused"),
     ("vit", "attention_impl", "fused_packed_merged"),
 }
+
+
+# Eval-only kernels (the head-pair eval attention, the fused frontend conv
+# and the frontend activation): they run at eval.
+_PORTED_EVAL_IMPLS = {
+    ("vit", "attention_impl", "packed_merged_pair"),
+    ("hubert", "attention_impl", "packed_pair"),
+    ("hubert", "frontend_impl", "pallas"),
+    ("hubert", "frontend_impl", "conv_act"),
+}
+
+
+def _check_runs_at_eval(section, field, value):
+    """A ViT or HuBERT of 2 heads of 64 (the pair kernels' head width) with
+    the option set runs at eval on the CPU through the kernel's plain twin:
+    features of the expected shape, finite."""
+    from triad_tpu_torch.config import ModelConfig
+    from triad_tpu_torch.models.convert import init_triad_model
+
+    port_cfg = ModelConfig(**{k: v for k, v in dataclasses.asdict(small_model_config()).items()
+                              if k not in ("vit", "hubert", "text")})
+    rng = np.random.default_rng(0)
+    if section == "vit":
+        vit = dataclasses.replace(port_cfg.vit, image_size=28, hidden_size=128, num_heads=2,
+                                  num_layers=2, mlp_ratio=0.5, **{field: value})
+        model = init_triad_model(dataclasses.replace(port_cfg, vit=vit),
+                                 torch.Generator().manual_seed(0))
+        images = torch.from_numpy(rng.normal(size=(2, 28, 28, 3)).astype(np.float32))
+        with torch.inference_mode():
+            feats = model.encode_visual(images)
+        want = (2, vit.num_patches, port_cfg.embedding_dim)
+    else:
+        hub = dataclasses.replace(port_cfg.hubert, hidden_size=128, num_heads=2,
+                                  intermediate_size=64, conv_dim=(32, 32), conv_kernel=(10, 3),
+                                  conv_stride=(5, 2), num_conv_pos_embeddings=16,
+                                  num_conv_pos_embedding_groups=4, **{field: value})
+        model = init_triad_model(dataclasses.replace(port_cfg, hubert=hub),
+                                 torch.Generator().manual_seed(0))
+        audio = torch.from_numpy(rng.normal(size=(2, 400)).astype(np.float32))
+        with torch.inference_mode():
+            feats = model.encode_audio(audio)
+        want = (2, hub.num_audio_tokens(400), port_cfg.embedding_dim)
+    assert tuple(feats.shape) == want
+    assert bool(torch.isfinite(feats).all())
 
 
 def _check_runs_in_training(section, field, value):
@@ -225,12 +307,17 @@ class TestRefusals:
         """Unported impl values raise; the training options that this port
         now has (HuBERT's fused and fused_packed attention, the posconv and
         fused LayerNorm kernels; the ViT's fused and fused_packed_merged
-        attention) run in training mode instead."""
+        attention) run in training mode instead, and the eval options it
+        now has (the head-pair attention, the "pallas" and "conv_act"
+        frontends) run at eval."""
         from triad_tpu_torch.models.multimodal import TriadModel
 
         cfg = small_model_config()
         if (section, field, value) in _PORTED_TRAINING_IMPLS:
             _check_runs_in_training(section, field, value)
+            return
+        if (section, field, value) in _PORTED_EVAL_IMPLS:
+            _check_runs_at_eval(section, field, value)
             return
         sub = dataclasses.replace(getattr(cfg, section), **{field: value})
         # The model builds and HuBERT raises when it runs, or the model

@@ -506,3 +506,118 @@ class TestMaxMean:
         for name in ("maxmean", "maxmean_dq", "maxmean_dk"):
             assert kernels.LAUNCHES[name] == 1, name
         assert q.grad.dtype == torch.bfloat16 and bool(torch.isfinite(temp.grad))
+
+
+class TestPairAttention:
+    # Both round the same fp32 e to bf16 and sum the rounded values; an
+    # fp32 summation-order difference can flip an output rounding. 2 bf16
+    # ulps of the output's largest magnitude.
+    TOL = 2 * 2.0 ** -7
+
+    @pytest.mark.parametrize("b,n,h,all_masked", [(8, 499, 12, False), (8, 128, 12, False),
+                                                  (2, 37, 3, True), (1, 512, 12, False)])
+    def test_packed(self, dev, b, n, h, all_masked):
+        from triad_tpu_torch.ops.attention import attention_eval_pair, attention_eval_pair_plain
+
+        q, k, v = (_randn((b, n, h * 64), dev, s) for s in (1, 2, 3))
+        mask = torch.ones((b, n), device=dev)
+        mask[-1, n // 2:] = 0.0
+        if all_masked:
+            mask[0] = 0.0  # the padded keys count in this row's softmax
+        got = attention_eval_pair(q, k, v, mask)
+        torch.cuda.synchronize()
+        err, mx = _max_err(got, attention_eval_pair_plain(q, k, v, mask, 0.125))
+        assert err <= self.TOL * mx, (err, mx)
+
+    @pytest.mark.parametrize("b,n,h", [(8, 261, 12), (3, 70, 3)])
+    def test_merged(self, dev, b, n, h):
+        from triad_tpu_torch.ops.attention import (
+            attention_eval_merged_pair,
+            attention_eval_pair_plain,
+        )
+
+        qkv = _randn((b, n, 3 * h * 64), dev, 4)
+        got = attention_eval_merged_pair(qkv)
+        torch.cuda.synchronize()
+        ref = attention_eval_pair_plain(*qkv.split(h * 64, dim=-1), torch.ones((b, n), device=dev),
+                                        0.125)
+        err, mx = _max_err(got, ref)
+        assert err <= self.TOL * mx, (err, mx)
+
+
+class TestFrontendConv:
+    # Both round the same fp32 prologue to bf16 (the kernel without fma
+    # contraction) and sum exact bf16 products in fp32 in another order,
+    # then round once: 2 bf16 ulps of the output's largest magnitude.
+    TOL = 2 * 2.0 ** -7
+
+    def _inputs(self, dev, b, t, k, seed, t_alloc=None):
+        x = _randn((b, t_alloc or t, 512), dev, seed)
+        w = _randn((512, 512, k), dev, seed + 1, (2 / (k * 512)) ** 0.5, torch.float32)
+        mean = _randn((b, 1, 512), dev, seed + 2, 0.3, torch.float32)
+        rstd = _randn((b, 1, 512), dev, seed + 3, 0.2, torch.float32).abs() + 0.5
+        scale = _randn((512,), dev, seed + 4, 0.3, torch.float32) + 1.0
+        bias = _randn((512,), dev, seed + 5, 0.1, torch.float32)
+        return x, w, mean, rstd, scale, bias
+
+    @pytest.mark.parametrize("b,t,k,prologue", [(8, 31999, 3, "norm_gelu"), (8, 7999, 3, "gelu"),
+                                                (8, 999, 2, "gelu"), (3, 77, 2, None)])
+    def test_fused_conv(self, dev, b, t, k, prologue):
+        from triad_tpu_torch.ops.frontend_conv import (
+            fused_frontend_conv_fwd,
+            fused_frontend_conv_plain,
+        )
+
+        args = self._inputs(dev, b, t, k, 20)
+        got = fused_frontend_conv_fwd(*args, t, prologue)
+        torch.cuda.synchronize()
+        ref = fused_frontend_conv_plain(*args, t, prologue)
+        assert got.shape == ref.shape
+        err, mx = _max_err(got, ref)
+        assert err <= self.TOL * mx, (err, mx)
+
+    def test_fused_conv_logical_rows(self, dev):
+        """A logical length inside a larger allocation: rows past it are
+        never read (NaN there changes nothing)."""
+        from triad_tpu_torch.ops.frontend_conv import (
+            fused_frontend_conv_fwd,
+            fused_frontend_conv_plain,
+        )
+
+        x, *rest = self._inputs(dev, 2, 101, 3, 30, t_alloc=140)
+        x[:, 101:] = float("nan")
+        got = fused_frontend_conv_fwd(x, *rest, 101, "norm_gelu")
+        torch.cuda.synchronize()
+        ref = fused_frontend_conv_plain(x, *rest, 101, "norm_gelu")
+        assert bool(torch.isfinite(got.float()).all())
+        err, mx = _max_err(got, ref)
+        assert err <= self.TOL * mx, (err, mx)
+
+    @pytest.mark.parametrize("act", ["gelu", "norm_gelu"])
+    def test_activation(self, dev, act):
+        from triad_tpu_torch.ops.frontend_conv import (
+            frontend_activation_fwd,
+            frontend_activation_plain,
+        )
+
+        x, _, mean, rstd, scale, bias = self._inputs(dev, 8, 31999, 3, 40)
+        got = frontend_activation_fwd(x, mean, rstd, scale, bias, act)
+        torch.cuda.synchronize()
+        err, mx = _max_err(got, frontend_activation_plain(x, mean, rstd, scale, bias, act))
+        # one rounding of the same fp32 value (erff against torch's erf)
+        assert err <= 2.0 ** -7 * mx, (err, mx)
+
+    def test_autograd_counts_launches(self, dev):
+        from triad_tpu_torch import kernels
+        from triad_tpu_torch.ops.frontend_conv import frontend_activation, fused_frontend_conv
+
+        x, w, mean, rstd, scale, bias = self._inputs(dev, 2, 99, 3, 50)
+        leaves = [t.detach().clone().requires_grad_() for t in (x, w, mean, rstd, scale, bias)]
+        kernels.reset_launches()
+        y = fused_frontend_conv(*leaves, 99, "norm_gelu")
+        z = frontend_activation(y, mean, rstd, scale, bias, "gelu")
+        z.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["fused_frontend_conv"] == 1
+        assert kernels.LAUNCHES["frontend_activation"] == 1
+        assert all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in leaves)

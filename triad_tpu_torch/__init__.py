@@ -9,19 +9,24 @@ WordPiece tokenizer, the HTTP handler).
 Layout (mirrors ``triad_tpu``):
   config.py   the config dataclasses and presets
   kernels.py  nvcc build of csrc/*.cu into one ctypes library, launch counts
-  csrc/       hand-written CUDA kernels (eval and training attention with
-              dropout, fused MLP forward and backward with dropout, dropout +
-              add + LayerNorm, the positional grouped conv, the frontend)
+  csrc/       hand-written CUDA kernels (eval attention with its head-pair
+              mode, training attention with dropout, fused MLP forward and
+              backward with dropout, dropout + add + LayerNorm, the
+              positional grouped conv, the frontend, the frontend conv with
+              its input activation fused, the max-mean aggregation)
   ops/        kernel wrappers with their plain PyTorch twins, the dropout
               keep mask, similarity and max-mean aggregation, losses
   models/     nn.Module encoders, TriadModel, the Flax <-> torch converter
   train/      the 4-group optimizer bank and the train steps
   serve/      ServingModel and the HTTP server
-  data/       the WordPiece tokenizer
+  data/       the WordPiece tokenizer, the synthetic datasets, audio / image
+              helpers
+  eval/       the 1000-way cross-modal retrieval
   cli/        ``python -m triad_tpu_torch.cli.serve``
 
-Ported so far (ROADMAP.md): the serving (eval) path and the three train
-steps of the curriculum ("av", "tv", "joint").
+Ported so far (ROADMAP.md): the serving (eval) path, the three train
+steps of the curriculum ("av", "tv", "joint") and the 1000-way retrieval
+eval; every TPU kernel of the JAX package has its CUDA counterpart.
 """
 
 __version__ = "0.1.0"

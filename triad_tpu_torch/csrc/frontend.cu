@@ -41,8 +41,7 @@
 // window of the waveform; conv_0 writes the largest activation (B x
 // 31999 x 512 bf16), so it is bound by that write.
 #include "common.cuh"
-
-using namespace nvcuda;
+#include "conv_s2.cuh"
 
 namespace {
 
@@ -133,93 +132,22 @@ frontend_conv0_kernel(const float* __restrict__ wave, long long wave_bs,
 }
 
 // ------------------------------------------------------- stride-2 conv GEMM
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int LDA = BK + 8, LDB = BN + 8, LDE = 16 + 4;
-constexpr int THREADS = 256;  // 8 warps: 4 (M) x 2 (N), 32 x 64 each
+// The GEMM is conv_s2.cuh's; its epilogue rounds the fp32 sum to bf16,
+// applies the GELU and stores bf16.
+struct GeluEpilogue {
+  int tanh_form;
+  __device__ triad::bf16 operator()(float v) const {
+    return __float2bfloat16(triad::gelu(triad::round_bf16(v), tanh_form));
+  }
+};
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(triad::conv_s2::THREADS)
 frontend_conv_kernel(const triad::bf16* __restrict__ x, long long x_bs,
                      const triad::bf16* __restrict__ w, triad::bf16* __restrict__ y,
                      int tout, int ktaps, int tanh_form) {
-  using triad::bf16;
-  __shared__ __align__(128) bf16 sA[2][BM * LDA];
-  __shared__ __align__(128) bf16 sB[2][BK * LDB];
-  __shared__ __align__(128) float sE[8][16 * LDE];
-
   const int b = blockIdx.z;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int K = ktaps * C;
-  const bf16* xa = x + b * x_bs;
-
-  auto load = [&](int stage, int k0) {
-    // A: 128 rows x 32 cols = 512 16-byte vectors, 2 per thread.
-    for (int i = tid; i < BM * (BK / 8); i += THREADS) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const bool ok = m0 + r < tout;
-      triad::cp_async16(&sA[stage][r * LDA + c],
-                        ok ? xa + (long long)(m0 + r) * (2 * C) + k0 + c : xa, ok);
-    }
-    // B: 32 rows x 128 cols = 512 vectors, 2 per thread.
-    for (int i = tid; i < BK * (BN / 8); i += THREADS) {
-      const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-      triad::cp_async16(&sB[stage][r * LDB + c], w + (long long)(k0 + r) * C + n0 + c, true);
-    }
-    triad::cp_async_commit();
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int nkt = K / BK;
-  load(0, 0);
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (kt + 1 < nkt) {
-      load((kt + 1) & 1, (kt + 1) * BK);
-      triad::cp_async_wait<1>();
-    } else {
-      triad::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* a_s = sA[kt & 1];
-    const bf16* b_s = sB[kt & 1];
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], a_s + (wm * 32 + i * 16) * LDA + kk, LDA);
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, b_s + kk * LDB + wn * 64 + j * 16, LDB);
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], af[i], bfr, acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // Epilogue through a per-warp 16 x 16 staging tile: bf16 rounding,
-  // GELU, bf16 store (8 channels = 16 bytes per lane).
-  float* e = sE[warp];
-  const int er = lane >> 1, ec = (lane & 1) * 8;
-  for (int i = 0; i < 2; ++i) {
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(e, acc[i][j], LDE, wmma::mem_row_major);
-      __syncwarp();
-      const int row = m0 + wm * 32 + i * 16 + er;
-      if (row < tout) {
-        __align__(16) bf16 out[8];
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-          out[q] = __float2bfloat16(triad::gelu(triad::round_bf16(e[er * LDE + ec + q]), tanh_form));
-        bf16* dst = y + ((long long)b * tout + row) * C + n0 + wn * 64 + j * 16 + ec;
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(out);
-      }
-      __syncwarp();
-    }
-  }
+  triad::conv_s2::gemm_tile(x + b * x_bs, C, w, C, y + (long long)b * tout * C, tout, ktaps,
+                            triad::conv_s2::NoPrologue{}, GeluEpilogue{tanh_form});
 }
 
 }  // namespace
@@ -254,6 +182,7 @@ extern "C" int triad_frontend_conv(const void* x, int tin, const void* w, void* 
                                    int tout, int ktaps, int tanh_form, void* stream) {
   if (tout <= 0 || b <= 0 || ktaps < 1 || (tin - ktaps) / 2 + 1 != tout)
     return (int)cudaErrorInvalidValue;
+  using namespace triad::conv_s2;
   dim3 grid((tout + BM - 1) / BM, C / BN, b);
   frontend_conv_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const triad::bf16*)x, (long long)tin * C, (const triad::bf16*)w, (triad::bf16*)y, tout,

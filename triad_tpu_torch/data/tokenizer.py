@@ -10,7 +10,8 @@ HF's ids. Batches come out as fixed-shape padded id and mask arrays.
 from __future__ import annotations
 
 import unicodedata
-from typing import Dict, List, Optional, Tuple
+from collections import Counter
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -75,6 +76,21 @@ class WordPieceTokenizer:
         with open(path, encoding="utf-8") as f:
             for i, line in enumerate(f):
                 vocab[line.rstrip("\n")] = i
+        return cls(vocab, **kw)
+
+    @classmethod
+    def build_from_corpus(
+        cls, texts: Iterable[str], max_vocab: int = 8192, **kw
+    ) -> "WordPieceTokenizer":
+        """Whole-word vocab from a corpus (synthetic-data fallback; real
+        runs should pass the pretrained vocab.txt)."""
+        counts: Counter = Counter()
+        tmp = cls({"[PAD]": 0, "[UNK]": 1}, **kw)
+        for t in texts:
+            counts.update(tmp._basic_tokenize(t))
+        vocab = {"[PAD]": 0, "[UNK]": 1}
+        for word, _ in counts.most_common(max_vocab - len(vocab)):
+            vocab[word] = len(vocab)
         return cls(vocab, **kw)
 
     # -- pipeline -------------------------------------------------------

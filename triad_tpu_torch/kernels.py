@@ -64,13 +64,17 @@ LAUNCHES: Dict[str, int] = {
     "maxmean": 0,
     "maxmean_dq": 0,
     "maxmean_dk": 0,
+    "attention_eval_pair": 0,
+    "attention_eval_merged_pair": 0,
+    "fused_frontend_conv": 0,
+    "frontend_activation": 0,
 }
 
 _VP, _I, _LL, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_uint
 _LLP = ctypes.POINTER(ctypes.c_longlong)  # a host array of strides
 _DROP = [_U, _U, _F, _I]  # seed, threshold, keep scale, active (dropout_args)
 _SIGNATURES = {
-    "triad_attention_eval": [_VP] * 5 + [_I] * 4 + [_LL] * 9 + [_F, _VP],
+    "triad_attention_eval": [_VP] * 5 + [_I] * 6 + [_LL] * 9 + [_F, _VP],
     "triad_attention_eval_max_keys": [],
     "triad_attention_train_fwd": [_VP] * 5 + [_LLP] + [_I] * 3 + [_F] + _DROP + [_VP],
     "triad_attention_train_bwd": [_VP] * 11 + [_LLP] + [_I] * 3 + [_F] + _DROP + [_VP],
@@ -80,6 +84,8 @@ _SIGNATURES = {
     "triad_frontend_stats": [_VP, _LL, _VP, _VP, _VP, _I, _I, _VP],
     "triad_frontend_conv0": [_VP, _LL] + [_VP] * 4 + [_I] * 3 + [_VP],
     "triad_frontend_conv": [_VP, _I, _VP, _VP] + [_I] * 4 + [_VP],
+    "triad_frontend_conv_fused": [_VP, _LL, _I, _VP, _I, _VP] + [_I] * 4 + [_VP] * 5,
+    "triad_frontend_act": [_VP, _VP, _I, _LL, _I, _I] + [_VP] * 5,
     "triad_layernorm_fwd": [_VP] * 5 + [_I] * 2 + [_F] + _DROP + [_VP],
     "triad_layernorm_bwd": [_VP] * 8 + [_I] * 3 + [_F] + _DROP + [_VP],
     "triad_layernorm_bwd_blocks": [_I],

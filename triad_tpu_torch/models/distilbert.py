@@ -9,7 +9,8 @@ the embedding, attention-probs and FFN-output dropouts of HF DistilBERT
 model is deterministic (eval). ``attention_impl="fused"`` runs the
 strided training kernel with the key mask and its in-kernel attention
 dropout, whose int32 seeds come from an ``ops.dropout.HostSeeds``, as in
-HuBERT."""
+HuBERT; ``"packed"`` and ``"packed_pair"`` run the eval kernels with the
+key mask (eval only)."""
 
 from __future__ import annotations
 

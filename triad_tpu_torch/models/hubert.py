@@ -9,13 +9,19 @@
 
 ``frontend_impl="monolithic"`` runs the frontend kernels
 (``ops/frontend.py``, with a recompute backward); ``"conv"`` runs plain
-convolutions in the compute dtype with exact GELU. ``posconv_impl=
-"pallas"`` runs the positional conv kernels (``ops/posconv.py``).
-Attention: ``"packed"`` the packed eval kernel; ``"fused"`` (strided) and
-``"fused_packed"`` the training kernels with in-kernel attention dropout;
-``"packed_merged"`` / ``"fused_packed_merged"`` one (C, 3C) product of the
-concatenated q/k/v weights feeding the merged kernels (eval kernel at
-eval, training kernel in training).
+convolutions in the compute dtype with exact GELU; ``"pallas"`` runs each
+conv after conv_0 with its input's norm / GELU fused in
+(``ops/frontend_conv.py:fused_frontend_conv``) and ``"conv_act"`` plain
+convs with each norm / GELU as a pass of its own
+(``frontend_activation``); conv_0 and its GroupNorm stats stay plain in
+both, as in the JAX package. ``posconv_impl="pallas"`` runs the
+positional conv kernels (``ops/posconv.py``). Attention: ``"packed"`` the
+packed eval kernel, ``"packed_pair"`` its head-pair variant; ``"fused"``
+(strided) and ``"fused_packed"`` the training kernels with in-kernel
+attention dropout; ``"packed_merged"`` / ``"fused_packed_merged"`` /
+``"packed_merged_pair"`` one (C, 3C) product of the concatenated q/k/v
+weights feeding the merged kernels (the eval kernel, or its head-pair
+variant, at eval; the training kernel in training).
 
 Training mode takes a ``torch.Generator`` (SpecAugment and the plain
 dropouts) and an ``ops.dropout.HostSeeds`` (the int32 seed of each kernel
@@ -25,10 +31,12 @@ the JAX ones with "on a CUDA tensor" for "on a TPU backend":
 takes the fused dropout + add + LayerNorm kernel while training with
 live hidden dropout on a CUDA tensor; ``attention_impl`` takes the
 strided training kernel ("fused") while training with live attention
-dropout on a CUDA tensor. Elsewhere they run plain ops. An explicit
-kernel impl takes the kernel route everywhere (its plain twin on the CPU). Layerdrop skips a dropped layer's compute (JAX
-computes and discards it): its parameters get no gradient, which the
-optimizer bank treats as zero, as the JAX step's gradient is.
+dropout on a CUDA tensor, and so do "packed" and "packed_pair" then.
+Elsewhere they run plain ops. An explicit kernel impl takes the kernel
+route everywhere (its plain twin on the CPU). Layerdrop skips a dropped
+layer's compute (JAX computes and discards it): its parameters get no
+gradient, which the optimizer bank treats as zero, as the JAX step's
+gradient is.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch.nn.functional as F
 
 from triad_tpu_torch.config import HubertConfig
 from triad_tpu_torch.models.layers import (
+    MERGED_IMPLS,
     Dense,
     LayerNorm,
     dot_product_attention,
@@ -53,6 +62,12 @@ from triad_tpu_torch.models.layers import (
 from triad_tpu_torch.ops.attention import HEAD_DIM
 from triad_tpu_torch.ops.dropout import HostSeeds
 from triad_tpu_torch.ops.frontend import frontend_vjp
+from triad_tpu_torch.ops.frontend_conv import (
+    frontend_activation,
+    fused_frontend_conv,
+    identity_stats,
+    out_rows,
+)
 from triad_tpu_torch.ops.layernorm import fused_dropout_add_ln
 from triad_tpu_torch.ops.mlp import gelu
 from triad_tpu_torch.ops.posconv import pos_conv_gelu
@@ -82,17 +97,15 @@ class ConvFeatureEncoder(nn.Module):
     def __init__(self, cfg: HubertConfig, dtype, param_dtype, device=None):
         super().__init__()
         c = cfg
-        if c.frontend_impl == "pallas":
-            raise not_ported("frontend_impl 'pallas'",
-                             "the TPU kernel pallas_conv.fused_frontend_conv")
-        if c.frontend_impl == "conv_act":
-            raise not_ported("frontend_impl 'conv_act'",
-                             "the TPU kernel pallas_conv.pallas_activation")
-        if c.frontend_impl not in ("conv", "monolithic"):
+        if c.frontend_impl not in ("conv", "monolithic", "pallas", "conv_act"):
             raise not_ported(f"frontend_impl {c.frontend_impl!r}",
                              "an XLA lowering of the conv frontend (models/hubert.py)")
-        if c.frontend_impl == "monolithic" and c.conv_bias:
-            raise ValueError("monolithic frontend: no conv bias")
+        if c.frontend_impl in ("monolithic", "pallas") and c.conv_bias:
+            raise ValueError(f"{c.frontend_impl} frontend: no conv bias")
+        if c.frontend_impl == "pallas" and any(
+                s != 2 or k not in (2, 3) for k, s in zip(c.conv_kernel[1:], c.conv_stride[1:])):
+            raise ValueError("pallas frontend requires stride-2 convs of kernel 2 or 3 after "
+                             "conv_0")
         dims = (1,) + tuple(c.conv_dim)
         self.convs = nn.ModuleList(
             nn.Conv1d(dims[i], dims[i + 1], k, stride=s, bias=c.conv_bias,
@@ -120,12 +133,39 @@ class ConvFeatureEncoder(nn.Module):
         mean = yf.mean(dim=-1, keepdim=True)
         var = (yf * yf).mean(dim=-1, keepdim=True) - mean * mean
         gn = self.group_norm
+        if c.frontend_impl in ("pallas", "conv_act"):
+            stats = (mean.transpose(1, 2), torch.rsqrt(var + 1e-5).transpose(1, 2),
+                     gn.weight, gn.bias)
+            tail = self._pallas_tail if c.frontend_impl == "pallas" else self._conv_act_tail
+            return tail(y0.transpose(1, 2), stats, conv)
         x = (yf - mean) * torch.rsqrt(var + 1e-5)
         x = (x * gn.weight.to(torch.float32)[:, None] + gn.bias.to(torch.float32)[:, None]).to(d)
         x = gelu(x, "erf")
         for i in range(1, len(self.convs)):
             x = gelu(conv(i, x), "erf")
         return x.transpose(1, 2)
+
+    def _pallas_tail(self, x, stats, conv):
+        """hubert.py:_pallas_tail: x (B, T0, C) conv_0's output; each conv
+        after it reads its input through the fused prologue (conv_1: the
+        GroupNorm with ``stats`` = (mean, rstd, scale, bias), then GELU;
+        later ones GELU), and the last GELU is plain."""
+        prologue, t_log = "norm_gelu", x.shape[1]
+        for m in self.convs[1:]:
+            x = fused_frontend_conv(x, m.weight, *stats, t_log, prologue)
+            t_log = out_rows(t_log, m.kernel_size[0])
+            prologue, stats = "gelu", identity_stats(x.shape[0], x.shape[-1], x.device)
+        return gelu(x, "erf")
+
+    def _conv_act_tail(self, x, stats, conv):
+        """hubert.py:_conv_act_tail: the GroupNorm + GELU as one pass over
+        conv_0's output (B, T0, C), then each plain conv followed by a GELU
+        pass."""
+        x = frontend_activation(x, *stats, "norm_gelu")
+        for i in range(1, len(self.convs)):
+            x = conv(i, x.transpose(1, 2)).transpose(1, 2)
+            x = frontend_activation(x, *identity_stats(x.shape[0], x.shape[-1], x.device), "gelu")
+        return x
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -161,14 +201,7 @@ class HubertSelfAttention(nn.Module):
         self.v_proj = Dense(c.hidden_size, c.hidden_size, **kw)
         self.out_proj = Dense(c.hidden_size, c.hidden_size, **kw)
         impl = c.attention_impl
-        if impl == "packed_pair":
-            raise not_ported("HuBERT attention_impl 'packed_pair'",
-                             "the TPU kernel pallas_attention.fused_attention_eval_pair")
-        if impl == "packed_merged_pair":
-            raise not_ported("HuBERT attention_impl 'packed_merged_pair'",
-                             "the TPU kernel pallas_attention.fused_attention_eval_merged_pair")
-        if impl in ("packed_merged", "fused_packed_merged") \
-                and c.hidden_size // c.num_heads != HEAD_DIM:
+        if impl in MERGED_IMPLS and c.hidden_size // c.num_heads != HEAD_DIM:
             raise ValueError(f"merged attention kernels require head_dim {HEAD_DIM}")
         self.cfg, self.dtype = cfg, dtype
 
@@ -179,16 +212,17 @@ class HubertSelfAttention(nn.Module):
         impl = c.attention_impl
         train = generator is not None
         rate = c.attention_dropout if train else 0.0
-        if impl in ("packed_merged", "fused_packed_merged"):
+        if impl in MERGED_IMPLS:
             # One (C, 3C) product (hubert.py:596-619); gradients reach
             # q_proj, k_proj and v_proj through the concatenation.
             w = torch.cat([self.q_proj.weight, self.k_proj.weight, self.v_proj.weight])
             bias = torch.cat([self.q_proj.bias, self.k_proj.bias, self.v_proj.bias])
             qkv = F.linear(x.to(d), w.to(d), bias.to(d))
             seed = seeds.seed() if rate > 0.0 else 0
-            return self.out_proj(merged_attention(qkv, d, train, rate, seed))
+            return self.out_proj(merged_attention(qkv, d, train, rate, seed,
+                                                  pair=impl == "packed_merged_pair"))
         on_cuda = x.device.type == "cuda"
-        if impl == "auto" or (impl == "packed" and rate > 0.0):
+        if impl == "auto" or (impl in ("packed", "packed_pair") and rate > 0.0):
             impl = "fused" if rate > 0.0 and on_cuda else "xla"
         hd = c.hidden_size // c.num_heads
         q, k, v = (p(x).reshape(b, n, c.num_heads, hd)

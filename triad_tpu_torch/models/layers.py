@@ -18,6 +18,8 @@ import torch.nn.functional as F
 from triad_tpu_torch.ops.attention import (
     attention_eval,
     attention_eval_merged,
+    attention_eval_merged_pair,
+    attention_eval_pair,
     attention_train,
     attention_train_merged,
     attention_train_strided,
@@ -178,9 +180,10 @@ def dot_product_attention(q, k, v, mask: Optional[torch.Tensor], dtype,
     q, k, v: (B, N, H, Dh); mask: optional (B, 1, 1, Nk) bool. impl
     "xla": plain masked softmax, with ``probs_dropout`` (a function of
     the probs) when given; "packed": the packed eval kernel on the
-    (B, N, H*Dh) layout; "fused" (fused_attention, on the (B, H, N, Dh)
-    views) and "fused_packed" (fused_attention_packed): the training
-    kernels (differentiable, ragged N, so ``attention_pad`` stays ignored)
+    (B, N, H*Dh) layout, "packed_pair" its head-pair variant; "fused"
+    (fused_attention, on the (B, H, N, Dh) views) and "fused_packed"
+    (fused_attention_packed): the training kernels (differentiable, ragged
+    N, so ``attention_pad`` stays ignored)
     with their in-kernel dropout at ``dropout_rate`` from the int32
     ``dropout_seed``. A plain ``probs_dropout`` runs on "xla" only: every
     other impl given one raises. The merged impls take one qkv tensor:
@@ -192,7 +195,7 @@ def dot_product_attention(q, k, v, mask: Optional[torch.Tensor], dtype,
                          "the kernels' own dropout (dropout_rate, dropout_seed)")
     b, n, h, d = q.shape
     key_mask = None if mask is None else mask.reshape(b, n)
-    if impl in ("fused", "fused_packed", "packed") and d != 64:
+    if impl in ("fused", "fused_packed", "packed", "packed_pair") and d != 64:
         raise ValueError(f"the attention kernels need head_dim 64, got {d}")
     if impl == "fused":
         out = attention_train_strided(
@@ -206,30 +209,32 @@ def dot_product_attention(q, k, v, mask: Optional[torch.Tensor], dtype,
             dropout_rate, 1.0 / d ** 0.5,
         )
         return out.reshape(b, n, h, d)
-    if impl == "packed":
-        out = attention_eval(
-            *(x.reshape(b, n, h * d).to(dtype) for x in (q, k, v)), key_mask,
-            1.0 / d ** 0.5,
-        )
+    if impl in ("packed", "packed_pair"):
+        fn = attention_eval_pair if impl == "packed_pair" else attention_eval
+        out = fn(*(x.reshape(b, n, h * d).to(dtype) for x in (q, k, v)), key_mask,
+                 1.0 / d ** 0.5)
         return out.reshape(b, n, h, d)
     if impl == "flash":
         raise not_ported("attention impl 'flash'",
                          "JAX's library flash-attention kernel (not one of this repo's)")
-    if impl == "packed_pair":
-        raise not_ported("attention impl 'packed_pair'",
-                         "the TPU kernel pallas_attention.fused_attention_eval_pair")
     raise ValueError(f"unknown attention impl {impl!r} (the merged impls take one qkv "
                      f"tensor: merged_attention)")
 
 
+MERGED_IMPLS = ("packed_merged", "fused_packed_merged", "packed_merged_pair")  # one qkv input
+
+
 def merged_attention(qkv, dtype, train: bool, dropout_rate: float = 0.0,
-                     dropout_seed: int = 0):
+                     dropout_seed: int = 0, pair: bool = False):
     """merged_packed_dot_product_attention (layers.py:286-382) with ragged N
     and no key mask: qkv (B, N, 3*H*64) -> (B, N, H*64). ``train``: the
     differentiable merged training kernel with its in-kernel dropout (the
     JAX ``differentiable`` flag, so a dropout-free caller still gets
-    d(qkv)); else the merged eval kernel."""
+    d(qkv)); else the merged eval kernel, its head-pair variant if
+    ``pair``."""
     qkv = qkv.to(dtype)
     if train:
         return attention_train_merged(qkv, None, dropout_seed, dropout_rate)
+    if pair:
+        return attention_eval_merged_pair(qkv)
     return attention_eval_merged(qkv)

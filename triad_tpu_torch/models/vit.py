@@ -6,8 +6,9 @@
 
 LoRA sits on the fused qkv projection and the output projection (folded
 into the weight by default). ``attention_impl="packed_merged"`` feeds the
-(B, N, 3C) qkv projection straight into the merged eval kernel (no
-gradient, as in the JAX package); ``"fused_packed_merged"`` feeds it into
+(B, N, 3C) qkv projection straight into the merged eval kernel, and
+``"packed_merged_pair"`` into its head-pair variant (no gradient, as in
+the JAX package); ``"fused_packed_merged"`` feeds it into
 the differentiable merged training kernel; ``"fused"`` (strided) and
 ``"fused_packed"`` run the differentiable training kernels on the split
 q, k, v. DINOv2 has no attention dropout, so the training kernels run at
@@ -23,12 +24,12 @@ import torch.nn.functional as F
 
 from triad_tpu_torch.config import ViTConfig
 from triad_tpu_torch.models.layers import (
+    MERGED_IMPLS,
     LayerNorm,
     LoRALinear,
     Mlp,
     dot_product_attention,
     merged_attention,
-    not_ported,
 )
 from triad_tpu_torch.ops.attention import HEAD_DIM
 
@@ -55,11 +56,7 @@ class ViTAttention(nn.Module):
         self.qkv = LoRALinear(c.hidden_size, 3 * c.hidden_size, bias=c.qkv_bias, **kw)
         self.proj = LoRALinear(c.hidden_size, c.hidden_size, **kw)
         impl = c.attention_impl
-        if impl == "packed_merged_pair":
-            raise not_ported("ViT attention_impl 'packed_merged_pair'",
-                             "the TPU kernel pallas_attention.fused_attention_eval_merged_pair")
-        if impl in ("packed_merged", "fused_packed_merged") \
-                and c.hidden_size // c.num_heads != HEAD_DIM:
+        if impl in MERGED_IMPLS and c.hidden_size // c.num_heads != HEAD_DIM:
             raise ValueError(f"merged attention kernels require head_dim {HEAD_DIM}")
         self.cfg, self.dtype = cfg, dtype
 
@@ -67,9 +64,10 @@ class ViTAttention(nn.Module):
         c = self.cfg
         b, n, d = x.shape
         qkv = self.qkv(x)
-        if c.attention_impl in ("packed_merged", "fused_packed_merged"):
+        if c.attention_impl in MERGED_IMPLS:
             train = c.attention_impl == "fused_packed_merged"  # JAX's differentiable flag
-            return self.proj(merged_attention(qkv, self.dtype, train))
+            return self.proj(merged_attention(qkv, self.dtype, train,
+                                              pair=c.attention_impl == "packed_merged_pair"))
         hd = d // c.num_heads
         q, k, v = (t.reshape(b, n, c.num_heads, hd) for t in qkv.split(d, dim=-1))
         out = dot_product_attention(

@@ -4,12 +4,15 @@ plain masked softmax attention.
 
 Mirrors ``triad_tpu/ops/pallas_attention.py`` (``fused_attention_eval``
 and ``fused_attention_eval_merged``, both running ``_head_eval``;
+``fused_attention_eval_pair`` and ``fused_attention_eval_merged_pair``,
+running ``_head_pair_eval`` on head pairs and ``_head_eval`` on an odd
+last head;
 ``fused_attention``, ``fused_attention_packed`` and
 ``fused_attention_packed_merged``, running ``_head_fwd`` / ``_head_bwd``)
 and the XLA branch of ``triad_tpu/models/layers.py:dot_product_attention``.
 
-``attention_eval`` / ``attention_eval_merged`` launch
-``csrc/attention_eval.cu``, and ``attention_train_strided`` (on (B, H, N,
+``attention_eval`` / ``attention_eval_merged`` and their pair variants
+launch ``csrc/attention_eval.cu``, and ``attention_train_strided`` (on (B, H, N,
 64) views; ``attention_train`` passes it the heads of packed projections)
 and ``attention_train_merged`` (one d(qkv) cotangent)
 ``csrc/attention_train.cu``, for a CUDA tensor; a CPU tensor runs the
@@ -62,15 +65,52 @@ def attention_eval_plain(q, k, v, mask, sm_scale: float) -> torch.Tensor:
     return o.transpose(1, 2).reshape(b, nq, hd).to(q.dtype)
 
 
-def _launch(name, q, k, v, mask, out, nq, nk, h, sm_scale):
-    """q/k/v/out: (B, N, width) views with unit column stride."""
+PAIR_KEY_PAD = 128  # the pair adapter pads keys to a multiple of 128
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def attention_eval_pair_plain(q, k, v, mask, sm_scale: float) -> torch.Tensor:
+    """fused_attention_eval_pair as the JAX adapter calls it
+    (layers.py:262-283): keys padded to a multiple of 128 with zero k and
+    v and a -1e30 bias, which count in the softmax (a row whose keys are
+    all masked averages over the padded count too). Heads in pairs run
+    _head_pair_eval: e rounded to v's dtype before both e.V and the row
+    sum (fp32 accumulation), output o / sum. An odd last head runs
+    _head_eval (attention_eval_plain's numerics). q (B, Nq, H*64), k/v
+    (B, Nk, H*64), mask (B, Nk) fp32 -> (B, Nq, H*64) in q's dtype."""
+    b, nq, hd = q.shape
+    nk = k.shape[1]
+    h = hd // HEAD_DIM
+    pad = _round_up(nk, PAIR_KEY_PAD) - nk
+    k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (k, v))
+    bias = (1.0 - torch.nn.functional.pad(mask.to(torch.float32), (0, pad))) * -1e30
+    f32 = torch.float32
+    s = _heads(q, h).to(f32) @ _heads(k, h).to(f32).transpose(-1, -2) * sm_scale
+    s = s + bias[:, None, None, :]
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    eb = e.to(v.dtype).to(f32)
+    o = eb @ _heads(v, h).to(f32)
+    paired = 2 * (h // 2)
+    out = torch.cat([o[:, :paired] / eb[:, :paired].sum(dim=-1, keepdim=True),
+                     o[:, paired:] * (1.0 / e[:, paired:].sum(dim=-1, keepdim=True))], dim=1)
+    return _packed(out).to(q.dtype)
+
+
+def _launch(name, q, k, v, mask, out, nq, nk, h, sm_scale, pair=False):
+    """q/k/v/out: (B, N, width) views with unit column stride. ``pair``:
+    the head-pair numerics on every head of a pair, and keys padded to a
+    multiple of 128 in the softmax, as attention_eval_pair_plain."""
     b = out.shape[0]
+    nk_soft = _round_up(nk, PAIR_KEY_PAD) if pair else nk
     max_keys = kernels.library().triad_attention_eval_max_keys()
-    if nk > max_keys:
-        raise ValueError(f"{name}: {nk} keys > the kernel's {max_keys}")
+    if nk_soft > max_keys:
+        raise ValueError(f"{name}: {nk_soft} keys > the kernel's {max_keys}")
     kernels.call(
         "attention_eval", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), b, h, nq, nk,
+        mask.data_ptr(), out.data_ptr(), b, h, nq, nk, nk_soft, 2 * (h // 2) if pair else 0,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
         mask.stride(0), float(sm_scale), kernels.stream_ptr(out),
@@ -114,6 +154,47 @@ def attention_eval_merged(qkv, mask=None, sm_scale: Optional[float] = None):
     q, k, v = qkv.split(hd, dim=-1)  # views: row stride 3C, offsets 0/C/2C
     out = torch.empty((b, n, hd), dtype=qkv.dtype, device=qkv.device)
     _launch("attention_eval_merged", q, k, v, key_mask, out, n, n, hd // HEAD_DIM, scale)
+    return out
+
+
+def attention_eval_pair(q, k, v, mask=None, sm_scale: Optional[float] = None):
+    """Head-pair packed eval attention (fused_attention_eval_pair behind the
+    JAX adapter's padding): q (B, Nq, H*64), k/v (B, Nk, H*64) -> (B, Nq,
+    H*64). Ragged N in, the padded keys' softmax share reproduced in the
+    kernel (attention_eval_pair_plain)."""
+    b, nq, hd = q.shape
+    nk = k.shape[1]
+    if hd % HEAD_DIM:
+        raise ValueError(f"packed width {hd} not a multiple of {HEAD_DIM}")
+    scale = _scale(sm_scale)
+    key_mask = _key_mask(mask, b, nk, q.device)
+    if q.device.type == "cpu":
+        return attention_eval_pair_plain(q, k, v, key_mask, scale)
+    kernels.require_cuda("attention_eval_pair", q, k, v, dtype=torch.bfloat16)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    _launch("attention_eval_pair", q, k, v, key_mask, out, nq, nk, hd // HEAD_DIM, scale,
+            pair=True)
+    return out
+
+
+def attention_eval_merged_pair(qkv, mask=None, sm_scale: Optional[float] = None):
+    """Head-pair merged-qkv eval attention (fused_attention_eval_merged_pair
+    behind the adapter's padding): qkv (B, N, 3*H*64) -> (B, N, H*64)."""
+    b, n, hd3 = qkv.shape
+    hd = hd3 // 3
+    if hd * 3 != hd3 or hd % HEAD_DIM:
+        raise ValueError(f"bad merged width {hd3} (not 3*H*{HEAD_DIM})")
+    scale = _scale(sm_scale)
+    key_mask = _key_mask(mask, b, n, qkv.device)
+    if qkv.device.type == "cpu":
+        return attention_eval_pair_plain(*qkv.split(hd, dim=-1), key_mask, scale)
+    kernels.require_cuda("attention_eval_merged_pair", qkv, dtype=torch.bfloat16)
+    qkv = qkv.contiguous()
+    q, k, v = qkv.split(hd, dim=-1)
+    out = torch.empty((b, n, hd), dtype=qkv.dtype, device=qkv.device)
+    _launch("attention_eval_merged_pair", q, k, v, key_mask, out, n, n, hd // HEAD_DIM, scale,
+            pair=True)
     return out
 
 
