@@ -16,7 +16,9 @@ Phases (any failure exits nonzero before the last line):
   3. each kernel vs its plain twin on the card in bf16: max abs error
      against a stated bound, median time of the kernel, of the twin and
      of one PyTorch library call computing the same function where there
-     is one (CUDA events), and the least time the card could take (the
+     is one (CUDA events), the wrapper's host time per call (host clock
+     from an idle card to the call's return), and the least time the card
+     could take (the
      larger of the bytes over 3.35 TB/s and the operations over the
      tensor-core or fp32 peak); the training kernels at B = 8 and at the
      train steps' B = 64, the dropout kernels at p = 0.1 with the twin
@@ -78,6 +80,19 @@ Phases (any failure exits nonzero before the last line):
      activation kernel launched) against the "pallas" one within 4 bf16
      ulps; 8 items against fp32 on the CPU (token cosine > 0.99); and
      score_matrix on the card against the CPU's (1e-4 of the scale).
+ 13. flash eval: perf_eval_model_config() with attention_impl "flash" in
+     all three encoders, served over HTTP at B = 8 (10 s clips, 224^2
+     images, 128-token captions): flash_attention launched once per layer
+     of each encode call (12, 12 and 6) and the eval attention kernels
+     not at all, the encode calls timed (in turns with the same weights on
+     perf_eval_model_config()'s own impls), and the answers against fp32 on
+     the CPU (token cosine > 0.99);
+ 14. the text-visual step of phase 6 with the ViT on "flash" at B = 64:
+     2 warm-up and 3 timed steps, the flash forward and backward launched
+     12 times each per step (counts zeroed just before the steps) and the
+     training attention not at all, a profiler split in
+     tv_flash_profile.txt; then its B = 4 step against fp32 on the CPU, as
+     phase 7.
 The port's kernels add in a fixed order (no atomics), so phase 8 trains
 the same weights every run (PERF.md) and phase 9 reads the same each run.
 Phase 3 also holds the strided (B, 12, N, 64) and merged (B, N, 2304)
@@ -86,10 +101,11 @@ shapes of phases 10 and 11 (on grid features with separated maxima, and at
 the AV shape on real L2-normalised features), checks that the strided,
 packed and merged kernels agree on the same inputs and seed, and holds the
 head-pair eval attention, the fused frontend conv and the frontend
-activation at the shapes of phase 12.
+activation at the shapes of phase 12, and the flash forward and backward
+at the shapes of phases 13-14 and at N = 1000.
 The line before the last is one JSON object with one entry per kernel:
-its launches in the paths that run it (phases 4, 6, 8, 10, 11 and 12, each
-counted from zero), and its error, times and bound at its main case of
+its launches in the paths that run it (phases 4, 6, 8, 10, 11, 12, 13 and
+14, each counted from zero), and its error, times and bound at its main case of
 phase 3 (the shape the train steps give it, else the first); every shape
 of phase 3 goes to chiprun_out/kernel_cases.json. The last line is
 {"ok": true, "device": {...}}.
@@ -105,6 +121,7 @@ import statistics
 import subprocess
 import sys
 import threading
+import time
 import urllib.request
 
 import numpy as np
@@ -158,6 +175,19 @@ def time_fns(fns, reps=20, warmup=3):
     return [statistics.median(t) for t in times]
 
 
+def host_time(fn, reps=10):
+    """Median host ms of one call from an idle card to its return: the
+    wrapper's work up to the enqueued launch (the card runs on after)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def cost(flops, nbytes, peak=PEAK_BF16):
     """(bound_ms, bound_by): the least time the card could take, the
     larger of the operations over their peak rate and the bytes (each
@@ -188,17 +218,19 @@ def compare(results, name, shape, kernel_fn, plain_fn, tol_rel, bound, library_f
     fns = [kernel_fn, plain_fn] + ([library_fn] if library_fn is not None else [])
     ms, plain_ms, *lib = time_fns(fns)
     library_ms = lib[0] if lib else None
+    host_ms = host_time(kernel_fn)
     bound_ms, bound_by = bound
     ok = err <= tol
     lib_txt = "-" if library_ms is None else f"{library_ms:.4f}"
     print(f"  {name:20s} {str(shape):32s} err {err:.4g} (tol {tol:.4g}) kernel {ms:.4f} "
-          f"plain {plain_ms:.4f} library {lib_txt} bound {bound_ms:.4f} ({bound_by}) ms  "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"(host {host_ms:.4f}) plain {plain_ms:.4f} library {lib_txt} bound {bound_ms:.4f} "
+          f"({bound_by}) ms  {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail(f"{name} at {shape} disagrees with its plain version")
     results.append({"name": name, "shape": list(shape), "max_abs_err": err, "tol": tol,
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "main": main})
+                    "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "main": main})
 
 
 KERNELS = {
@@ -243,6 +275,10 @@ KERNELS = {
                             "triad_tpu/ops/pallas_conv.py:177"),
     "frontend_activation": ("triad_tpu_torch/csrc/frontend_conv.cu",
                             "triad_tpu/ops/pallas_conv.py:228"),
+    "flash_attention": ("triad_tpu_torch/csrc/attention_flash.cu",
+                        "triad_tpu/models/layers.py:36"),
+    "flash_attention_bwd": ("triad_tpu_torch/csrc/attention_flash.cu",
+                            "triad_tpu/models/layers.py:36"),
 }
 SERVE_KERNELS = ("attention_eval", "attention_eval_merged", "fused_mlp", "frontend_stats",
                  "frontend_conv0", "frontend_conv")
@@ -262,6 +298,11 @@ KNOBS_KERNELS = ("attention_train_merged", "attention_train_merged_bwd", "maxmea
 RETRIEVAL_KERNELS = ("attention_eval_pair", "attention_eval_merged_pair", "fused_frontend_conv",
                      "fused_mlp")
 CONV_ACT_KERNELS = ("frontend_activation", "attention_eval_pair")
+# The flash route: its forward at eval (phase 13), forward and backward in
+# the ViT of the text-visual step (phase 14).
+EVAL_ATTENTION = ("attention_eval", "attention_eval_merged", "attention_eval_pair",
+                  "attention_eval_merged_pair")
+FLASH_TV_KERNELS = ("flash_attention", "flash_attention_bwd", "fused_mlp", "fused_mlp_bwd")
 
 
 def _sdpa(q, k, v, mask=None):
@@ -653,7 +694,56 @@ def kernel_phase():
     maxmean_cases(res, MM, TRAIN_B, TRAIN_B, TRAIN_TXT, 256, 512, True, -20.0)
     maxmean_real_case(res, MM, TRAIN_B, TRAIN_B, 499, 256, 512, -60.0)
     eval_slice_cases(res, A)
+    flash_cases(res)
     return res, agree
+
+
+def flash_cases(res):
+    """The flash kernels at the shapes of their paths, on the (B, H, N, 64)
+    views of (B, N, H, 64) projections, as the encoders pass them: the
+    ViT's training shape (64, 261), HuBERT's eval (8, 499), DistilBERT's
+    (8, 128) with ragged keys and one row whose keys are all masked, and
+    (8, 1000), past the training kernel's 512-key cap. The kernel walks
+    64-key tiles with an online softmax, the twin the library's 512-key
+    blocks, so their bf16 roundings of P (and so of O, dS and the
+    gradients) differ here and there: 2 bf16 ulps of each output's largest
+    magnitude. Both backward sides take the twin's O, l and m. Library:
+    SDPA with the key mask, and its autograd backward. Bound: products over
+    the keys this data needs (a masked key adds nothing unless its whole
+    row is masked): 2 of N x keys x 64 per head forward, 5 backward (S
+    again, dP, dV, dK, dQ)."""
+    import torch.nn.functional as F
+
+    from triad_tpu_torch.ops import flash_attention as FA
+
+    for b, n, masked, main in ((TRAIN_B, 261, False, True), (B, 499, False, False),
+                               (B, 128, True, False), (B, 1000, False, False)):
+        q, k, v, do = (randn((b, n, 12, 64), 111 + i).transpose(1, 2) for i in range(4))
+        mask = attn_mask = None
+        keys = b * n
+        if masked:
+            mask = torch.ones((b, n), device="cuda")
+            mask[1::2, n * 3 // 4:] = 0.0
+            mask[-1] = 0.0
+            attn_mask = mask.bool()[:, None, None, :]
+            per_row = mask.sum(dim=-1)
+            keys = int(torch.where(per_row > 0, per_row, float(n)).sum())
+        flops = 4 * 12 * n * keys * 64
+        act, stats = b * n * 768 * 2, 2 * b * 12 * n * 4 + (b * n * 4 if masked else 0)
+        shape = (b, 12, n, 64) + (("masked",) if masked else ())
+        compare(res, "flash_attention", shape,
+                lambda: FA.flash_attention_fwd(q, k, v, mask, 0.125)[0],
+                lambda: FA.flash_fwd_plain(q, k, v, mask, 0.125)[0], 2 * BF16_ULP,
+                cost(flops, 4 * act + stats),
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask), main)
+        o, l, m = FA.flash_fwd_plain(q, k, v, mask, 0.125)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask)
+        compare(res, "flash_attention_bwd", shape,
+                lambda: FA.flash_attention_bwd(q, k, v, mask, o, l, m, do, 0.125),
+                lambda: FA.flash_bwd_plain(q, k, v, mask, o, l, m, do, 0.125), 2 * BF16_ULP,
+                cost(flops * 5 // 2, 8 * act + stats),
+                lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), main)
 
 
 def eval_slice_cases(res, A):
@@ -869,15 +959,16 @@ def _check_launches(launches, names, path):
             fail(f"kernel {name} was not launched by the {path} steps")
 
 
-def train_phase():
-    """The full-width text-visual step; returns the model, the launch
-    counts of the steps and the median ms of the timed steps."""
+def train_phase(model_cfg=None, kernel_names=TV_KERNELS, profile="train_profile.txt"):
+    """The full-width text-visual step of ``model_cfg`` (default
+    perf_train_model_config()); returns the model, the launch counts of
+    the steps and the median ms of the timed steps."""
     from triad_tpu_torch import kernels
     from triad_tpu_torch.config import OptimConfig, perf_train_loss_config
     from triad_tpu_torch.train.step import StepFactory
 
     ocfg = OptimConfig(gradient_accumulation_steps=1)
-    state = _new_state(ocfg, 0)
+    state = _new_state(ocfg, 0, model_cfg)
     model = state.model
     step = StepFactory(perf_train_loss_config(), ocfg).make_step("tv")
     batch = {k: v.cuda() for k, v in _train_batch(TRAIN_B, 3).items()}
@@ -897,8 +988,8 @@ def train_phase():
             fail(f"{name} (frozen or gated) changed in training")
     print("  LoRA factors, projection heads and temperature moved; ViT base, "
           "DistilBERT and HuBERT bit-unchanged", flush=True)
-    _check_launches(launches, TV_KERNELS, "text-visual")
-    profile_step(lambda: step(state, None, batch), "train_profile.txt")
+    _check_launches(launches, kernel_names, "text-visual")
+    profile_step(lambda: step(state, None, batch), profile)
     return model, launches, step_ms
 
 
@@ -1306,7 +1397,6 @@ def retrieval_phase(n):
     CPU's."""
     import random
     import tempfile
-    import time
 
     from triad_tpu_torch import kernels
     from triad_tpu_torch.config import Config
@@ -1448,11 +1538,102 @@ def retrieval_phase(n):
         act_launches
 
 
+def flash_eval_phase():
+    """perf_eval_model_config() with "flash" in all three encoders, served
+    over HTTP at B = 8: 10 s clips, 224^2 images and 128-token captions
+    (every other one padded to 96). Each request is counted from zero:
+    flash_attention must launch once per layer of its encoder (HuBERT and
+    the ViT 12, DistilBERT 6) and no eval attention kernel at all. Then
+    each encode call is timed on the card (CUDA events, median of 3 after
+    one warm-up), in turns with the same weights on perf_eval_model_config()'s
+    own impls, and one clip, one image and the 8 captions are held against
+    fp32 on the CPU (reference_phase). Returns the timings and the launch
+    counts of the three requests together."""
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.cli.serve import load_config
+    from triad_tpu_torch.serve.model import ServingModel
+    from triad_tpu_torch.serve.server import make_server
+
+    base = load_config("perf_eval")
+    cfg = dataclasses.replace(base, **{
+        sec: dataclasses.replace(getattr(base, sec), attention_impl="flash")
+        for sec in ("vit", "hubert", "text")})
+    serving = ServingModel(cfg, None, "cuda", AUDIO, 128)
+    rng = np.random.default_rng(21)
+    audio = (rng.standard_normal((B, AUDIO)) * 0.1).astype(np.float32)
+    images = rng.standard_normal((B, 224, 224, 3)).astype(np.float32)
+    ids = rng.integers(1, 30_000, size=(B, 128)).astype(np.int32)
+    mask = np.ones((B, 128), np.float32)
+    mask[1::2, 96:] = 0.0
+    srv = make_server(serving, "127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    total = {name: 0 for name in kernels.LAUNCHES}
+    out = {}
+    try:
+        for name, route, body, ctype, shape, layers in (
+                ("audio", "/v1/embed/audio", _npy(audio), "application/x-npy", (B, 499, 512),
+                 cfg.hubert.num_layers),
+                ("image", "/v1/embed/image", _npy(images), "application/x-npy", (B, 256, 512),
+                 cfg.vit.num_layers),
+                ("text", "/v1/embed/text", json.dumps({"ids": ids.tolist(),
+                                                       "mask": mask.tolist()}).encode(),
+                 "application/json", (B, 128, 512), cfg.text.num_layers)):
+            kernels.reset_launches()
+            got = _post(url + route, body, ctype)
+            launches = dict(kernels.LAUNCHES)
+            out[name] = check(f"flash embed/{name}", got["tokens"] if name == "text" else got,
+                              shape)
+            used = {k: n for k, n in launches.items() if n}
+            print(f"  launches during the {name} request: {used}", flush=True)
+            if launches["flash_attention"] != layers:
+                fail(f"{name}: flash_attention launched {launches['flash_attention']} times, "
+                     f"not once per layer ({layers})")
+            if any(launches[k] for k in EVAL_ATTENTION):
+                fail(f"{name}: an eval attention kernel ran on the flash path")
+            total = {k: total[k] + launches[k] for k in total}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+    # The same weights on perf_eval_model_config()'s own impls (the eval
+    # attention kernels in HuBERT and the ViT, the plain attention in
+    # DistilBERT), timed in turns with the flash model.
+    from triad_tpu_torch.models.multimodal import TriadModel
+
+    packed = TriadModel(base, device="cuda")
+    packed.load_state_dict(serving.model.state_dict())
+    packed.eval()
+    inputs = {"audio": (torch.from_numpy(audio).cuda(),),
+              "visual": (torch.from_numpy(images).cuda(),),
+              "text": (torch.from_numpy(ids).long().cuda(), torch.from_numpy(mask).cuda())}
+    timings = {}
+    with torch.inference_mode():
+        for name, args in inputs.items():
+            fns = [getattr(m, f"encode_{name}") for m in (serving.model, packed)]
+            ms = {0: [], 1: []}
+            for i in range(4):
+                for j, fn in enumerate(fns):
+                    t = _step_ms(lambda: fn(*args))[1]
+                    if i:
+                        ms[j].append(t)
+            timings[f"encode_{name}_ms"] = statistics.median(ms[0])
+            timings[f"encode_{name}_ms_perf_eval_impls"] = statistics.median(ms[1])
+    del packed
+    print("  encode ms at B = 8 (median of 3 after one warm-up, flash and perf_eval's "
+          "impls in turns): " + "  ".join(f"{k} {v:.4f}" for k, v in timings.items()),
+          flush=True)
+    reference_phase(serving, audio, images, ids, mask, out["audio"], out["image"], out["text"])
+    return timings, total
+
+
 def _kernel_entry(name, results, launches_by_path):
     src, replaces = KERNELS[name]
     cases = [r for r in results if r["name"] == name]
     head = next((r for r in cases if r["main"]), cases[0])
-    keys = ("shape", "max_abs_err", "tol", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    keys = ("shape", "max_abs_err", "tol", "ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
     return {
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": sum(counts[name] for counts in launches_by_path.values()),
@@ -1570,9 +1751,34 @@ def main():
     retrieval, retrieval_launches, conv_act_launches = retrieval_phase(RETRIEVAL_N)
     torch.cuda.empty_cache()
 
+    phase(f"13. flash eval: perf_eval_model_config() with attention_impl 'flash' in all three "
+          f"encoders, served at B = {B}")
+    flash_eval, flash_eval_launches = flash_eval_phase()
+    torch.cuda.empty_cache()
+
+    phase(f"14. text-visual train step with the ViT on 'flash', full width, B = {TRAIN_B}")
+    from triad_tpu_torch.config import perf_train_model_config
+
+    cfg = perf_train_model_config()
+    cfg = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, attention_impl="flash"))
+    model, tv_flash_launches, tv_flash_ms = train_phase(cfg, FLASH_TV_KERNELS,
+                                                        "tv_flash_profile.txt")
+    print(f"  median of 3 timed steps: {tv_flash_ms:.3f} ms", flush=True)
+    want = cfg.vit.num_layers * 5  # once per ViT layer in each of the 5 steps
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if tv_flash_launches[name] != want:
+            fail(f"{name}: {tv_flash_launches[name]} launches in 5 steps, not {want}")
+    if tv_flash_launches["attention_train"] or tv_flash_launches["attention_train_bwd"]:
+        fail("the training attention ran on the ViT-flash path")
+    phase(f"14b. its B = {REF_B} step: bf16 card vs fp32 CPU")
+    train_reference_phase(model, ("others", "text", "vit_lora"), None, _train_batch(REF_B, 4))
+    del model
+    torch.cuda.empty_cache()
+
     by_path = {"serve": serve_launches, "train_tv": tv_launches, "train_joint": joint_launches,
                "train_default": default_launches, "train_knobs": knobs_launches,
-               "retrieval": retrieval_launches, "retrieval_conv_act": conv_act_launches}
+               "retrieval": retrieval_launches, "retrieval_conv_act": conv_act_launches,
+               "flash_eval": flash_eval_launches, "train_tv_flash": tv_flash_launches}
     kernels_json = [_kernel_entry(name, results, by_path) for name in KERNELS]
     # every shape of phase 3, too long for the line the kernels entries take
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -1582,7 +1788,8 @@ def main():
                       "joint_peak_bytes": peak, "default_micro_step_ms": default_ms,
                       "default_peak_bytes": default_peak, "knobs_step_ms": knobs_ms,
                       "knobs_peak_bytes": knobs_peak, "layouts_agree": agree,
-                      "retrieval": retrieval}), flush=True)
+                      "retrieval": retrieval, "flash_eval": flash_eval,
+                      "tv_flash_step_ms": tv_flash_ms}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -280,6 +280,30 @@ class TestRefusals:
             posconv.pos_conv(m(1, 8, 768), m(768, 48, 128), None, 16)
         with pytest.raises(ValueError, match="CUDA"):
             posconv.pos_conv_dw(m(1, 8, 768), m(1, 8, 768), 16, 128)
+        from triad_tpu_torch.ops.flash_attention import flash_attention
+
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention(m(1, 2, 37, 64), m(1, 2, 37, 64), m(1, 2, 37, 64))
+
+    @pytest.mark.parametrize("name", ["attention_eval", "attention_eval_pair",
+                                      "attention_eval_merged", "attention_eval_merged_pair"])
+    def test_eval_attention_refuses_autograd(self, name):
+        """The eval kernels have no backward (the Pallas ones have no VJP):
+        each wrapper raises, on the CPU as on the card, when grad is enabled
+        and an input requires it, naming the training impl; under no_grad
+        it runs, and a tensor without requires_grad runs anyway."""
+        from triad_tpu_torch.ops import attention as A
+
+        x = torch.randn(2, 37, 384 if "merged" in name else 128)
+        args = (x,) if "merged" in name else (x, x, x)
+        fn = getattr(A, name)
+        assert fn(*args).shape[-1] == 128
+        x.requires_grad_()
+        with torch.no_grad():
+            fn(*args)
+        train = "fused_packed_merged" if "merged" in name else "fused_packed"
+        with pytest.raises(RuntimeError, match=f"no backward.*'{train}'"):
+            fn(*args)
 
     def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
         from triad_tpu_torch import kernels
@@ -327,22 +351,48 @@ class TestRefusals:
             model.encode_audio(torch.zeros(1, 400, device="meta"))
 
     def test_flash_attention_raises(self):
+        """"flash" runs (the flash kernels' plain twins on the CPU) and
+        equals ops.flash_attention on the (B, H, N, 64) views; it raises
+        only at a length the reference refuses (N = 600 pads to 640, which
+        the library's 512-row blocks do not divide)."""
         from triad_tpu_torch.models.layers import dot_product_attention
+        from triad_tpu_torch.ops.flash_attention import flash_attention
 
-        q = torch.zeros(1, 4, 2, 64)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dot_product_attention(q, q, q, None, torch.float32, impl="flash")
+        rng = np.random.default_rng(0)
+        q, k, v = (torch.from_numpy(rng.normal(size=(2, 37, 2, 64)).astype(np.float32))
+                   for _ in range(3))
+        mask = torch.ones((2, 1, 1, 37), dtype=torch.bool)
+        mask[1, ..., 20:] = False
+        got = dot_product_attention(q, k, v, mask, torch.float32, impl="flash")
+        want = flash_attention(*(x.transpose(1, 2) for x in (q, k, v)), mask.reshape(2, 37))
+        assert torch.equal(got, want.transpose(1, 2))
+        z = torch.zeros(1, 600, 1, 64)
+        with pytest.raises(ValueError, match="600"):
+            dot_product_attention(z, z, z, None, torch.float32, impl="flash")
 
     @pytest.mark.parametrize("impl", ["flash", "packed", "packed_pair", "fused_packed"])
     def test_attention_dropout_needs_xla(self, impl):
-        """Live attention dropout runs on "xla" only; any other impl raises
-        rather than falling back to the plain attention."""
-        from triad_tpu_torch.models.layers import dot_product_attention
+        """A live plain attention dropout runs the "xla" composition for
+        "flash", "packed" and "packed_pair", as the JAX dispatch does (those
+        kernels have no dropout; layers.py:422-427): bit-equal to "xla" under
+        the same generator state. The training kernels draw their own
+        dropout and raise when handed a plain one."""
+        from triad_tpu_torch.models.layers import dot_product_attention, dropout
 
-        q = torch.zeros(1, 4, 2, 64)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dot_product_attention(q, q, q, None, torch.float32, impl=impl,
-                                  probs_dropout=lambda p: p)
+        rng = np.random.default_rng(1)
+        q, k, v = (torch.from_numpy(rng.normal(size=(1, 4, 2, 64)).astype(np.float32))
+                   for _ in range(3))
+
+        def run(name):
+            gen = torch.Generator().manual_seed(3)
+            return dot_product_attention(q, k, v, None, torch.float32, impl=name,
+                                         probs_dropout=lambda p: dropout(p, 0.5, gen))
+
+        if impl == "fused_packed":
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                run(impl)
+            return
+        assert torch.equal(run(impl), run("xla"))
 
     def test_ignored_tpu_knobs_are_config_fields(self):
         from triad_tpu.core.config import HubertConfig, ViTConfig

@@ -621,3 +621,84 @@ class TestFrontendConv:
         assert kernels.LAUNCHES["fused_frontend_conv"] == 1
         assert kernels.LAUNCHES["frontend_activation"] == 1
         assert all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in leaves)
+
+
+class TestFlashAttention:
+    # The kernel walks 64-key tiles with an online softmax, the twin the
+    # library's 512-key blocks: the bf16 roundings of P (and so of O, dS and
+    # the gradients) differ here and there by an ulp. 2 bf16 ulps of each
+    # output's largest magnitude.
+    TOL = 2 * 2.0 ** -7
+
+    @staticmethod
+    def _inputs(dev, b, n, mask_kind, seed):
+        """(B, H, N, 64) views of (B, N, H, 64) tensors, as the encoders
+        pass them, dO, and a key mask (None, masked keys, or also one row
+        whose keys are all masked)."""
+        q, k, v, do = (_randn((b, n, 12, 64), dev, seed + i).transpose(1, 2) for i in range(4))
+        mask = None
+        if mask_kind != "none":
+            mask = torch.ones((b, n), device=dev)
+            mask[0, n * 3 // 4:] = 0.0
+            if mask_kind == "all":
+                mask[-1] = 0.0
+        return q, k, v, do, mask
+
+    @pytest.mark.parametrize("b,n,mask_kind", [
+        (4, 261, "none"), (2, 499, "none"), (4, 128, "all"), (2, 37, "keys"), (2, 1000, "all"),
+        (1, 1024, "none"),
+    ])
+    def test_fwd_bwd(self, dev, b, n, mask_kind):
+        from triad_tpu_torch.ops.flash_attention import (
+            flash_attention_bwd,
+            flash_attention_fwd,
+            flash_bwd_plain,
+            flash_fwd_plain,
+        )
+
+        q, k, v, do, mask = self._inputs(dev, b, n, mask_kind, 70)
+        o, l, m = flash_attention_fwd(q, k, v, mask, 0.125)
+        torch.cuda.synchronize()
+        o_ref, l_ref, m_ref = flash_fwd_plain(q, k, v, mask, 0.125)
+        err, mx = _max_err(o, o_ref)
+        assert err <= self.TOL * mx, ("out", err, mx)
+        torch.testing.assert_close(m, m_ref, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(l, l_ref, rtol=1e-5, atol=0)
+        grads = flash_attention_bwd(q, k, v, mask, o, l, m, do, 0.125)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("dq", "dk", "dv"), grads,
+                              flash_bwd_plain(q, k, v, mask, o, l, m, do, 0.125)):
+            err, mx = _max_err(g, r)
+            assert err <= self.TOL * mx, (name, err, mx)
+
+    def test_autograd_counts_launches(self, dev):
+        from triad_tpu_torch import kernels
+        from triad_tpu_torch.ops.flash_attention import flash_attention
+
+        q, k, v, do, mask = self._inputs(dev, 2, 99, "keys", 80)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        kernels.reset_launches()
+        flash_attention(*leaves, mask).backward(do)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["flash_attention"] == 1
+        assert kernels.LAUNCHES["flash_attention_bwd"] == 1
+        assert all(t.grad is not None and bool(torch.isfinite(t.grad.float()).all())
+                   for t in leaves)
+
+
+class TestEvalAttentionRefusesGrad:
+    @pytest.mark.parametrize("name", ["attention_eval", "attention_eval_pair",
+                                      "attention_eval_merged", "attention_eval_merged_pair"])
+    def test_raises_under_autograd(self, dev, name):
+        """The eval kernels have no backward: an input that requires grad
+        raises instead of an output that silently drops the gradient; under
+        no_grad the kernel runs."""
+        from triad_tpu_torch.ops import attention as A
+
+        x = _randn((2, 37, 2304 if "merged" in name else 768), dev, 90)
+        args = (x,) if "merged" in name else (x, x, x)
+        with torch.no_grad():
+            assert bool(torch.isfinite(getattr(A, name)(*args).float()).all())
+        x.requires_grad_()
+        with pytest.raises(RuntimeError, match="no backward"):
+            getattr(A, name)(*args)

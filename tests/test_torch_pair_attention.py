@@ -119,6 +119,48 @@ def test_all_masked_row_averages_over_padded_keys():
     np.testing.assert_allclose(got[0], np.broadcast_to(want, (40, 128)), atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_single_head_all_masked_row_matches_pallas(dtype):
+    """The single-head eval attention ("packed") behind the JAX adapter
+    (eval_pad "hbm": keys padded to 128) at N = 37 with masked keys and a
+    row whose keys are all masked: the port counts the padded keys in that
+    row's softmax too, sum(v) / 128 (fp32 1e-5; bf16 one ulp, as above)."""
+    from triad_tpu.models.layers import packed_dot_product_attention
+
+    q, k, v, valid = _inputs(2, 37, 2, "all", seed=37)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        ref = packed_dot_product_attention(
+            *(jnp.asarray(x, jd) for x in (q, k, v)),
+            jnp.asarray(valid)[:, None, None, :].astype(bool), jd)
+    ref = np.asarray(jnp.asarray(ref, jnp.float32)).reshape(2, 37, 128)
+    got = _port(q, k, v, valid, td, merged=False, pair=False)
+    tol = 1e-5 if dtype == "float32" else BF16_ULP * np.abs(ref).max()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
+    np.testing.assert_allclose(got[-1, 0], v[-1].reshape(37, 128).sum(axis=0) / 128,
+                               rtol=0, atol=tol)
+
+
+def test_distilbert_all_masked_row_matches_jax():
+    """DistilBERT on the single-head "packed" eval attention at 37 tokens,
+    one caption wholly masked: encode_text against the JAX module."""
+    from triad_tpu.models import TriadModel as JaxTriad
+
+    cfg = pair_model_config()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, attention_impl="packed"))
+    jm, params, model = build_models(cfg)
+    rng = np.random.default_rng(9)
+    mask = np.ones((2, 37), np.float32)
+    mask[1] = 0.0
+    args = (rng.integers(1, 100, size=(2, 37)).astype(np.int32), mask)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.jit(lambda *a: jm.apply({"params": params}, *a,
+                                          method=JaxTriad.encode_text))(*args)
+    with torch.inference_mode():
+        got = model.encode_text(*(torch.from_numpy(a) for a in args))
+    _close(got, ref)
+
+
 def pair_model_config():
     """perf_eval_model_config() with the pair impls and the "pallas"
     frontend, narrowed: hidden 192 in 3 heads of 64 (odd, so the last

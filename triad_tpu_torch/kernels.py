@@ -14,7 +14,8 @@ Every C entry point launches on the stream it is given and returns
 where it launches its kernel and nowhere else; a wrapper whose entry
 point runs two grids (``attention_train_bwd``: rows, then columns) adds
 one per call; so do the strided and merged training attention
-(``attention_train_strided_bwd``, ``attention_train_merged_bwd``).
+(``attention_train_strided_bwd``, ``attention_train_merged_bwd``) and the
+flash backward (``flash_attention_bwd``: di, dK/dV, then dQ).
 :func:`reset_launches` zeroes the counts, so a caller can
 show that a run went through the kernels.
 """
@@ -68,6 +69,8 @@ LAUNCHES: Dict[str, int] = {
     "attention_eval_merged_pair": 0,
     "fused_frontend_conv": 0,
     "frontend_activation": 0,
+    "flash_attention": 0,
+    "flash_attention_bwd": 0,
 }
 
 _VP, _I, _LL, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_uint
@@ -94,6 +97,8 @@ _SIGNATURES = {
     "triad_maxmean_fwd": [_VP] * 9 + [_I] * 5 + [_F, _VP],
     "triad_maxmean_dq": [_VP] * 10 + [_I] * 5 + [_F, _VP],
     "triad_maxmean_dk": [_VP] * 10 + [_I] * 5 + [_F, _VP],
+    "triad_flash_attention_fwd": [_VP] * 7 + [_LLP] + [_I] * 4 + [_F, _VP],
+    "triad_flash_attention_bwd": [_VP] * 12 + [_LLP] + [_I] * 3 + [_F, _VP],
 }
 
 _lock = threading.Lock()

@@ -25,6 +25,7 @@ from triad_tpu_torch.ops.attention import (
     attention_train_strided,
     masked_attention,
 )
+from triad_tpu_torch.ops.flash_attention import flash_attention
 from triad_tpu_torch.ops.mlp import FusedMlp, gelu
 
 
@@ -180,22 +181,26 @@ def dot_product_attention(q, k, v, mask: Optional[torch.Tensor], dtype,
     q, k, v: (B, N, H, Dh); mask: optional (B, 1, 1, Nk) bool. impl
     "xla": plain masked softmax, with ``probs_dropout`` (a function of
     the probs) when given; "packed": the packed eval kernel on the
-    (B, N, H*Dh) layout, "packed_pair" its head-pair variant; "fused"
+    (B, N, H*Dh) layout, "packed_pair" its head-pair variant; "flash":
+    the flash kernels on the (B, H, N, Dh) views (differentiable); "fused"
     (fused_attention, on the (B, H, N, Dh) views) and "fused_packed"
     (fused_attention_packed): the training kernels (differentiable, ragged
     N, so ``attention_pad`` stays ignored)
     with their in-kernel dropout at ``dropout_rate`` from the int32
-    ``dropout_seed``. A plain ``probs_dropout`` runs on "xla" only: every
-    other impl given one raises. The merged impls take one qkv tensor:
+    ``dropout_seed``. "flash", "packed" and "packed_pair" given a live
+    ``probs_dropout`` run the plain masked softmax with it, as the JAX
+    dispatch does (those kernels have no dropout); "fused" and
+    "fused_packed" given one raise. The merged impls take one qkv tensor:
     see merged_attention."""
-    if impl == "xla":
+    if impl == "xla" or (impl in ("flash", "packed", "packed_pair")
+                         and probs_dropout is not None):
         return masked_attention(q, k, v, mask, dtype, scores_dtype, probs_dropout)
     if probs_dropout is not None:
         raise not_ported(f"attention impl {impl!r} with a plain attention dropout",
                          "the kernels' own dropout (dropout_rate, dropout_seed)")
     b, n, h, d = q.shape
     key_mask = None if mask is None else mask.reshape(b, n)
-    if impl in ("fused", "fused_packed", "packed", "packed_pair") and d != 64:
+    if impl in ("fused", "fused_packed", "packed", "packed_pair", "flash") and d != 64:
         raise ValueError(f"the attention kernels need head_dim 64, got {d}")
     if impl == "fused":
         out = attention_train_strided(
@@ -215,8 +220,9 @@ def dot_product_attention(q, k, v, mask: Optional[torch.Tensor], dtype,
                  1.0 / d ** 0.5)
         return out.reshape(b, n, h, d)
     if impl == "flash":
-        raise not_ported("attention impl 'flash'",
-                         "JAX's library flash-attention kernel (not one of this repo's)")
+        out = flash_attention(*(x.to(dtype).transpose(1, 2) for x in (q, k, v)), key_mask,
+                              1.0 / d ** 0.5)
+        return out.transpose(1, 2)
     raise ValueError(f"unknown attention impl {impl!r} (the merged impls take one qkv "
                      f"tensor: merged_attention)")
 

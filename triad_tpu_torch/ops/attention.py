@@ -42,26 +42,32 @@ def _key_mask(mask: Optional[torch.Tensor], b: int, n: int, device) -> torch.Ten
     return mask.reshape(b, n).to(device=device, dtype=torch.float32).contiguous()
 
 
-def attention_eval_plain(q, k, v, mask, sm_scale: float) -> torch.Tensor:
+def attention_eval_plain(q, k, v, mask, sm_scale: float, nk_soft: Optional[int] = None):
     """_head_eval for every head: q (B, Nq, H*64), k/v (B, Nk, H*64),
     mask (B, Nk) fp32 (1 = attend) -> (B, Nq, H*64) in q's dtype.
 
     fp32 scores, key bias (1 - mask) * -1e30, fp32 exp against the row
     max, e rounded to v's dtype before e.V (fp32 accumulation), output
-    times 1 / (fp32 row sum)."""
+    times 1 / (fp32 row sum). ``nk_soft`` (>= Nk, default Nk): keys in the
+    softmax, those past Nk with zero k and v and a -1e30 bias, as the JAX
+    adapter pads them (they count only in a row whose keys are all
+    masked)."""
     b, nq, hd = q.shape
     nk = k.shape[1]
     h = hd // HEAD_DIM
+    pad = (nk_soft or nk) - nk
+    k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (k, v))
+    mask = torch.nn.functional.pad(mask.to(torch.float32), (0, pad))
 
     def heads(x, n):
         return x.reshape(b, n, h, HEAD_DIM).transpose(1, 2).to(torch.float32)
 
-    bias = (1.0 - mask.to(torch.float32)) * -1e30
-    s = heads(q, nq) @ heads(k, nk).transpose(-1, -2) * sm_scale
+    bias = (1.0 - mask) * -1e30
+    s = heads(q, nq) @ heads(k, nk + pad).transpose(-1, -2) * sm_scale
     s = s + bias[:, None, None, :]
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     denom = e.sum(dim=-1, keepdim=True)
-    o = (e.to(v.dtype).to(torch.float32) @ heads(v, nk)) * (1.0 / denom)
+    o = (e.to(v.dtype).to(torch.float32) @ heads(v, nk + pad)) * (1.0 / denom)
     return o.transpose(1, 2).reshape(b, nq, hd).to(q.dtype)
 
 
@@ -99,12 +105,13 @@ def attention_eval_pair_plain(q, k, v, mask, sm_scale: float) -> torch.Tensor:
     return _packed(out).to(q.dtype)
 
 
-def _launch(name, q, k, v, mask, out, nq, nk, h, sm_scale, pair=False):
+def _launch(name, q, k, v, mask, out, nq, nk, h, sm_scale, pair=False, nk_soft=None):
     """q/k/v/out: (B, N, width) views with unit column stride. ``pair``:
     the head-pair numerics on every head of a pair, and keys padded to a
-    multiple of 128 in the softmax, as attention_eval_pair_plain."""
+    multiple of 128 in the softmax, as attention_eval_pair_plain;
+    ``nk_soft``: the softmax's key count otherwise (default nk)."""
     b = out.shape[0]
-    nk_soft = _round_up(nk, PAIR_KEY_PAD) if pair else nk
+    nk_soft = _round_up(nk, PAIR_KEY_PAD) if pair else nk_soft or nk
     max_keys = kernels.library().triad_attention_eval_max_keys()
     if nk_soft > max_keys:
         raise ValueError(f"{name}: {nk_soft} keys > the kernel's {max_keys}")
@@ -118,21 +125,39 @@ def _launch(name, q, k, v, mask, out, nq, nk, h, sm_scale, pair=False):
     kernels.LAUNCHES[name] += 1
 
 
+def _refuse_grad(name, *tensors):
+    """The eval kernels have no VJP (the Pallas ones have none either, and
+    JAX refuses to differentiate them): refuse, on the CPU and the card
+    alike, rather than hand autograd an output that drops the gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        train = "fused_packed_merged" if "merged" in name else "fused_packed"
+        raise RuntimeError(f"{name} is an eval kernel with no backward: an input requires "
+                           f"grad; train with attention_impl {train!r}, or run under "
+                           f"torch.no_grad() / inference_mode()")
+
+
 def attention_eval(q, k, v, mask=None, sm_scale: Optional[float] = None):
     """Packed-layout eval attention (pallas_attention.fused_attention_eval
-    with ragged N): q (B, Nq, H*64), k/v (B, Nk, H*64) -> (B, Nq, H*64)."""
+    behind the JAX adapter, ragged N): q (B, Nq, H*64), k/v (B, Nk, H*64)
+    -> (B, Nq, H*64). With a key mask the softmax counts the adapter's
+    128-padded keys (models/layers.py:packed_dot_product_attention,
+    eval_pad "hbm"), which shows only in a row whose keys are all masked;
+    without one the padded keys weigh nothing and are not counted."""
+    _refuse_grad("attention_eval", q, k, v)
     b, nq, hd = q.shape
     nk = k.shape[1]
     if hd % HEAD_DIM:
         raise ValueError(f"packed width {hd} not a multiple of {HEAD_DIM}")
     scale = 1.0 / math.sqrt(HEAD_DIM) if sm_scale is None else sm_scale
+    nk_soft = nk if mask is None else _round_up(nk, PAIR_KEY_PAD)
     key_mask = _key_mask(mask, b, nk, q.device)
     if q.device.type == "cpu":
-        return attention_eval_plain(q, k, v, key_mask, scale)
+        return attention_eval_plain(q, k, v, key_mask, scale, nk_soft)
     kernels.require_cuda("attention_eval", q, k, v, dtype=torch.bfloat16)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    _launch("attention_eval", q, k, v, key_mask, out, nq, nk, hd // HEAD_DIM, scale)
+    _launch("attention_eval", q, k, v, key_mask, out, nq, nk, hd // HEAD_DIM, scale,
+            nk_soft=nk_soft)
     return out
 
 
@@ -140,6 +165,7 @@ def attention_eval_merged(qkv, mask=None, sm_scale: Optional[float] = None):
     """Merged-qkv eval attention (fused_attention_eval_merged with ragged
     N): qkv (B, N, 3*H*64) with q|k|v at column offsets 0, C, 2C ->
     (B, N, H*64)."""
+    _refuse_grad("attention_eval_merged", qkv)
     b, n, hd3 = qkv.shape
     hd = hd3 // 3
     if hd * 3 != hd3 or hd % HEAD_DIM:
@@ -162,6 +188,7 @@ def attention_eval_pair(q, k, v, mask=None, sm_scale: Optional[float] = None):
     JAX adapter's padding): q (B, Nq, H*64), k/v (B, Nk, H*64) -> (B, Nq,
     H*64). Ragged N in, the padded keys' softmax share reproduced in the
     kernel (attention_eval_pair_plain)."""
+    _refuse_grad("attention_eval_pair", q, k, v)
     b, nq, hd = q.shape
     nk = k.shape[1]
     if hd % HEAD_DIM:
@@ -181,6 +208,7 @@ def attention_eval_pair(q, k, v, mask=None, sm_scale: Optional[float] = None):
 def attention_eval_merged_pair(qkv, mask=None, sm_scale: Optional[float] = None):
     """Head-pair merged-qkv eval attention (fused_attention_eval_merged_pair
     behind the adapter's padding): qkv (B, N, 3*H*64) -> (B, N, H*64)."""
+    _refuse_grad("attention_eval_merged_pair", qkv)
     b, n, hd3 = qkv.shape
     hd = hd3 // 3
     if hd * 3 != hd3 or hd % HEAD_DIM:
