@@ -101,8 +101,9 @@ shapes of phases 10 and 11 (on grid features with separated maxima, and at
 the AV shape on real L2-normalised features), checks that the strided,
 packed and merged kernels agree on the same inputs and seed, and holds the
 head-pair eval attention, the fused frontend conv and the frontend
-activation at the shapes of phase 12, and the flash forward and backward
-at the shapes of phases 13-14 and at N = 1000.
+activation at the shapes of phase 12, the flash forward and backward at
+the shapes of phases 13-14 and at N = 1000, and the training attention at
+(8, 1000, 768) with dropout live (it has no key cap).
 The line before the last is one JSON object with one entry per kernel:
 its launches in the paths that run it (phases 4, 6, 8, 10, 11, 12, 13 and
 14, each counted from zero), and its error, times and bound at its main case of
@@ -117,6 +118,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -336,20 +338,32 @@ def _ln_bwd_library(x, h, scale, bias, dy):
     return lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)
 
 
+def attention_costs(b, n, h=12):
+    """(forward, backward) bounds of the training attention at (b, h, n,
+    64): 2 and 5 products of N x N x 64 per head; bytes: q, k, v and the
+    key mask in, out out forward; q, k, v, dout and the mask in, dq, dk,
+    dv out backward. What the kernels save between the two (row stats and
+    D V) is their design's traffic, not the function's, and stays out."""
+    act = b * n * h * 64 * 2
+    return (cost(4 * b * h * n * n * 64, 4 * act + b * n * 4),
+            cost(10 * b * h * n * n * 64, 7 * act + b * n * 4))
+
+
 def attention_cases(res, A, b, n, seed0, p, main=False):
-    """Training attention forward and backward at (b, n, 768), dropout p."""
+    """Training attention forward and backward at (b, n, 768), dropout p;
+    the backward from what the forward kernel saved."""
     q, k, v, do = (randn((b, n, 768), s) for s in range(seed0, seed0 + 4))
     keys = torch.ones((b, n), device="cuda")
-    h, act = 12, b * n * 768 * 2
+    fwd, bwd = attention_costs(b, n)
     compare(res, "attention_train", (b, n, 768, f"p={p}"),
-            lambda: A.attention_train_fwd(q, k, v, keys, 0.125, 1234, p),
+            lambda: A.attention_train_fwd(q, k, v, keys, 0.125, 1234, p)[0],
             lambda: A.attention_train_plain(q, k, v, keys, 0.125, 1234, p), 2 * BF16_ULP,
-            cost(4 * b * h * n * n * 64, 4 * act + b * n * 4), lambda: _sdpa(q, k, v), main)
+            fwd, lambda: _sdpa(q, k, v), main)
+    _, st = A.attention_train_fwd(q, k, v, keys, 0.125, 1234, p)
     compare(res, "attention_train_bwd", (b, n, 768, f"p={p}"),
-            lambda: A.attention_train_bwd(q, k, v, keys, do, 0.125, 1234, p),
+            lambda: A.attention_train_bwd(q, k, v, keys, do, 0.125, 1234, p, st),
             lambda: A.attention_train_bwd_plain(q, k, v, keys, do, 0.125, 1234, p),
-            2 * BF16_ULP, cost(10 * b * h * n * n * 64, 7 * act + b * n * 4),
-            _sdpa_bwd(q, k, v, do), main)
+            2 * BF16_ULP, bwd, _sdpa_bwd(q, k, v, do), main)
 
 
 def attention_layout_cases(res, A, b, n, p, seed0, strided_main=False, merged_main=False):
@@ -359,28 +373,29 @@ def attention_layout_cases(res, A, b, n, p, seed0, strided_main=False, merged_ma
     permuted views of (B, N, 12, 64) projections that HuBERT passes."""
     qkv, do = randn((b, n, 2304), seed0), randn((b, n, 768), seed0 + 1)
     keys = torch.ones((b, n), device="cuda")
-    h, act = 12, b * n * 768 * 2
-    fwd, bwd = (cost(4 * b * h * n * n * 64, 4 * act + b * n * 4),
-                cost(10 * b * h * n * n * 64, 7 * act + b * n * 4))
+    h = 12
+    fwd, bwd = attention_costs(b, n)
+    _, st = A.attention_train_merged_fwd(qkv, keys, 0.125, 1234, p)
     if strided_main is not None:
         q, k, v = (t.contiguous().view(b, n, h, 64).transpose(1, 2) for t in qkv.chunk(3, -1))
         dos = do.view(b, n, h, 64).transpose(1, 2)
         compare(res, "attention_train_strided", (b, h, n, 64, f"p={p}"),
-                lambda: A.attention_train_strided_fwd(q, k, v, keys, 0.125, 1234, p),
+                lambda: A.attention_train_strided_fwd(q, k, v, keys, 0.125, 1234, p)[0],
                 lambda: A.heads_train_plain(q, k, v, keys, 0.125, 1234, p).to(q.dtype),
                 2 * BF16_ULP, fwd, lambda: _sdpa(*qkv.chunk(3, -1)), strided_main)
         compare(res, "attention_train_strided_bwd", (b, h, n, 64, f"p={p}"),
-                lambda: A.attention_train_strided_bwd(q, k, v, keys, dos, 0.125, 1234, p),
+                lambda: A.attention_train_strided_bwd(q, k, v, keys, dos, 0.125, 1234, p,
+                                                      saved=st),
                 lambda: [g.to(q.dtype) for g in A.heads_train_bwd_plain(q, k, v, keys, dos, 0.125,
                                                                        1234, p)],
                 2 * BF16_ULP, bwd, _sdpa_bwd(*qkv.chunk(3, -1), do), strided_main)
     if merged_main is not None:
         compare(res, "attention_train_merged", (b, n, 2304, f"p={p}"),
-                lambda: A.attention_train_merged_fwd(qkv, keys, 0.125, 1234, p),
+                lambda: A.attention_train_merged_fwd(qkv, keys, 0.125, 1234, p)[0],
                 lambda: A.attention_train_merged_plain(qkv, keys, 0.125, 1234, p), 2 * BF16_ULP,
                 fwd, lambda: _sdpa(*qkv.chunk(3, -1)), merged_main)
         compare(res, "attention_train_merged_bwd", (b, n, 2304, f"p={p}"),
-                lambda: A.attention_train_merged_bwd(qkv, keys, do, 0.125, 1234, p),
+                lambda: A.attention_train_merged_bwd(qkv, keys, do, 0.125, 1234, p, st),
                 lambda: A.attention_train_merged_bwd_plain(qkv, keys, do, 0.125, 1234, p),
                 2 * BF16_ULP, bwd, _sdpa_bwd(*qkv.chunk(3, -1), do), merged_main)
 
@@ -394,14 +409,15 @@ def layouts_agree(A, b, n, p):
     keys = torch.ones((b, n), device="cuda")
     heads = lambda t: t.view(b, n, 12, 64).transpose(1, 2)  # noqa: E731
     packed = lambda t: t.transpose(1, 2).reshape(b, n, 768)  # noqa: E731
-    outs = [A.attention_train_fwd(q, k, v, keys, 0.125, 99, p),
+    outs, st = A.attention_train_fwd(q, k, v, keys, 0.125, 99, p)
+    outs = [outs,
             packed(A.attention_train_strided_fwd(heads(q), heads(k), heads(v), keys, 0.125, 99,
-                                                 p)),
-            A.attention_train_merged_fwd(qkv, keys, 0.125, 99, p)]
-    grads = [torch.cat(A.attention_train_bwd(q, k, v, keys, do, 0.125, 99, p), -1),
+                                                 p)[0]),
+            A.attention_train_merged_fwd(qkv, keys, 0.125, 99, p)[0]]
+    grads = [torch.cat(A.attention_train_bwd(q, k, v, keys, do, 0.125, 99, p, st), -1),
              torch.cat([packed(g) for g in A.attention_train_strided_bwd(
-                 heads(q), heads(k), heads(v), keys, heads(do), 0.125, 99, p)], -1),
-             A.attention_train_merged_bwd(qkv, keys, do, 0.125, 99, p)]
+                 heads(q), heads(k), heads(v), keys, heads(do), 0.125, 99, p, saved=st)], -1),
+             A.attention_train_merged_bwd(qkv, keys, do, 0.125, 99, p, st)]
     torch.cuda.synchronize()
     diff = max(float((x.float() - xs[0].float()).abs().max()) for xs in (outs, grads)
                for x in xs[1:])
@@ -686,6 +702,9 @@ def kernel_phase():
     attention_layout_cases(res, A, TRAIN_B, 499, P_DROP, 103, merged_main=True)
     attention_layout_cases(res, A, TRAIN_B, 261, 0.0, 105, strided_main=None)
     agree = layouts_agree(A, TRAIN_B, 499, P_DROP)
+    # The training attention past 512 keys (no key cap): HuBERT on 20 s
+    # clips, N = 999 -> 1000, dropout live. Same bounds.
+    attention_cases(res, A, B, 1000, 27, P_DROP)
     # max-mean at the AV loss's (64 x 499) x (64 x 256) and the TV loss's
     # masked (64 x 32) x (64 x 256), D = 512, the reference's clamps
     from triad_tpu_torch.ops import maxmean as MM
@@ -703,7 +722,7 @@ def flash_cases(res):
     views of (B, N, H, 64) projections, as the encoders pass them: the
     ViT's training shape (64, 261), HuBERT's eval (8, 499), DistilBERT's
     (8, 128) with ragged keys and one row whose keys are all masked, and
-    (8, 1000), past the training kernel's 512-key cap. The kernel walks
+    (8, 1000), past the eval kernels' 512-key cap. The kernel walks
     64-key tiles with an online softmax, the twin the library's 512-key
     blocks, so their bf16 roundings of P (and so of O, dS and the
     gradients) differ here and there: 2 bf16 ulps of each output's largest
@@ -1643,6 +1662,19 @@ def _kernel_entry(name, results, launches_by_path):
     }
 
 
+def _kernel_name(mangled):
+    """The name of the kernel a mangled symbol of ptxas's report holds:
+    its length-prefixed identifier that ends in "kernel"."""
+    for i in range(len(mangled)):
+        digits = re.match(r"\d+", mangled[i:])
+        if digits:
+            start = i + digits.end()
+            name = mangled[start:start + int(digits.group())]
+            if name.endswith("kernel") and name[:1].isalpha():
+                return name
+    return mangled[:60]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1669,9 +1701,12 @@ def main():
     phase("2. build")
     path = kernels.build()
     kernels.library()
+    kernel = ""
     for line in kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip(), flush=True)
+        if "Compiling entry function" in line:
+            kernel = _kernel_name(line.split("'")[1])
+        elif "registers" in line or "spill" in line:
+            print(f"  {kernel}: {line.strip()}", flush=True)
     print(f"  built {os.path.relpath(path, ROOT)}", flush=True)
 
     phase("3. kernels vs plain (bf16, CUDA events, median of 20)")

@@ -182,24 +182,26 @@ class TestDropout:
     def test_kernel_wrappers_take_the_twins_arguments(self):
         """Each kernel wrapper (forward and backward, packed, strided and
         merged) given CPU tensors returns its plain twin's values bit for
-        bit: the wrappers pass their arguments through in the twins' order."""
+        bit: the wrappers pass their arguments through in the twins' order.
+        A forward on the CPU saves nothing for the backward."""
         from triad_tpu_torch.ops import attention as A
 
         qkv, do, mask = (_t(a) for a in _inputs(5))
         q, k, v = qkv.chunk(3, dim=-1)
         hq, hk, hv, hdo = (x.unflatten(-1, (H, 64)).transpose(1, 2) for x in (q, k, v, do))
         args = (0.125, self.SEED, self.P)
+        forwards = [A.attention_train_fwd(q, k, v, mask, *args),
+                    A.attention_train_strided_fwd(hq, hk, hv, mask, *args),
+                    A.attention_train_merged_fwd(qkv, mask, *args)]
+        assert all(saved is None for _, saved in forwards)
         pairs = [
-            (A.attention_train_fwd(q, k, v, mask, *args),
-             A.attention_train_plain(q, k, v, mask, *args)),
+            (forwards[0][0], A.attention_train_plain(q, k, v, mask, *args)),
             (A.attention_train_bwd(q, k, v, mask, do, *args),
              A.attention_train_bwd_plain(q, k, v, mask, do, *args)),
-            (A.attention_train_strided_fwd(hq, hk, hv, mask, *args),
-             A.heads_train_plain(hq, hk, hv, mask, *args)),
+            (forwards[1][0], A.heads_train_plain(hq, hk, hv, mask, *args)),
             (A.attention_train_strided_bwd(hq, hk, hv, mask, hdo, *args),
              A.heads_train_bwd_plain(hq, hk, hv, mask, hdo, *args)),
-            (A.attention_train_merged_fwd(qkv, mask, *args),
-             A.attention_train_merged_plain(qkv, mask, *args)),
+            (forwards[2][0], A.attention_train_merged_plain(qkv, mask, *args)),
             (A.attention_train_merged_bwd(qkv, mask, do, *args),
              A.attention_train_merged_bwd_plain(qkv, mask, do, *args)),
         ]

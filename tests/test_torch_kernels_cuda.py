@@ -169,11 +169,11 @@ class TestAttentionTrain:
         mask[-1, n // 2:] = 0.0   # a ragged key tail
         if b == 2:
             mask[1] = 0.0         # a fully masked row: uniform weights
-        got = A.attention_train_fwd(q, k, v, mask, 0.125)
+        got, saved = A.attention_train_fwd(q, k, v, mask, 0.125)
         torch.cuda.synchronize()
         err, mx = _max_err(got, A.attention_train_plain(q, k, v, mask, 0.125))
         assert err <= self.TOL * mx, ("fwd", err, mx)
-        grads = A.attention_train_bwd(q, k, v, mask, do, 0.125)
+        grads = A.attention_train_bwd(q, k, v, mask, do, 0.125, saved=saved)
         torch.cuda.synchronize()
         refs = A.attention_train_bwd_plain(q, k, v, mask, do, 0.125)
         for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
@@ -190,10 +190,11 @@ class TestAttentionTrain:
         mask = torch.ones((2, 37), device=dev)
         mask[1, 20:] = 0.0
         bool_mask = mask.bool().cpu()
-        assert torch.equal(A.attention_train_fwd(q, k, v, bool_mask, 0.125),
-                           A.attention_train_fwd(q, k, v, mask, 0.125))
-        for g, r in zip(A.attention_train_bwd(q, k, v, bool_mask, do, 0.125),
-                        A.attention_train_bwd(q, k, v, mask, do, 0.125)):
+        out_b, st_b = A.attention_train_fwd(q, k, v, bool_mask, 0.125)
+        out, st = A.attention_train_fwd(q, k, v, mask, 0.125)
+        assert torch.equal(out_b, out) and all(map(torch.equal, st_b, st))
+        for g, r in zip(A.attention_train_bwd(q, k, v, bool_mask, do, 0.125, saved=st_b),
+                        A.attention_train_bwd(q, k, v, mask, do, 0.125, saved=st)):
             assert torch.equal(g, r)
 
     def test_autograd_counts_launches(self, dev):
@@ -246,11 +247,11 @@ class TestAttentionTrainDropout:
 
         q, k, v, do = (_randn((b, n, 768), dev, s) for s in (51, 52, 53, 54))
         keys = torch.ones((b, n), device=dev)
-        got = A.attention_train_fwd(q, k, v, keys, 0.125, 1234, p)
+        got, saved = A.attention_train_fwd(q, k, v, keys, 0.125, 1234, p)
         torch.cuda.synchronize()
         err, mx = _max_err(got, A.attention_train_plain(q, k, v, keys, 0.125, 1234, p))
         assert err <= self.TOL * mx, ("fwd", err, mx)
-        grads = A.attention_train_bwd(q, k, v, keys, do, 0.125, 1234, p)
+        grads = A.attention_train_bwd(q, k, v, keys, do, 0.125, 1234, p, saved)
         torch.cuda.synchronize()
         refs = A.attention_train_bwd_plain(q, k, v, keys, do, 0.125, 1234, p)
         for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
@@ -370,17 +371,18 @@ class TestAttentionLayouts:
         heads = lambda t: t.view(b, n, 12, 64).transpose(1, 2)  # noqa: E731
         unheads = lambda t: t.transpose(1, 2).reshape(b, n, 768)  # noqa: E731
         mask = torch.ones((b, n), device=dev)
-        packed = A.attention_train_fwd(q, k, v, mask, 0.125, 77, p)
-        strided = A.attention_train_strided_fwd(heads(q), heads(k), heads(v), mask, 0.125, 77, p)
-        merged = A.attention_train_merged_fwd(qkv, mask, 0.125, 77, p)
+        packed, saved = A.attention_train_fwd(q, k, v, mask, 0.125, 77, p)
+        strided, _ = A.attention_train_strided_fwd(heads(q), heads(k), heads(v), mask, 0.125, 77,
+                                                   p)
+        merged, _ = A.attention_train_merged_fwd(qkv, mask, 0.125, 77, p)
         torch.cuda.synchronize()
         assert torch.equal(unheads(strided), packed) and torch.equal(merged, packed)
         err, mx = _max_err(merged, A.attention_train_merged_plain(qkv, mask, 0.125, 77, p))
         assert err <= self.TOL * mx, ("fwd", err, mx)
-        g_packed = A.attention_train_bwd(q, k, v, mask, do, 0.125, 77, p)
+        g_packed = A.attention_train_bwd(q, k, v, mask, do, 0.125, 77, p, saved)
         g_strided = A.attention_train_strided_bwd(heads(q), heads(k), heads(v), mask, heads(do),
-                                                  0.125, 77, p)
-        g_merged = A.attention_train_merged_bwd(qkv, mask, do, 0.125, 77, p)
+                                                  0.125, 77, p, saved=saved)
+        g_merged = A.attention_train_merged_bwd(qkv, mask, do, 0.125, 77, p, saved)
         torch.cuda.synchronize()
         assert torch.equal(torch.cat(g_packed, dim=-1), g_merged)
         assert all(torch.equal(unheads(s), g) for s, g in zip(g_strided, g_packed))
@@ -401,12 +403,12 @@ class TestAttentionLayouts:
         mask[1, 30:] = 0.0
         views = [t.transpose(1, 2) for t in (q, k, v, do)]
         dense = [t.contiguous() for t in views]
-        out_v = A.attention_train_strided_fwd(*views[:3], mask, 0.125)
-        out_d = A.attention_train_strided_fwd(*dense[:3], mask, 0.125)
+        out_v, st_v = A.attention_train_strided_fwd(*views[:3], mask, 0.125)
+        out_d, st_d = A.attention_train_strided_fwd(*dense[:3], mask, 0.125)
         assert out_v.stride() == out_d.stride() == views[0].stride()
-        assert torch.equal(out_v, out_d)
-        gv = A.attention_train_strided_bwd(*views[:3], mask, views[3], 0.125)
-        gd = A.attention_train_strided_bwd(*dense[:3], mask, dense[3], 0.125)
+        assert torch.equal(out_v, out_d) and all(map(torch.equal, st_v, st_d))
+        gv = A.attention_train_strided_bwd(*views[:3], mask, views[3], 0.125, saved=st_v)
+        gd = A.attention_train_strided_bwd(*dense[:3], mask, dense[3], 0.125, saved=st_d)
         assert all(torch.equal(a, b) and a.stride() == views[0].stride() for a, b in zip(gv, gd))
         err, mx = _max_err(out_v, A.heads_train_plain(*views[:3], mask, 0.125).to(q.dtype))
         assert err <= self.TOL * mx, (err, mx)
@@ -426,6 +428,78 @@ class TestAttentionLayouts:
             assert kernels.LAUNCHES[name] == 1, name
         assert qkv.grad.shape == qkv.shape and bool(torch.isfinite(qkv.grad.float()).all())
         assert q.grad.shape == q.shape and bool(torch.isfinite(q.grad.float()).all())
+
+
+class TestAttentionTrainAnyLength:
+    """The training kernels at any N (nothing in them scales with N, so no
+    key cap): against their twins, the three layouts bit-equal, what the
+    forward saves against train_saved_plain, and two identical calls
+    bit-equal. Tolerances as TestAttentionTrain (2 bf16 ulps of the
+    largest output); the row stats are fp32 sums in another order (1e-5
+    relative), D V takes D as bf16 hi + lo (1e-4 of its largest)."""
+
+    TOL = 2 * 2.0 ** -7
+
+    @pytest.mark.parametrize("n", [1, 63, 64, 65, 128, 261, 499, 512, 513, 1000, 1024])
+    @pytest.mark.parametrize("p", [0.0, 0.1])
+    def test_layouts_match_twin(self, dev, n, p):
+        from triad_tpu_torch.ops import attention as A
+
+        b, h = 2, 4
+        c = h * 64
+        qkv, do = _randn((b, n, 3 * c), dev, 71), _randn((b, n, c), dev, 72)
+        q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+        heads = lambda t: t.view(b, n, h, 64).transpose(1, 2)  # noqa: E731
+        unheads = lambda t: t.transpose(1, 2).reshape(b, n, c)  # noqa: E731
+        mask = torch.ones((b, n), device=dev)
+        mask[0, n // 3] = 0.0 if n > 1 else 1.0  # one masked key
+        mask[1, n // 2:] = 0.0                    # a ragged tail (all keys at n = 1)
+        packed, saved = A.attention_train_fwd(q, k, v, mask, 0.125, 77, p)
+        strided, st_s = A.attention_train_strided_fwd(heads(q), heads(k), heads(v), mask, 0.125,
+                                                      77, p)
+        merged, st_m = A.attention_train_merged_fwd(qkv, mask, 0.125, 77, p)
+        again, _ = A.attention_train_fwd(q, k, v, mask, 0.125, 77, p)
+        torch.cuda.synchronize()
+        assert torch.equal(unheads(strided), packed) and torch.equal(merged, packed)
+        assert torch.equal(again, packed)
+        assert all(map(torch.equal, st_s, saved)) and all(map(torch.equal, st_m, saved))
+        err, mx = _max_err(packed, A.attention_train_plain(q, k, v, mask, 0.125, 77, p))
+        assert err <= self.TOL * mx, ("fwd", err, mx)
+        ref_stats, ref_o32 = A.train_saved_plain(heads(q), heads(k), heads(v), mask, 0.125, 77, p)
+        torch.testing.assert_close(saved[0], ref_stats, rtol=1e-5, atol=1e-5)
+        err, mx = _max_err(saved[1], ref_o32)
+        assert err <= 1e-4 * mx, ("D V", err, mx)
+        g_packed = torch.cat(A.attention_train_bwd(q, k, v, mask, do, 0.125, 77, p, saved), -1)
+        g_strided = torch.cat([unheads(g) for g in A.attention_train_strided_bwd(
+            heads(q), heads(k), heads(v), mask, heads(do), 0.125, 77, p, saved=saved)], -1)
+        g_merged = A.attention_train_merged_bwd(qkv, mask, do, 0.125, 77, p, saved)
+        g_again = A.attention_train_merged_bwd(qkv, mask, do, 0.125, 77, p, saved)
+        torch.cuda.synchronize()
+        assert torch.equal(g_strided, g_packed) and torch.equal(g_merged, g_packed)
+        assert torch.equal(g_again, g_merged)
+        refs = A.attention_train_merged_bwd_plain(qkv, mask, do, 0.125, 77, p)
+        for name, g, r in zip(("dq", "dk", "dv"), g_merged.chunk(3, -1), refs.chunk(3, -1)):
+            err, mx = _max_err(g, r)
+            assert err <= self.TOL * mx, (name, err, mx)
+
+    @pytest.mark.parametrize("n", [37, 1000])
+    def test_fully_masked_row_is_uniform(self, dev, n):
+        from triad_tpu_torch.ops import attention as A
+
+        q, k, v = (_randn((2, n, 128), dev, s) for s in (73, 74, 75))
+        mask = torch.ones((2, n), device=dev)
+        mask[1] = 0.0
+        got, _ = A.attention_train_fwd(q, k, v, mask, 0.125)
+        want = v[1].float().mean(dim=0, keepdim=True).expand(n, -1)
+        err, mx = _max_err(got[1], want)
+        assert err <= self.TOL * mx, (err, mx)
+
+    def test_backward_needs_what_the_forward_saved(self, dev):
+        from triad_tpu_torch.ops import attention as A
+
+        q, k, v, do = (_randn((1, 37, 64), dev, s) for s in (76, 77, 78, 79))
+        with pytest.raises(ValueError, match="forward saved"):
+            A.attention_train_bwd(q, k, v, None, do, 0.125)
 
 
 def _grid(shape, dev, seed, dtype=torch.bfloat16):

@@ -37,138 +37,16 @@
 // is two kernels with no atomics, as the library splits it: dK/dV walks
 // the query tiles for one key tile, dQ walks the key tiles for one query
 // tile; a small kernel forms di first. Each recomputes S and P.
-#include "common.cuh"
+#include "attention_tiles.cuh"
 
 namespace {
 
 using triad::bf16;
+using namespace triad::tiles;
 
-constexpr int D = 64;         // head dim
-constexpr int TILE = 64;      // rows of a block and of a streamed tile
-constexpr int THREADS = 128;  // 4 warps of 16 rows
-constexpr int TILE_ELEMS = TILE * D;
 // The library's DEFAULT_MASK_VALUE: -0.7 * finfo(f32).max, formed in
 // double and rounded once to fp32, as Python and JAX do.
 constexpr float MASK_VALUE = (float)(-0.7 * 3.4028234663852886e38);
-
-// (batch, head, row) element strides of one (B, H, N, 64) view.
-struct View {
-  long long b, h, r;
-};
-
-// A 64 x 64 bf16 tile in shared memory: row r's 16-byte chunk c sits at
-// chunk c ^ (r & 7), so 8 rows read at one logical chunk hit 8 banks sets.
-__device__ __forceinline__ int swz(int r, int c) { return r * D + ((c ^ (r & 7)) << 3); }
-
-// cp.async of rows row0 .. row0 + 63 of a (b, h) slice into a tile;
-// rows at or past n are zero-filled.
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, long long rs, int row0, int n,
-                                          int tid) {
-#pragma unroll
-  for (int i = tid; i < TILE * (D / 8); i += THREADS) {
-    const int r = i >> 3, c = i & 7;
-    const bool ok = row0 + r < n;
-    triad::cp_async16(s + swz(r, c), ok ? g + (long long)(row0 + r) * rs + c * 8 : g, ok);
-  }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragments (16 rows from row0, 64 columns = 4 k-steps) of a tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const bf16* s, int row0, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[kk], s + swz(row0 + (lane & 15), kk * 2 + (lane >> 4)));
-}
-
-// A fragments of a 16 x 64 fp32 accumulator, rounded to bf16.
-__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&c)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-}
-
-// acc (16 x 64) += A (16 x 64) . T^T, T a tile whose rows are the output
-// columns and whose columns are the contraction (q.k^T, dO.v^T).
-__device__ __forceinline__ void mma_nt(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                       const bf16* t, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, t + swz(np * 16 + (lane & 7) + ((lane >> 4) << 3), kk * 2 + ((lane >> 3) & 1)));
-      mma(acc[2 * np], a[kk], b[0], b[1]);
-      mma(acc[2 * np + 1], a[kk], b[2], b[3]);
-    }
-}
-
-// acc (16 x 64) += A (16 x 64) . T, T a tile whose rows are the
-// contraction and whose columns are the output columns (P.V, dS.K).
-__device__ __forceinline__ void mma_nn(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                       const bf16* t, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldsm_x4_t(b, t + swz(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3), np * 2 + (lane >> 4)));
-      mma(acc[2 * np], a[kk], b[0], b[1]);
-      mma(acc[2 * np + 1], a[kk], b[2], b[3]);
-    }
-}
-
-__device__ __forceinline__ void zero(float (&c)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.0f;
-}
-
-// Store a 16 x 64 fp32 accumulator as bf16 rows row0 + (lane >> 2) and
-// + 8 (rows at or past n skipped), each times its row's scale.
-__device__ __forceinline__ void store_rows(bf16* g, long long rs, const float (&c)[8][4],
-                                           int row0, int n, int lane, float s0, float s1) {
-  const int r = row0 + (lane >> 2), col = 2 * (lane & 3);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (r < n)
-      *reinterpret_cast<__nv_bfloat162*>(g + (long long)r * rs + j * 8 + col) =
-          __floats2bfloat162_rn(c[j][0] * s0, c[j][1] * s0);
-    if (r + 8 < n)
-      *reinterpret_cast<__nv_bfloat162*>(g + (long long)(r + 8) * rs + j * 8 + col) =
-          __floats2bfloat162_rn(c[j][2] * s1, c[j][3] * s1);
-  }
-}
 
 __device__ __forceinline__ float key_bias(const float* mask, int j) {
   return mask[j] != 0.0f ? 0.0f : MASK_VALUE;

@@ -1,6 +1,6 @@
-// Training attention with in-kernel attention dropout: a forward kernel
-// and a recompute backward in two kernels, for any layout whose heads are
-// 64 contiguous columns.
+// Training attention with in-kernel attention dropout, head_dim 64, any N:
+// one forward kernel and a backward of two kernels (dQ with di, then
+// dK/dV), for any layout whose heads are 64 contiguous columns.
 //
 // Replaces three TPU kernels of triad_tpu/ops/pallas_attention.py that
 // share the per-head bodies _head_fwd (:157) and _head_bwd (:177) and
@@ -18,84 +18,87 @@
 // arguments to the same kernels, and the merged backward writes dq, dk
 // and dv into one (B, N, 3C) tensor at offsets 0, C and 2C.
 //
-// Dropout (p > 0, pallas_attention.py:15-21): the keep bit of (query i,
-// key j) in head (b, h) is triad::keep4 under key (seed, b * H + h) at
-// row i, column j, so the forward and both backward kernels, which tile
-// the (N, N) matrix differently, draw the same mask, and so do the three
-// layouts: strided, packed and merged agree bit for bit on the same
-// inputs and seed (the TPU kernels cannot promise that,
-// pallas_attention.py:646-653). Forward: D = P * keep / (1 - p) in fp32,
-// rounded to bf16, times V. Backward: dD = dO V^T, dP = dD * keep / (1 -
-// p), di = sum_j dP * P, dS = P (dP - di), dV = D^T dO with the fp32 D.
-// Each draw yields the bits of four adjacent keys, so the loops that apply
-// the mask walk the keys four at a time.
-//
 // Numerics kept from _head_fwd: S = q.k^T accumulated in fp32, times
 // sm_scale, plus a key bias of (1 - mask) * -1e30 (a fully masked row
-// gets uniform weights, not NaN); P = exp(S - max) / sum in fp32; P is
-// rounded to bf16 *after* the division (the eval kernel rounds the
-// un-normalised exp and divides later, so it is not reused here);
-// O = bf16(P) V with fp32 accumulation.
+// gets uniform weights over its N keys, not NaN); P = exp(S - max) / sum
+// in fp32, rounded to bf16 *after* the division; with dropout D = P *
+// keep / (1 - p) in fp32, then rounded; O = bf16(D) V with fp32
+// accumulation. The division is a product with the row's 1 / sum and one
+// fma correction (div_by), which gives the correctly rounded quotient, as
+// `/` does. From _head_bwd: dP = (dO V^T) * keep / (1 - p); di = sum_j
+// dP * P over the fp32 P, here as rowsum(dO * O') with O' = D V from the
+// fp32 D (the same sum; not FlashAttention's rowsum(dO * O), whose O was
+// made from the bf16 D); dS = P (dP - di); dV = D^T dO with the fp32 D;
+// dQ = dS K s; dK = dS^T Q s. The products with an fp32 operand (D, dS)
+// run on bf16 tensor cores as two halves hi + lo (split_bf16, ~16
+// mantissa bits), so they stay at fp32 level and each output rounds once,
+// to bf16. Ragged N: keys and query rows at or past N are zero-filled on
+// load, a key past N has the bias -inf (its P is 0 and it never counts in
+// the sum), and nothing past N is stored.
 //
-// Numerics kept from _head_bwd: dP = dO V^T; dV = P^T dO with the fp32
-// P; di = sum_k dP * P over the fp32 P (not FlashAttention's shortcut
-// rowsum(dO * O), whose O was made from the bf16 P); dS = P (dP - di);
-// dQ = dS K s; dK = dS^T Q s. The three products with an fp32 operand
-// (P or dS) run on bf16 tensor cores as two halves hi + lo
-// (triad::split_bf16, ~16 mantissa bits), so they stay at fp32 level and
-// each output rounds once, to bf16.
+// Dropout (p > 0, pallas_attention.py:15-21): the keep bit of (query i,
+// key j) in head (b, h) is word j % 4 of triad::keep4 under key (seed, b *
+// H + h) at row i, column j / 4, so the forward and the backward, which
+// tile the (N, N) matrix differently, use the same mask, and so do the
+// three layouts: strided, packed and merged agree bit for bit on the same
+// inputs and seed (the TPU kernels cannot promise that,
+// pallas_attention.py:646-653). At p = 0 nothing is drawn.
 //
-// What bounds it on the card: per (batch, head) the work is a few
-// N x N x 64 products (N = 261 in the ViT), small for the tensor cores;
-// the kernels are bound by shared-memory traffic and by how many blocks
-// fit beside the full fp32 score rows they keep. The design:
-//   forward    one block per (b, h, 64-query tile), the eval kernel's
-//              structure: the tile's whole fp32 score row in shared
-//              memory, so the softmax is the exact two-pass one (512-key
-//              cap). Those rows leave room for one block per SM, so the
-//              kernel declares a minimum of 1 block: without it ptxas held
-//              it at 72 registers and spilled (13% slower at (64, 499)).
-//   backward 1 ("rows") one block per (b, h, 32-query tile): full S and
-//              dP rows in shared memory give the row max, sum and di,
-//              then dS and dQ over all keys; writes dQ and the row stats.
-//   backward 2 ("columns") one block per (b, h, 64-key tile) that walks
-//              every query tile in order and accumulates dK and dV in
-//              registers, rebuilding P and dS from the saved row stats.
-// dK and dV sum over every query row. TPU grid steps run in order,
-// Hopper blocks do not: here the sum lives in one block's loop (no
-// atomics, deterministic), at the price of computing S and dP twice.
-// Ragged N: query rows and keys past N are zero-filled on load, their P
-// and dS are 0, and they are never stored.
-#include "common.cuh"
-
-using namespace nvcuda;
+// What bounds it on the card: per (batch, head) the work is a few N x N x
+// 64 products (N 261 in the ViT, 499 in HuBERT on 10 s clips), and at
+// p > 0 one Philox4x32-10 call per 4 keys per pass over the mask (~48 M at
+// (64, 12, 499), comparable to the forward's products). So the kernels are
+// bound by how fast the tensor cores are fed and by the keep draws, not by
+// bytes. The design is FlashAttention-2 on the tiles of
+// attention_tiles.cuh (as attention_flash.cu): 64-row blocks, 4 warps of
+// 16 rows, S, P, dP, dS and every accumulator in mma.sync register
+// fragments, the streamed 64 x 64 tiles double-buffered with cp.async.
+// Shared memory holds a few tiles and does not grow with N: there is no
+// key cap, and several blocks share an SM.
+//   forward  one block per (b, h, 64-query tile). Pass 1 walks the key
+//            tiles for the row max m and sum l (online, fp32); pass 2
+//            walks them again, forms P = exp(S - m) / l (normalised, then
+//            rounded, as _head_fwd: one extra Q K^T product keeps that,
+//            where a one-pass online softmax would round the
+//            un-normalised exp), applies the keep bits and accumulates
+//            bf16(D) V, and (D - bf16(D)) V beside it. Writes O, the row
+//            stats (m, l), (2, B, H, N) fp32, and O' = D V, (B, H, N, 64)
+//            fp32, which the autograd Function saves for the backward.
+//   dQ       one block per (b, h, 64-query tile), one pass over the key
+//            tiles: di = dO . O' per row first, then P from (m, l), dP
+//            from dO V^T and the keep bits, dS and dQ += dS K (hi + lo).
+//            Writes dQ, di, (B, H, N) fp32, and with dropout the keep
+//            bits it drew (N^2 / 8 bytes per head of scratch).
+//   dK/dV    one block per (b, h, 64-key tile) walking every query tile in
+//            order: S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T are
+//            already A fragments; dV += D^T dO and dK += dS^T Q (hi + lo).
+// dK and dV sum over every query row. TPU grid steps run in order, Hopper
+// blocks do not: here each sum lives in one block's loop (no atomics, two
+// runs give bit-equal gradients), at the price of rebuilding S and dP in
+// both backward kernels. O' costs the forward a fourth product per tile
+// and 256 bytes per row and head of saved memory; it spares the dQ kernel
+// a second pass over the keys (two products, a keep draw and an exp per
+// key).
+//
+// The keep bits. A Philox4x32-10 call is ~50 integer operations for 4
+// keys, as much as the rest of a key's work, so each (query, quad) is
+// drawn once in the forward and once in the backward. An m16n8
+// accumulator gives a lane two adjacent keys of each 8, so one keep4 draw
+// covers the keys of two neighbouring lanes: in the row-major tiles
+// (forward, dQ) the lane pair splits the work by row, the even lane
+// drawing its 8 quads of row g, the odd lane those of row g + 8; each
+// packs its 32 keep bits into one word and one __shfl_xor_sync(.., 1)
+// hands each lane the other row. The dQ kernel stores those words; the
+// dK/dV kernel, whose transposed tiles put the 4 keys of a quad in 4
+// different lanes, stages the words of each query tile in shared memory
+// with the tile (512 bytes) and picks its keys' bits out of them: no
+// draw, no shuffle.
+#include "attention_tiles.cuh"
 
 namespace {
 
 using triad::bf16;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-constexpr int D = 64;          // head dim
-constexpr int KC = 64;         // keys per staged chunk
-constexpr int LDT = D + 8;     // bf16 row stride of a 64-wide tile
-constexpr int LDF = KC + 4;    // fp32 row stride of a 64-wide tile
-constexpr int THREADS = 128;   // 4 warps
-constexpr int FQ = 64;         // forward: query rows per block
-constexpr int RQ = 32;         // backward rows: query rows per block
-constexpr int CK = 64;         // backward columns: keys per block
-constexpr int CQ = 64;         // backward columns: query rows per step
-constexpr int MAX_SMEM = 232448;
-
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-// Element strides of one operand seen as (B, H, N, 64): batch, head, row.
-struct View {
-  long long b, h, r;
-};
+using namespace triad::tiles;
 
 // The views of every operand: q, k, v, o (the output in the forward, its
 // gradient dout in the backward), dq, dk, dv.
@@ -103,471 +106,508 @@ struct Views {
   View q, k, v, o, dq, dk, dv;
 };
 
-__device__ inline long long at(const View& s, int b, int hh) { return b * s.b + hh * s.h; }
+__device__ __forceinline__ long long at(const View& s, int b, int hh) {
+  return b * s.b + hh * s.h;
+}
 
-// Rows [r0, r0 + rows) of one head's 64 columns -> shared memory with
-// row stride LDT; rows >= n are zero-filled.
-__device__ inline void load_rows(bf16* dst, const bf16* src, long long row_stride, int r0,
-                                 int rows, int n, int tid) {
-  for (int i = tid; i < rows * (D / 8); i += THREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    const bool ok = r0 + r < n;
-    triad::copy16(dst + r * LDT + c, ok ? src + (long long)(r0 + r) * row_stride + c : src, ok);
+// _head_fwd's key bias for key j < n; -inf past n (P = 0, not counted).
+__device__ __forceinline__ float key_bias(const float* mask_b, int n, int j) {
+  return j < n ? (1.0f - mask_b[j]) * -1e30f : -INFINITY;
+}
+
+// Keep bits of a row-major 16 x 64 tile (rows row0 + frag_row, keys k0 +
+// frag_col). A lane pair (lanes 2i, 2i + 1) shares the quads of 4 keys:
+// draw_rows gives this lane's word, the 8 draws of its row (row g for the
+// even lane, g + 8 for the odd one) on its quads, the draw of key block j
+// at bits 4j .. 4j + 3 (word u of the draw is key 4 quad + u); exchange
+// hands each lane both rows: bits[0] row g, bits[1] row g + 8, with the
+// bit of (j, e) at 4j + 2 (lane & 1) + (e & 1) of bits[e >> 1].
+__device__ __forceinline__ uint32_t draw_rows(const triad::Dropout& dp, uint32_t stream,
+                                              int row0, int k0, int lane) {
+  const uint32_t row = (uint32_t)(row0 + (lane >> 2) + ((lane & 1) << 3));
+  const uint32_t quad = (uint32_t)(k0 >> 2) + ((lane >> 1) & 1);
+  uint32_t mine = 0u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const triad::Keep4 kb = triad::keep4(dp.seed, stream, row, quad + 2 * j);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) mine |= (uint32_t)(kb.w[u] >= dp.thresh) << (4 * j + u);
+  }
+  return mine;
+}
+
+__device__ __forceinline__ void exchange(uint32_t (&bits)[2], uint32_t mine, int lane) {
+  const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
+  bits[0] = (lane & 1) ? other : mine;
+  bits[1] = (lane & 1) ? mine : other;
+}
+
+__device__ __forceinline__ bool kept_rows(const uint32_t (&bits)[2], int lane, int j, int e) {
+  return (bits[e >> 1] >> (4 * j + 2 * (lane & 1) + (e & 1))) & 1u;
+}
+
+// The backward's keep-bit scratch: the draw_rows words of (row, key tile
+// kt), two per row and tile (quad parity (lane >> 1) & 1), laid out
+// [B H][N][tiles][2] so a key tile's words of one row are 8 bytes.
+__device__ __forceinline__ long long kbits_at(long long bh, int row, int tiles, int kt, int par) {
+  return ((bh + row) * tiles + kt) * 2 + par;
+}
+
+// Keep bits of a transposed 16 x 64 tile (keys key0 + frag_row, queries
+// q0 + 8j + frag_col; key0 = the tile's key 16 warp) from the scratch
+// words of its 64 query rows, staged as w[row][parity]: the bit of (j, e)
+// at 8e + j. Lane 16a + 4u + t holds keys 16 warp + 4a + u (+ 8), of
+// parity a, bit 4 (2 warp) + u (+ 4) of each word.
+__device__ __forceinline__ uint32_t keep_cols(const uint32_t* w, int warp, int lane) {
+  const int t = lane & 3, u = (lane >> 2) & 3, a = lane >> 4;
+  const int sh = 8 * warp + u;
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e1 = 0; e1 < 2; ++e1) {
+      const uint32_t word = w[(8 * j + 2 * t + e1) * 2 + a];
+      bits |= ((word >> sh) & 1u) << (8 * e1 + j);
+      bits |= ((word >> (sh + 4)) & 1u) << (8 * (2 + e1) + j);
+    }
+  return bits;
+}
+
+// S = acc * sm_scale + bias of its key, in place, for a row-major tile
+// whose key biases are bias[0 .. 63].
+__device__ __forceinline__ void scale_bias(float (&s)[8][4], const float* bias, float sm_scale,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = s[j][e] * sm_scale + bias[j * 8 + frag_col(lane, e)];
+}
+
+// Row max over this thread's elements, reduced over the quad (rows g, g + 8).
+__device__ __forceinline__ void quad_max(const float (&s)[8][4], float& m0, float& m1) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+    m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
   }
 }
 
-__device__ inline float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ void quad_sum(float& x0, float& x1) {
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    x0 += __shfl_xor_sync(0xffffffffu, x0, o);
+    x1 += __shfl_xor_sync(0xffffffffu, x1, o);
+  }
 }
 
-__device__ inline float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// a / b correctly rounded, from rb = 1 / b (correctly rounded): the
+// product and one fma correction (Markstein), as `a / b` gives it.
+__device__ __forceinline__ float div_by(float a, float b, float rb) {
+  const float q = a * rb;
+  return fmaf(fmaf(-b, q, a), rb, q);
 }
 
-__device__ inline float key_bias(const float* mask, long long b, int n, int j) {
-  return j < n ? (1.0f - mask[b * n + j]) * -1e30f : 0.0f;
+// P = exp(S - m) / l in place, rows g (m0, l0, rl0 = 1 / l0) and g + 8.
+__device__ __forceinline__ void probs(float (&s)[8][4], float m0, float m1, float l0, float l1,
+                                      float rl0, float rl1) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s[j][0] = div_by(expf(s[j][0] - m0), l0, rl0);
+    s[j][1] = div_by(expf(s[j][1] - m0), l0, rl0);
+    s[j][2] = div_by(expf(s[j][2] - m1), l1, rl1);
+    s[j][3] = div_by(expf(s[j][3] - m1), l1, rl1);
+  }
 }
 
-__device__ inline bool kept(const triad::Keep4& kb, int u, const triad::Dropout& dp) {
-  return kb.w[u] >= dp.thresh;
+// acc += A . T and acc2 += A2 . T, as mma_nn with one B load for both.
+__device__ __forceinline__ void mma_nn_pair(float (&acc)[8][4], float (&acc2)[8][4],
+                                            const uint32_t (&a)[4][4], const uint32_t (&a2)[4][4],
+                                            const bf16* t, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bf[4];
+      load_b_nn(bf, t, kk, np, lane);
+      mma(acc[2 * np], a[kk], bf[0], bf[1]);
+      mma(acc[2 * np + 1], a[kk], bf[2], bf[3]);
+      mma(acc2[2 * np], a2[kk], bf[0], bf[1]);
+      mma(acc2[2 * np + 1], a2[kk], bf[2], bf[3]);
+    }
 }
 
-// ---------------------------------------------------------------- forward
+// ---------------------------------------------------------------------------
+// Forward: one block per (b, h, 64-query tile). Steps 0 .. tiles - 1 are
+// pass 1 (K tiles: m, l), steps tiles .. 2 tiles - 1 pass 2 (K and V
+// tiles: P, D, O); the next step's tiles load during this step's products.
+// ---------------------------------------------------------------------------
 
-__host__ inline size_t fwd_smem(int nk_pad) {
-  return sizeof(bf16) * (size_t)(FQ * LDT + KC * LDT)   // sQ, sKV
-         + sizeof(float) * (size_t)FQ * (nk_pad + 4)    // sS
-         + sizeof(bf16) * (size_t)FQ * (nk_pad + 8)     // sP
-         + sizeof(float) * (size_t)nk_pad;              // sBias
-}
+constexpr size_t FWD_SMEM = sizeof(bf16) * 5 * TILE_ELEMS + sizeof(float) * 2 * TILE;
 
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS)
 attention_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const float* __restrict__ mask,
-                           bf16* __restrict__ out, Views vw, int n, int h, float sm_scale,
+                           bf16* __restrict__ out, float* __restrict__ stats,
+                           float* __restrict__ o32, Views vw, int H, int n, float sm_scale,
                            triad::Dropout dp) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int nk_pad = round_up(n, KC);
-  const int ldS = nk_pad + 4, ldP = nk_pad + 8;
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sKV = sQ + FQ * LDT;
-  float* sS = reinterpret_cast<float*>(sKV + KC * LDT);
-  bf16* sP = reinterpret_cast<bf16*>(sS + FQ * ldS);
-  float* sBias = reinterpret_cast<float*>(sP + FQ * ldP);
+  bf16* sK = sQ + TILE_ELEMS;      // [2][TILE_ELEMS]
+  bf16* sV = sK + 2 * TILE_ELEMS;  // [2][TILE_ELEMS]
+  float* sBias = reinterpret_cast<float*>(sV + 2 * TILE_ELEMS);  // [2][TILE]
 
-  const int q0 = blockIdx.x * FQ, hh = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  const bf16* __restrict__ kb = k + at(vw.k, b, hh);
-  const bf16* __restrict__ vb = v + at(vw.v, b, hh);
-  const int kr = (int)vw.k.r, vr = (int)vw.v.r;  // row strides < 2^31 (checked by the wrapper)
-  load_rows(sQ, q + at(vw.q, b, hh), vw.q.r, q0, FQ, n, tid);
-  for (int j = tid; j < nk_pad; j += THREADS) sBias[j] = key_bias(mask, b, n, j);
-
-  // Pass 1: S = Q K^T, one 64-key chunk at a time; warp w owns rows 16w.
-  FragA qa[D / 16];
-  for (int kc = 0; kc < nk_pad; kc += KC) {
-    __syncthreads();
-    load_rows(sKV, kb, kr, kc, KC, n, tid);
-    __syncthreads();
-    if (kc == 0)
-      for (int kk = 0; kk < D / 16; ++kk)
-        wmma::load_matrix_sync(qa[kk], sQ + warp * 16 * LDT + kk * 16, LDT);
-    for (int t = 0; t < KC / 16; ++t) {
-      FragC acc;
-      wmma::fill_fragment(acc, 0.0f);
-      for (int kk = 0; kk < D / 16; ++kk) {
-        FragBT kf;
-        wmma::load_matrix_sync(kf, sKV + t * 16 * LDT + kk * 16, LDT);
-        wmma::mma_sync(acc, qa[kk], kf, acc);
-      }
-      wmma::store_matrix_sync(sS + warp * 16 * ldS + kc + t * 16, acc, ldS, wmma::mem_row_major);
-    }
-  }
-  __syncwarp();
-
-  // Softmax per row, normalised in fp32, then rounded to bf16.
-  for (int rr = 0; rr < 16; ++rr) {
-    float* srow = sS + (warp * 16 + rr) * ldS;
-    float m = -INFINITY;
-    for (int j = lane; j < n; j += 32) {
-      const float s = srow[j] * sm_scale + sBias[j];
-      srow[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int j = lane; j < n; j += 32) {
-      const float e = expf(srow[j] - m);
-      srow[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    bf16* prow = sP + (warp * 16 + rr) * ldP;
-    if (!dp.active) {
-      for (int j = lane; j < nk_pad; j += 32)
-        prow[j] = __float2bfloat16(j < n ? srow[j] / sum : 0.0f);
-      continue;
-    }
-    // D = P * keep / (1 - p), four keys per draw (nk_pad % 4 == 0).
-    const uint32_t stream = (uint32_t)(b * h + hh), row = (uint32_t)(q0 + warp * 16 + rr);
-    for (int j0 = lane * 4; j0 < nk_pad; j0 += 128) {
-      const triad::Keep4 kb = triad::keep4(dp.seed, stream, row, (uint32_t)j0 >> 2);
-      for (int u = 0; u < 4; ++u) {
-        const int j = j0 + u;
-        const float p = j < n ? srow[j] / sum : 0.0f;
-        prow[j] = __float2bfloat16(kept(kb, u, dp) ? p * dp.scale : 0.0f);
-      }
-    }
-  }
-
-  // Pass 2: O = bf16(P) V, fp32 accumulation.
-  FragC o[D / 16];
-  for (int t = 0; t < D / 16; ++t) wmma::fill_fragment(o[t], 0.0f);
-  for (int kc = 0; kc < nk_pad; kc += KC) {
-    __syncthreads();
-    load_rows(sKV, vb, vr, kc, KC, n, tid);
-    __syncthreads();
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      FragA pa;
-      wmma::load_matrix_sync(pa, sP + warp * 16 * ldP + kc + kk * 16, ldP);
-      for (int t = 0; t < D / 16; ++t) {
-        FragB vf;
-        wmma::load_matrix_sync(vf, sKV + kk * 16 * LDT + t * 16, LDT);
-        wmma::mma_sync(o[t], pa, vf, o[t]);
-      }
-    }
-  }
-  for (int t = 0; t < D / 16; ++t)
-    wmma::store_matrix_sync(sS + warp * 16 * ldS + t * 16, o[t], ldS, wmma::mem_row_major);
-  __syncwarp();
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = warp * 16 + rr;
-    if (q0 + r >= n) break;
-    const float* orow = sS + r * ldS;
-    const int c = lane * 2;
-    *reinterpret_cast<__nv_bfloat162*>(out + at(vw.o, b, hh) + (long long)(q0 + r) * vw.o.r +
-                                       c) = __floats2bfloat162_rn(orow[c], orow[c + 1]);
-  }
-}
-
-// ---------------------------------------------------------- backward rows
-
-__host__ inline size_t rows_smem(int nk_pad) {
-  return sizeof(bf16) * (size_t)(2 * RQ * LDT + 2 * KC * LDT + 2 * RQ * LDT)  // Q dO K V hi lo
-         + sizeof(float) * (size_t)(2 * RQ * (nk_pad + 4) + nk_pad);        // S dP bias
-}
-
-__global__ void __launch_bounds__(THREADS)
-attention_train_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                const bf16* __restrict__ v, const float* __restrict__ mask,
-                                const bf16* __restrict__ dout, bf16* __restrict__ dq,
-                                float* __restrict__ row_max, float* __restrict__ row_sum,
-                                float* __restrict__ row_di, Views vw, int n, int h,
-                                float sm_scale, triad::Dropout dp) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int nk_pad = round_up(n, KC);
-  const int ldS = nk_pad + 4;
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = sQ + RQ * LDT;
-  bf16* sK = sDO + RQ * LDT;
-  bf16* sV = sK + KC * LDT;
-  bf16* sHi = sV + KC * LDT;
-  bf16* sLo = sHi + RQ * LDT;
-  float* sS = reinterpret_cast<float*>(sLo + RQ * LDT);
-  float* sDP = sS + RQ * ldS;
-  float* sBias = sDP + RQ * ldS;
-
-  const int q0 = blockIdx.x * RQ, hh = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long stat = ((long long)b * h + hh) * n;
+  const int q0 = blockIdx.x * TILE, hh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const bf16* kb = k + at(vw.k, b, hh);
   const bf16* vb = v + at(vw.v, b, hh);
+  const float* mb = mask + (long long)b * n;
+  const int tiles = (n + TILE - 1) / TILE;
+  const uint32_t stream = (uint32_t)(b * H + hh);
+  const int r0 = q0 + warp * 16;
 
-  load_rows(sQ, q + at(vw.q, b, hh), vw.q.r, q0, RQ, n, tid);
-  load_rows(sDO, dout + at(vw.o, b, hh), vw.o.r, q0, RQ, n, tid);
-  for (int j = tid; j < nk_pad; j += THREADS) sBias[j] = key_bias(mask, b, n, j);
+  auto fetch = [&](int step, int buf) {
+    const int k0 = (step < tiles ? step : step - tiles) * TILE;
+    load_tile(sK + buf * TILE_ELEMS, kb, vw.k.r, k0, n, tid);
+    if (step >= tiles) load_tile(sV + buf * TILE_ELEMS, vb, vw.v.r, k0, n, tid);
+    triad::cp_async_commit();
+    if (tid < TILE) sBias[buf * TILE + tid] = key_bias(mb, n, k0 + tid);
+  };
+  load_tile(sQ, q + at(vw.q, b, hh), vw.q.r, q0, n, tid);
+  fetch(0, 0);
 
-  // S = Q K^T and dP = dO V^T over all keys. The 32 x 64 output of a
-  // chunk is 2 x 4 tiles: warp w takes row tile w & 1, column tiles
-  // 2 (w >> 1) and 2 (w >> 1) + 1 (the same split serves dQ below).
-  const int rt = warp & 1, ct0 = (warp >> 1) * 2;
-  FragA qa[D / 16], da[D / 16];
-  for (int kc = 0; kc < nk_pad; kc += KC) {
-    __syncthreads();
-    load_rows(sK, kb, vw.k.r, kc, KC, n, tid);
-    load_rows(sV, vb, vw.v.r, kc, KC, n, tid);
-    __syncthreads();
-    if (kc == 0)
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::load_matrix_sync(qa[kk], sQ + rt * 16 * LDT + kk * 16, LDT);
-        wmma::load_matrix_sync(da[kk], sDO + rt * 16 * LDT + kk * 16, LDT);
-      }
-    for (int t = 0; t < 2; ++t) {
-      const int ct = ct0 + t;
-      FragC s, dp;
-      wmma::fill_fragment(s, 0.0f);
-      wmma::fill_fragment(dp, 0.0f);
-      for (int kk = 0; kk < D / 16; ++kk) {
-        FragBT kf, vf;
-        wmma::load_matrix_sync(kf, sK + ct * 16 * LDT + kk * 16, LDT);
-        wmma::mma_sync(s, qa[kk], kf, s);
-        wmma::load_matrix_sync(vf, sV + ct * 16 * LDT + kk * 16, LDT);
-        wmma::mma_sync(dp, da[kk], vf, dp);
-      }
-      wmma::store_matrix_sync(sS + rt * 16 * ldS + kc + ct * 16, s, ldS, wmma::mem_row_major);
-      wmma::store_matrix_sync(sDP + rt * 16 * ldS + kc + ct * 16, dp, ldS, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
+  uint32_t qa[4][4];
+  float acc[8][4], acc_lo[8][4];  // bf16(D) V, and (D - bf16(D)) V
+  zero(acc);
+  zero(acc_lo);
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;  // rows g, g + 8
+  float rl0 = 1.0f, rl1 = 1.0f;
 
-  // Per row (warp w owns rows 8w..8w+7): max, sum, P in fp32, di, dS.
-  for (int rr = 0; rr < RQ / 4; ++rr) {
-    const int r = warp * (RQ / 4) + rr;
-    float* srow = sS + r * ldS;
-    float* drow = sDP + r * ldS;
-    float m = -INFINITY;
-    for (int j = lane; j < n; j += 32) {
-      const float s = srow[j] * sm_scale + sBias[j];
-      srow[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int j = lane; j < n; j += 32) {
-      const float e = expf(srow[j] - m);
-      srow[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    float di = 0.0f;
-    if (!dp.active) {
-      for (int j = lane; j < n; j += 32) {
-        const float p = srow[j] / sum;
-        srow[j] = p;
-        di += drow[j] * p;
+  for (int step = 0; step < 2 * tiles; ++step) {
+    const int buf = step & 1;
+    triad::cp_async_wait<0>();
+    __syncthreads();  // this step's tiles landed; every warp is done with the last step's
+    if (step + 1 < 2 * tiles) fetch(step + 1, buf ^ 1);
+    if (step == 0) load_a(qa, sQ, warp * 16, lane);
+    float s[8][4];
+    zero(s);
+    mma_nt(s, qa, sK + buf * TILE_ELEMS, lane);
+    scale_bias(s, sBias + buf * TILE, sm_scale, lane);
+    if (step < tiles) {
+      // online max and (thread-partial) sum; the rescale is quad-uniform
+      float mx0 = m0, mx1 = m1;
+      quad_max(s, mx0, mx1);
+      float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sum0 += expf(s[j][0] - mx0) + expf(s[j][1] - mx0);
+        sum1 += expf(s[j][2] - mx1) + expf(s[j][3] - mx1);
       }
-    } else {
-      // dP = dD * keep / (1 - p), replacing dD in place.
-      const uint32_t stream = (uint32_t)(b * h + hh), row = (uint32_t)(q0 + r);
-      for (int j0 = lane * 4; j0 < n; j0 += 128) {
-        const triad::Keep4 kb = triad::keep4(dp.seed, stream, row, (uint32_t)j0 >> 2);
-        for (int u = 0; u < 4 && j0 + u < n; ++u) {
-          const int j = j0 + u;
-          const float p = srow[j] / sum;
-          const float dpj = kept(kb, u, dp) ? drow[j] * dp.scale : 0.0f;
-          srow[j] = p;
-          drow[j] = dpj;
-          di += dpj * p;
-        }
+      l0 = l0 * expf(m0 - mx0) + sum0;
+      l1 = l1 * expf(m1 - mx1) + sum1;
+      m0 = mx0;
+      m1 = mx1;
+      if (step == tiles - 1) {
+        quad_sum(l0, l1);
+        rl0 = 1.0f / l0;
+        rl1 = 1.0f / l1;
       }
+      continue;
     }
-    di = warp_sum(di);
-    for (int j = lane; j < nk_pad; j += 32) drow[j] = j < n ? srow[j] * (drow[j] - di) : 0.0f;
-    if (lane == 0 && q0 + r < n) {
-      row_max[stat + q0 + r] = m;
-      row_sum[stat + q0 + r] = sum;
-      row_di[stat + q0 + r] = di;
+    probs(s, m0, m1, l0, l1, rl0, rl1);
+    if (dp.active) {
+      uint32_t bits[2];
+      exchange(bits, draw_rows(dp, stream, r0, (step - tiles) * TILE, lane), lane);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = kept_rows(bits, lane, j, e) ? s[j][e] * dp.scale : 0.0f;
     }
+    uint32_t hi[4][4], lo[4][4];  // D = hi + lo, hi = bf16(D)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      split_pack(s[2 * kk][0], s[2 * kk][1], hi[kk][0], lo[kk][0]);
+      split_pack(s[2 * kk][2], s[2 * kk][3], hi[kk][1], lo[kk][1]);
+      split_pack(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[kk][2], lo[kk][2]);
+      split_pack(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[kk][3], lo[kk][3]);
+    }
+    mma_nn_pair(acc, acc_lo, hi, lo, sV + buf * TILE_ELEMS, lane);
   }
 
-  // dQ = dS K (times sm_scale at the store), dS split into bf16 halves.
-  FragC dqa[2];
-  wmma::fill_fragment(dqa[0], 0.0f);
-  wmma::fill_fragment(dqa[1], 0.0f);
-  for (int kc = 0; kc < nk_pad; kc += KC) {
-    __syncthreads();
-    load_rows(sK, kb, vw.k.r, kc, KC, n, tid);
-    for (int i = tid; i < RQ * KC; i += THREADS) {
-      const int r = i / KC, c = i % KC;
-      triad::split_bf16(sDP[r * ldS + kc + c], sHi + r * LDT + c, sLo + r * LDT + c);
-    }
-    __syncthreads();
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      FragA hi, lo;
-      wmma::load_matrix_sync(hi, sHi + rt * 16 * LDT + kk * 16, LDT);
-      wmma::load_matrix_sync(lo, sLo + rt * 16 * LDT + kk * 16, LDT);
-      for (int t = 0; t < 2; ++t) {
-        FragB kf;
-        wmma::load_matrix_sync(kf, sK + kk * 16 * LDT + (ct0 + t) * 16, LDT);
-        wmma::mma_sync(dqa[t], hi, kf, dqa[t]);
-        wmma::mma_sync(dqa[t], lo, kf, dqa[t]);
-      }
-    }
+  store_rows(out + at(vw.o, b, hh), vw.o.r, acc, r0, n, lane, 1.0f, 1.0f);
+  // O' = D V with the fp32 D, for the backward's di = dO . O'
+  const long long plane = (long long)gridDim.z * H * n, bh = ((long long)b * H + hh) * n;
+  const int r = r0 + frag_row(lane, 0), col = frag_col(lane, 0);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (r < n)
+      *reinterpret_cast<float2*>(o32 + (bh + r) * D + j * 8 + col) =
+          make_float2(acc[j][0] + acc_lo[j][0], acc[j][1] + acc_lo[j][1]);
+    if (r + 8 < n)
+      *reinterpret_cast<float2*>(o32 + (bh + r + 8) * D + j * 8 + col) =
+          make_float2(acc[j][2] + acc_lo[j][2], acc[j][3] + acc_lo[j][3]);
   }
-  __syncthreads();
-  for (int t = 0; t < 2; ++t)
-    wmma::store_matrix_sync(sS + rt * 16 * ldS + (ct0 + t) * 16, dqa[t], ldS, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < RQ * (D / 2); i += THREADS) {
-    const int r = i / (D / 2), c = (i % (D / 2)) * 2;
-    if (q0 + r >= n) continue;
-    *reinterpret_cast<__nv_bfloat162*>(dq + at(vw.dq, b, hh) + (long long)(q0 + r) * vw.dq.r +
-                                       c) =
-        __floats2bfloat162_rn(sS[r * ldS + c] * sm_scale, sS[r * ldS + c + 1] * sm_scale);
+  if ((lane & 3) == 0) {
+    if (r < n) {
+      stats[bh + r] = m0;
+      stats[plane + bh + r] = l0;
+    }
+    if (r + 8 < n) {
+      stats[bh + r + 8] = m1;
+      stats[plane + bh + r + 8] = l1;
+    }
   }
 }
 
-// ------------------------------------------------------- backward columns
+// ---------------------------------------------------------------------------
+// Backward 1, dQ and di: one block per (b, h, 64-query tile), one pass
+// over the K and V tiles.
+// ---------------------------------------------------------------------------
 
-constexpr size_t COLS_SMEM = sizeof(bf16) * (size_t)(2 * CK * LDT + 2 * CQ * LDT + 4 * CQ * LDT)
-                             + sizeof(float) * (size_t)(2 * CQ * LDF + CK + 3 * CQ);
+constexpr size_t DQ_SMEM = sizeof(bf16) * 6 * TILE_ELEMS + sizeof(float) * 2 * TILE;
+
+// di of row `row` (< n): dO . O' over the 64 columns, this lane's 16
+// (16 (lane & 3) ..) summed, then the quad's.
+__device__ __forceinline__ float row_di(const bf16* d_row, const float* o_row, int lane) {
+  const int c = 16 * (lane & 3);
+  float sum = 0.0f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint4 dv = *reinterpret_cast<const uint4*>(d_row + c + 8 * h);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 df = __bfloat1622float2(d2[i]);
+      const float2 of = *reinterpret_cast<const float2*>(o_row + c + 8 * h + 2 * i);
+      sum += df.x * of.x + df.y * of.y;
+    }
+  }
+  return sum;
+}
 
 __global__ void __launch_bounds__(THREADS)
-attention_train_bwd_cols_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                const bf16* __restrict__ v, const float* __restrict__ mask,
-                                const bf16* __restrict__ dout, const float* __restrict__ row_max,
-                                const float* __restrict__ row_sum,
-                                const float* __restrict__ row_di, bf16* __restrict__ dk,
-                                bf16* __restrict__ dv, Views vw, int n, int h, float sm_scale,
-                                triad::Dropout dp) {
+attention_train_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const float* __restrict__ mask,
+                          const bf16* __restrict__ dout, const float* __restrict__ stats,
+                          const float* __restrict__ o32, bf16* __restrict__ dq,
+                          float* __restrict__ di_out, uint32_t* __restrict__ kbits, Views vw,
+                          int H, int n, float sm_scale, triad::Dropout dp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sD = sQ + TILE_ELEMS;      // dO
+  bf16* sK = sD + TILE_ELEMS;      // [2][TILE_ELEMS]
+  bf16* sV = sK + 2 * TILE_ELEMS;  // [2][TILE_ELEMS]
+  float* sBias = reinterpret_cast<float*>(sV + 2 * TILE_ELEMS);  // [2][TILE]
+
+  const int q0 = blockIdx.x * TILE, hh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bf16* kb = k + at(vw.k, b, hh);
+  const bf16* vb = v + at(vw.v, b, hh);
+  const bf16* db = dout + at(vw.o, b, hh);
+  const float* mb = mask + (long long)b * n;
+  const int tiles = (n + TILE - 1) / TILE;
+  const uint32_t stream = (uint32_t)(b * H + hh);
+  const int r0 = q0 + warp * 16, r = r0 + frag_row(lane, 0);
+  const long long plane = (long long)gridDim.z * H * n, bh = ((long long)b * H + hh) * n;
+
+  auto fetch = [&](int t, int buf) {
+    const int k0 = t * TILE;
+    load_tile(sK + buf * TILE_ELEMS, kb, vw.k.r, k0, n, tid);
+    load_tile(sV + buf * TILE_ELEMS, vb, vw.v.r, k0, n, tid);
+    triad::cp_async_commit();
+    if (tid < TILE) sBias[buf * TILE + tid] = key_bias(mb, n, k0 + tid);
+  };
+  load_tile(sQ, q + at(vw.q, b, hh), vw.q.r, q0, n, tid);
+  load_tile(sD, db, vw.o.r, q0, n, tid);
+  fetch(0, 0);
+
+  // This thread's rows g and g + 8: m, l, 1 / l and di (rows past n: inert).
+  float m0 = 0.0f, m1 = 0.0f, l0 = 1.0f, l1 = 1.0f, di0 = 0.0f, di1 = 0.0f;
+  if (r < n) {
+    m0 = stats[bh + r];
+    l0 = stats[plane + bh + r];
+    di0 = row_di(db + (long long)r * vw.o.r, o32 + (bh + r) * D, lane);
+  }
+  if (r + 8 < n) {
+    m1 = stats[bh + r + 8];
+    l1 = stats[plane + bh + r + 8];
+    di1 = row_di(db + (long long)(r + 8) * vw.o.r, o32 + (bh + r + 8) * D, lane);
+  }
+  quad_sum(di0, di1);
+  const float rl0 = 1.0f / l0, rl1 = 1.0f / l1;
+  uint32_t qa[4][4], da[4][4];
+  float dq_acc[8][4];
+  zero(dq_acc);
+
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    triad::cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < tiles) fetch(t + 1, buf ^ 1);
+    if (t == 0) {
+      load_a(qa, sQ, warp * 16, lane);
+      load_a(da, sD, warp * 16, lane);
+    }
+    const bf16* tk = sK + buf * TILE_ELEMS;
+    float p[8][4], ds[8][4];
+    zero(p);
+    mma_nt(p, qa, tk, lane);  // S = Q K^T
+    scale_bias(p, sBias + buf * TILE, sm_scale, lane);
+    probs(p, m0, m1, l0, l1, rl0, rl1);
+    zero(ds);
+    mma_nt(ds, da, sV + buf * TILE_ELEMS, lane);  // dO V^T
+    if (dp.active) {
+      // draw this lane's word and keep it for the dK/dV kernel
+      const uint32_t mine = draw_rows(dp, stream, r0, t * TILE, lane);
+      const int row = r0 + (lane >> 2) + ((lane & 1) << 3);
+      if (row < n) kbits[kbits_at(bh, row, tiles, t, (lane >> 1) & 1)] = mine;
+      uint32_t bits[2];
+      exchange(bits, mine, lane);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[j][e] = kept_rows(bits, lane, j, e) ? ds[j][e] * dp.scale : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      ds[j][0] = p[j][0] * (ds[j][0] - di0);
+      ds[j][1] = p[j][1] * (ds[j][1] - di0);
+      ds[j][2] = p[j][2] * (ds[j][2] - di1);
+      ds[j][3] = p[j][3] * (ds[j][3] - di1);
+    }
+    mma_nn_split(dq_acc, ds, tk, lane);  // dQ += dS K
+  }
+
+  store_rows(dq + at(vw.dq, b, hh), vw.dq.r, dq_acc, r0, n, lane, sm_scale, sm_scale);
+  if ((lane & 3) == 0) {
+    if (r < n) di_out[bh + r] = di0;
+    if (r + 8 < n) di_out[bh + r + 8] = di1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward 2, dK and dV: one block per (b, h, 64-key tile), walking the
+// query tiles in order. Warp w owns keys 16w .. 16w + 15 of the tile.
+// ---------------------------------------------------------------------------
+
+constexpr size_t DKV_SMEM = sizeof(bf16) * 6 * TILE_ELEMS + sizeof(float) * 2 * 4 * TILE +
+                            sizeof(uint32_t) * 2 * TILE * 2;
+
+__global__ void __launch_bounds__(THREADS)
+attention_train_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const float* __restrict__ mask,
+                           const bf16* __restrict__ dout, const float* __restrict__ stats,
+                           const float* __restrict__ di, const uint32_t* __restrict__ kbits,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, Views vw, int H, int n,
+                           float sm_scale, triad::Dropout dp) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + CK * LDT;
-  bf16* sQ = sV + CK * LDT;
-  bf16* sDO = sQ + CQ * LDT;
-  bf16* sPhi = sDO + CQ * LDT;
-  bf16* sPlo = sPhi + CQ * LDT;
-  bf16* sDhi = sPlo + CQ * LDT;
-  bf16* sDlo = sDhi + CQ * LDT;
-  float* sS = reinterpret_cast<float*>(sDlo + CQ * LDT);
-  float* sDP = sS + CQ * LDF;
-  float* sBias = sDP + CQ * LDF;
-  float* sM = sBias + CK;
-  float* sL = sM + CQ;
-  float* sDI = sL + CQ;
+  bf16* sV = sK + TILE_ELEMS;
+  bf16* sQ = sV + TILE_ELEMS;      // [2][TILE_ELEMS]
+  bf16* sD = sQ + 2 * TILE_ELEMS;  // dO, [2][TILE_ELEMS]
+  float* sStat = reinterpret_cast<float*>(sD + 2 * TILE_ELEMS);  // [2][4][TILE]: m, l, 1 / l, di
+  uint32_t* sBits = reinterpret_cast<uint32_t*>(sStat + 2 * 4 * TILE);  // [2][TILE][2]
 
-  const int k0 = blockIdx.x * CK, hh = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long stat = ((long long)b * h + hh) * n;
+  const int k0 = blockIdx.x * TILE, hh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const bf16* qb = q + at(vw.q, b, hh);
-  const bf16* dob = dout + at(vw.o, b, hh);
+  const bf16* db = dout + at(vw.o, b, hh);
+  const long long plane = (long long)gridDim.z * H * n, bh = ((long long)b * H + hh) * n;
+  const int tiles = (n + TILE - 1) / TILE;
 
-  load_rows(sK, k + at(vw.k, b, hh), vw.k.r, k0, CK, n, tid);
-  load_rows(sV, v + at(vw.v, b, hh), vw.v.r, k0, CK, n, tid);
-  for (int j = tid; j < CK; j += THREADS) sBias[j] = key_bias(mask, b, n, k0 + j);
+  // Query rows past n: m 0, l 1, di 0 and no keep bits, with zero q and
+  // dO, add nothing.
+  auto fetch = [&](int t, int buf) {
+    const int q0 = t * TILE;
+    load_tile(sQ + buf * TILE_ELEMS, qb, vw.q.r, q0, n, tid);
+    load_tile(sD + buf * TILE_ELEMS, db, vw.o.r, q0, n, tid);
+    if (dp.active && tid < TILE) {
+      const bool ok = q0 + tid < n;
+      triad::cp_async8(sBits + (buf * TILE + tid) * 2,
+                kbits + (ok ? kbits_at(bh, q0 + tid, tiles, blockIdx.x, 0) : 0), ok);
+    }
+    triad::cp_async_commit();
+    if (tid < TILE) {
+      const bool ok = q0 + tid < n;
+      float* st = sStat + buf * 4 * TILE;
+      const float l = ok ? stats[plane + bh + q0 + tid] : 1.0f;
+      st[tid] = ok ? stats[bh + q0 + tid] : 0.0f;
+      st[TILE + tid] = l;
+      st[2 * TILE + tid] = 1.0f / l;
+      st[3 * TILE + tid] = ok ? di[bh + q0 + tid] : 0.0f;
+    }
+  };
+  load_tile(sK, k + at(vw.k, b, hh), vw.k.r, k0, n, tid);
+  load_tile(sV, v + at(vw.v, b, hh), vw.v.r, k0, n, tid);
+  fetch(0, 0);
 
-  // Warp w accumulates dK and dV for keys 16w..16w+15 of the tile.
-  FragC dka[D / 16], dva[D / 16];
-  for (int t = 0; t < D / 16; ++t) {
-    wmma::fill_fragment(dka[t], 0.0f);
-    wmma::fill_fragment(dva[t], 0.0f);
-  }
-  for (int qt = 0; qt < n; qt += CQ) {
+  // This thread's keys: rows g and g + 8 of its warp's 16.
+  const int key0 = k0 + warp * 16, key = key0 + frag_row(lane, 0);
+  const float* mb = mask + (long long)b * n;
+  const float bias0 = key_bias(mb, n, key), bias1 = key_bias(mb, n, key + 8);
+
+  uint32_t ka[4][4], va[4][4];
+  float dk_acc[8][4], dv_acc[8][4];
+  zero(dk_acc);
+  zero(dv_acc);
+
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    triad::cp_async_wait<0>();
     __syncthreads();
-    load_rows(sQ, qb, vw.q.r, qt, CQ, n, tid);
-    load_rows(sDO, dob, vw.o.r, qt, CQ, n, tid);
-    for (int i = tid; i < CQ; i += THREADS) {
-      const bool ok = qt + i < n;
-      sM[i] = ok ? row_max[stat + qt + i] : 0.0f;
-      sL[i] = ok ? row_sum[stat + qt + i] : 1.0f;
-      sDI[i] = ok ? row_di[stat + qt + i] : 0.0f;
+    if (t + 1 < tiles) fetch(t + 1, buf ^ 1);
+    if (t == 0) {
+      load_a(ka, sK, warp * 16, lane);
+      load_a(va, sV, warp * 16, lane);
     }
-    __syncthreads();
-    // S and dP for this query tile; warp w owns query rows 16w..16w+15.
-    {
-      FragA qa[D / 16], da[D / 16];
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::load_matrix_sync(qa[kk], sQ + warp * 16 * LDT + kk * 16, LDT);
-        wmma::load_matrix_sync(da[kk], sDO + warp * 16 * LDT + kk * 16, LDT);
+    const bf16* tq = sQ + buf * TILE_ELEMS;
+    const bf16* td = sD + buf * TILE_ELEMS;
+    const float* st = sStat + buf * 4 * TILE;
+    float p[8][4], ds[8][4];
+    zero(p);
+    mma_nt(p, ka, tq, lane);  // S^T: keys x queries
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = j * 8 + frag_col(lane, e);
+        const float s = p[j][e] * sm_scale + (e < 2 ? bias0 : bias1);
+        p[j][e] = div_by(expf(s - st[qc]), st[TILE + qc], st[2 * TILE + qc]);
       }
-      for (int t = 0; t < CK / 16; ++t) {
-        FragC s, dp;
-        wmma::fill_fragment(s, 0.0f);
-        wmma::fill_fragment(dp, 0.0f);
-        for (int kk = 0; kk < D / 16; ++kk) {
-          FragBT kf, vf;
-          wmma::load_matrix_sync(kf, sK + t * 16 * LDT + kk * 16, LDT);
-          wmma::mma_sync(s, qa[kk], kf, s);
-          wmma::load_matrix_sync(vf, sV + t * 16 * LDT + kk * 16, LDT);
-          wmma::mma_sync(dp, da[kk], vf, dp);
-        }
-        wmma::store_matrix_sync(sS + warp * 16 * LDF + t * 16, s, LDF, wmma::mem_row_major);
-        wmma::store_matrix_sync(sDP + warp * 16 * LDF + t * 16, dp, LDF, wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
-    // P and dS from the row stats (the same expression as the rows
-    // kernel, so P matches it to the bit), split into bf16 halves. With
-    // dropout, D = P * keep / (1 - p) takes P's place in dV and dP =
-    // dD * keep / (1 - p) enters dS, from the forward's keep bits.
-    if (!dp.active) {
-      for (int i = lane; i < 16 * CK; i += 32) {
-        const int r = warp * 16 + i / CK, c = i % CK;
-        float p = 0.0f, ds = 0.0f;
-        if (qt + r < n && k0 + c < n) {
-          const float s = sS[r * LDF + c] * sm_scale + sBias[c];
-          p = expf(s - sM[r]) / sL[r];
-          ds = p * (sDP[r * LDF + c] - sDI[r]);
-        }
-        triad::split_bf16(p, sPhi + r * LDT + c, sPlo + r * LDT + c);
-        triad::split_bf16(ds, sDhi + r * LDT + c, sDlo + r * LDT + c);
-      }
-    } else {
-      const uint32_t stream = (uint32_t)(b * h + hh);
-      for (int i = lane; i < 16 * CK / 4; i += 32) {
-        const int r = warp * 16 + i / (CK / 4), c0 = (i % (CK / 4)) * 4;
-        const triad::Keep4 kb =
-            triad::keep4(dp.seed, stream, (uint32_t)(qt + r), (uint32_t)(k0 + c0) >> 2);
-        for (int u = 0; u < 4; ++u) {
-          const int c = c0 + u;
-          float d = 0.0f, ds = 0.0f;
-          if (qt + r < n && k0 + c < n) {
-            const float s = sS[r * LDF + c] * sm_scale + sBias[c];
-            const float p = expf(s - sM[r]) / sL[r];
-            const bool keep = kept(kb, u, dp);
-            d = keep ? p * dp.scale : 0.0f;
-            ds = p * ((keep ? sDP[r * LDF + c] * dp.scale : 0.0f) - sDI[r]);
-          }
-          triad::split_bf16(d, sPhi + r * LDT + c, sPlo + r * LDT + c);
-          triad::split_bf16(ds, sDhi + r * LDT + c, sDlo + r * LDT + c);
+    zero(ds);
+    mma_nt(ds, va, td, lane);  // (dO V^T)^T = V dO^T
+    // dS^T = P^T (dP^T - di), then P^T becomes D^T = P^T keep / (1 - p)
+    const uint32_t bits = dp.active ? keep_cols(sBits + buf * TILE * 2, warp, lane) : 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = j * 8 + frag_col(lane, e);
+        if (dp.active) {
+          const bool keep = (bits >> (8 * e + j)) & 1u;
+          ds[j][e] = keep ? ds[j][e] * dp.scale : 0.0f;
+          ds[j][e] = p[j][e] * (ds[j][e] - st[3 * TILE + qc]);
+          p[j][e] = keep ? p[j][e] * dp.scale : 0.0f;
+        } else {
+          ds[j][e] = p[j][e] * (ds[j][e] - st[3 * TILE + qc]);
         }
       }
-    }
-    __syncthreads();
-    // dV += P^T dO and dK += dS^T Q over the tile's query rows.
-    for (int kk = 0; kk < CQ / 16; ++kk) {
-      FragAT ph, pl, dh, dl;
-      wmma::load_matrix_sync(ph, sPhi + kk * 16 * LDT + warp * 16, LDT);
-      wmma::load_matrix_sync(pl, sPlo + kk * 16 * LDT + warp * 16, LDT);
-      wmma::load_matrix_sync(dh, sDhi + kk * 16 * LDT + warp * 16, LDT);
-      wmma::load_matrix_sync(dl, sDlo + kk * 16 * LDT + warp * 16, LDT);
-      for (int t = 0; t < D / 16; ++t) {
-        FragB of, qf;
-        wmma::load_matrix_sync(of, sDO + kk * 16 * LDT + t * 16, LDT);
-        wmma::mma_sync(dva[t], ph, of, dva[t]);
-        wmma::mma_sync(dva[t], pl, of, dva[t]);
-        wmma::load_matrix_sync(qf, sQ + kk * 16 * LDT + t * 16, LDT);
-        wmma::mma_sync(dka[t], dh, qf, dka[t]);
-        wmma::mma_sync(dka[t], dl, qf, dka[t]);
-      }
-    }
+    mma_nn_split(dv_acc, p, td, lane);   // dV += D^T dO
+    mma_nn_split(dk_acc, ds, tq, lane);  // dK += dS^T Q
   }
-  __syncthreads();
-  for (int t = 0; t < D / 16; ++t) {
-    wmma::store_matrix_sync(sS + warp * 16 * LDF + t * 16, dka[t], LDF, wmma::mem_row_major);
-    wmma::store_matrix_sync(sDP + warp * 16 * LDF + t * 16, dva[t], LDF, wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int i = tid; i < CK * (D / 2); i += THREADS) {
-    const int r = i / (D / 2), c = (i % (D / 2)) * 2;
-    if (k0 + r >= n) continue;
-    *reinterpret_cast<__nv_bfloat162*>(dk + at(vw.dk, b, hh) + (long long)(k0 + r) * vw.dk.r +
-                                       c) =
-        __floats2bfloat162_rn(sS[r * LDF + c] * sm_scale, sS[r * LDF + c + 1] * sm_scale);
-    *reinterpret_cast<__nv_bfloat162*>(dv + at(vw.dv, b, hh) + (long long)(k0 + r) * vw.dv.r +
-                                       c) = __floats2bfloat162_rn(sDP[r * LDF + c],
-                                                                  sDP[r * LDF + c + 1]);
-  }
+  store_rows(dk + at(vw.dk, b, hh), vw.dk.r, dk_acc, key0, n, lane, sm_scale, sm_scale);
+  store_rows(dv + at(vw.dv, b, hh), vw.dv.r, dv_acc, key0, n, lane, 1.0f, 1.0f);
 }
 
 template <typename K>
-int prepare(K kernel, size_t smem) {
-  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   MAX_SMEM);
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 // The views of `count` operands from their element strides, three per
@@ -585,59 +625,58 @@ Views views_of(const long long* strides, int count) {
 // stride; strides: their (batch, head, row) element strides, 3 x 4 in the
 // order q, k, v, out (every stride a multiple of 8 and every base pointer
 // 16-byte aligned); mask: (B, N) contiguous fp32 key mask (1 = attend);
+// stats: (2, B, H, N) fp32 out, the row max m and sum l of the softmax;
+// o32: (B, H, N, 64) fp32 out, D V with the fp32 D, for the backward's di;
 // dropout: keep iff bits >= thresh, kept values times keep_scale, none
-// when active == 0. Returns a cudaError_t.
+// when active == 0. Any n >= 1. Returns a cudaError_t.
 extern "C" int triad_attention_train_fwd(const void* q, const void* k, const void* v,
-                                         const void* mask, void* out, const long long* strides,
-                                         int b, int h, int n, float sm_scale, unsigned seed,
-                                         unsigned thresh, float keep_scale, int active,
-                                         void* stream) {
+                                         const void* mask, void* out, void* stats, void* o32,
+                                         const long long* strides, int b, int h, int n,
+                                         float sm_scale, unsigned seed, unsigned thresh,
+                                         float keep_scale, int active, void* stream) {
   if (b <= 0 || h <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_smem(round_up(n, KC));
-  int err = prepare(attention_train_fwd_kernel, smem);
-  if (err) return err;
-  attention_train_fwd_kernel<<<dim3((n + FQ - 1) / FQ, h, b), THREADS, smem,
+  cudaError_t err = allow_smem(attention_train_fwd_kernel, FWD_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  attention_train_fwd_kernel<<<dim3((n + TILE - 1) / TILE, h, b), THREADS, FWD_SMEM,
                                (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (bf16*)out,
-      views_of(strides, 4), n, h, sm_scale, triad::Dropout{seed, thresh, keep_scale, active});
+      (float*)stats, (float*)o32, views_of(strides, 4), h, n, sm_scale,
+      triad::Dropout{seed, thresh, keep_scale, active});
   return (int)cudaGetLastError();
 }
 
-// Adds dout (the output gradient) and writes dq, dk, dv, all addressed like
-// the forward's operands (strides: 3 x 7 in the order q, k, v, dout, dq,
-// dk, dv), and the (B, H, N) fp32 row stats scratch (max, sum, di) that
-// the second kernel reads; the dropout arguments are the forward's.
+// The backward, dQ (with di) then dK/dV, two grids on one stream. Adds
+// dout (the output gradient) and writes dq, dk, dv, all addressed like the
+// forward's operands (strides: 3 x 7 in the order q, k, v, dout, dq, dk,
+// dv); stats, o32: the forward's; di: (B, H, N) fp32 scratch that the
+// first grid writes and the second reads; the dropout arguments are
+// the forward's; kbits: with dropout, B H N ceil(N / 64) 2 uint32 scratch
+// for the keep bits the first grid draws and both read (else unused).
 // Returns a cudaError_t.
 extern "C" int triad_attention_train_bwd(const void* q, const void* k, const void* v,
-                                         const void* mask, const void* dout, void* dq,
-                                         void* dk, void* dv, void* row_max, void* row_sum,
-                                         void* row_di, const long long* strides, int b, int h,
-                                         int n, float sm_scale, unsigned seed, unsigned thresh,
+                                         const void* mask, const void* dout, const void* stats,
+                                         const void* o32, void* di, void* kbits, void* dq,
+                                         void* dk, void* dv,
+                                         const long long* strides, int b, int h, int n,
+                                         float sm_scale, unsigned seed, unsigned thresh,
                                          float keep_scale, int active, void* stream) {
   if (b <= 0 || h <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const triad::Dropout dp{seed, thresh, keep_scale, active};
   const Views vw = views_of(strides, 7);
-  const size_t smem = rows_smem(round_up(n, KC));
-  int err = prepare(attention_train_bwd_rows_kernel, smem);
-  if (err) return err;
-  attention_train_bwd_rows_kernel<<<dim3((n + RQ - 1) / RQ, h, b), THREADS, smem, s>>>(
+  cudaError_t err = allow_smem(attention_train_dq_kernel, DQ_SMEM);
+  if (err == cudaSuccess) err = allow_smem(attention_train_dkv_kernel, DKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + TILE - 1) / TILE, h, b);
+  attention_train_dq_kernel<<<grid, THREADS, DQ_SMEM, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (const bf16*)dout,
-      (bf16*)dq, (float*)row_max, (float*)row_sum, (float*)row_di, vw, n, h, sm_scale, dp);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  err = prepare(attention_train_bwd_cols_kernel, COLS_SMEM);
-  if (err) return err;
-  attention_train_bwd_cols_kernel<<<dim3((n + CK - 1) / CK, h, b), THREADS, COLS_SMEM, s>>>(
+      (const float*)stats, (const float*)o32, (bf16*)dq, (float*)di, (uint32_t*)kbits, vw, h, n,
+      sm_scale, dp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attention_train_dkv_kernel<<<grid, THREADS, DKV_SMEM, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (const bf16*)dout,
-      (const float*)row_max, (const float*)row_sum, (const float*)row_di, (bf16*)dk, (bf16*)dv,
-      vw, n, h, sm_scale, dp);
+      (const float*)stats, (const float*)di, (const uint32_t*)kbits, (bf16*)dk, (bf16*)dv, vw, h,
+      n, sm_scale, dp);
   return (int)cudaGetLastError();
-}
-
-extern "C" int triad_attention_train_max_keys() {
-  int nk = KC;
-  while (fwd_smem(nk + KC) <= (size_t)MAX_SMEM && rows_smem(nk + KC) <= (size_t)MAX_SMEM)
-    nk += KC;
-  return nk;
 }

@@ -117,6 +117,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
 }
+// The same for 8 bytes (cp.async.ca: 4- and 8-byte copies go through L1).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 8 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

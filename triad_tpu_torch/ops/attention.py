@@ -281,13 +281,39 @@ def _packed(x):
     return x.transpose(1, 2).reshape(b, n, h * d)
 
 
-def _train_probs(q, k, mask, sm_scale):
-    """_head_fwd's fp32 P per head: softmax(q k^T s + (1 - mask) * -1e30)."""
+def _train_scores(q, k, mask, sm_scale):
+    """_head_fwd's fp32 S per head: q k^T s + (1 - mask) * -1e30."""
     bias = (1.0 - mask.to(torch.float32)) * -1e30
     s = q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2) * sm_scale
-    s = s + bias[:, None, None, :]
+    return s + bias[:, None, None, :]
+
+
+def _train_probs(q, k, mask, sm_scale):
+    """_head_fwd's fp32 P per head: softmax(q k^T s + (1 - mask) * -1e30)."""
+    s = _train_scores(q, k, mask, sm_scale)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     return e / e.sum(dim=-1, keepdim=True)
+
+
+def train_row_stats_plain(q, k, mask, sm_scale: float) -> torch.Tensor:
+    """The row statistics the training forward kernel hands its backward:
+    (2, B, H, N) fp32, [0] the row max m of S (with the key bias), [1] the
+    row sum l of exp(S - m), so P = exp(S - m) / l. q, k: (B, H, N, 64)
+    views; mask (B, N)."""
+    s = _train_scores(q, k, mask, sm_scale)
+    m = s.amax(dim=-1)
+    return torch.stack([m, torch.exp(s - m[..., None]).sum(dim=-1)])
+
+
+def train_saved_plain(q, k, v, mask, sm_scale: float, seed: int = 0, p_drop: float = 0.0):
+    """What the training forward kernel saves for its backward, on (B, H,
+    N, 64) views: (the row stats of train_row_stats_plain, O' = D V with
+    the fp32 D as a (B, H, N, 64) fp32 tensor), so that di = rowsum(dO *
+    O') = rowsum(dP * P)."""
+    b, h, nq, _ = q.shape
+    d = dropout.apply_keep(_train_probs(q, k, mask, sm_scale),
+                           attention_keep(b, h, nq, k.shape[2], seed, p_drop, q.device), p_drop)
+    return train_row_stats_plain(q, k, mask, sm_scale), d @ v.to(torch.float32)
 
 
 def attention_keep(b: int, h: int, nq: int, nk: int, seed: int, p_drop: float, device):
@@ -383,42 +409,56 @@ def _strides(*views):
 
 def _train_launch_args(name, q, k, v, mask):
     """Check (B, H, N, 64) views for the kernels (bf16 on one CUDA device,
-    self-attention shapes, at most the kernel's key count) and return the
-    key mask as a contiguous (B, N) fp32 tensor on q's device."""
+    self-attention shapes; any N) and return the key mask as a contiguous
+    (B, N) fp32 tensor on q's device."""
     kernels.require_cuda(name, q, k, v, dtype=torch.bfloat16)
     if k.shape != q.shape or v.shape != q.shape or q.shape[-1] != HEAD_DIM:
         raise ValueError(f"{name}: the kernel takes self-attention shapes with heads of "
                          f"{HEAD_DIM}, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    b, _, n, _ = q.shape
-    max_keys = kernels.library().triad_attention_train_max_keys()
-    if n > max_keys:
-        raise ValueError(f"{name}: {n} keys > the kernel's {max_keys}")
-    return _key_mask(mask, b, n, q.device)
+    return _key_mask(mask, q.shape[0], q.shape[2], q.device)
 
 
 def _train_fwd_kernel(name, q, k, v, out, mask, sm_scale, seed, p_drop):
     """csrc/attention_train.cu forward on (B, H, N, 64) views; out written
-    through its own view."""
+    through its own view. Returns what the backward kernels take: the
+    (2, B, H, N) fp32 row stats (m, l) and O' = D V with the fp32 D, (B,
+    H, N, 64) fp32."""
     mask = _train_launch_args(name, q, k, v, mask)
     b, h, n, _ = q.shape
+    stats = torch.empty((2, b, h, n), dtype=torch.float32, device=q.device)
+    o32 = torch.empty((b, h, n, HEAD_DIM), dtype=torch.float32, device=q.device)
     kernels.call("attention_train_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 mask.data_ptr(), out.data_ptr(), _strides(q, k, v, out), b, h, n,
-                 float(sm_scale), *kernels.dropout_args(seed, p_drop), kernels.stream_ptr(out))
+                 mask.data_ptr(), out.data_ptr(), stats.data_ptr(), o32.data_ptr(),
+                 _strides(q, k, v, out), b, h, n, float(sm_scale),
+                 *kernels.dropout_args(seed, p_drop), kernels.stream_ptr(out))
     kernels.LAUNCHES[name] += 1
+    return stats, o32
 
 
-def _train_bwd_kernel(name, q, k, v, do, dq, dk, dv, mask, sm_scale, seed, p_drop):
-    """The two backward kernels (rows, then columns) on (B, H, N, 64) views,
-    with a (3, B, H, N) fp32 scratch of row stats; one count per call."""
+def _train_bwd_kernel(name, q, k, v, do, dq, dk, dv, mask, saved, sm_scale, seed, p_drop):
+    """The two backward kernels (dQ with di, then dK/dV) on (B, H, N, 64)
+    views, from what the forward saved, with a (B, H, N) fp32 di scratch
+    and, with dropout, the keep bits' scratch (B H N ceil(N / 64) 2 words:
+    N^2 / 8 bytes per head); one count per call."""
     mask = _train_launch_args(name, q, k, v, mask)
-    kernels.require_cuda(name, q, do, dtype=torch.bfloat16)
     b, h, n, _ = q.shape
-    stats = torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)
+    stats, o32 = saved if saved is not None else (None, None)
+    if any(t is None or t.shape != shape or t.dtype != torch.float32
+           for t, shape in ((stats, (2, b, h, n)), (o32, (b, h, n, HEAD_DIM)))):
+        raise ValueError(f"{name}: needs what the forward saved: (2, {b}, {h}, {n}) fp32 row "
+                         f"stats and the ({b}, {h}, {n}, {HEAD_DIM}) fp32 D V")
+    kernels.require_cuda(name, q, do, dtype=torch.bfloat16)
+    kernels.require_cuda(name, q, stats, o32)
+    stats, o32 = stats.contiguous(), o32.contiguous()
+    di = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    kbits = None
+    if p_drop > 0:
+        kbits = torch.empty((b * h * n * -(-n // 64) * 2,), dtype=torch.int32, device=q.device)
     kernels.call("attention_train_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 mask.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(),
-                 _strides(q, k, v, do, dq, dk, dv), b, h, n, float(sm_scale),
-                 *kernels.dropout_args(seed, p_drop), kernels.stream_ptr(dq))
+                 mask.data_ptr(), do.data_ptr(), stats.data_ptr(), o32.data_ptr(),
+                 di.data_ptr(), None if kbits is None else kbits.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, do, dq, dk, dv), b, h, n,
+                 float(sm_scale), *kernels.dropout_args(seed, p_drop), kernels.stream_ptr(dq))
     kernels.LAUNCHES[name] += 1
 
 
@@ -429,122 +469,131 @@ def _heads_major(x: torch.Tensor) -> torch.Tensor:
 
 
 def attention_train_strided_fwd(q, k, v, mask, sm_scale: float, seed: int = 0,
-                                p_drop: float = 0.0,
-                                count: str = "attention_train_strided") -> torch.Tensor:
-    """Forward on (B, H, N, 64) views of any strides the kernels can address
-    (fused_attention's (B, H, T, D) tensors, or the heads of packed (B, N,
-    H*64) projections: no copy): heads_train_plain for a CPU tensor, the
-    kernel for a CUDA one, counted under ``count`` in kernels.LAUNCHES. On
-    the card the output is a (B, H, N, 64) view of (B, N, H, 64) memory,
-    the packed layout, which _packed reshapes with no copy."""
+                                p_drop: float = 0.0, count: str = "attention_train_strided"):
+    """(out, saved): the forward on (B, H, N, 64) views of any strides the
+    kernels can address (fused_attention's (B, H, T, D) tensors, or the
+    heads of packed (B, N, H*64) projections: no copy). A CPU tensor runs
+    heads_train_plain and saves None; a CUDA one runs the kernel, counted
+    under ``count`` in kernels.LAUNCHES, and saves what the backward
+    kernels take (train_saved_plain's pair). On the card ``out`` is a (B,
+    H, N, 64) view of (B, N, H, 64) memory, the packed layout, which
+    _packed reshapes with no copy."""
     if q.device.type == "cpu":
-        return heads_train_plain(q, k, v, mask, sm_scale, seed, p_drop).to(q.dtype)
+        return heads_train_plain(q, k, v, mask, sm_scale, seed, p_drop).to(q.dtype), None
     q, k, v = (_addressable(x) for x in (q, k, v))
     out = _heads_major(q)
-    _train_fwd_kernel(count, q, k, v, out, mask, sm_scale, seed, p_drop)
-    return out
+    return out, _train_fwd_kernel(count, q, k, v, out, mask, sm_scale, seed, p_drop)
 
 
 def attention_train_strided_bwd(q, k, v, mask, do, sm_scale: float, seed: int = 0,
-                                p_drop: float = 0.0, count: str = "attention_train_strided_bwd"):
+                                p_drop: float = 0.0, count: str = "attention_train_strided_bwd",
+                                saved=None):
     """(dq, dk, dv) of attention_train_strided_fwd in the dtypes of q, k, v
     (on the card in the forward output's layout); seed and p_drop are the
-    forward's."""
+    forward's, and so is ``saved``, which the kernels need (a CPU tensor
+    runs heads_train_bwd_plain, which recomputes everything)."""
     if q.device.type == "cpu":
         grads = heads_train_bwd_plain(q, k, v, mask, do, sm_scale, seed, p_drop)
         return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
     q, k, v, do = (_addressable(x) for x in (q, k, v, do))
     grads = [_heads_major(x) for x in (q, k, v)]
-    _train_bwd_kernel(count, q, k, v, do, *grads, mask, sm_scale, seed, p_drop)
+    _train_bwd_kernel(count, q, k, v, do, *grads, mask, saved, sm_scale, seed, p_drop)
     return tuple(grads)
 
 
-def attention_train_fwd(q, k, v, mask, sm_scale: float, seed: int = 0,
-                        p_drop: float = 0.0) -> torch.Tensor:
+def attention_train_fwd(q, k, v, mask, sm_scale: float, seed: int = 0, p_drop: float = 0.0):
     """Packed forward (fused_attention_packed): q (B, Nq, H*64), k/v (B, Nk,
-    H*64) -> (B, Nq, H*64), through the heads' views. mask: (B, Nk) key
-    mask (1 = attend); seed, p_drop: the attention dropout."""
+    H*64) -> (out (B, Nq, H*64), saved), through the heads' views. mask:
+    (B, Nk) key mask (1 = attend); seed, p_drop: the attention dropout;
+    saved: as attention_train_strided_fwd."""
     h = q.shape[-1] // HEAD_DIM
-    return _packed(attention_train_strided_fwd(*(_heads(x, h) for x in (q, k, v)), mask,
-                                               sm_scale, seed, p_drop, "attention_train"))
+    out, saved = attention_train_strided_fwd(*(_heads(x, h) for x in (q, k, v)), mask, sm_scale,
+                                             seed, p_drop, "attention_train")
+    return _packed(out), saved
 
 
 def attention_train_bwd(q, k, v, mask, do, sm_scale: float, seed: int = 0,
-                        p_drop: float = 0.0):
-    """(dq, dk, dv) of the packed layout; seed and p_drop are the forward's."""
+                        p_drop: float = 0.0, saved=None):
+    """(dq, dk, dv) of the packed layout; seed, p_drop and (on the card)
+    ``saved`` are the forward's."""
     h = q.shape[-1] // HEAD_DIM
     grads = attention_train_strided_bwd(*(_heads(x, h) for x in (q, k, v)), mask, _heads(do, h),
-                                        sm_scale, seed, p_drop, "attention_train_bwd")
+                                        sm_scale, seed, p_drop, "attention_train_bwd", saved)
     return tuple(_packed(g) for g in grads)
 
 
-def attention_train_merged_fwd(qkv, mask, sm_scale: float, seed: int = 0,
-                               p_drop: float = 0.0) -> torch.Tensor:
+def attention_train_merged_fwd(qkv, mask, sm_scale: float, seed: int = 0, p_drop: float = 0.0):
     """Merged forward (fused_attention_packed_merged): q, k, v read at
-    column offsets 0, C, 2C of one (B, N, 3C) tensor -> (B, N, C)."""
+    column offsets 0, C, 2C of one (B, N, 3C) tensor -> (out (B, N, C),
+    saved); saved: as attention_train_strided_fwd."""
     if qkv.device.type == "cpu":
-        return attention_train_merged_plain(qkv, mask, sm_scale, seed, p_drop)
+        return attention_train_merged_plain(qkv, mask, sm_scale, seed, p_drop), None
     qkv = _addressable(qkv)
     b, n, c3 = qkv.shape
-    out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     h = c3 // 3 // HEAD_DIM
-    _train_fwd_kernel("attention_train_merged",
-                      *(_heads(x, h) for x in (*qkv.chunk(3, dim=-1), out)), mask, sm_scale,
-                      seed, p_drop)
-    return out
+    out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    return out, _train_fwd_kernel("attention_train_merged",
+                                  *(_heads(x, h) for x in (*qkv.chunk(3, dim=-1), out)), mask,
+                                  sm_scale, seed, p_drop)
 
 
 def attention_train_merged_bwd(qkv, mask, do, sm_scale: float, seed: int = 0,
-                               p_drop: float = 0.0) -> torch.Tensor:
+                               p_drop: float = 0.0, saved=None) -> torch.Tensor:
     """The one merged d(qkv) (B, N, 3C): the backward kernels write dq, dk
-    and dv at column offsets 0, C and 2C of it."""
+    and dv at column offsets 0, C and 2C of it, from what the forward
+    saved."""
     if qkv.device.type == "cpu":
         return attention_train_merged_bwd_plain(qkv, mask, do, sm_scale, seed, p_drop)
     qkv, do = _addressable(qkv), _addressable(do)
     dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
     h = qkv.shape[-1] // 3 // HEAD_DIM
     views = (*qkv.chunk(3, dim=-1), do, *dqkv.chunk(3, dim=-1))
-    _train_bwd_kernel("attention_train_merged_bwd", *(_heads(x, h) for x in views), mask,
+    _train_bwd_kernel("attention_train_merged_bwd", *(_heads(x, h) for x in views), mask, saved,
                       sm_scale, seed, p_drop)
     return dqkv
 
 
 class AttentionTrain(torch.autograd.Function):
     """The custom VJP on (B, H, N, 64) views: the backward recomputes P from
-    the inputs and the mask and replays the dropout mask from the seed (no
-    probabilities or masks are saved). apply(q, k, v, mask, sm_scale, seed,
-    p_drop, count): the kernels count under ``count`` and ``count + "_bwd"``."""
+    the inputs, the mask and the forward's row stats (m, l), takes di from
+    the forward's fp32 D V, and replays the dropout mask from the seed (no
+    probabilities or masks are saved; on the CPU nothing but the inputs).
+    apply(q, k, v, mask, sm_scale, seed, p_drop, count): the kernels count
+    under ``count`` and ``count + "_bwd"``."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, sm_scale, seed, p_drop, count):
-        ctx.save_for_backward(q, k, v, mask)
         ctx.args = (sm_scale, seed, p_drop, count)
-        return attention_train_strided_fwd(q, k, v, mask, sm_scale, seed, p_drop, count)
+        out, saved = attention_train_strided_fwd(q, k, v, mask, sm_scale, seed, p_drop, count)
+        ctx.save_for_backward(q, k, v, mask, *(saved or (None, None)))
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, mask = ctx.saved_tensors
+        q, k, v, mask, *saved = ctx.saved_tensors
         sm_scale, seed, p_drop, count = ctx.args
         grads = attention_train_strided_bwd(q, k, v, mask, do, sm_scale, seed, p_drop,
-                                            f"{count}_bwd")
+                                            f"{count}_bwd", saved)
         return (*grads, None, None, None, None, None)
 
 
 class AttentionTrainMerged(torch.autograd.Function):
     """The merged layout's VJP, whose one cotangent is the (B, N, 3C)
-    d(qkv) the backward kernels fill. apply(qkv, mask, sm_scale, seed,
-    p_drop)."""
+    d(qkv) the backward kernels fill from what the forward saved.
+    apply(qkv, mask, sm_scale, seed, p_drop)."""
 
     @staticmethod
     def forward(ctx, qkv, mask, sm_scale, seed, p_drop):
-        ctx.save_for_backward(qkv, mask)
         ctx.args = (sm_scale, seed, p_drop)
-        return attention_train_merged_fwd(qkv, mask, sm_scale, seed, p_drop)
+        out, saved = attention_train_merged_fwd(qkv, mask, sm_scale, seed, p_drop)
+        ctx.save_for_backward(qkv, mask, *(saved or (None, None)))
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        qkv, mask = ctx.saved_tensors
-        return (attention_train_merged_bwd(qkv, mask, do, *ctx.args), None, None, None, None)
+        qkv, mask, *saved = ctx.saved_tensors
+        return (attention_train_merged_bwd(qkv, mask, do, *ctx.args, saved), None, None, None,
+                None)
 
 
 def _scale(sm_scale: Optional[float]) -> float:

@@ -17,9 +17,15 @@ and the run goes on. Modes:
            frontend stats twice);
   joint    phase 8 (the joint steps) then phase 9 (the B = 4 reference on
            the trained weights), with a digest of the trained weights;
+           joint@SEED starts phase 8 from init seed SEED instead of 1;
   knobs    phase 11 then the B = 4 reference on the trained weights and on
            the seeded weights of seeds 1, 2 and 3;
-  default  phase 10 then its B = 4 reference on the trained weights.
+  default  phase 10 then its B = 4 reference on the trained weights;
+  attention  phase 3's training-attention cases (packed at B = 8 and 64,
+           N = 261 at p = 0 and 499 at p = 0.1; strided and merged at the
+           shapes of phases 10 and 11; and (8, 1000) p = 0.1, which a tree
+           with a key cap refuses): each against its twin, with kernel,
+           twin, SDPA and bound times, as chip_smoke.py prints them.
 """
 
 import hashlib
@@ -85,6 +91,24 @@ def probe(cs, torch):
               "err vs plain", [cs.max_err(x, y) for x, y in zip(a, r)], flush=True)
 
 
+def attention(cs):
+    from triad_tpu_torch.ops import attention as A
+
+    res = []
+    for b in (cs.B, cs.TRAIN_B):
+        cs.attention_cases(res, A, b, 261, 13, 0.0)
+    for b in (cs.B, cs.TRAIN_B):
+        cs.attention_cases(res, A, b, 499, 21, cs.P_DROP)
+    cs.attention_layout_cases(res, A, cs.DEFAULT_B, 499, cs.P_DROP, 101, strided_main=True,
+                              merged_main=None)
+    cs.attention_layout_cases(res, A, cs.TRAIN_B, 499, cs.P_DROP, 103, merged_main=True)
+    cs.attention_layout_cases(res, A, cs.TRAIN_B, 261, 0.0, 105, strided_main=None)
+    try:
+        cs.attention_cases(res, A, cs.B, 1000, 27, cs.P_DROP)
+    except ValueError as e:
+        print(f"  attention_train (8, 1000, 768, p={cs.P_DROP}) raises: {e}", flush=True)
+
+
 def one(root, mode):
     os.chdir(root)
     sys.path.insert(0, root)
@@ -103,7 +127,12 @@ def one(root, mode):
     t0 = time.time()
     if mode == "probe":
         probe(cs, torch)
-    elif mode == "joint":
+    elif mode == "attention":
+        attention(cs)
+    elif mode.partition("@")[0] == "joint":
+        seed = int(mode.partition("@")[2] or 1)
+        new_state = cs._new_state
+        cs._new_state = lambda ocfg, _, model_cfg=None: new_state(ocfg, seed, model_cfg)
         model, *_ = cs.joint_phase()
         print("DIGEST joint", digest(model), flush=True)
         cs.train_reference_phase(model, GROUPS, cs._av_batch(4, 7), cs._train_batch(4, 8))
