@@ -12,11 +12,16 @@ mqkv + vitmq + loss=pallas set for a few steps each, and runs the
 
 Phases (any failure exits nonzero before the last line):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
-  2. nvcc build of the kernels (one nvcc per source, in parallel);
+  2. nvcc build of the kernels (one nvcc per source, in parallel), each
+     kernel's registers and spills, and the stride-2 conv GEMM's SASS
+     holding wgmma (HGMMA) and TMA (UTMALDG) instructions;
   3. each kernel vs its plain twin on the card in bf16: max abs error
      against a stated bound, median time of the kernel, of the twin and
      of one PyTorch library call computing the same function where there
-     is one (CUDA events), the wrapper's host time per call (host clock
+     is one (CUDA events, one call from an idle card), the kernel's and
+     the library call's device time per call (CUDA events around calls
+     queued behind a sleep kernel, so the wrapper's host work is left out),
+     the wrapper's host time per call (host clock
      from an idle card to the call's return), and the least time the card
      could take (the
      larger of the bytes over 3.35 TB/s and the operations over the
@@ -92,7 +97,12 @@ Phases (any failure exits nonzero before the last line):
      12 times each per step (counts zeroed just before the steps) and the
      training attention not at all, a profiler split in
      tv_flash_profile.txt; then its B = 4 step against fp32 on the CPU, as
-     phase 7.
+     phase 7;
+ 15. 20 s clips (HuBERT at N = 999, past the eval kernel's old 512-key
+     cap): a ServingModel of perf_eval_model_config() embeds 8 clips with
+     HuBERT on its serving impl, on "packed_pair" and on "flash" (same
+     weights, counts zeroed before each, the impl's kernel launched once
+     per layer), the first two held against flash (token cosine > 0.999).
 The port's kernels add in a fixed order (no atomics), so phase 8 trains
 the same weights every run (PERF.md) and phase 9 reads the same each run.
 Phase 3 also holds the strided (B, 12, N, 64) and merged (B, N, 2304)
@@ -102,11 +112,13 @@ the AV shape on real L2-normalised features), checks that the strided,
 packed and merged kernels agree on the same inputs and seed, and holds the
 head-pair eval attention, the fused frontend conv and the frontend
 activation at the shapes of phase 12, the flash forward and backward at
-the shapes of phases 13-14 and at N = 1000, and the training attention at
-(8, 1000, 768) with dropout live (it has no key cap).
+the shapes of phases 13-14 and at N = 1000, the training attention at
+(8, 1000, 768) with dropout live, the eval attention in its four modes at
+(8, 999) and (8, 1000) (no kernel has a key cap), and the stride-2 conv
+at conv_1's (64, 31999, 512), the train steps' batch.
 The line before the last is one JSON object with one entry per kernel:
-its launches in the paths that run it (phases 4, 6, 8, 10, 11, 12, 13 and
-14, each counted from zero), and its error, times and bound at its main case of
+its launches in the paths that run it (phases 4, 6, 8, 10, 11, 12, 13, 14
+and 15, each counted from zero), and its error, times and bound at its main case of
 phase 3 (the shape the train steps give it, else the first); every shape
 of phase 3 goes to chiprun_out/kernel_cases.json. The last line is
 {"ok": true, "device": {...}}.
@@ -190,6 +202,28 @@ def host_time(fn, reps=10):
     return statistics.median(times)
 
 
+def device_ms(fn, sync_ms=None, host_ms=None):
+    """Device ms per call: the card held by a sleep kernel while the host
+    enqueues the calls (up to 20, about 100 ms of work), so they run back
+    to back; CUDA events around them. Everything fn launches counts (its
+    PyTorch ops too), its host work does not: the sleep lasts three times
+    the host's enqueueing (host_ms per call, from host_time) and 1 ms
+    more. sync_ms: one call from an idle card (time_fns)."""
+    sync_ms = time_fns([fn], reps=3, warmup=1)[0] if sync_ms is None else sync_ms
+    host_ms = host_time(fn, reps=3) if host_ms is None else host_ms
+    reps = max(3, min(20, int(100 / max(sync_ms, 1e-3))))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int((3 * reps * host_ms + 1) * 2e6))  # cycles at up to 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def cost(flops, nbytes, peak=PEAK_BF16):
     """(bound_ms, bound_by): the least time the card could take, the
     larger of the operations over their peak rate and the bytes (each
@@ -221,18 +255,20 @@ def compare(results, name, shape, kernel_fn, plain_fn, tol_rel, bound, library_f
     ms, plain_ms, *lib = time_fns(fns)
     library_ms = lib[0] if lib else None
     host_ms = host_time(kernel_fn)
+    dev_ms = device_ms(kernel_fn, ms, host_ms)
+    lib_dev_ms = None if library_fn is None else device_ms(library_fn, library_ms)
     bound_ms, bound_by = bound
     ok = err <= tol
-    lib_txt = "-" if library_ms is None else f"{library_ms:.4f}"
+    lib_txt = "-" if library_ms is None else f"{library_ms:.4f} (device {lib_dev_ms:.4f})"
     print(f"  {name:20s} {str(shape):32s} err {err:.4g} (tol {tol:.4g}) kernel {ms:.4f} "
-          f"(host {host_ms:.4f}) plain {plain_ms:.4f} library {lib_txt} bound {bound_ms:.4f} "
-          f"({bound_by}) ms  {'ok' if ok else 'FAIL'}", flush=True)
+          f"(device {dev_ms:.4f}, host {host_ms:.4f}) plain {plain_ms:.4f} library {lib_txt} "
+          f"bound {bound_ms:.4f} ({bound_by}) ms  {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail(f"{name} at {shape} disagrees with its plain version")
     results.append({"name": name, "shape": list(shape), "max_abs_err": err, "tol": tol,
-                    "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
-                    "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                    "main": main})
+                    "ms": ms, "device_ms": dev_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "library_device_ms": lib_dev_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "main": main})
 
 
 KERNELS = {
@@ -342,8 +378,8 @@ def attention_costs(b, n, h=12):
     """(forward, backward) bounds of the training attention at (b, h, n,
     64): 2 and 5 products of N x N x 64 per head; bytes: q, k, v and the
     key mask in, out out forward; q, k, v, dout and the mask in, dq, dk,
-    dv out backward. What the kernels save between the two (row stats and
-    D V) is their design's traffic, not the function's, and stays out."""
+    dv out backward. What the kernels save between the two (the row
+    stats) is their design's traffic, not the function's, and stays out."""
     act = b * n * h * 64 * 2
     return (cost(4 * b * h * n * n * 64, 4 * act + b * n * 4),
             cost(10 * b * h * n * n * 64, 7 * act + b * n * 4))
@@ -607,7 +643,10 @@ def kernel_phase():
             lambda: FE.conv0_norm_gelu(wave, w0, scale, bias, "tanh"),
             lambda: FE.conv0_norm_gelu_plain(wave, w0, scale, bias, "tanh"), 2 * BF16_ULP,
             cost(2 * B * m0 * 512 * 10, B * AUDIO * 4 + B * m0 * 512 * 2, PEAK_FP32))
-    x1 = FE.conv0_norm_gelu_plain(wave, w0, scale, bias, "tanh")
+    # conv_1's input as the stack hands it over: (B, T, 512) contiguous
+    # (the plain conv_0 returns a transposed view, which the wrapper would
+    # copy)
+    x1 = FE.conv0_norm_gelu_plain(wave, w0, scale, bias, "tanh").contiguous()
     t1 = (x1.shape[1] - 3) // 2 + 1
     x1t, w1b = x1.transpose(1, 2).contiguous(), ws[0].to(torch.bfloat16)
     compare(res, "frontend_conv", (B, x1.shape[1], 512, "k3"),
@@ -615,6 +654,17 @@ def kernel_phase():
             lambda: FE.conv_s2_gelu_plain(x1, ws[0], "tanh"), 2 * BF16_ULP,
             cost(2 * B * t1 * 512 * 512 * 3, (B * (x1.shape[1] + t1) * 512 + 3 * 512 ** 2) * 2),
             lambda: F.conv1d(x1t, w1b, stride=2))
+    del x1t
+    # conv_1 at the train steps' B = 64 (the joint and AV steps' frontend)
+    x64 = randn((TRAIN_B, x1.shape[1], 512), 14)
+    x64t = x64.transpose(1, 2).contiguous()
+    compare(res, "frontend_conv", (TRAIN_B, x1.shape[1], 512, "k3"),
+            lambda: FE.conv_s2_gelu(x64, ws[0], "tanh"),
+            lambda: FE.conv_s2_gelu_plain(x64, ws[0], "tanh"), 2 * BF16_ULP,
+            cost(2 * TRAIN_B * t1 * 512 * 512 * 3,
+                 (TRAIN_B * (x1.shape[1] + t1) * 512 + 3 * 512 ** 2) * 2),
+            lambda: F.conv1d(x64t, w1b, stride=2))
+    del x64, x64t
     # the whole stack, 7 bf16 layers: 4 ulps
     compare(res, "frontend (stack)", (B, AUDIO),
             lambda: FE.frontend(wave, w0, gs, gb, ws, "tanh"),
@@ -713,8 +763,37 @@ def kernel_phase():
     maxmean_cases(res, MM, TRAIN_B, TRAIN_B, TRAIN_TXT, 256, 512, True, -20.0)
     maxmean_real_case(res, MM, TRAIN_B, TRAIN_B, 499, 256, 512, -60.0)
     eval_slice_cases(res, A)
+    # The eval attention in its four modes past the old 512-key cap:
+    # HuBERT on 20 s clips, N = 999, and N = 1000.
+    for n in (999, 1000):
+        eval_attention_cases(res, A, n)
     flash_cases(res)
     return res, agree
+
+
+def eval_attention_cases(res, A, n):
+    """The eval attention kernel's four modes at (B, n) with 12 heads:
+    packed and head-pair packed with a key mask (ones), merged and
+    head-pair merged on one qkv tensor without one; 2 bf16 ulps, as at
+    the serving shapes. Library: SDPA."""
+    qkv = randn((B, n, 2304), 200 + n)
+    q, k, v = (t.contiguous() for t in qkv.split(768, dim=-1))
+    ones = torch.ones((B, n), device="cuda")
+    packed = cost(4 * B * 12 * n ** 2 * 64, 4 * B * n * 768 * 2 + B * n * 4)
+    merged = cost(4 * B * 12 * n ** 2 * 64, B * n * (2304 + 768) * 2)
+    compare(res, "attention_eval", (B, n, 768), lambda: A.attention_eval(q, k, v, ones),
+            lambda: A.attention_eval_plain(q, k, v, ones, 0.125, -(-n // 128) * 128),
+            2 * BF16_ULP, packed, lambda: _sdpa(q, k, v))
+    compare(res, "attention_eval_pair", (B, n, 768), lambda: A.attention_eval_pair(q, k, v, ones),
+            lambda: A.attention_eval_pair_plain(q, k, v, ones, 0.125), 2 * BF16_ULP, packed,
+            lambda: _sdpa(q, k, v))
+    compare(res, "attention_eval_merged", (B, n, 2304), lambda: A.attention_eval_merged(qkv),
+            lambda: A.attention_eval_plain(q, k, v, ones, 0.125), 2 * BF16_ULP, merged,
+            lambda: _sdpa(q, k, v))
+    compare(res, "attention_eval_merged_pair", (B, n, 2304),
+            lambda: A.attention_eval_merged_pair(qkv),
+            lambda: A.attention_eval_pair_plain(q, k, v, ones, 0.125), 2 * BF16_ULP, merged,
+            lambda: _sdpa(q, k, v))
 
 
 def flash_cases(res):
@@ -1647,12 +1726,60 @@ def flash_eval_phase():
     return timings, total
 
 
+def long_clip_phase():
+    """HuBERT past the old 512-key cap: a ServingModel of
+    perf_eval_model_config() with 20 s clips (N = 999 tokens) embeds the
+    same 8 clips three times, with HuBERT's attention on its serving impl
+    ("packed": the eval attention kernel), on "packed_pair" (its head-pair
+    mode) and on "flash", the same weights each time, counts zeroed before
+    each; each of the first two is held against flash at a minimum token
+    cosine above 0.999 (two bf16 attention kernels with other roundings
+    of the probabilities under the same bf16 model). Returns the launch
+    counts of the three runs together."""
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.cli.serve import load_config
+    from triad_tpu_torch.serve.model import ServingModel
+
+    clip = 2 * AUDIO
+    base = load_config("perf_eval")
+    rng = np.random.default_rng(31)
+    audio = (rng.standard_normal((B, clip)) * 0.1).astype(np.float32)
+    weights, tokens = None, {}
+    total = {name: 0 for name in kernels.LAUNCHES}
+    impls = (base.hubert.attention_impl, "packed_pair", "flash")
+    for impl in impls:
+        cfg = dataclasses.replace(base, hubert=dataclasses.replace(base.hubert,
+                                                                   attention_impl=impl))
+        serving = ServingModel(cfg, weights, "cuda", clip, 128)
+        if weights is None:
+            weights = serving.model.state_dict()
+        kernels.reset_launches()
+        got = serving.embed_audio(audio)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        tokens[impl] = check(f"embed/audio 20 s on {impl}", got, (B, 999, 512))
+        print(f"  {impl}: launches {({k: n for k, n in launches.items() if n})}", flush=True)
+        total = {k: total[k] + launches[k] for k in total}
+        want = "flash_attention" if impl == "flash" else (
+            "attention_eval_pair" if impl == "packed_pair" else "attention_eval")
+        if launches[want] != cfg.hubert.num_layers:
+            fail(f"HuBERT on {impl}: {want} launched {launches[want]} times, not once per "
+                 f"layer ({cfg.hubert.num_layers})")
+        del serving
+    for impl in impls[:2]:
+        cos = _token_cosines(tokens[impl], tokens["flash"])
+        print(f"  {impl} vs flash at (8, 999, 512): min token cosine {cos:.6f}", flush=True)
+        if not cos > 0.999:
+            fail(f"HuBERT on {impl} disagrees with flash on 20 s clips")
+    return total
+
+
 def _kernel_entry(name, results, launches_by_path):
     src, replaces = KERNELS[name]
     cases = [r for r in results if r["name"] == name]
     head = next((r for r in cases if r["main"]), cases[0])
-    keys = ("shape", "max_abs_err", "tol", "ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")
+    keys = ("shape", "max_abs_err", "tol", "ms", "device_ms", "host_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bound_ms", "bound_by")
     return {
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": sum(counts[name] for counts in launches_by_path.values()),
@@ -1660,6 +1787,34 @@ def _kernel_entry(name, results, launches_by_path):
                              if counts[name]},
         **{k: head[k] for k in keys},
     }
+
+
+def sass_check(path):
+    """The stride-2 conv GEMM's machine code: every instantiation of
+    conv_s2.cuh's gemm_kernel must hold warpgroup products (HGMMA, from
+    wgmma.mma_async) on tiles brought in by TMA (UTMALDG, from
+    cp.async.bulk.tensor). Counts the instructions per kernel in
+    cuobjdump's disassembly of the built library."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass: {sass.stderr.strip()[:500]}")
+    counts, name = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            if "gemm_kernel" in name:
+                counts[name] = [0, 0]
+            else:
+                name = None
+        elif name is not None:
+            counts[name][0] += "HGMMA" in line
+            counts[name][1] += "UTMALDG" in line
+    for fn, (hgmma, tma) in counts.items():
+        print(f"  SASS {_kernel_name(fn)} {fn[-60:]}: {hgmma} HGMMA, {tma} UTMALDG", flush=True)
+    if len(counts) < 2 or not all(h and t for h, t in counts.values()):
+        fail(f"the conv GEMM's SASS lacks wgmma or TMA instructions: {counts}")
 
 
 def _kernel_name(mangled):
@@ -1708,6 +1863,7 @@ def main():
         elif "registers" in line or "spill" in line:
             print(f"  {kernel}: {line.strip()}", flush=True)
     print(f"  built {os.path.relpath(path, ROOT)}", flush=True)
+    sass_check(path)
 
     phase("3. kernels vs plain (bf16, CUDA events, median of 20)")
     results, agree = kernel_phase()
@@ -1810,10 +1966,16 @@ def main():
     del model
     torch.cuda.empty_cache()
 
+    phase(f"15. 20 s clips past the old key cap: HuBERT at N = 999 on the eval attention, its "
+          f"head-pair mode and flash, B = {B}")
+    long_clip_launches = long_clip_phase()
+    torch.cuda.empty_cache()
+
     by_path = {"serve": serve_launches, "train_tv": tv_launches, "train_joint": joint_launches,
                "train_default": default_launches, "train_knobs": knobs_launches,
                "retrieval": retrieval_launches, "retrieval_conv_act": conv_act_launches,
-               "flash_eval": flash_eval_launches, "train_tv_flash": tv_flash_launches}
+               "flash_eval": flash_eval_launches, "train_tv_flash": tv_flash_launches,
+               "long_clips": long_clip_launches}
     kernels_json = [_kernel_entry(name, results, by_path) for name in KERNELS]
     # every shape of phase 3, too long for the line the kernels entries take
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -7,8 +7,9 @@ At p = 0 the references are ``fused_attention_packed`` (packed and merged
 operands) and ``fused_attention`` (strided) in interpret mode; at p = 0.1
 the masked XLA composition fed ``attention_keep``'s mask (the TPU kernels
 draw from the core PRNG, which nothing reproduces). Also: the row
-statistics and the fp32 D V that the forward kernel hands its backward
-(``train_row_stats_plain``, ``train_saved_plain``) against float64.
+statistics the forward kernel saves for its backward and the di =
+rowsum(dP * P) its dQ kernel hands the dK/dV kernel
+(``train_row_stats_plain``, ``train_di_plain``) against float64.
 
 Inputs come from numpy with a seed; the port's wrappers run their plain
 twins (the tensors lie on the CPU). fp32 with TF32 off. Tolerance: 1e-4 of
@@ -186,25 +187,46 @@ def test_row_stats_plain(n, masked):
 
 @pytest.mark.parametrize("p", [0.0, P])
 @pytest.mark.parametrize("n", LENGTHS)
-def test_saved_plain(n, p):
-    """train_saved_plain: the row stats, and O' = D V with the fp32 D (D =
-    P keep / (1 - p)) against float64, whose rowsum(dO * O') is di =
-    rowsum(dP * P) of _head_bwd."""
-    from triad_tpu_torch.ops.attention import train_row_stats_plain, train_saved_plain
+def test_di_plain(n, p):
+    """train_di_plain: di = rowsum(dP * P) of _head_bwd (:208), which the
+    dQ kernel forms in its first pass and hands the dK/dV kernel, against
+    float64 (dP = dO V^T keep / (1 - p))."""
+    from triad_tpu_torch.ops.attention import train_di_plain
 
     qkv, do, mask = _inputs(n, "one_key")
-    q, k, v = (_heads(a) for a in np.split(qkv, 3, axis=-1))
-    stats, o32 = train_saved_plain(*(torch.from_numpy(a) for a in (q, k, v)),
-                                   torch.from_numpy(mask), 0.125, SEED, p)
-    assert torch.equal(stats, train_row_stats_plain(torch.from_numpy(q), torch.from_numpy(k),
-                                                    torch.from_numpy(mask), 0.125))
-    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), k.astype(np.float64)) * 0.125
+    q, k, v = (torch.from_numpy(_heads(a)) for a in np.split(qkv, 3, axis=-1))
+    tmask = torch.from_numpy(mask)
+    got = train_di_plain(q, k, v, tmask, torch.from_numpy(_heads(do)), 0.125, SEED, p)
+    assert got.shape == (B, H, n) and got.dtype == torch.float32
+    s = np.einsum("bhqd,bhkd->bhqk", q.numpy().astype(np.float64),
+                  k.numpy().astype(np.float64)) * 0.125
     s = s + ((1.0 - mask) * -1e30)[:, None, None, :]
     e = np.exp(s - s.max(axis=-1, keepdims=True))
     probs = e / e.sum(axis=-1, keepdims=True)
-    d = np.where(_keep(n), probs / (1 - P), 0.0) if p > 0 else probs
-    want = d @ v.astype(np.float64)
-    _close(o32, want, f"D V n={n} p={p}")
-    dp = np.einsum("bhqd,bhkd->bhqk", _heads(do).astype(np.float64), v.astype(np.float64))
+    dp = np.einsum("bhqd,bhkd->bhqk", _heads(do).astype(np.float64),
+                   v.numpy().astype(np.float64))
     dp = np.where(_keep(n), dp / (1 - P), 0.0) if p > 0 else dp
-    _close((torch.from_numpy(_heads(do)) * o32).sum(-1), (dp * probs).sum(-1), f"di n={n} p={p}")
+    _close(got, (dp * probs).sum(-1), f"di n={n} p={p}")
+
+
+@pytest.mark.parametrize("p", [0.0, P])
+def test_one_key_gives_exact_zero_dq_dk(p):
+    """With one key, P = 1, so di = rowsum(dP * P) is dP itself and dS = P
+    (dP - di) is exactly 0, as in _head_bwd: the plain backward's dq and dk
+    are exactly zero (the card tests hold the kernels to that, with a
+    tolerance of 0 there)."""
+    from triad_tpu_torch.ops.attention import heads_train_bwd_plain, train_di_plain
+
+    rng = np.random.default_rng(1)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, H, 1, 64)).astype(np.float32))
+                   for _ in range(4))
+    mask = torch.ones((B, 1))
+    di = train_di_plain(q, k, v, mask, do, 0.125, SEED, p)
+    dq, dk, dv = heads_train_bwd_plain(q, k, v, mask, do, 0.125, SEED, p)
+    dp = (do * v).sum(-1, dtype=torch.float64).to(torch.float32)
+    keep = _keep(1)[..., 0]
+    if p > 0:
+        dp = torch.from_numpy(np.where(keep, dp.numpy() / np.float32(1 - P), 0.0))
+    _close(di, dp, f"di p={p}")
+    assert torch.equal(dq, torch.zeros_like(dq)) and torch.equal(dk, torch.zeros_like(dk))
+    assert bool(torch.isfinite(dv).all())

@@ -433,10 +433,10 @@ class TestAttentionLayouts:
 class TestAttentionTrainAnyLength:
     """The training kernels at any N (nothing in them scales with N, so no
     key cap): against their twins, the three layouts bit-equal, what the
-    forward saves against train_saved_plain, and two identical calls
-    bit-equal. Tolerances as TestAttentionTrain (2 bf16 ulps of the
-    largest output); the row stats are fp32 sums in another order (1e-5
-    relative), D V takes D as bf16 hi + lo (1e-4 of its largest)."""
+    forward saves (the (2, B, H, N) row stats) against
+    train_row_stats_plain, and two identical calls bit-equal. Tolerances
+    as TestAttentionTrain (2 bf16 ulps of the largest output); the row
+    stats are fp32 sums in another order (1e-5 relative)."""
 
     TOL = 2 * 2.0 ** -7
 
@@ -462,13 +462,11 @@ class TestAttentionTrainAnyLength:
         torch.cuda.synchronize()
         assert torch.equal(unheads(strided), packed) and torch.equal(merged, packed)
         assert torch.equal(again, packed)
-        assert all(map(torch.equal, st_s, saved)) and all(map(torch.equal, st_m, saved))
+        assert torch.equal(st_s, saved) and torch.equal(st_m, saved)
         err, mx = _max_err(packed, A.attention_train_plain(q, k, v, mask, 0.125, 77, p))
         assert err <= self.TOL * mx, ("fwd", err, mx)
-        ref_stats, ref_o32 = A.train_saved_plain(heads(q), heads(k), heads(v), mask, 0.125, 77, p)
-        torch.testing.assert_close(saved[0], ref_stats, rtol=1e-5, atol=1e-5)
-        err, mx = _max_err(saved[1], ref_o32)
-        assert err <= 1e-4 * mx, ("D V", err, mx)
+        torch.testing.assert_close(saved, A.train_row_stats_plain(heads(q), heads(k), mask, 0.125),
+                                   rtol=1e-5, atol=1e-5)
         g_packed = torch.cat(A.attention_train_bwd(q, k, v, mask, do, 0.125, 77, p, saved), -1)
         g_strided = torch.cat([unheads(g) for g in A.attention_train_strided_bwd(
             heads(q), heads(k), heads(v), mask, heads(do), 0.125, 77, p, saved=saved)], -1)
@@ -776,3 +774,117 @@ class TestEvalAttentionRefusesGrad:
         x.requires_grad_()
         with pytest.raises(RuntimeError, match="no backward"):
             getattr(A, name)(*args)
+
+
+class TestEvalAttentionAnyLength:
+    """The eval attention in its four modes at any N (nothing in the kernel
+    scales with N, so no key cap), H = 3 (the pair modes' odd last head
+    takes the single-head numbers), with masked keys and, in the last batch
+    row, every key masked (its softmax uniform over the keys it counts, the
+    128-padded ones too in the pair modes): 2 bf16 ulps of the twin's
+    largest output, as TestAttention."""
+
+    TOL = 2 * 2.0 ** -7
+
+    @pytest.mark.parametrize("n", [1, 37, 128, 261, 499, 512, 513, 999, 1000, 2048])
+    @pytest.mark.parametrize("mode", ["packed", "merged", "pair", "merged_pair"])
+    def test_matches_twin(self, dev, mode, n):
+        from triad_tpu_torch.ops import attention as A
+
+        b, h = 3, 3
+        qkv = _randn((b, n, 3 * h * 64), dev, 100 + n)
+        q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+        mask = torch.ones((b, n), device=dev)
+        mask[0, n // 3] = 0.0 if n > 1 else 1.0  # one masked key
+        mask[1, n // 2:] = 0.0                    # a ragged tail (all keys at n = 1)
+        mask[2] = 0.0                             # every key masked
+        if mode == "packed":
+            got, ref = A.attention_eval(q, k, v, mask), A.attention_eval_plain(
+                q, k, v, mask, 0.125, -(-n // 128) * 128)
+        elif mode == "merged":
+            got, ref = A.attention_eval_merged(qkv, mask), A.attention_eval_plain(
+                q, k, v, mask, 0.125)
+        elif mode == "pair":
+            got, ref = A.attention_eval_pair(q, k, v, mask), A.attention_eval_pair_plain(
+                q, k, v, mask, 0.125)
+        else:
+            got, ref = A.attention_eval_merged_pair(qkv, mask), A.attention_eval_pair_plain(
+                q, k, v, mask, 0.125)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape == (b, n, h * 64)
+        err, mx = _max_err(got, ref)
+        assert err <= self.TOL * mx, (err, mx)
+
+    @pytest.mark.parametrize("mode", ["packed", "merged", "pair", "merged_pair"])
+    def test_no_mask(self, dev, mode):
+        """No key mask (the ViT's merged call): every key attends, at N =
+        999, past the old 512-key cap."""
+        from triad_tpu_torch.ops import attention as A
+
+        b, n, h = 2, 999, 12
+        qkv = _randn((b, n, 3 * h * 64), dev, 99)
+        q, k, v = qkv.chunk(3, dim=-1)
+        ones = torch.ones((b, n), device=dev)
+        pair = mode.endswith("pair")
+        if mode.startswith("merged"):
+            got = (A.attention_eval_merged_pair if pair else A.attention_eval_merged)(qkv)
+        else:
+            got = (A.attention_eval_pair if pair else A.attention_eval)(*(t.contiguous()
+                                                                          for t in (q, k, v)))
+        torch.cuda.synchronize()
+        ref = (A.attention_eval_pair_plain(q, k, v, ones, 0.125) if pair
+               else A.attention_eval_plain(q, k, v, ones, 0.125))
+        err, mx = _max_err(got, ref)
+        assert err <= self.TOL * mx, (err, mx)
+
+
+class TestConvGemm:
+    """conv_s2.cuh's TMA + wgmma GEMM through both callers: frontend.cu's
+    conv + GELU epilogue (conv_s2_gelu, both GELU forms) and
+    frontend_conv.cu's fused input prologue (none, "gelu", "norm_gelu"), at
+    k 2 and 3, batch 1, 8 and 64, ragged output lengths (odd T; tout not a
+    multiple of the 128-row tile). Both sides sum exact bf16 products in
+    fp32 in another order and round once (the GELU epilogue rounds to bf16
+    before its GELU and after): 2 bf16 ulps of the twin's largest output,
+    as TestFrontendConv."""
+
+    TOL = 2 * 2.0 ** -7
+
+    @pytest.mark.parametrize("b,t,k,form", [(1, 77, 2, "tanh"), (8, 1999, 2, "erf"),
+                                            (1, 12345, 3, "erf"), (8, 31999, 3, "tanh"),
+                                            (64, 31999, 3, "erf"), (64, 7999, 2, "tanh")])
+    def test_conv_gelu(self, dev, b, t, k, form):
+        from triad_tpu_torch.ops.frontend import conv_s2_gelu, conv_s2_gelu_plain
+
+        x = _randn((b, t, 512), dev, 110 + k)
+        w = _randn((512, 512, k), dev, 111, (2 / (k * 512)) ** 0.5, torch.float32)
+        got = conv_s2_gelu(x, w, form)
+        torch.cuda.synchronize()
+        ref = conv_s2_gelu_plain(x, w, form)
+        assert got.shape == ref.shape == (b, (t - k) // 2 + 1, 512)
+        err, mx = _max_err(got, ref)
+        assert err <= self.TOL * mx, (err, mx)
+
+    @pytest.mark.parametrize("b,t,k,prologue", [
+        (1, 77, 2, None), (1, 1001, 3, "norm_gelu"), (8, 1999, 2, "gelu"),
+        (8, 15999, 3, None), (64, 31999, 3, "norm_gelu"), (64, 7999, 2, "gelu"),
+        (64, 3999, 3, None)])
+    def test_fused_conv(self, dev, b, t, k, prologue):
+        from triad_tpu_torch.ops.frontend_conv import (
+            fused_frontend_conv_fwd,
+            fused_frontend_conv_plain,
+        )
+
+        x = _randn((b, t, 512), dev, 120 + k)
+        w = _randn((512, 512, k), dev, 121, (2 / (k * 512)) ** 0.5, torch.float32)
+        mean = _randn((b, 1, 512), dev, 122, 0.3, torch.float32)
+        rstd = _randn((b, 1, 512), dev, 123, 0.2, torch.float32).abs() + 0.5
+        scale = _randn((512,), dev, 124, 0.3, torch.float32) + 1.0
+        bias = _randn((512,), dev, 125, 0.1, torch.float32)
+        args = (x, w, mean, rstd, scale, bias, t, prologue)
+        got = fused_frontend_conv_fwd(*args)
+        torch.cuda.synchronize()
+        ref = fused_frontend_conv_plain(*args)
+        assert got.shape == ref.shape
+        err, mx = _max_err(got, ref)
+        assert err <= self.TOL * mx, (err, mx)

@@ -167,6 +167,25 @@ __device__ __forceinline__ void mma_nn_split(float (&acc)[8][4], const float (&c
   }
 }
 
+// S = acc * sm_scale + bias of its key, in place, for a row-major tile
+// whose key biases are bias[0 .. 63].
+__device__ __forceinline__ void scale_bias(float (&s)[8][4], const float* bias, float sm_scale,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = s[j][e] * sm_scale + bias[j * 8 + frag_col(lane, e)];
+}
+
+// Row sums (rows g and g + 8) of the thread-partial x0, x1 over the quad.
+__device__ __forceinline__ void quad_sum(float& x0, float& x1) {
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    x0 += __shfl_xor_sync(0xffffffffu, x0, o);
+    x1 += __shfl_xor_sync(0xffffffffu, x1, o);
+  }
+}
+
 __device__ __forceinline__ void zero(float (&c)[8][4]) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)

@@ -26,15 +26,25 @@
 // accumulation. The division is a product with the row's 1 / sum and one
 // fma correction (div_by), which gives the correctly rounded quotient, as
 // `/` does. From _head_bwd: dP = (dO V^T) * keep / (1 - p); di = sum_j
-// dP * P over the fp32 P, here as rowsum(dO * O') with O' = D V from the
-// fp32 D (the same sum; not FlashAttention's rowsum(dO * O), whose O was
-// made from the bf16 D); dS = P (dP - di); dV = D^T dO with the fp32 D;
-// dQ = dS K s; dK = dS^T Q s. The products with an fp32 operand (D, dS)
-// run on bf16 tensor cores as two halves hi + lo (split_bf16, ~16
-// mantissa bits), so they stay at fp32 level and each output rounds once,
-// to bf16. Ragged N: keys and query rows at or past N are zero-filled on
-// load, a key past N has the bias -inf (its P is 0 and it never counts in
-// the sum), and nothing past N is stored.
+// dP * P (:208) over the fp32 P and dP, as the TPU kernel takes it (not
+// FlashAttention's rowsum(dO * O), whose O was made from the bf16 D: with
+// one key P = 1, so dS = P (dP - di) is exactly 0, as in _head_bwd). The
+// kernel's tiles cannot sum in the TPU's order, so it departs from
+// _head_bwd's fp32 sum on purpose and takes the value no order changes:
+// the products and their sum in fp64 (exact products, ~2^-53 relative
+// sum), rounded once to fp32. Where dP is nearly constant over the keys P
+// weights, dS = P (dP - di) is much smaller than the terms of di, and di's
+// rounding reaches dS magnified: in HuBERT's layers on trained weights
+// the rows cancel 29x at the median and up to 89x, and an fp32 sum in the
+// tiles' order (a chain of N / 4 fma per lane) gave 2.3x the dq error of
+// this one (tools/kernel_probe.py di). dS =
+// P (dP - di); dV = D^T dO with the fp32 D; dQ = dS K s; dK = dS^T Q s.
+// The backward products with an fp32 operand (D, dS) run on bf16 tensor
+// cores as two halves hi + lo (split_bf16, ~16 mantissa bits), so they
+// stay at fp32 level and each output rounds once, to bf16. Ragged N: keys
+// and query rows at or past N are zero-filled on load, a key past N has
+// the bias -inf (its P is 0 and it never counts in the sum), and nothing
+// past N is stored.
 //
 // Dropout (p > 0, pallas_attention.py:15-21): the keep bit of (query i,
 // key j) in head (b, h) is word j % 4 of triad::keep4 under key (seed, b *
@@ -61,24 +71,23 @@
 //            rounded, as _head_fwd: one extra Q K^T product keeps that,
 //            where a one-pass online softmax would round the
 //            un-normalised exp), applies the keep bits and accumulates
-//            bf16(D) V, and (D - bf16(D)) V beside it. Writes O, the row
-//            stats (m, l), (2, B, H, N) fp32, and O' = D V, (B, H, N, 64)
-//            fp32, which the autograd Function saves for the backward.
-//   dQ       one block per (b, h, 64-query tile), one pass over the key
-//            tiles: di = dO . O' per row first, then P from (m, l), dP
-//            from dO V^T and the keep bits, dS and dQ += dS K (hi + lo).
-//            Writes dQ, di, (B, H, N) fp32, and with dropout the keep
-//            bits it drew (N^2 / 8 bytes per head of scratch).
+//            bf16(D) V. Writes O and the row stats (m, l), (2, B, H, N)
+//            fp32, all the autograd Function saves for the backward.
+//   dQ       one block per (b, h, 64-query tile), two passes over the key
+//            tiles: pass 1 forms P from (m, l) and dP from dO V^T and the
+//            keep bits, and sums di = rowsum(dP * P) in fp64; pass 2 forms
+//            them again, dS and dQ += dS K (hi + lo). Writes dQ, di, (B,
+//            H, N) fp32, and with dropout the keep bits pass 1 drew (N^2 /
+//            8 bytes per head of scratch), which pass 2 reads back.
 //   dK/dV    one block per (b, h, 64-key tile) walking every query tile in
 //            order: S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T are
 //            already A fragments; dV += D^T dO and dK += dS^T Q (hi + lo).
 // dK and dV sum over every query row. TPU grid steps run in order, Hopper
 // blocks do not: here each sum lives in one block's loop (no atomics, two
 // runs give bit-equal gradients), at the price of rebuilding S and dP in
-// both backward kernels. O' costs the forward a fourth product per tile
-// and 256 bytes per row and head of saved memory; it spares the dQ kernel
-// a second pass over the keys (two products, a keep draw and an exp per
-// key).
+// both backward kernels. di's pass costs the dQ kernel two more products,
+// an exp and a keep draw per key; the forward saves 8 bytes per row and
+// head.
 //
 // The keep bits. A Philox4x32-10 call is ~50 integer operations for 4
 // keys, as much as the rest of a key's work, so each (query, quad) is
@@ -88,11 +97,11 @@
 // (forward, dQ) the lane pair splits the work by row, the even lane
 // drawing its 8 quads of row g, the odd lane those of row g + 8; each
 // packs its 32 keep bits into one word and one __shfl_xor_sync(.., 1)
-// hands each lane the other row. The dQ kernel stores those words; the
-// dK/dV kernel, whose transposed tiles put the 4 keys of a quad in 4
-// different lanes, stages the words of each query tile in shared memory
-// with the tile (512 bytes) and picks its keys' bits out of them: no
-// draw, no shuffle.
+// hands each lane the other row. The dQ kernel stores those words in its
+// first pass and reads them back in its second; the dK/dV kernel, whose
+// transposed tiles put the 4 keys of a quad in 4 different lanes, stages
+// the words of each query tile in shared memory with the tile (512 bytes)
+// and picks its keys' bits out of them: no draw, no shuffle.
 #include "attention_tiles.cuh"
 
 namespace {
@@ -173,16 +182,6 @@ __device__ __forceinline__ uint32_t keep_cols(const uint32_t* w, int warp, int l
   return bits;
 }
 
-// S = acc * sm_scale + bias of its key, in place, for a row-major tile
-// whose key biases are bias[0 .. 63].
-__device__ __forceinline__ void scale_bias(float (&s)[8][4], const float* bias, float sm_scale,
-                                           int lane) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = s[j][e] * sm_scale + bias[j * 8 + frag_col(lane, e)];
-}
-
 // Row max over this thread's elements, reduced over the quad (rows g, g + 8).
 __device__ __forceinline__ void quad_max(const float (&s)[8][4], float& m0, float& m1) {
 #pragma unroll
@@ -194,14 +193,6 @@ __device__ __forceinline__ void quad_max(const float (&s)[8][4], float& m0, floa
   for (int o = 1; o <= 2; o <<= 1) {
     m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
     m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-  }
-}
-
-__device__ __forceinline__ void quad_sum(float& x0, float& x1) {
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    x0 += __shfl_xor_sync(0xffffffffu, x0, o);
-    x1 += __shfl_xor_sync(0xffffffffu, x1, o);
   }
 }
 
@@ -224,23 +215,6 @@ __device__ __forceinline__ void probs(float (&s)[8][4], float m0, float m1, floa
   }
 }
 
-// acc += A . T and acc2 += A2 . T, as mma_nn with one B load for both.
-__device__ __forceinline__ void mma_nn_pair(float (&acc)[8][4], float (&acc2)[8][4],
-                                            const uint32_t (&a)[4][4], const uint32_t (&a2)[4][4],
-                                            const bf16* t, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t bf[4];
-      load_b_nn(bf, t, kk, np, lane);
-      mma(acc[2 * np], a[kk], bf[0], bf[1]);
-      mma(acc[2 * np + 1], a[kk], bf[2], bf[3]);
-      mma(acc2[2 * np], a2[kk], bf[0], bf[1]);
-      mma(acc2[2 * np + 1], a2[kk], bf[2], bf[3]);
-    }
-}
-
 // ---------------------------------------------------------------------------
 // Forward: one block per (b, h, 64-query tile). Steps 0 .. tiles - 1 are
 // pass 1 (K tiles: m, l), steps tiles .. 2 tiles - 1 pass 2 (K and V
@@ -252,9 +226,8 @@ constexpr size_t FWD_SMEM = sizeof(bf16) * 5 * TILE_ELEMS + sizeof(float) * 2 * 
 __global__ void __launch_bounds__(THREADS)
 attention_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const float* __restrict__ mask,
-                           bf16* __restrict__ out, float* __restrict__ stats,
-                           float* __restrict__ o32, Views vw, int H, int n, float sm_scale,
-                           triad::Dropout dp) {
+                           bf16* __restrict__ out, float* __restrict__ stats, Views vw, int H,
+                           int n, float sm_scale, triad::Dropout dp) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = sQ + TILE_ELEMS;      // [2][TILE_ELEMS]
@@ -281,9 +254,8 @@ attention_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   fetch(0, 0);
 
   uint32_t qa[4][4];
-  float acc[8][4], acc_lo[8][4];  // bf16(D) V, and (D - bf16(D)) V
+  float acc[8][4];  // bf16(D) V
   zero(acc);
-  zero(acc_lo);
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;  // rows g, g + 8
   float rl0 = 1.0f, rl1 = 1.0f;
 
@@ -328,30 +300,14 @@ attention_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
         for (int e = 0; e < 4; ++e)
           s[j][e] = kept_rows(bits, lane, j, e) ? s[j][e] * dp.scale : 0.0f;
     }
-    uint32_t hi[4][4], lo[4][4];  // D = hi + lo, hi = bf16(D)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      split_pack(s[2 * kk][0], s[2 * kk][1], hi[kk][0], lo[kk][0]);
-      split_pack(s[2 * kk][2], s[2 * kk][3], hi[kk][1], lo[kk][1]);
-      split_pack(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[kk][2], lo[kk][2]);
-      split_pack(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[kk][3], lo[kk][3]);
-    }
-    mma_nn_pair(acc, acc_lo, hi, lo, sV + buf * TILE_ELEMS, lane);
+    uint32_t da[4][4];  // bf16(D)
+    to_a(da, s);
+    mma_nn(acc, da, sV + buf * TILE_ELEMS, lane);
   }
 
   store_rows(out + at(vw.o, b, hh), vw.o.r, acc, r0, n, lane, 1.0f, 1.0f);
-  // O' = D V with the fp32 D, for the backward's di = dO . O'
   const long long plane = (long long)gridDim.z * H * n, bh = ((long long)b * H + hh) * n;
-  const int r = r0 + frag_row(lane, 0), col = frag_col(lane, 0);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (r < n)
-      *reinterpret_cast<float2*>(o32 + (bh + r) * D + j * 8 + col) =
-          make_float2(acc[j][0] + acc_lo[j][0], acc[j][1] + acc_lo[j][1]);
-    if (r + 8 < n)
-      *reinterpret_cast<float2*>(o32 + (bh + r + 8) * D + j * 8 + col) =
-          make_float2(acc[j][2] + acc_lo[j][2], acc[j][3] + acc_lo[j][3]);
-  }
+  const int r = r0 + frag_row(lane, 0);
   if ((lane & 3) == 0) {
     if (r < n) {
       stats[bh + r] = m0;
@@ -365,38 +321,20 @@ attention_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// Backward 1, dQ and di: one block per (b, h, 64-query tile), one pass
-// over the K and V tiles.
+// Backward 1, dQ and di: one block per (b, h, 64-query tile). Steps 0 ..
+// tiles - 1 are pass 1 (di), steps tiles .. 2 tiles - 1 pass 2 (dS, dQ);
+// each step streams the K and V tiles of key tile step % tiles.
 // ---------------------------------------------------------------------------
 
 constexpr size_t DQ_SMEM = sizeof(bf16) * 6 * TILE_ELEMS + sizeof(float) * 2 * TILE;
-
-// di of row `row` (< n): dO . O' over the 64 columns, this lane's 16
-// (16 (lane & 3) ..) summed, then the quad's.
-__device__ __forceinline__ float row_di(const bf16* d_row, const float* o_row, int lane) {
-  const int c = 16 * (lane & 3);
-  float sum = 0.0f;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const uint4 dv = *reinterpret_cast<const uint4*>(d_row + c + 8 * h);
-    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 df = __bfloat1622float2(d2[i]);
-      const float2 of = *reinterpret_cast<const float2*>(o_row + c + 8 * h + 2 * i);
-      sum += df.x * of.x + df.y * of.y;
-    }
-  }
-  return sum;
-}
 
 __global__ void __launch_bounds__(THREADS)
 attention_train_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const float* __restrict__ mask,
                           const bf16* __restrict__ dout, const float* __restrict__ stats,
-                          const float* __restrict__ o32, bf16* __restrict__ dq,
-                          float* __restrict__ di_out, uint32_t* __restrict__ kbits, Views vw,
-                          int H, int n, float sm_scale, triad::Dropout dp) {
+                          bf16* __restrict__ dq, float* __restrict__ di_out,
+                          uint32_t* __restrict__ kbits, Views vw, int H, int n, float sm_scale,
+                          triad::Dropout dp) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sD = sQ + TILE_ELEMS;      // dO
@@ -408,48 +346,48 @@ attention_train_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const bf16* kb = k + at(vw.k, b, hh);
   const bf16* vb = v + at(vw.v, b, hh);
-  const bf16* db = dout + at(vw.o, b, hh);
   const float* mb = mask + (long long)b * n;
   const int tiles = (n + TILE - 1) / TILE;
   const uint32_t stream = (uint32_t)(b * H + hh);
   const int r0 = q0 + warp * 16, r = r0 + frag_row(lane, 0);
   const long long plane = (long long)gridDim.z * H * n, bh = ((long long)b * H + hh) * n;
+  // the keep-bit word this lane draws (pass 1) and reads back (pass 2)
+  const int bits_row = r0 + (lane >> 2) + ((lane & 1) << 3), bits_par = (lane >> 1) & 1;
 
-  auto fetch = [&](int t, int buf) {
-    const int k0 = t * TILE;
+  auto fetch = [&](int step, int buf) {
+    const int k0 = (step < tiles ? step : step - tiles) * TILE;
     load_tile(sK + buf * TILE_ELEMS, kb, vw.k.r, k0, n, tid);
     load_tile(sV + buf * TILE_ELEMS, vb, vw.v.r, k0, n, tid);
     triad::cp_async_commit();
     if (tid < TILE) sBias[buf * TILE + tid] = key_bias(mb, n, k0 + tid);
   };
   load_tile(sQ, q + at(vw.q, b, hh), vw.q.r, q0, n, tid);
-  load_tile(sD, db, vw.o.r, q0, n, tid);
+  load_tile(sD, dout + at(vw.o, b, hh), vw.o.r, q0, n, tid);
   fetch(0, 0);
 
-  // This thread's rows g and g + 8: m, l, 1 / l and di (rows past n: inert).
+  // This thread's rows g and g + 8: m, l, 1 / l (rows past n: inert),
+  // and di, summed in fp64 (sd) and rounded once at the end of pass 1.
   float m0 = 0.0f, m1 = 0.0f, l0 = 1.0f, l1 = 1.0f, di0 = 0.0f, di1 = 0.0f;
+  double sd0 = 0.0, sd1 = 0.0;
   if (r < n) {
     m0 = stats[bh + r];
     l0 = stats[plane + bh + r];
-    di0 = row_di(db + (long long)r * vw.o.r, o32 + (bh + r) * D, lane);
   }
   if (r + 8 < n) {
     m1 = stats[bh + r + 8];
     l1 = stats[plane + bh + r + 8];
-    di1 = row_di(db + (long long)(r + 8) * vw.o.r, o32 + (bh + r + 8) * D, lane);
   }
-  quad_sum(di0, di1);
   const float rl0 = 1.0f / l0, rl1 = 1.0f / l1;
   uint32_t qa[4][4], da[4][4];
   float dq_acc[8][4];
   zero(dq_acc);
 
-  for (int t = 0; t < tiles; ++t) {
-    const int buf = t & 1;
+  for (int step = 0; step < 2 * tiles; ++step) {
+    const int buf = step & 1, t = step < tiles ? step : step - tiles;
     triad::cp_async_wait<0>();
     __syncthreads();
-    if (t + 1 < tiles) fetch(t + 1, buf ^ 1);
-    if (t == 0) {
+    if (step + 1 < 2 * tiles) fetch(step + 1, buf ^ 1);
+    if (step == 0) {
       load_a(qa, sQ, warp * 16, lane);
       load_a(da, sD, warp * 16, lane);
     }
@@ -462,10 +400,15 @@ attention_train_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     zero(ds);
     mma_nt(ds, da, sV + buf * TILE_ELEMS, lane);  // dO V^T
     if (dp.active) {
-      // draw this lane's word and keep it for the dK/dV kernel
-      const uint32_t mine = draw_rows(dp, stream, r0, t * TILE, lane);
-      const int row = r0 + (lane >> 2) + ((lane & 1) << 3);
-      if (row < n) kbits[kbits_at(bh, row, tiles, t, (lane >> 1) & 1)] = mine;
+      // pass 1 draws this lane's word and keeps it for pass 2 and dK/dV
+      uint32_t mine = 0u;
+      const long long at_bits = kbits_at(bh, bits_row, tiles, t, bits_par);
+      if (step < tiles) {
+        mine = draw_rows(dp, stream, r0, t * TILE, lane);
+        if (bits_row < n) kbits[at_bits] = mine;
+      } else if (bits_row < n) {
+        mine = kbits[at_bits];
+      }
       uint32_t bits[2];
       exchange(bits, mine, lane);
 #pragma unroll
@@ -473,6 +416,25 @@ attention_train_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           ds[j][e] = kept_rows(bits, lane, j, e) ? ds[j][e] * dp.scale : 0.0f;
+    }
+    if (step < tiles) {  // di += rowsum(dP * P), this thread's columns
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sd0 = fma((double)ds[j][0], (double)p[j][0], sd0);
+        sd0 = fma((double)ds[j][1], (double)p[j][1], sd0);
+        sd1 = fma((double)ds[j][2], (double)p[j][2], sd1);
+        sd1 = fma((double)ds[j][3], (double)p[j][3], sd1);
+      }
+      if (step == tiles - 1) {
+#pragma unroll
+        for (int o = 1; o <= 2; o <<= 1) {
+          sd0 += __shfl_xor_sync(0xffffffffu, sd0, o);
+          sd1 += __shfl_xor_sync(0xffffffffu, sd1, o);
+        }
+        di0 = (float)sd0;
+        di1 = (float)sd1;
+      }
+      continue;
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -626,11 +588,10 @@ Views views_of(const long long* strides, int count) {
 // order q, k, v, out (every stride a multiple of 8 and every base pointer
 // 16-byte aligned); mask: (B, N) contiguous fp32 key mask (1 = attend);
 // stats: (2, B, H, N) fp32 out, the row max m and sum l of the softmax;
-// o32: (B, H, N, 64) fp32 out, D V with the fp32 D, for the backward's di;
 // dropout: keep iff bits >= thresh, kept values times keep_scale, none
 // when active == 0. Any n >= 1. Returns a cudaError_t.
 extern "C" int triad_attention_train_fwd(const void* q, const void* k, const void* v,
-                                         const void* mask, void* out, void* stats, void* o32,
+                                         const void* mask, void* out, void* stats,
                                          const long long* strides, int b, int h, int n,
                                          float sm_scale, unsigned seed, unsigned thresh,
                                          float keep_scale, int active, void* stream) {
@@ -640,7 +601,7 @@ extern "C" int triad_attention_train_fwd(const void* q, const void* k, const voi
   attention_train_fwd_kernel<<<dim3((n + TILE - 1) / TILE, h, b), THREADS, FWD_SMEM,
                                (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (bf16*)out,
-      (float*)stats, (float*)o32, views_of(strides, 4), h, n, sm_scale,
+      (float*)stats, views_of(strides, 4), h, n, sm_scale,
       triad::Dropout{seed, thresh, keep_scale, active});
   return (int)cudaGetLastError();
 }
@@ -648,15 +609,14 @@ extern "C" int triad_attention_train_fwd(const void* q, const void* k, const voi
 // The backward, dQ (with di) then dK/dV, two grids on one stream. Adds
 // dout (the output gradient) and writes dq, dk, dv, all addressed like the
 // forward's operands (strides: 3 x 7 in the order q, k, v, dout, dq, dk,
-// dv); stats, o32: the forward's; di: (B, H, N) fp32 scratch that the
-// first grid writes and the second reads; the dropout arguments are
-// the forward's; kbits: with dropout, B H N ceil(N / 64) 2 uint32 scratch
-// for the keep bits the first grid draws and both read (else unused).
+// dv); stats: the forward's; di: (B, H, N) fp32 scratch that the first
+// grid writes and the second reads; the dropout arguments are the
+// forward's; kbits: with dropout, B H N ceil(N / 64) 2 uint32 scratch for
+// the keep bits the first grid draws and both read (else unused).
 // Returns a cudaError_t.
 extern "C" int triad_attention_train_bwd(const void* q, const void* k, const void* v,
                                          const void* mask, const void* dout, const void* stats,
-                                         const void* o32, void* di, void* kbits, void* dq,
-                                         void* dk, void* dv,
+                                         void* di, void* kbits, void* dq, void* dk, void* dv,
                                          const long long* strides, int b, int h, int n,
                                          float sm_scale, unsigned seed, unsigned thresh,
                                          float keep_scale, int active, void* stream) {
@@ -670,8 +630,7 @@ extern "C" int triad_attention_train_bwd(const void* q, const void* k, const voi
   const dim3 grid((n + TILE - 1) / TILE, h, b);
   attention_train_dq_kernel<<<grid, THREADS, DQ_SMEM, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (const bf16*)dout,
-      (const float*)stats, (const float*)o32, (bf16*)dq, (float*)di, (uint32_t*)kbits, vw, h, n,
-      sm_scale, dp);
+      (const float*)stats, (bf16*)dq, (float*)di, (uint32_t*)kbits, vw, h, n, sm_scale, dp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   attention_train_dkv_kernel<<<grid, THREADS, DKV_SMEM, s>>>(

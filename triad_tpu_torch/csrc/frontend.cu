@@ -11,8 +11,9 @@
 //   frontend_conv0_kernel   conv_0 (bf16 operands, fp32 accumulation),
 //                           the folded GroupNorm affine, bf16 rounding,
 //                           GELU -> bf16 activation (T0, 512).
-//   frontend_conv_kernel    one stride-2 conv (k in {2, 3}) as a GEMM,
-//                           GELU epilogue -> bf16 (Tout, 512).
+//   gemm_kernel             one stride-2 conv (k in {2, 3}) as
+//   (conv_s2.cuh)           conv_s2.cuh's GEMM with a GELU epilogue ->
+//                           bf16 (Tout, 512).
 //
 // The last two replace pallas_frontend.py:monolithic_frontend (:471;
 // _main_kernel :440, _stride2_layer :208), launched once per layer.
@@ -29,17 +30,17 @@
 // consuming output tile; the arithmetic is identical.
 //
 // A stride-2 conv with k taps over a row-major (T, 512) activation is a
-// GEMM whose A operand is the activation viewed with a leading dimension
-// of 2 * 512 and a depth of k * 512: window t covers input rows 2t ..
-// 2t + k - 1, which are contiguous. No im2col copy is made. B is the
-// conv weight as (k * 512, 512) row-major (tap-major, then input channel).
+// GEMM of depth k * 512 whose A operand is read straight from the
+// activation (window t covers input rows 2t .. 2t + k - 1; no im2col
+// copy) and whose B is the conv weight as (512, k * 512) row-major
+// (output channel, then tap, then input channel): conv_s2.cuh.
 //
 // What bounds it on the card: the stride-2 GEMMs hold ~99% of the
-// frontend's FLOPs (about 390 GFLOP at B = 8, 10 s); they run on WMMA
-// bf16 tensor-core tiles of 128 x 128 x 32 with a two-stage cp.async
-// ring. The stats and conv_0 kernels are FMA loops over a shared-memory
-// window of the waveform; conv_0 writes the largest activation (B x
-// 31999 x 512 bf16), so it is bound by that write.
+// frontend's FLOPs (about 390 GFLOP at B = 8, 10 s), so operations; they
+// run conv_s2.cuh's persistent TMA + wgmma GEMM. The stats and conv_0
+// kernels are FMA loops over a shared-memory window of the waveform;
+// conv_0 writes the largest activation (B x 31999 x 512 bf16), so it is
+// bound by that write.
 #include "common.cuh"
 #include "conv_s2.cuh"
 
@@ -141,15 +142,6 @@ struct GeluEpilogue {
   }
 };
 
-__global__ void __launch_bounds__(triad::conv_s2::THREADS)
-frontend_conv_kernel(const triad::bf16* __restrict__ x, long long x_bs,
-                     const triad::bf16* __restrict__ w, triad::bf16* __restrict__ y,
-                     int tout, int ktaps, int tanh_form) {
-  const int b = blockIdx.z;
-  triad::conv_s2::gemm_tile(x + b * x_bs, C, w, C, y + (long long)b * tout * C, tout, ktaps,
-                            triad::conv_s2::NoPrologue{}, GeluEpilogue{tanh_form});
-}
-
 }  // namespace
 
 // wave: (B, >= 5 * (m0 - 1) + 10) fp32 with batch stride wave_bs; w0:
@@ -176,16 +168,15 @@ extern "C" int triad_frontend_conv0(const void* wave, long long wave_bs, const v
   return (int)cudaGetLastError();
 }
 
-// x: (B, tin, 512) bf16 contiguous; w: (ktaps * 512, 512) bf16; y: (B,
-// tout, 512) bf16 with tout = (tin - ktaps) / 2 + 1.
+// x: (B, tin, 512) bf16 contiguous; w: (512, ktaps * 512) bf16 (output
+// channel, tap, input channel); y: (B, tout, 512) bf16 with tout = (tin -
+// ktaps) / 2 + 1.
 extern "C" int triad_frontend_conv(const void* x, int tin, const void* w, void* y, int b,
                                    int tout, int ktaps, int tanh_form, void* stream) {
   if (tout <= 0 || b <= 0 || ktaps < 1 || (tin - ktaps) / 2 + 1 != tout)
     return (int)cudaErrorInvalidValue;
-  using namespace triad::conv_s2;
-  dim3 grid((tout + BM - 1) / BM, C / BN, b);
-  frontend_conv_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const triad::bf16*)x, (long long)tin * C, (const triad::bf16*)w, (triad::bf16*)y, tout,
-      ktaps, tanh_form);
-  return (int)cudaGetLastError();
+  return triad::conv_s2::launch((const triad::bf16*)x, (long long)tin * C, C,
+                                (const triad::bf16*)w, C, (triad::bf16*)y, b, tout, ktaps,
+                                triad::conv_s2::NoPrologue{}, GeluEpilogue{tanh_form},
+                                (cudaStream_t)stream);
 }

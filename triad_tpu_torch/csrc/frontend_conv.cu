@@ -1,7 +1,7 @@
 // HuBERT's frontend after conv_0 with the input activation fused into the
 // conv, and that activation as a pass of its own:
 //
-//   frontend_conv_fused_kernel  y = conv_s2(prologue(x[:, :t_logical]), w),
+//   gemm_kernel (conv_s2.cuh)   y = conv_s2(prologue(x[:, :t_logical]), w),
 //                               a stride-2 VALID conv (k in {2, 3}) whose
 //                               input goes through the prologue on its way
 //                               to the tensor cores: None, GELU, or the
@@ -29,24 +29,21 @@
 //
 // What bounds it on the card: at conv_1's shape, (8, 31999, 512) -> (8,
 // 15999, 512) with k = 3, the products (201 GFLOP) on bf16 tensor cores,
-// 0.2 ms at the peak. The GEMM is conv_s2.cuh's (the plain conv's of
-// frontend.cu), and the prologue rewrites each staged 128 x 32 input tile
-// in shared memory before its products: the activated input never reaches
-// device memory, at the price of recomputing it once per 128 output
-// channels (4 times at 512) and per window that reads the row (1.5 times
-// at k = 3). The activation pass reads and writes each element once and
-// is bound by those bytes.
+// 0.2036 ms at the peak. The GEMM is conv_s2.cuh's TMA + wgmma GEMM (the
+// plain conv's of frontend.cu), and the prologue rewrites each staged 64 x
+// 64 input slice of a consumer warpgroup in shared memory before its
+// products: the activated input never reaches device memory, at the price
+// of recomputing it once per 256 output channels (twice at 512) and per
+// window that reads the row (1.5 times at k = 3). That is ~30 fp32
+// operations (an erff) per staged element on the CUDA cores beside the
+// 256 products per element on the tensor cores. The activation pass reads
+// and writes each element once and is bound by those bytes.
 #include "common.cuh"
 #include "conv_s2.cuh"
 
 namespace {
 
 using triad::bf16;
-using triad::conv_s2::BK;
-using triad::conv_s2::BM;
-using triad::conv_s2::BN;
-using triad::conv_s2::LDA;
-using triad::conv_s2::THREADS;
 
 enum Mode { kNone = 0, kGelu = 1, kNormGelu = 2 };
 
@@ -57,50 +54,57 @@ __device__ __forceinline__ float activate(float x, int mode, float mean, float r
   return mode == kNone ? x : triad::gelu_erf(x);
 }
 
-// The prologue on a staged A tile: thread tid owns depth column tid % BK
-// (one input channel) of rows tid / BK, tid / BK + 8, ...
+// The prologue on the staged input, in fp32, rounded to bf16 by the GEMM
+// afterwards: coef reads the norm's per-channel values of channels ch0 ..
+// ch0 + 7 of batch row b once, apply activates 8 values of them.
 struct InputPrologue {
-  static constexpr bool kActive = true;
   int mode, cin;
-  const float* mean;  // (cin,) of this batch row
+  const float* mean;  // (B, cin)
   const float* rstd;
   const float* scale;  // (cin,)
   const float* bias;
 
-  __device__ void operator()(bf16* tile, int k0, int tid) const {
-    if (mode == kNone) return;
-    const int c = tid % BK;
-    const int ch = k0 % cin + c;
-    float mu = 0.0f, rs = 1.0f, sc = 1.0f, bi = 0.0f;
+  struct Coef {
+    float mu[8], rs[8], sc[8], bi[8];
+  };
+  __device__ bool active() const { return mode != kNone; }
+  __device__ Coef coef(int b, int ch0) const {
+    Coef k;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      k.mu[q] = 0.0f;
+      k.rs[q] = 1.0f;
+      k.sc[q] = 1.0f;
+      k.bi[q] = 0.0f;
+    }
     if (mode == kNormGelu) {
-      mu = mean[ch];
-      rs = rstd[ch];
-      sc = scale[ch];
-      bi = bias[ch];
+      const long long row = (long long)b * cin + ch0;
+#pragma unroll
+      for (int q = 0; q < 8; q += 4) {  // 16-byte loads: ch0 % 8 == 0
+        put4(k.mu + q, mean + row + q);
+        put4(k.rs + q, rstd + row + q);
+        put4(k.sc + q, scale + ch0 + q);
+        put4(k.bi + q, bias + ch0 + q);
+      }
     }
-    for (int r = tid / BK; r < BM; r += THREADS / BK) {
-      bf16* p = tile + r * LDA + c;
-      *p = __float2bfloat16(activate(__bfloat162float(*p), mode, mu, rs, sc, bi));
-    }
+    return k;
+  }
+  static __device__ void put4(float* dst, const float* src) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(src));
+    dst[0] = v.x;
+    dst[1] = v.y;
+    dst[2] = v.z;
+    dst[3] = v.w;
+  }
+  __device__ void apply(const Coef& k, float (&f)[8]) const {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) f[q] = activate(f[q], mode, k.mu[q], k.rs[q], k.sc[q], k.bi[q]);
   }
 };
 
 struct StoreEpilogue {
   __device__ bf16 operator()(float v) const { return __float2bfloat16(v); }
 };
-
-__global__ void __launch_bounds__(THREADS)
-frontend_conv_fused_kernel(const bf16* __restrict__ x, long long x_bs, int cin,
-                           const bf16* __restrict__ w, int cout, bf16* __restrict__ y, int tout,
-                           int ktaps, int mode, const float* __restrict__ mean,
-                           const float* __restrict__ rstd, const float* __restrict__ scale,
-                           const float* __restrict__ bias) {
-  const int b = blockIdx.z;
-  const InputPrologue prologue{mode, cin, mean + (long long)b * cin, rstd + (long long)b * cin,
-                               scale, bias};
-  triad::conv_s2::gemm_tile(x + b * x_bs, cin, w, cout, y + (long long)b * tout * cout, tout,
-                            ktaps, prologue, StoreEpilogue{});
-}
 
 // Eight channels (16 bytes) per thread and step; c % 8 == 0, so the eight
 // share one batch row.
@@ -136,23 +140,22 @@ frontend_act_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, long long 
 }  // namespace
 
 // x: (B, >= t_logical, cin) bf16 with unit channel stride, row stride cin
-// and batch stride x_bs; w: (ktaps * cin, cout) bf16; y: (B, tout, cout)
-// bf16 contiguous, tout = (t_logical - ktaps) / 2 + 1 (the wrapper's
-// out_rows). mode 0 / 1 / 2 = None / "gelu" / "norm_gelu"; mean, rstd:
-// (B, cin) fp32, scale, bias: (cin,) fp32, read by "norm_gelu" only.
-// cin a multiple of 32, cout of 128. Returns a cudaError_t.
+// and batch stride x_bs (a multiple of 8); w: (cout, ktaps * cin) bf16
+// (output channel, tap, input channel); y: (B, tout, cout) bf16
+// contiguous, tout = (t_logical - ktaps) / 2 + 1 (the wrapper's out_rows):
+// rows past 2 (tout - 1) + ktaps are never read. mode 0 / 1 / 2 = None /
+// "gelu" / "norm_gelu"; mean, rstd: (B, cin) fp32, scale, bias: (cin,)
+// fp32, read by "norm_gelu" only. cin a multiple of 64, cout of 256.
+// Returns a cudaError_t.
 extern "C" int triad_frontend_conv_fused(const void* x, long long x_bs, int cin, const void* w,
                                          int cout, void* y, int b, int tout, int ktaps, int mode,
                                          const void* mean, const void* rstd, const void* scale,
                                          const void* bias, void* stream) {
-  if (tout <= 0 || b <= 0 || ktaps < 1 || cin % BK || cout % BN || mode < kNone ||
-      mode > kNormGelu)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((tout + BM - 1) / BM, cout / BN, b);
-  frontend_conv_fused_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, x_bs, cin, (const bf16*)w, cout, (bf16*)y, tout, ktaps, mode,
-      (const float*)mean, (const float*)rstd, (const float*)scale, (const float*)bias);
-  return (int)cudaGetLastError();
+  if (mode < kNone || mode > kNormGelu) return (int)cudaErrorInvalidValue;
+  const InputPrologue prologue{mode, cin, (const float*)mean, (const float*)rstd,
+                               (const float*)scale, (const float*)bias};
+  return triad::conv_s2::launch((const bf16*)x, x_bs, cin, (const bf16*)w, cout, (bf16*)y, b,
+                                tout, ktaps, prologue, StoreEpilogue{}, (cudaStream_t)stream);
 }
 
 // x, y: (B, t, c) bf16 contiguous, c a multiple of 8; mode, mean, rstd,

@@ -78,9 +78,8 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)  # a host array of strides
 _DROP = [_U, _U, _F, _I]  # seed, threshold, keep scale, active (dropout_args)
 _SIGNATURES = {
     "triad_attention_eval": [_VP] * 5 + [_I] * 6 + [_LL] * 9 + [_F, _VP],
-    "triad_attention_eval_max_keys": [],
-    "triad_attention_train_fwd": [_VP] * 7 + [_LLP] + [_I] * 3 + [_F] + _DROP + [_VP],
-    "triad_attention_train_bwd": [_VP] * 12 + [_LLP] + [_I] * 3 + [_F] + _DROP + [_VP],
+    "triad_attention_train_fwd": [_VP] * 6 + [_LLP] + [_I] * 3 + [_F] + _DROP + [_VP],
+    "triad_attention_train_bwd": [_VP] * 11 + [_LLP] + [_I] * 3 + [_F] + _DROP + [_VP],
     "triad_fused_mlp": [_VP] * 6 + [_I] * 5 + _DROP + [_VP],
     "triad_fused_mlp_bwd": [_VP] * 8 + [_I] * 5 + _DROP + [_VP],
     "triad_frontend_stats": [_VP, _LL, _VP, _VP, _VP, _I, _I, _VP],

@@ -17,9 +17,11 @@ launch ``csrc/attention_eval.cu``, and ``attention_train_strided`` (on (B, H, N,
 and ``attention_train_merged`` (one d(qkv) cotangent)
 ``csrc/attention_train.cu``, for a CUDA tensor; a CPU tensor runs the
 plain version (``*_plain``, ``heads_train_*plain``). There is no fallback from one to
-the other: a CUDA tensor the kernel does not take raises. The training
-attention's dropout keep mask is ``ops/dropout.py``'s, keyed by (seed,
-b * H + h) at (query, key), in the kernels and the plain versions alike.
+the other: a CUDA tensor the kernel does not take raises. Neither kernel
+caps the number of keys: any N >= 1 runs on the card, as on the CPU. The
+training attention's dropout keep mask is ``ops/dropout.py``'s, keyed by
+(seed, b * H + h) at (query, key), in the kernels and the plain versions
+alike.
 """
 
 from __future__ import annotations
@@ -106,21 +108,21 @@ def attention_eval_pair_plain(q, k, v, mask, sm_scale: float) -> torch.Tensor:
 
 
 def _launch(name, q, k, v, mask, out, nq, nk, h, sm_scale, pair=False, nk_soft=None):
-    """q/k/v/out: (B, N, width) views with unit column stride. ``pair``:
-    the head-pair numerics on every head of a pair, and keys padded to a
+    """q/k/v/out: (B, N, width) views with unit column stride; mask: the
+    (B, nk) key mask as given (None: every key attends). ``pair``: the
+    head-pair numerics on every head of a pair, and keys padded to a
     multiple of 128 in the softmax, as attention_eval_pair_plain;
     ``nk_soft``: the softmax's key count otherwise (default nk)."""
     b = out.shape[0]
     nk_soft = _round_up(nk, PAIR_KEY_PAD) if pair else nk_soft or nk
-    max_keys = kernels.library().triad_attention_eval_max_keys()
-    if nk_soft > max_keys:
-        raise ValueError(f"{name}: {nk_soft} keys > the kernel's {max_keys}")
+    if mask is not None:
+        mask = _key_mask(mask, b, nk, out.device)
     kernels.call(
         "attention_eval", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), b, h, nq, nk, nk_soft, 2 * (h // 2) if pair else 0,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        None if mask is None else mask.data_ptr(), out.data_ptr(), b, h, nq, nk, nk_soft,
+        2 * (h // 2) if pair else 0, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-        mask.stride(0), float(sm_scale), kernels.stream_ptr(out),
+        0 if mask is None else mask.stride(0), float(sm_scale), kernels.stream_ptr(out),
     )
     kernels.LAUNCHES[name] += 1
 
@@ -148,15 +150,14 @@ def attention_eval(q, k, v, mask=None, sm_scale: Optional[float] = None):
     nk = k.shape[1]
     if hd % HEAD_DIM:
         raise ValueError(f"packed width {hd} not a multiple of {HEAD_DIM}")
-    scale = 1.0 / math.sqrt(HEAD_DIM) if sm_scale is None else sm_scale
+    scale = _scale(sm_scale)
     nk_soft = nk if mask is None else _round_up(nk, PAIR_KEY_PAD)
-    key_mask = _key_mask(mask, b, nk, q.device)
     if q.device.type == "cpu":
-        return attention_eval_plain(q, k, v, key_mask, scale, nk_soft)
+        return attention_eval_plain(q, k, v, _key_mask(mask, b, nk, q.device), scale, nk_soft)
     kernels.require_cuda("attention_eval", q, k, v, dtype=torch.bfloat16)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    _launch("attention_eval", q, k, v, key_mask, out, nq, nk, hd // HEAD_DIM, scale,
+    _launch("attention_eval", q, k, v, mask, out, nq, nk, hd // HEAD_DIM, scale,
             nk_soft=nk_soft)
     return out
 
@@ -170,16 +171,15 @@ def attention_eval_merged(qkv, mask=None, sm_scale: Optional[float] = None):
     hd = hd3 // 3
     if hd * 3 != hd3 or hd % HEAD_DIM:
         raise ValueError(f"bad merged width {hd3} (not 3*H*{HEAD_DIM})")
-    scale = 1.0 / math.sqrt(HEAD_DIM) if sm_scale is None else sm_scale
-    key_mask = _key_mask(mask, b, n, qkv.device)
+    scale = _scale(sm_scale)
     if qkv.device.type == "cpu":
         q, k, v = qkv.split(hd, dim=-1)
-        return attention_eval_plain(q, k, v, key_mask, scale)
+        return attention_eval_plain(q, k, v, _key_mask(mask, b, n, qkv.device), scale)
     kernels.require_cuda("attention_eval_merged", qkv, dtype=torch.bfloat16)
     qkv = qkv.contiguous()
     q, k, v = qkv.split(hd, dim=-1)  # views: row stride 3C, offsets 0/C/2C
     out = torch.empty((b, n, hd), dtype=qkv.dtype, device=qkv.device)
-    _launch("attention_eval_merged", q, k, v, key_mask, out, n, n, hd // HEAD_DIM, scale)
+    _launch("attention_eval_merged", q, k, v, mask, out, n, n, hd // HEAD_DIM, scale)
     return out
 
 
@@ -194,13 +194,12 @@ def attention_eval_pair(q, k, v, mask=None, sm_scale: Optional[float] = None):
     if hd % HEAD_DIM:
         raise ValueError(f"packed width {hd} not a multiple of {HEAD_DIM}")
     scale = _scale(sm_scale)
-    key_mask = _key_mask(mask, b, nk, q.device)
     if q.device.type == "cpu":
-        return attention_eval_pair_plain(q, k, v, key_mask, scale)
+        return attention_eval_pair_plain(q, k, v, _key_mask(mask, b, nk, q.device), scale)
     kernels.require_cuda("attention_eval_pair", q, k, v, dtype=torch.bfloat16)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    _launch("attention_eval_pair", q, k, v, key_mask, out, nq, nk, hd // HEAD_DIM, scale,
+    _launch("attention_eval_pair", q, k, v, mask, out, nq, nk, hd // HEAD_DIM, scale,
             pair=True)
     return out
 
@@ -214,14 +213,14 @@ def attention_eval_merged_pair(qkv, mask=None, sm_scale: Optional[float] = None)
     if hd * 3 != hd3 or hd % HEAD_DIM:
         raise ValueError(f"bad merged width {hd3} (not 3*H*{HEAD_DIM})")
     scale = _scale(sm_scale)
-    key_mask = _key_mask(mask, b, n, qkv.device)
     if qkv.device.type == "cpu":
-        return attention_eval_pair_plain(*qkv.split(hd, dim=-1), key_mask, scale)
+        return attention_eval_pair_plain(*qkv.split(hd, dim=-1), _key_mask(mask, b, n, qkv.device),
+                                         scale)
     kernels.require_cuda("attention_eval_merged_pair", qkv, dtype=torch.bfloat16)
     qkv = qkv.contiguous()
     q, k, v = qkv.split(hd, dim=-1)
     out = torch.empty((b, n, hd), dtype=qkv.dtype, device=qkv.device)
-    _launch("attention_eval_merged_pair", q, k, v, key_mask, out, n, n, hd // HEAD_DIM, scale,
+    _launch("attention_eval_merged_pair", q, k, v, mask, out, n, n, hd // HEAD_DIM, scale,
             pair=True)
     return out
 
@@ -305,15 +304,31 @@ def train_row_stats_plain(q, k, mask, sm_scale: float) -> torch.Tensor:
     return torch.stack([m, torch.exp(s - m[..., None]).sum(dim=-1)])
 
 
-def train_saved_plain(q, k, v, mask, sm_scale: float, seed: int = 0, p_drop: float = 0.0):
-    """What the training forward kernel saves for its backward, on (B, H,
-    N, 64) views: (the row stats of train_row_stats_plain, O' = D V with
-    the fp32 D as a (B, H, N, 64) fp32 tensor), so that di = rowsum(dO *
-    O') = rowsum(dP * P)."""
+def _train_bwd_terms(q, k, v, mask, do, sm_scale, seed, p_drop):
+    """_head_bwd's fp32 P, keep mask and dP = (dO V^T) * keep / (1 - p)
+    per head, on (B, H, N, 64) views."""
     b, h, nq, _ = q.shape
-    d = dropout.apply_keep(_train_probs(q, k, mask, sm_scale),
-                           attention_keep(b, h, nq, k.shape[2], seed, p_drop, q.device), p_drop)
-    return train_row_stats_plain(q, k, mask, sm_scale), d @ v.to(torch.float32)
+    p = _train_probs(q, k, mask, sm_scale)
+    keep = attention_keep(b, h, nq, k.shape[2], seed, p_drop, q.device)
+    dp = dropout.apply_keep(do.to(torch.float32) @ v.to(torch.float32).transpose(-1, -2), keep,
+                            p_drop)
+    return p, keep, dp
+
+
+def _rowsum_dp_p(dp, p):
+    """di = rowsum(dP * P) as the dQ kernel sums it: the fp32 products and
+    their sum in fp64, rounded once to fp32 (where _head_bwd sums in fp32:
+    attention_train.cu says why)."""
+    return (dp.to(torch.float64) * p.to(torch.float64)).sum(dim=-1).to(torch.float32)
+
+
+def train_di_plain(q, k, v, mask, do, sm_scale: float, seed: int = 0,
+                   p_drop: float = 0.0) -> torch.Tensor:
+    """The (B, H, N) fp32 di = rowsum(dP * P) of _head_bwd (:208) that the
+    training dQ kernel writes for its dK/dV kernel, on (B, H, N, 64)
+    views."""
+    p, _, dp = _train_bwd_terms(q, k, v, mask, do, sm_scale, seed, p_drop)
+    return _rowsum_dp_p(dp, p)
 
 
 def attention_keep(b: int, h: int, nq: int, nk: int, seed: int, p_drop: float, device):
@@ -340,16 +355,13 @@ def heads_train_bwd_plain(q, k, v, mask, do, sm_scale: float, seed: int = 0,
                           p_drop: float = 0.0):
     """_head_bwd for every head, written out in fp32 (not autograd), on
     (B, H, N, 64) views: dD = dO V^T, dP = dD * keep / (1 - p), D = P *
-    keep / (1 - p), dV = D^T dO, di = rowsum(dP * P), dS = P (dP - di), dQ =
-    dS K s, dK = dS^T Q s. Returns fp32 (dq, dk, dv)."""
-    b, h, nq, _ = q.shape
+    keep / (1 - p), dV = D^T dO, di = rowsum(dP * P) (summed in fp64, as
+    the kernel sums it), dS = P (dP - di), dQ = dS K s, dK = dS^T Q s.
+    Returns fp32 (dq, dk, dv)."""
     f32 = torch.float32
-    p = _train_probs(q, k, mask, sm_scale)
-    keep = attention_keep(b, h, nq, k.shape[2], seed, p_drop, q.device)
-    dof = do.to(f32)
-    dp = dropout.apply_keep(dof @ v.to(f32).transpose(-1, -2), keep, p_drop)
-    dv = dropout.apply_keep(p, keep, p_drop).transpose(-1, -2) @ dof
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    p, keep, dp = _train_bwd_terms(q, k, v, mask, do, sm_scale, seed, p_drop)
+    dv = dropout.apply_keep(p, keep, p_drop).transpose(-1, -2) @ do.to(f32)
+    ds = p * (dp - _rowsum_dp_p(dp, p)[..., None])
     dq = ds @ k.to(f32) * sm_scale
     dk = ds.transpose(-1, -2) @ q.to(f32) * sm_scale
     return dq, dk, dv
@@ -421,44 +433,41 @@ def _train_launch_args(name, q, k, v, mask):
 def _train_fwd_kernel(name, q, k, v, out, mask, sm_scale, seed, p_drop):
     """csrc/attention_train.cu forward on (B, H, N, 64) views; out written
     through its own view. Returns what the backward kernels take: the
-    (2, B, H, N) fp32 row stats (m, l) and O' = D V with the fp32 D, (B,
-    H, N, 64) fp32."""
+    (2, B, H, N) fp32 row stats (m, l)."""
     mask = _train_launch_args(name, q, k, v, mask)
     b, h, n, _ = q.shape
     stats = torch.empty((2, b, h, n), dtype=torch.float32, device=q.device)
-    o32 = torch.empty((b, h, n, HEAD_DIM), dtype=torch.float32, device=q.device)
     kernels.call("attention_train_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 mask.data_ptr(), out.data_ptr(), stats.data_ptr(), o32.data_ptr(),
-                 _strides(q, k, v, out), b, h, n, float(sm_scale),
-                 *kernels.dropout_args(seed, p_drop), kernels.stream_ptr(out))
+                 mask.data_ptr(), out.data_ptr(), stats.data_ptr(), _strides(q, k, v, out), b,
+                 h, n, float(sm_scale), *kernels.dropout_args(seed, p_drop),
+                 kernels.stream_ptr(out))
     kernels.LAUNCHES[name] += 1
-    return stats, o32
+    return stats
 
 
 def _train_bwd_kernel(name, q, k, v, do, dq, dk, dv, mask, saved, sm_scale, seed, p_drop):
-    """The two backward kernels (dQ with di, then dK/dV) on (B, H, N, 64)
-    views, from what the forward saved, with a (B, H, N) fp32 di scratch
-    and, with dropout, the keep bits' scratch (B H N ceil(N / 64) 2 words:
-    N^2 / 8 bytes per head); one count per call."""
+    """The two backward kernels (dQ with di = rowsum(dP * P), then dK/dV) on
+    (B, H, N, 64) views, from the row stats the forward saved, with a (B,
+    H, N) fp32 di scratch and, with dropout, the keep bits' scratch (B H N
+    ceil(N / 64) 2 words: N^2 / 8 bytes per head); one count per call."""
     mask = _train_launch_args(name, q, k, v, mask)
     b, h, n, _ = q.shape
-    stats, o32 = saved if saved is not None else (None, None)
-    if any(t is None or t.shape != shape or t.dtype != torch.float32
-           for t, shape in ((stats, (2, b, h, n)), (o32, (b, h, n, HEAD_DIM)))):
-        raise ValueError(f"{name}: needs what the forward saved: (2, {b}, {h}, {n}) fp32 row "
-                         f"stats and the ({b}, {h}, {n}, {HEAD_DIM}) fp32 D V")
+    if not isinstance(saved, torch.Tensor) or saved.shape != (2, b, h, n) \
+            or saved.dtype != torch.float32:
+        raise ValueError(f"{name}: needs what the forward saved: the (2, {b}, {h}, {n}) fp32 "
+                         f"row stats")
     kernels.require_cuda(name, q, do, dtype=torch.bfloat16)
-    kernels.require_cuda(name, q, stats, o32)
-    stats, o32 = stats.contiguous(), o32.contiguous()
+    kernels.require_cuda(name, q, saved)
+    stats = saved.contiguous()
     di = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     kbits = None
     if p_drop > 0:
         kbits = torch.empty((b * h * n * -(-n // 64) * 2,), dtype=torch.int32, device=q.device)
     kernels.call("attention_train_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 mask.data_ptr(), do.data_ptr(), stats.data_ptr(), o32.data_ptr(),
-                 di.data_ptr(), None if kbits is None else kbits.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, do, dq, dk, dv), b, h, n,
-                 float(sm_scale), *kernels.dropout_args(seed, p_drop), kernels.stream_ptr(dq))
+                 mask.data_ptr(), do.data_ptr(), stats.data_ptr(), di.data_ptr(),
+                 None if kbits is None else kbits.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), _strides(q, k, v, do, dq, dk, dv), b, h, n, float(sm_scale),
+                 *kernels.dropout_args(seed, p_drop), kernels.stream_ptr(dq))
     kernels.LAUNCHES[name] += 1
 
 
@@ -475,7 +484,7 @@ def attention_train_strided_fwd(q, k, v, mask, sm_scale: float, seed: int = 0,
     heads of packed (B, N, H*64) projections: no copy). A CPU tensor runs
     heads_train_plain and saves None; a CUDA one runs the kernel, counted
     under ``count`` in kernels.LAUNCHES, and saves what the backward
-    kernels take (train_saved_plain's pair). On the card ``out`` is a (B,
+    kernels take (train_row_stats_plain's row stats). On the card ``out`` is a (B,
     H, N, 64) view of (B, N, H, 64) memory, the packed layout, which
     _packed reshapes with no copy."""
     if q.device.type == "cpu":
@@ -555,8 +564,8 @@ def attention_train_merged_bwd(qkv, mask, do, sm_scale: float, seed: int = 0,
 
 class AttentionTrain(torch.autograd.Function):
     """The custom VJP on (B, H, N, 64) views: the backward recomputes P from
-    the inputs, the mask and the forward's row stats (m, l), takes di from
-    the forward's fp32 D V, and replays the dropout mask from the seed (no
+    the inputs, the mask and the forward's row stats (m, l), forms di =
+    rowsum(dP * P) itself, and replays the dropout mask from the seed (no
     probabilities or masks are saved; on the CPU nothing but the inputs).
     apply(q, k, v, mask, sm_scale, seed, p_drop, count): the kernels count
     under ``count`` and ``count + "_bwd"``."""
@@ -565,12 +574,12 @@ class AttentionTrain(torch.autograd.Function):
     def forward(ctx, q, k, v, mask, sm_scale, seed, p_drop, count):
         ctx.args = (sm_scale, seed, p_drop, count)
         out, saved = attention_train_strided_fwd(q, k, v, mask, sm_scale, seed, p_drop, count)
-        ctx.save_for_backward(q, k, v, mask, *(saved or (None, None)))
+        ctx.save_for_backward(q, k, v, mask, saved)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, mask, *saved = ctx.saved_tensors
+        q, k, v, mask, saved = ctx.saved_tensors
         sm_scale, seed, p_drop, count = ctx.args
         grads = attention_train_strided_bwd(q, k, v, mask, do, sm_scale, seed, p_drop,
                                             f"{count}_bwd", saved)
@@ -586,12 +595,12 @@ class AttentionTrainMerged(torch.autograd.Function):
     def forward(ctx, qkv, mask, sm_scale, seed, p_drop):
         ctx.args = (sm_scale, seed, p_drop)
         out, saved = attention_train_merged_fwd(qkv, mask, sm_scale, seed, p_drop)
-        ctx.save_for_backward(qkv, mask, *(saved or (None, None)))
+        ctx.save_for_backward(qkv, mask, saved)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        qkv, mask, *saved = ctx.saved_tensors
+        qkv, mask, saved = ctx.saved_tensors
         return (attention_train_merged_bwd(qkv, mask, do, *ctx.args, saved), None, None, None,
                 None)
 

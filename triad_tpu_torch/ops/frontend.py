@@ -156,7 +156,8 @@ def conv_s2_gelu(x, w, form: str = "tanh") -> torch.Tensor:
     k = w.shape[2]
     tout = (tin - k) // 2 + 1
     x = x.contiguous()
-    wk = w.permute(2, 1, 0).reshape(k * C, C).to(torch.bfloat16).contiguous()
+    # (Cout, k * Cin): output channel, then tap, then input channel
+    wk = w.permute(0, 2, 1).reshape(C, k * C).to(torch.bfloat16).contiguous()
     y = torch.empty((b, tout, C), dtype=torch.bfloat16, device=x.device)
     kernels.call(
         "frontend_conv", x.data_ptr(), tin, wk.data_ptr(), y.data_ptr(), b,

@@ -87,14 +87,17 @@ def fused_frontend_conv_plain(x, w, mean, rstd, scale, bias, t_logical: int,
 
 
 def _flat_stats(t: torch.Tensor, n: int, device) -> torch.Tensor:
-    return t.to(device=device, dtype=torch.float32).reshape(n).contiguous()
+    """t as n contiguous fp32 values on device, 16-byte aligned (the conv
+    kernel reads them 4 at a time)."""
+    t = t.to(device=device, dtype=torch.float32).reshape(n).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def fused_frontend_conv_fwd(x, w, mean, rstd, scale, bias, t_logical: int,
                             prologue: Optional[str]) -> torch.Tensor:
     """x (B, T >= t_logical, Cin), w (Cout, Cin, k), k in {2, 3} -> (B,
     out_rows(t_logical, k), Cout) in x's dtype: the kernel on the card
-    (bf16, Cin a multiple of 32, Cout of 128), the twin on the CPU."""
+    (bf16, Cin a multiple of 64, Cout of 256), the twin on the CPU."""
     _check_prologue(prologue)
     b, t, cin = x.shape
     cout, wcin, k = w.shape
@@ -104,13 +107,14 @@ def fused_frontend_conv_fwd(x, w, mean, rstd, scale, bias, t_logical: int,
     if x.device.type == "cpu":
         return fused_frontend_conv_plain(x, w, mean, rstd, scale, bias, t_logical, prologue)
     kernels.require_cuda("fused_frontend_conv", x, w)
-    if x.dtype != torch.bfloat16 or cin % 32 or cout % 128:
-        raise ValueError(f"fused_frontend_conv kernel: needs bf16 x with Cin % 32 == 0 and "
-                         f"Cout % 128 == 0, got {x.dtype} Cin {cin} Cout {cout}")
+    if x.dtype != torch.bfloat16 or cin % 64 or cout % 256:
+        raise ValueError(f"fused_frontend_conv kernel: needs bf16 x with Cin % 64 == 0 and "
+                         f"Cout % 256 == 0, got {x.dtype} Cin {cin} Cout {cout}")
     if x.stride(2) != 1 or x.stride(1) != cin or x.stride(0) % 8 or x.data_ptr() % 16:
         x = x[:, :t_logical].contiguous()
     tout = out_rows(t_logical, k)
-    wk = w.permute(2, 1, 0).reshape(k * cin, cout).to(torch.bfloat16).contiguous()
+    # (Cout, k * Cin): output channel, then tap, then input channel
+    wk = w.permute(0, 2, 1).reshape(cout, k * cin).to(torch.bfloat16).contiguous()
     stats = [_flat_stats(s, b * cin, x.device) for s in (mean, rstd)]
     affine = [_flat_stats(s, cin, x.device) for s in (scale, bias)]
     y = torch.empty((b, tout, cout), dtype=x.dtype, device=x.device)

@@ -25,10 +25,18 @@ and the run goes on. Modes:
            N = 261 at p = 0 and 499 at p = 0.1; strided and merged at the
            shapes of phases 10 and 11; and (8, 1000) p = 0.1, which a tree
            with a key cap refuses): each against its twin, with kernel,
-           twin, SDPA and bound times, as chip_smoke.py prints them.
+           twin, SDPA and bound times, as chip_smoke.py prints them;
+  kernels  phase 3 of this tree's chip_smoke.py on the checkout's
+           kernels, only the cases of the eval attention (its four modes,
+           (8, 999) and (8, 1000) included, which a tree with a key cap
+           refuses), the stride-2 conv GEMM's two callers and the training
+           attention: synchronised and device ms as phase 3 prints them;
+           run it on two trees in turns (parent, change, change, parent)
+           to compare them in one call.
 """
 
 import hashlib
+import importlib.util
 import os
 import subprocess
 import sys
@@ -109,6 +117,44 @@ def attention(cs):
         print(f"  attention_train (8, 1000, 768, p={cs.P_DROP}) raises: {e}", flush=True)
 
 
+# The kernels PR 8 redesigned and the training attention, by the names
+# chip_smoke.py's phase 3 gives their cases.
+AB_KERNELS = ("attention_eval", "attention_eval_merged", "attention_eval_pair",
+              "attention_eval_merged_pair", "frontend_conv", "fused_frontend_conv",
+              "attention_train", "attention_train_bwd", "attention_train_strided",
+              "attention_train_strided_bwd", "attention_train_merged",
+              "attention_train_merged_bwd")
+
+
+def kernel_times():
+    """Phase 3 (kernel_phase) of THIS tree's chip_smoke.py, run on the
+    checkout's kernels (its triad_tpu_torch is the one already imported),
+    restricted to the cases of AB_KERNELS: the same inputs, twins and
+    tolerances for every checkout, one case table. A case whose kernel
+    raises (a tree with a key cap) is printed as such."""
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("_chip_smoke_here", here)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cs.fail = lambda msg: print("WOULD FAIL: " + msg, flush=True)
+    compare = cs.compare
+
+    def only(results, name, shape, *args, **kwargs):
+        if name not in AB_KERNELS:
+            return
+        try:
+            compare(results, name, shape, *args, **kwargs)
+        except ValueError as e:
+            print(f"KERNEL {name:28s} {str(shape):34s} raises: {e}", flush=True)
+            return
+        r = results[-1]
+        print(f"KERNEL {name:28s} {str(shape):34s} sync {r['ms']:.4f} device "
+              f"{r['device_ms']:.4f} ms", flush=True)
+
+    cs.compare = only
+    cs.kernel_phase()
+
+
 def one(root, mode):
     os.chdir(root)
     sys.path.insert(0, root)
@@ -129,6 +175,8 @@ def one(root, mode):
         probe(cs, torch)
     elif mode == "attention":
         attention(cs)
+    elif mode == "kernels":
+        kernel_times()
     elif mode.partition("@")[0] == "joint":
         seed = int(mode.partition("@")[2] or 1)
         new_state = cs._new_state
