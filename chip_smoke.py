@@ -13,8 +13,9 @@ mqkv + vitmq + loss=pallas set for a few steps each, and runs the
 Phases (any failure exits nonzero before the last line):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. nvcc build of the kernels (one nvcc per source, in parallel), each
-     kernel's registers and spills, and the stride-2 conv GEMM's SASS
-     holding wgmma (HGMMA) and TMA (UTMALDG) instructions;
+     kernel's registers and spills, and the SASS of the stride-2 conv GEMM
+     and of the flash forward, dK/dV and dQ kernels holding wgmma (HGMMA)
+     and TMA (UTMALDG) instructions;
   3. each kernel vs its plain twin on the card in bf16: max abs error
      against a stated bound, median time of the kernel, of the twin and
      of one PyTorch library call computing the same function where there
@@ -112,7 +113,8 @@ the AV shape on real L2-normalised features), checks that the strided,
 packed and merged kernels agree on the same inputs and seed, and holds the
 head-pair eval attention, the fused frontend conv and the frontend
 activation at the shapes of phase 12, the flash forward and backward at
-the shapes of phases 13-14 and at N = 1000, the training attention at
+the shapes of phases 13-14, at N = 1000 and on the strided views of a
+fused (64, 261, 3, 12, 64) qkv tensor, the training attention at
 (8, 1000, 768) with dropout live, the eval attention in its four modes at
 (8, 999) and (8, 1000) (no kernel has a key cap), and the stride-2 conv
 at conv_1's (64, 31999, 512), the train steps' batch.
@@ -801,9 +803,11 @@ def flash_cases(res):
     views of (B, N, H, 64) projections, as the encoders pass them: the
     ViT's training shape (64, 261), HuBERT's eval (8, 499), DistilBERT's
     (8, 128) with ragged keys and one row whose keys are all masked, and
-    (8, 1000), past the eval kernels' 512-key cap. The kernel walks
-    64-key tiles with an online softmax, the twin the library's 512-key
-    blocks, so their bf16 roundings of P (and so of O, dS and the
+    (8, 1000), past the eval kernels' old 512-key cap; then (64, 261) on q,
+    k, v sliced out of one fused (64, 261, 3, 12, 64) qkv tensor (row
+    stride 2304), which the kernels load through their strides. The kernel
+    walks 64-key tiles with an online softmax, the twin the library's
+    512-key blocks, so their bf16 roundings of P (and so of O, dS and the
     gradients) differ here and there: 2 bf16 ulps of each output's largest
     magnitude. Both backward sides take the twin's O, l and m. Library:
     SDPA with the key mask, and its autograd backward. Bound: products over
@@ -814,9 +818,17 @@ def flash_cases(res):
 
     from triad_tpu_torch.ops import flash_attention as FA
 
-    for b, n, masked, main in ((TRAIN_B, 261, False, True), (B, 499, False, False),
-                               (B, 128, True, False), (B, 1000, False, False)):
-        q, k, v, do = (randn((b, n, 12, 64), 111 + i).transpose(1, 2) for i in range(4))
+    for b, n, masked, fused, main in ((TRAIN_B, 261, False, False, True),
+                                      (B, 499, False, False, False),
+                                      (B, 128, True, False, False),
+                                      (B, 1000, False, False, False),
+                                      (TRAIN_B, 261, False, True, False)):
+        if fused:
+            qkv = randn((b, n, 3, 12, 64), 111)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            do = randn((b, n, 12, 64), 114).transpose(1, 2)
+        else:
+            q, k, v, do = (randn((b, n, 12, 64), 111 + i).transpose(1, 2) for i in range(4))
         mask = attn_mask = None
         keys = b * n
         if masked:
@@ -828,7 +840,8 @@ def flash_cases(res):
             keys = int(torch.where(per_row > 0, per_row, float(n)).sum())
         flops = 4 * 12 * n * keys * 64
         act, stats = b * n * 768 * 2, 2 * b * 12 * n * 4 + (b * n * 4 if masked else 0)
-        shape = (b, 12, n, 64) + (("masked",) if masked else ())
+        shape = ((b, 12, n, 64) + (("masked",) if masked else ())
+                 + (("fused qkv",) if fused else ()))
         compare(res, "flash_attention", shape,
                 lambda: FA.flash_attention_fwd(q, k, v, mask, 0.125)[0],
                 lambda: FA.flash_fwd_plain(q, k, v, mask, 0.125)[0], 2 * BF16_ULP,
@@ -1789,12 +1802,20 @@ def _kernel_entry(name, results, launches_by_path):
     }
 
 
+# The kernels whose machine code must hold warpgroup products (HGMMA, from
+# wgmma.mma_async) on tiles brought in by TMA (UTMALDG, from
+# cp.async.bulk.tensor), and how many instantiations each has at least.
+SASS_KERNELS = {"gemm_kernel": 2, "flash_fwd_kernel": 1, "flash_dkv_kernel": 1,
+                "flash_dq_kernel": 1}
+
+
 def sass_check(path):
-    """The stride-2 conv GEMM's machine code: every instantiation of
-    conv_s2.cuh's gemm_kernel must hold warpgroup products (HGMMA, from
-    wgmma.mma_async) on tiles brought in by TMA (UTMALDG, from
-    cp.async.bulk.tensor). Counts the instructions per kernel in
-    cuobjdump's disassembly of the built library."""
+    """The Hopper kernels' machine code: every instantiation of
+    conv_s2.cuh's gemm_kernel and the flash forward, dK/dV and dQ kernels
+    must hold HGMMA and UTMALDG instructions. Counts them per kernel in
+    cuobjdump's disassembly of the built library, beside the highest
+    register the kernel's code names (past ptxas's launch count where a
+    warpgroup raises its own with setmaxnreg)."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
                           timeout=300)
@@ -1804,17 +1825,22 @@ def sass_check(path):
     for line in sass.stdout.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            if "gemm_kernel" in name:
-                counts[name] = [0, 0]
+            if any(k in name for k in SASS_KERNELS):
+                counts[name] = [0, 0, 0]
             else:
                 name = None
         elif name is not None:
             counts[name][0] += "HGMMA" in line
             counts[name][1] += "UTMALDG" in line
-    for fn, (hgmma, tma) in counts.items():
-        print(f"  SASS {_kernel_name(fn)} {fn[-60:]}: {hgmma} HGMMA, {tma} UTMALDG", flush=True)
-    if len(counts) < 2 or not all(h and t for h, t in counts.values()):
-        fail(f"the conv GEMM's SASS lacks wgmma or TMA instructions: {counts}")
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
+            counts[name][2] = max([counts[name][2], *regs])
+    for fn, (hgmma, tma, reg) in counts.items():
+        print(f"  SASS {_kernel_name(fn)} {fn[-60:]}: {hgmma} HGMMA, {tma} UTMALDG, "
+              f"highest register R{reg}", flush=True)
+    for kernel, least in SASS_KERNELS.items():
+        found = [c[:2] for fn, c in counts.items() if kernel in fn]
+        if len(found) < least or not all(h and t for h, t in found):
+            fail(f"{kernel}'s SASS lacks wgmma or TMA instructions: {found}")
 
 
 def _kernel_name(mangled):
@@ -1862,6 +1888,10 @@ def main():
             kernel = _kernel_name(line.split("'")[1])
         elif "registers" in line or "spill" in line:
             print(f"  {kernel}: {line.strip()}", flush=True)
+        elif "Performance Loss" in line:  # a note that names its kernel
+            named = re.search(r"function '([^']+)'", line)
+            print(f"  {_kernel_name(named.group(1)) if named else kernel}: {line.strip()}",
+                  flush=True)
     print(f"  built {os.path.relpath(path, ROOT)}", flush=True)
     sass_check(path)
 

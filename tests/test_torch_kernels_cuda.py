@@ -701,13 +701,23 @@ class TestFlashAttention:
     # the gradients) differ here and there by an ulp. 2 bf16 ulps of each
     # output's largest magnitude.
     TOL = 2 * 2.0 ** -7
+    # Every length the wrapper takes in this range: ragged and whole 64-row
+    # tiles, one key, the 128 and 512 boundaries, the old 512-key cap.
+    LENGTHS = (1, 37, 64, 65, 128, 261, 499, 512, 999, 1000, 1024, 2048)
 
     @staticmethod
-    def _inputs(dev, b, n, mask_kind, seed):
-        """(B, H, N, 64) views of (B, N, H, 64) tensors, as the encoders
-        pass them, dO, and a key mask (None, masked keys, or also one row
-        whose keys are all masked)."""
-        q, k, v, do = (_randn((b, n, 12, 64), dev, seed + i).transpose(1, 2) for i in range(4))
+    def _inputs(dev, b, n, mask_kind, seed, layout="bnhd", h=12):
+        """(B, H, N, 64) views as the encoders pass them: of (B, N, H, 64)
+        tensors ("bnhd"), or q, k, v sliced out of one fused (B, N, 3, H,
+        64) qkv tensor ("qkv": row stride 3 H 64); dO, and a key mask (None,
+        masked keys in row 0, or also row -1 with every key masked)."""
+        if layout == "qkv":
+            qkv = _randn((b, n, 3, h, 64), dev, seed)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            do = _randn((b, n, h, 64), dev, seed + 3).transpose(1, 2)
+        else:
+            q, k, v, do = (_randn((b, n, h, 64), dev, seed + i).transpose(1, 2)
+                           for i in range(4))
         mask = None
         if mask_kind != "none":
             mask = torch.ones((b, n), device=dev)
@@ -716,11 +726,7 @@ class TestFlashAttention:
                 mask[-1] = 0.0
         return q, k, v, do, mask
 
-    @pytest.mark.parametrize("b,n,mask_kind", [
-        (4, 261, "none"), (2, 499, "none"), (4, 128, "all"), (2, 37, "keys"), (2, 1000, "all"),
-        (1, 1024, "none"),
-    ])
-    def test_fwd_bwd(self, dev, b, n, mask_kind):
+    def _check(self, dev, b, n, mask_kind, layout, h):
         from triad_tpu_torch.ops.flash_attention import (
             flash_attention_bwd,
             flash_attention_fwd,
@@ -728,7 +734,7 @@ class TestFlashAttention:
             flash_fwd_plain,
         )
 
-        q, k, v, do, mask = self._inputs(dev, b, n, mask_kind, 70)
+        q, k, v, do, mask = self._inputs(dev, b, n, mask_kind, 70, layout, h=h)
         o, l, m = flash_attention_fwd(q, k, v, mask, 0.125)
         torch.cuda.synchronize()
         o_ref, l_ref, m_ref = flash_fwd_plain(q, k, v, mask, 0.125)
@@ -742,6 +748,37 @@ class TestFlashAttention:
                               flash_bwd_plain(q, k, v, mask, o, l, m, do, 0.125)):
             err, mx = _max_err(g, r)
             assert err <= self.TOL * mx, (name, err, mx)
+
+    @pytest.mark.parametrize("layout", ["bnhd", "qkv"])
+    @pytest.mark.parametrize("mask_kind", ["none", "keys", "all"])
+    @pytest.mark.parametrize("n", LENGTHS)
+    def test_fwd_bwd(self, dev, n, mask_kind, layout):
+        self._check(dev, 2, n, mask_kind, layout, 3)
+
+    # Twelve heads, as the encoders run them. The cases of 144, 192 and 384
+    # items (128-row tiles of a head) give the card's 132 persistent blocks
+    # a second item or more: the ring's stage and phase carried from one
+    # item to the next, the resident buffer's barrier parity.
+    @pytest.mark.parametrize("layout", ["bnhd", "qkv"])
+    @pytest.mark.parametrize("b,n,mask_kind", [
+        (4, 261, "none"), (2, 499, "none"), (4, 128, "all"), (2, 37, "keys"), (2, 1000, "all"),
+        (1, 1024, "none"), (2, 2048, "keys"),
+    ])
+    def test_fwd_bwd_twelve_heads(self, dev, b, n, mask_kind, layout):
+        self._check(dev, b, n, mask_kind, layout, 12)
+
+    def test_backward_is_deterministic(self, dev):
+        """No atomics: the same backward twice gives bit-equal dq, dk, dv
+        (fused-qkv views, an all-masked row, N past the old key cap)."""
+        from triad_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+        q, k, v, do, mask = self._inputs(dev, 4, 1000, "all", 75, "qkv")
+        o, l, m = flash_attention_fwd(q, k, v, mask, 0.125)
+        first = flash_attention_bwd(q, k, v, mask, o, l, m, do, 0.125)
+        second = flash_attention_bwd(q, k, v, mask, o, l, m, do, 0.125)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), first, second):
+            assert torch.equal(a, b), name
 
     def test_autograd_counts_launches(self, dev):
         from triad_tpu_torch import kernels

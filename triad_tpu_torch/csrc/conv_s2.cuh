@@ -42,13 +42,12 @@
 // accumulator registers.
 #pragma once
 
-#include <cuda.h>
-#include <dlfcn.h>
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace triad {
 namespace conv_s2 {
+
+using namespace hopper;
 
 constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4;
 constexpr int CONSUMERS = 2;                  // warpgroups of 64 output rows
@@ -74,126 +73,6 @@ struct Shape {
   int mtiles, ntiles, tiles;  // output tiles: rows, columns, all batches
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed. A wait that
-// never completes (a copy that faulted) traps after ~2^28 tries instead of
-// holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (uint32_t tries = 0;; ++tries) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries == (1u << 28)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// A K-major wgmma operand descriptor of a tile of 128-byte rows written by
-// TMA with the 128-byte swizzle (1024-byte aligned): stride between
-// 8-row groups 1024 bytes, layout SWIZZLE_128B. A k16 step within the
-// 64-element rows advances the start address by 32 bytes.
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-// d (64 x 256 fp32 of a warpgroup) (+)= A (64 x 16) . B (256 x 16)^T.
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16\n"
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
-      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
-      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, "
-      "%69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
-      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, "
-      "%102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
-        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
-        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
-        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
-        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
-        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
-        "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
-        "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
-        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
-        "+f"(d[127])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 template <class Prologue, class Epilogue>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap map_even, const __grid_constant__ CUtensorMap map_odd,
@@ -212,13 +91,13 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_even, const __grid_constant_
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMERS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbarrier_init();
   }
   __syncthreads();
 
   if (wg == CONSUMERS) {
     // Producer: one thread keeps the ring full.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    setmaxnreg_dec<40>();
     if (t == 0) {
       int stage = 0, phase = 0;
       for (int tile = blockIdx.x; tile < sh.tiles; tile += gridDim.x) {
@@ -240,7 +119,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_even, const __grid_constant_
     }
   } else {
     // Consumers: warpgroup wg owns output rows 64 wg .. 64 wg + 63 of a tile.
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    setmaxnreg_inc<232>();
     int stage = 0, phase = 0;
     float d[128];
     for (int tile = blockIdx.x; tile < sh.tiles; tile += gridDim.x) {
@@ -275,7 +154,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_even, const __grid_constant_
             for (int e = 0; e < 4; ++e) h2[e] = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
             *p = raw;
           }
-          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          fence_proxy_async();
           asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
         }
         wgmma_fence();
@@ -319,45 +198,6 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_even, const __grid_constant_
 }
 
 // ------------------------------------------------------------------ host
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up in the library the CUDA
-// runtime has already loaded (no -lcuda at link time).
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return reinterpret_cast<EncodeTiled>(lib ? dlsym(lib, "cuTensorMapEncodeTiled") : nullptr);
-  }();
-  return fn;
-}
-
-// A bf16 tensor map of rank 2 or 3 with the 128-byte swizzle; dims and
-// box innermost first, strides (bytes) of dims 1 .. rank - 1.
-inline bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                   const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled fn = encode_tiled();
-  const cuuint32_t ones[3] = {1, 1, 1};
-  return fn && fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
-                  strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-constexpr int MAX_DEVICES = 64;
-
-// The current device's SM count, read once per device and process.
-inline int sm_count(int dev) {
-  static int count[MAX_DEVICES] = {};
-  if (count[dev] == 0 &&
-      cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    count[dev] = 0;
-  return count[dev];
-}
 
 // Lets gemm_kernel<Prologue, Epilogue> take SMEM bytes of dynamic shared
 // memory: set once per device and process.

@@ -95,8 +95,8 @@ _SIGNATURES = {
     "triad_maxmean_fwd": [_VP] * 9 + [_I] * 5 + [_F, _VP],
     "triad_maxmean_dq": [_VP] * 10 + [_I] * 5 + [_F, _VP],
     "triad_maxmean_dk": [_VP] * 10 + [_I] * 5 + [_F, _VP],
-    "triad_flash_attention_fwd": [_VP] * 7 + [_LLP] + [_I] * 4 + [_F, _VP],
-    "triad_flash_attention_bwd": [_VP] * 12 + [_LLP] + [_I] * 3 + [_F, _VP],
+    "triad_flash_attention_fwd": [_VP] * 7 + [_LLP] * 2 + [_I] * 4 + [_F, _VP],
+    "triad_flash_attention_bwd": [_VP] * 12 + [_LLP] * 2 + [_I] * 3 + [_F, _VP],
 }
 
 _lock = threading.Lock()

@@ -28,10 +28,16 @@ one backward call) or raises: there is no path from one to the other. It
 takes the lengths the JAX adapter takes (a 128-padded N of at most 512, or
 a multiple of 512) and raises a ValueError elsewhere, as the reference
 fails there; the kernels themselves have no key cap.
+
+The kernels load q, k, v and dO by TMA: ``tma_plan`` gives each view's
+tensor map (dims, byte strides, box), which the C side encodes as it is.
+They walk 64-key tiles with an online softmax and round the un-normalised
+exp(S - m) to bf16; ``flash_fwd_tiled_plain`` is that order, for tests.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -48,6 +54,7 @@ from triad_tpu_torch.ops.attention import (
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # the library's DEFAULT_MASK_VALUE
 KEY_PAD = 128  # the adapter pads N to a multiple of 128 with masked keys
 BLOCK = 512  # the adapter's block: min(512, the padded N)
+TILE = 64  # rows of the kernels' tiles: the TMA box and the key tiles the forward walks
 
 
 def padded_length(n: int) -> int:
@@ -107,6 +114,32 @@ def flash_fwd_plain(q, k, v, key_mask: Optional[torch.Tensor], sm_scale: float):
     return acc.to(q.dtype), l, m
 
 
+def flash_fwd_tiled_plain(q, k, v, key_mask: Optional[torch.Tensor], sm_scale: float,
+                          tile: int = TILE):
+    """The forward kernel's own rounding order on (B, H, N, 64) tensors,
+    for tests: an online softmax over key tiles of ``tile`` keys (running
+    max m, sum l; the accumulator times exp(m - m_next) at each tile), the
+    un-normalised exp(S - m_next) rounded to v's dtype before P.V, the
+    adapter's padded keys counted in l alone, O = acc * (1 / l). Returns
+    (O in q's dtype, l, m) as flash_fwd_plain does."""
+    b, h, n, _ = q.shape
+    f32 = torch.float32
+    m = torch.full((b, h, n), float("-inf"), dtype=f32, device=q.device)
+    l = torch.zeros((b, h, n), dtype=f32, device=q.device)
+    acc = torch.zeros((b, h, n, HEAD_DIM), dtype=f32, device=q.device)
+    for j in range(0, n, tile):
+        mask = None if key_mask is None else key_mask[:, j:j + tile]
+        s = _scores(q, k[:, :, j:j + tile], mask, sm_scale)
+        m_next = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_next)
+        p = torch.exp(s - m_next[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + p.to(v.dtype).to(f32) @ v[:, :, j:j + tile].to(f32)
+        m = m_next
+    l = l + (padded_length(n) - n) * torch.exp(MASK_VALUE - m)
+    return (acc * (1.0 / l)[..., None]).to(q.dtype), l, m
+
+
 def flash_bwd_plain(q, k, v, key_mask, o, l, m, do, sm_scale: float):
     """The library backward: (dq, dk, dv) in the dtypes of q, k, v. The
     padded keys add nothing here (zero k and v; their gradients are
@@ -120,6 +153,42 @@ def flash_bwd_plain(q, k, v, key_mask, o, l, m, do, sm_scale: float):
     dk = ds.to(q.dtype).to(f32).transpose(-1, -2) @ q.to(f32)
     dq = ds.to(k.dtype).to(f32) @ k.to(f32)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def tma_plan(x: torch.Tensor):
+    """The tensor map through which the kernels load a (B, H, N, 64) bf16
+    view: (dims, byte strides, box), innermost first. dims (64, N, H, B);
+    the byte strides of rows, heads and batches (a dim of size 1 is never
+    stepped and takes the packed stride); box (64, TILE, 1, 1), 128 bytes a
+    row, the 128-byte swizzle's width. Raises where TMA cannot address the
+    view: columns not unit-strided, a base not 16-byte aligned, a stride
+    not a multiple of 16 bytes or of 2^40 bytes or more (``_addressable``
+    copies such a view first)."""
+    b, h, n, d = x.shape
+    size = x.element_size()
+    if d != HEAD_DIM or d * size != 128 or x.stride(3) != 1:
+        raise ValueError(f"tma_plan: rows of {HEAD_DIM} contiguous 2-byte elements, got "
+                         f"{tuple(x.shape)} {x.dtype} with strides {x.stride()}")
+    if x.data_ptr() % 16:
+        raise ValueError("tma_plan: the base address is not 16-byte aligned")
+    strides, packed = [], d * size
+    for dim, stride in zip((n, h, b), (x.stride(2), x.stride(1), x.stride(0))):
+        byte_stride = stride * size if dim > 1 else packed
+        if byte_stride % 16 or not 0 < byte_stride < 2 ** 40:
+            raise ValueError(f"tma_plan: a byte stride of {byte_stride} (strides {x.stride()})")
+        strides.append(byte_stride)
+        packed = byte_stride * dim
+    return (d, n, h, b), tuple(strides), (d, TILE, 1, 1)
+
+
+def _plans(*views):
+    """The C array of tma_plan per view: dims (4), byte strides (3) and the
+    box's rows, 8 longs each."""
+    flat = []
+    for x in views:
+        dims, strides, box = tma_plan(x)
+        flat += [*dims, *strides, box[1]]
+    return (ctypes.c_longlong * len(flat))(*flat)
 
 
 def _check(name, q, k, v):
@@ -144,7 +213,7 @@ def flash_attention_fwd(q, k, v, key_mask, sm_scale: float):
     lm = torch.empty((2, b, h, n), dtype=torch.float32, device=q.device)
     kernels.call("flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  mask.data_ptr(), out.data_ptr(), lm[0].data_ptr(),
-                 lm[1].data_ptr(), _strides(q, k, v, out), b, h, n, n_soft,
+                 lm[1].data_ptr(), _strides(out), _plans(q, k, v), b, h, n, n_soft,
                  float(sm_scale), kernels.stream_ptr(out))
     kernels.LAUNCHES["flash_attention"] += 1
     return out, lm[0], lm[1]
@@ -167,7 +236,7 @@ def flash_attention_bwd(q, k, v, key_mask, o, l, m, do, sm_scale: float):
     kernels.call("flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  mask.data_ptr(), o.data_ptr(), do.data_ptr(),
                  l.data_ptr(), m.data_ptr(), di.data_ptr(), *(g.data_ptr() for g in grads),
-                 _strides(q, k, v, o, do, *grads), b, h, n, float(sm_scale),
+                 _strides(o, do, *grads), _plans(q, k, v, do), b, h, n, float(sm_scale),
                  kernels.stream_ptr(do))
     kernels.LAUNCHES["flash_attention_bwd"] += 1
     return tuple(grads)

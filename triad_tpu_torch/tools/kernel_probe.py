@@ -1,8 +1,10 @@
-"""Two measurements behind PERF.md's notes on the eval attention and the
-training attention's di, on one CUDA card, from the repo root:
+"""Three measurements behind PERF.md's notes on the eval attention, the
+training attention's di and the flash kernels, on one CUDA card, from the
+repo root:
 
     python3 triad_tpu_torch/tools/kernel_probe.py eval
     python3 triad_tpu_torch/tools/kernel_probe.py di
+    python3 triad_tpu_torch/tools/kernel_probe.py flash
 
 eval  what holds the eval attention back against SDPA. (1) Waves: its
       device ms at HuBERT's (B, 499, 768) for B = 1 .. 16, beside the
@@ -28,6 +30,14 @@ di    what the precision of di = rowsum(dP * P) does to the training
       attention calls of phase 8's first joint step (B = 64, dropouts live:
       the first 4 rows of each), and those of phase 9's B = 4 step on the
       weights phase 8 trained (which also prints phase 9's cosines).
+flash what holds the flash kernels back against SDPA. (1) A B sweep at
+      (B, 12, 261, 64) and (B, 12, 1000, 64): device ms of the flash
+      forward and backward (csrc/attention_flash.cu) and of SDPA's forward
+      and autograd backward on the same inputs, beside the items (128-row
+      tiles of a head) and the waves they make on one block per SM. (2)
+      The backward's split into its three kernels (di, dK/dV, dQ): self
+      device time by kernel name under torch.profiler over 20 calls at
+      (64, 261) and (8, 1000).
 """
 
 import os
@@ -247,8 +257,52 @@ def di_probe():
     _summary("phase 9, the B = 4 step on the trained weights", cap.out)
 
 
+def flash_probe():
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from triad_tpu_torch.ops import flash_attention as FA
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def inputs(b, n):
+        return [cs.randn((b, n, 12, 64), 41 + i).transpose(1, 2) for i in range(4)]
+
+    for n, batches in ((261, (8, 16, 32, 64, 96)), (1000, (1, 2, 4, 8, 16))):
+        for b in batches:
+            q, k, v, do = inputs(b, n)
+            o, l, m = FA.flash_attention_fwd(q, k, v, None, 0.125)
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves)
+            items = b * 12 * -(-n // 128)
+            times = [cs.device_ms(fn) for fn in (
+                lambda: FA.flash_attention_fwd(q, k, v, None, 0.125),
+                lambda: FA.flash_attention_bwd(q, k, v, None, o, l, m, do, 0.125),
+                lambda: F.scaled_dot_product_attention(q, k, v),
+                lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))]
+            print(f"SWEEP (B, 12, {n}, 64) B {b:3d} items {items:5d} waves {items / sms:6.2f}: "
+                  f"flash fwd {times[0]:.4f} bwd {times[1]:.4f}, SDPA fwd {times[2]:.4f} "
+                  f"bwd {times[3]:.4f} device ms", flush=True)
+    for b, n in ((64, 261), (8, 1000)):
+        q, k, v, do = inputs(b, n)
+        o, l, m = FA.flash_attention_fwd(q, k, v, None, 0.125)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                FA.flash_attention_bwd(q, k, v, None, o, l, m, do, 0.125)
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / 20e3) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        total = sum(t for _, t in rows)
+        parts = "; ".join(f"{name[:40]} {t:.4f} ms ({100 * t / total:.1f}%)"
+                          for name, t in sorted(rows, key=lambda r: -r[1]))
+        print(f"SPLIT backward ({b}, 12, {n}, 64): {total:.4f} device ms per call: {parts}",
+              flush=True)
+
+
 def main(argv):
-    if argv not in (["eval"], ["di"]):
+    if argv not in (["eval"], ["di"], ["flash"]):
         raise SystemExit(__doc__)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
@@ -258,7 +312,7 @@ def main(argv):
     kernels.library()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    eval_probe() if argv == ["eval"] else di_probe()
+    {"eval": eval_probe, "di": di_probe, "flash": flash_probe}[argv[0]]()
 
 
 if __name__ == "__main__":

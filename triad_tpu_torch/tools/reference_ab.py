@@ -29,15 +29,25 @@ and the run goes on. Modes:
   kernels  phase 3 of this tree's chip_smoke.py on the checkout's
            kernels, only the cases of the eval attention (its four modes,
            (8, 999) and (8, 1000) included, which a tree with a key cap
-           refuses), the stride-2 conv GEMM's two callers and the training
-           attention: synchronised and device ms as phase 3 prints them;
-           run it on two trees in turns (parent, change, change, parent)
-           to compare them in one call.
+           refuses), the stride-2 conv GEMM's two callers, the training
+           attention and the flash forward and backward (the fused-qkv
+           case included): synchronised and device ms as phase 3 prints
+           them, and a digest of each output; run it on two trees in
+           turns (parent, change, change, parent) to compare them in one
+           call;
+  flash    the flash forward and backward cases of ``kernels`` alone,
+           after the flash kernels' ptxas registers and spills and their
+           SASS counts (HGMMA, UTMALDG, highest register) in the
+           checkout's build: for trees that differ in the flash kernels;
+  tv_flash phase 14 of the checkout's chip_smoke.py (the text-visual step
+           with the ViT on "flash", B = 64): ms per step and the
+           torch.profiler split of one more step (its top rows).
 """
 
 import hashlib
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 import time
@@ -117,30 +127,58 @@ def attention(cs):
         print(f"  attention_train (8, 1000, 768, p={cs.P_DROP}) raises: {e}", flush=True)
 
 
-# The kernels PR 8 redesigned and the training attention, by the names
-# chip_smoke.py's phase 3 gives their cases.
+# The redesigned kernels (eval attention, conv GEMM, flash) and the
+# training attention, by the names chip_smoke.py's phase 3 gives their
+# cases.
 AB_KERNELS = ("attention_eval", "attention_eval_merged", "attention_eval_pair",
               "attention_eval_merged_pair", "frontend_conv", "fused_frontend_conv",
               "attention_train", "attention_train_bwd", "attention_train_strided",
               "attention_train_strided_bwd", "attention_train_merged",
-              "attention_train_merged_bwd")
+              "attention_train_merged_bwd", "flash_attention", "flash_attention_bwd")
+FLASH_KERNELS = ("flash_attention", "flash_attention_bwd")
 
 
-def kernel_times():
-    """Phase 3 (kernel_phase) of THIS tree's chip_smoke.py, run on the
-    checkout's kernels (its triad_tpu_torch is the one already imported),
-    restricted to the cases of AB_KERNELS: the same inputs, twins and
-    tolerances for every checkout, one case table. A case whose kernel
-    raises (a tree with a key cap) is printed as such."""
+def _here_chip_smoke():
     here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "chip_smoke.py")
     spec = importlib.util.spec_from_file_location("_chip_smoke_here", here)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     cs.fail = lambda msg: print("WOULD FAIL: " + msg, flush=True)
+    return cs
+
+
+def flash_build(path):
+    """The flash kernels' lines of the checkout's ptxas report and their
+    SASS counts, as THIS tree's chip_smoke.py phase 2 prints them."""
+    from triad_tpu_torch import kernels
+
+    cs = _here_chip_smoke()
+    kernel = ""
+    for line in kernels.build_log.splitlines():
+        named = re.search(r"function '([^']+)'", line)
+        if "Compiling entry function" in line:
+            kernel = cs._kernel_name(line.split("'")[1])
+        elif named and "flash" in named.group(1):
+            print(f"  {cs._kernel_name(named.group(1))}: {line.strip()}", flush=True)
+        elif kernel.startswith("flash") and ("registers" in line or "spill" in line):
+            print(f"  {kernel}: {line.strip()}", flush=True)
+    cs.SASS_KERNELS = {k: v for k, v in cs.SASS_KERNELS.items() if k.startswith("flash")}
+    cs.sass_check(path)
+
+
+def kernel_times(names=AB_KERNELS):
+    """Phase 3 (kernel_phase) of THIS tree's chip_smoke.py, run on the
+    checkout's kernels (its triad_tpu_torch is the one already imported),
+    restricted to the cases of names: the same inputs, twins and
+    tolerances for every checkout, one case table, and a digest of each
+    case's kernel output (bit-equal outputs across trees read the same). A
+    case whose kernel raises (a tree with a key cap) is printed as such."""
+    import torch
+    cs = _here_chip_smoke()
     compare = cs.compare
 
     def only(results, name, shape, *args, **kwargs):
-        if name not in AB_KERNELS:
+        if name not in names:
             return
         try:
             compare(results, name, shape, *args, **kwargs)
@@ -148,11 +186,30 @@ def kernel_times():
             print(f"KERNEL {name:28s} {str(shape):34s} raises: {e}", flush=True)
             return
         r = results[-1]
+        got = args[0]()
+        h = hashlib.sha256()
+        for t in [got] if isinstance(got, torch.Tensor) else got:
+            h.update(t.detach().float().cpu().numpy().tobytes())
         print(f"KERNEL {name:28s} {str(shape):34s} sync {r['ms']:.4f} device "
-              f"{r['device_ms']:.4f} ms", flush=True)
+              f"{r['device_ms']:.4f} ms digest {h.hexdigest()[:16]}", flush=True)
 
     cs.compare = only
     cs.kernel_phase()
+
+
+def tv_flash(cs):
+    """Phase 14 of the checkout's chip_smoke.py: the TV step with the ViT
+    on "flash" at B = 64 (2 warm-up and 3 timed steps, then a profiled
+    one, whose top kernel rows train_phase prints)."""
+    import dataclasses
+
+    from triad_tpu_torch.config import perf_train_model_config
+
+    cfg = perf_train_model_config()
+    cfg = dataclasses.replace(cfg, vit=dataclasses.replace(cfg.vit, attention_impl="flash"))
+    _, launches, ms = cs.train_phase(cfg, cs.FLASH_TV_KERNELS, "tv_flash_profile.txt")
+    print(f"TV_FLASH step {ms:.3f} ms; flash launches {launches['flash_attention']} + "
+          f"{launches['flash_attention_bwd']}", flush=True)
 
 
 def one(root, mode):
@@ -167,7 +224,7 @@ def one(root, mode):
     torch.backends.cudnn.allow_tf32 = False
     from triad_tpu_torch import kernels
 
-    kernels.build()
+    path = kernels.build()
     kernels.library()
     print(f"=== {mode} in {root}", flush=True)
     t0 = time.time()
@@ -177,6 +234,11 @@ def one(root, mode):
         attention(cs)
     elif mode == "kernels":
         kernel_times()
+    elif mode == "flash":
+        flash_build(path)
+        kernel_times(FLASH_KERNELS)
+    elif mode == "tv_flash":
+        tv_flash(cs)
     elif mode.partition("@")[0] == "joint":
         seed = int(mode.partition("@")[2] or 1)
         new_state = cs._new_state
