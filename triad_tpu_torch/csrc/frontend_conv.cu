@@ -37,7 +37,15 @@
 // window that reads the row (1.5 times at k = 3). That is ~30 fp32
 // operations (an erff) per staged element on the CUDA cores beside the
 // 256 products per element on the tensor cores. The activation pass reads
-// and writes each element once and is bound by those bytes.
+// and writes each element once and is bound by those bytes, with ~25 fp32
+// operations per element (the erff) not far below them: a block takes one
+// batch row (blockIdx.y) and 16 of its rows (at 512 channels), each
+// thread a fixed 16-byte slot of 8 channels whose norm coefficients it
+// loads once into registers, and 4 rows of it whose loads (non-allocating)
+// are all in flight before any math; stores evict first. Mode is a
+// template argument, so "gelu" keeps no coefficients.
+#include <climits>
+
 #include "common.cuh"
 #include "conv_s2.cuh"
 
@@ -106,34 +114,60 @@ struct StoreEpilogue {
   __device__ bf16 operator()(float v) const { return __float2bfloat16(v); }
 };
 
-// Eight channels (16 bytes) per thread and step; c % 8 == 0, so the eight
-// share one batch row.
-__global__ void __launch_bounds__(256)
-frontend_act_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, long long n8,
-                    long long per_batch, int c, int mode, const float* __restrict__ mean,
-                    const float* __restrict__ rstd, const float* __restrict__ scale,
-                    const float* __restrict__ bias) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n8;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long e0 = i * 8;
-    const long long b = e0 / per_batch;
-    const int ch0 = (int)(e0 % c);
-    const uint4 raw = reinterpret_cast<const uint4*>(x)[i];
-    const bf16* v = reinterpret_cast<const bf16*>(&raw);
-    __align__(16) bf16 out[8];
+constexpr int ACT_THREADS = 256;
+constexpr int ACT_UNROLL = 4;  // rows a thread has in flight
+
+__device__ __forceinline__ uint4 load_no_allocate(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void store_evict_first(void* p, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// Two bf16 (low half first) -> activated -> two bf16, each rounded once
+// to nearest (one cvt.rn.bf16x2 for the pair).
+template <int MODE>
+__device__ __forceinline__ uint32_t act2(uint32_t w, const InputPrologue::Coef& k, int q) {
+  const float lo = __uint_as_float(w << 16), hi = __uint_as_float(w & 0xffff0000u);
+  __nv_bfloat162 r =
+      __floats2bfloat162_rn(activate(lo, MODE, k.mu[q], k.rs[q], k.sc[q], k.bi[q]),
+                            activate(hi, MODE, k.mu[q + 1], k.rs[q + 1], k.sc[q + 1], k.bi[q + 1]));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// Block (bx, by) of batch row blockIdx.y: thread x takes 16-byte slots x,
+// x + bx, .. of a row (8 channels each; c % 8 == 0), thread y rows r0 + y,
+// r0 + y + by, .. of the block's by * ACT_UNROLL rows from r0.
+template <int MODE>
+__global__ void __launch_bounds__(ACT_THREADS)
+frontend_act_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int t, int c,
+                    InputPrologue prologue) {
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * blockDim.y * ACT_UNROLL + threadIdx.y;
+  const long long row0 = (long long)b * t;
+  for (int slot = threadIdx.x; slot < c / 8; slot += blockDim.x) {
+    const InputPrologue::Coef k = prologue.coef(b, slot * 8);
+    uint4 v[ACT_UNROLL];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int ch = ch0 + q;
-      float mu = 0.0f, rs = 1.0f, sc = 1.0f, bi = 0.0f;
-      if (mode == kNormGelu) {
-        mu = mean[b * c + ch];
-        rs = rstd[b * c + ch];
-        sc = scale[ch];
-        bi = bias[ch];
-      }
-      out[q] = __float2bfloat16(activate(__bfloat162float(v[q]), mode, mu, rs, sc, bi));
+    for (int u = 0; u < ACT_UNROLL; ++u) {
+      const int r = r0 + u * blockDim.y;
+      if (r < t) v[u] = load_no_allocate(x + (row0 + r) * c + slot * 8);
     }
-    reinterpret_cast<uint4*>(y)[i] = *reinterpret_cast<const uint4*>(out);
+#pragma unroll
+    for (int u = 0; u < ACT_UNROLL; ++u) {
+      const int r = r0 + u * blockDim.y;
+      if (r < t)
+        store_evict_first(y + (row0 + r) * c + slot * 8,
+                          make_uint4(act2<MODE>(v[u].x, k, 0), act2<MODE>(v[u].y, k, 2),
+                                     act2<MODE>(v[u].z, k, 4), act2<MODE>(v[u].w, k, 6)));
+    }
   }
 }
 
@@ -158,18 +192,28 @@ extern "C" int triad_frontend_conv_fused(const void* x, long long x_bs, int cin,
                                 tout, ktaps, prologue, StoreEpilogue{}, (cudaStream_t)stream);
 }
 
-// x, y: (B, t, c) bf16 contiguous, c a multiple of 8; mode, mean, rstd,
-// scale, bias as above.
+// x, y: (B, t, c) bf16 contiguous and 16-byte aligned, c a multiple of 8;
+// mode 1 / 2 = "gelu" / "norm_gelu"; mean, rstd, scale, bias as above
+// (16-byte aligned).
 extern "C" int triad_frontend_act(const void* x, void* y, int b, long long t, int c, int mode,
                                   const void* mean, const void* rstd, const void* scale,
                                   const void* bias, void* stream) {
-  if (b <= 0 || t <= 0 || c <= 0 || c % 8 || mode < kNone || mode > kNormGelu)
+  if (b <= 0 || b > 65535 || t <= 0 || t > INT_MAX || c <= 0 || c % 8 ||
+      (mode != kGelu && mode != kNormGelu))
     return (int)cudaErrorInvalidValue;
-  const long long n8 = (long long)b * t * c / 8;
-  const long long blocks = (n8 + 255) / 256;
-  frontend_act_kernel<<<(unsigned)(blocks < 132 * 32 ? blocks : 132 * 32), 256, 0,
-                        (cudaStream_t)stream>>>((const bf16*)x, (bf16*)y, n8, t * c, c, mode,
-                                                (const float*)mean, (const float*)rstd,
-                                                (const float*)scale, (const float*)bias);
+  const int slots = c / 8;
+  const int bx = slots < ACT_THREADS ? slots : ACT_THREADS, by = ACT_THREADS / bx;
+  const int rows = by * ACT_UNROLL;  // rows a block covers
+  const long long tiles = (t + rows - 1) / rows;
+  if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  const InputPrologue prologue{mode, c, (const float*)mean, (const float*)rstd,
+                               (const float*)scale, (const float*)bias};
+  const dim3 grid((unsigned)tiles, b), block(bx, by);
+  if (mode == kGelu)
+    frontend_act_kernel<kGelu><<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const bf16*)x, (bf16*)y, (int)t, c, prologue);
+  else
+    frontend_act_kernel<kNormGelu><<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const bf16*)x, (bf16*)y, (int)t, c, prologue);
   return (int)cudaGetLastError();
 }

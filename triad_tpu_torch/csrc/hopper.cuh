@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels, shared
-// by the stride-2 conv GEMM (conv_s2.cuh) and the flash attention
-// (attention_flash.cu): mbarriers, TMA copies into shared memory
+// by the stride-2 conv GEMM (conv_s2.cuh), the flash attention
+// (attention_flash.cu) and the positional conv's dW (posconv.cu):
+// mbarriers, TMA copies into shared memory
 // (cp.async.bulk.tensor, 128-byte swizzle), wgmma shared-memory
 // descriptors and products with their fence / commit / wait, and the
 // host-side tensor-map encoder (libcuda's
@@ -241,14 +242,16 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of rank 2 to 5 with the 128-byte swizzle; dims and
-// box innermost first, strides (bytes) of dims 1 .. rank - 1.
+// A bf16 tensor map of rank 2 to 5, by default with the 128-byte swizzle;
+// dims and box innermost first, strides (bytes) of dims 1 .. rank - 1.
+// Elements outside the dims read as zeros.
 inline bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                   const cuuint64_t* strides, const cuuint32_t* box) {
+                   const cuuint64_t* strides, const cuuint32_t* box,
+                   CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   return fn && fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
-                  strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -142,6 +142,8 @@ def frontend_activation_fwd(x, mean, rstd, scale, bias, act: str) -> torch.Tenso
     if c % 8:
         raise ValueError(f"frontend_activation kernel: C {c} not a multiple of 8")
     x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel moves 16-byte vectors
+        x = x.clone()
     stats = [_flat_stats(s, b * c, x.device) for s in (mean, rstd)]
     affine = [_flat_stats(s, c, x.device) for s in (scale, bias)]
     y = torch.empty_like(x)

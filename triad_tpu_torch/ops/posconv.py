@@ -133,11 +133,12 @@ def pos_conv_dw(x, dz, groups: int, k: int):
                          f"per group and K % 8 == 0, got {tuple(x.shape)} / {tuple(dz.shape)}, "
                          f"groups {groups}, K {k}")
     x, dz = x.contiguous(), dz.contiguous()
-    dw = torch.empty((groups, k, KERNEL_CPG, KERNEL_CPG), dtype=torch.float32, device=x.device)
+    x, dz = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, dz))  # TMA bases
+    dw = torch.empty((c, KERNEL_CPG, k), dtype=torch.float32, device=x.device)
     kernels.call("posconv_dw", x.data_ptr(), dz.data_ptr(), dw.data_ptr(), b, n, c, k,
                  _left(k, False), kernels.stream_ptr(dw))
     kernels.LAUNCHES["posconv_dw"] += 1
-    return dw.permute(0, 2, 3, 1).reshape(c, KERNEL_CPG, k)  # [g][k][o][i] -> (C, CPG, K)
+    return dw
 
 
 class PosConvGelu(torch.autograd.Function):

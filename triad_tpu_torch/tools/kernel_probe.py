@@ -1,10 +1,12 @@
-"""Three measurements behind PERF.md's notes on the eval attention, the
-training attention's di and the flash kernels, on one CUDA card, from the
-repo root:
+"""Five measurements behind PERF.md's notes on the eval attention, the
+training attention's di, the flash kernels, the positional conv's dW and
+the frontend activation, on one CUDA card, from the repo root:
 
     python3 triad_tpu_torch/tools/kernel_probe.py eval
     python3 triad_tpu_torch/tools/kernel_probe.py di
     python3 triad_tpu_torch/tools/kernel_probe.py flash
+    python3 triad_tpu_torch/tools/kernel_probe.py posconv_dw
+    python3 triad_tpu_torch/tools/kernel_probe.py activation
 
 eval  what holds the eval attention back against SDPA. (1) Waves: its
       device ms at HuBERT's (B, 499, 768) for B = 1 .. 16, beside the
@@ -38,13 +40,34 @@ flash what holds the flash kernels back against SDPA. (1) A B sweep at
       The backward's split into its three kernels (di, dK/dV, dQ): self
       device time by kernel name under torch.profiler over 20 calls at
       (64, 261) and (8, 1000).
+posconv_dw  what holds the positional conv's dW kernel back against
+      torch.nn.grad.conv1d_weight. (1) A B sweep at (B, 499, 768), K = 128,
+      16 groups of 48: device ms of the kernel and of conv1d_weight on the
+      same inputs, and the kernel's TFLOP/s. (2) The share of its time
+      that is copying: an edited copy of csrc/posconv.cu (built on its own
+      into _build/probe/) whose dW kernel stages its first row tiles only
+      and runs every later tile's products on them (EDITS below names the
+      lines edited); its device ms beside the kernel's at each B. (3) The
+      SM clock and power draw (nvidia-smi) while the kernel and the edited
+      copy run. (4) VARIANTS, copies of the kernel with other constants
+      (stages, rows per tile), timed beside it at (64, 499, 768) and held
+      bit-equal to it.
+activation  the frontend activation against the card's copy rate: device
+      ms of "gelu" and "norm_gelu" (csrc/frontend_conv.cu) at (8, T, 512)
+      for the frontend's row counts T, beside F.gelu and a plain
+      y.copy_(x) on the same input, and each one's rate in GB/s (the
+      input read once and the output written once); then ACT_VARIANTS,
+      copies of the kernel with other constants (rows in flight), timed
+      beside it at (8, 31999, 512) and held bit-equal to it.
 """
 
+import ctypes
 import os
 import re
 import statistics
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -301,8 +324,206 @@ def flash_probe():
               flush=True)
 
 
+# The edit that stops the dW kernel's copies after its first row tiles,
+# for each form of csrc/posconv.cu's dW kernel: the (what, by what)
+# replacements, and the condition under which the edited kernel still
+# copies or waits for a copy, which the edited source defines as
+# PROBE_STAGE.
+EDITS = (
+    # the TMA ring: the prologue fills the 4 slots once, no slot is refilled
+    # and no later tile waits for one
+    ((("hp::mbar_wait(&full[s], parity);", "if (PROBE_STAGE) hp::mbar_wait(&full[s], parity);"),
+      ("if (tid == 0 && it + DW_STAGES < ntiles) {",
+       "if (tid == 0 && it + DW_STAGES < ntiles && PROBE_STAGE) {")),
+     "(it < DW_STAGES)"),
+    # the earlier WMMA kernel's 16-byte synchronous copies between two
+    # barriers per 64-row tile: only the first tile is copied
+    ((("triad::copy16(", "if (PROBE_STAGE) triad::copy16("),), "(b == 0 && t0 == 0)"),
+)
+
+
+# Variants of the dW kernel built from csrc/posconv.cu by replacing its
+# constants: (name, replacements). Each sums every row in the kernel's
+# order, so its dW is bit-equal to the kernel's.
+_STAGES = "constexpr int DW_STAGES = 6;"
+VARIANTS = (
+    ("as built", ()),
+    ("64-row tiles", (("constexpr int DW_ROWS = 128;", "constexpr int DW_ROWS = 64;"),)),
+    ("4 stages", ((_STAGES, "constexpr int DW_STAGES = 4;"),)),
+)
+
+
+def _edited_libs(source, entry, argtypes, variants):
+    """Copies of csrc/<source>, each with its (what, by what) replacements
+    and a line of defines first, built alone and at once into
+    _build/probe/; returns each one's ctypes entry point, by name.
+    variants: (name, replacements, defines)."""
+    from triad_tpu_torch import kernels
+
+    base = (kernels.CSRC / source).read_text()
+    out = kernels.BUILD_DIR / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    procs = {}
+    for name, pairs, define in variants:
+        src = base
+        for old, new in pairs:
+            if old not in src:
+                raise SystemExit(f"kernel_probe: {old!r} is not in csrc/{source}")
+            src = src.replace(old, new)
+        stem = re.sub(r"\W+", "_", f"{source}_{name}")
+        (out / f"{stem}.cu").write_text(define + src)
+        procs[name] = (out / f"lib{stem}.so", subprocess.Popen(
+            [kernels._nvcc(), *flags, "-I", str(kernels.CSRC), "-shared", "-o",
+             str(out / f"lib{stem}.so"), str(out / f"{stem}.cu")]))
+    fns = {}
+    for name, (lib, proc) in procs.items():
+        if proc.wait() != 0:
+            raise SystemExit(f"kernel_probe: the {name!r} copy of csrc/{source} did not build")
+        fn = getattr(ctypes.CDLL(str(lib)), entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+_DW_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ACT_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+             + [ctypes.c_void_p] * 5)
+
+
+def _nocopy_variant():
+    """The dW kernel with its copies cut after the first tiles (EDITS), as
+    a variant of _edited_libs."""
+    from triad_tpu_torch import kernels
+
+    src = (kernels.CSRC / "posconv.cu").read_text()
+    for pairs, first in EDITS:
+        if all(old in src for old, _ in pairs):
+            return ("without copies", pairs, f"#define PROBE_STAGE {first}\n")
+    raise SystemExit("kernel_probe: no edit of EDITS matches csrc/posconv.cu")
+
+
+def _under_load(fn, seconds=1.5):
+    """nvidia-smi's SM clock and power draw while fn runs back to back for
+    about ``seconds`` (the calls queued first, the query made while the
+    card works through them)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    for _ in range(max(1, int(seconds * 1e3 / max(start.elapsed_time(end), 1e-3)))):
+        fn()
+    time.sleep(0.5)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    torch.cuda.synchronize()
+    return smi
+
+
+def posconv_dw_probe():
+    import torch.nn.functional as F
+
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.ops import posconv as P
+
+    def launcher(fn, x, dz, dw, b):
+        def run():
+            err = fn(x.data_ptr(), dz.data_ptr(), dw.data_ptr(), b, 499, 768, 128, 64,
+                     kernels.stream_ptr(dw))
+            if err:
+                raise RuntimeError(f"edited posconv_dw: cudaError_t {err}")
+        return run
+
+    libs = _edited_libs("posconv.cu", "triad_posconv_dw", _DW_ARGS,
+                        [_nocopy_variant()] + [(name, pairs, "") for name, pairs in VARIANTS])
+    nocopy = libs["without copies"]
+    for b in (8, 16, 32, 64, 96):
+        x, dz = cs.randn((b, 499, 768), 43), cs.randn((b, 499, 768), 44)
+        xt = x.transpose(1, 2).contiguous()
+        gout = F.pad(dz.transpose(1, 2), (0, 1)).contiguous()
+        dw = torch.empty((768, 48, 128), dtype=torch.float32, device="cuda")
+        flops = 2 * b * 499 * 768 * 128 * 48
+        kern = cs.device_ms(lambda: P.pos_conv_dw(x, dz, 16, 128))
+        lib = cs.device_ms(lambda: torch.nn.grad.conv1d_weight(xt, (768, 48, 128), gout,
+                                                               padding=64, groups=16))
+        cut = cs.device_ms(launcher(nocopy, x, dz, dw, b))
+        print(f"DW (B, 499, 768) B {b:3d}: kernel {kern:.4f} ({flops / kern / 1e9:.1f} TFLOP/s) "
+              f"conv1d_weight {lib:.4f} ({lib / kern:.3f}x the kernel's speed) device ms; "
+              f"without copies after the first tiles {cut:.4f} ms ({100 * cut / kern:.1f}% of the "
+              f"kernel's time)", flush=True)
+    b = 64
+    x, dz = cs.randn((b, 499, 768), 43), cs.randn((b, 499, 768), 44)
+    dw = torch.empty((768, 48, 128), dtype=torch.float32, device="cuda")
+    want = P.pos_conv_dw(x, dz, 16, 128)
+    print(f"LOAD (64, 499, 768): kernel under load: clocks.sm, power.draw "
+          f"{_under_load(lambda: P.pos_conv_dw(x, dz, 16, 128))}; without copies "
+          f"{_under_load(launcher(nocopy, x, dz, dw, b))}", flush=True)
+    for name, _ in VARIANTS:
+        run = launcher(libs[name], x, dz, dw, b)
+        run()
+        got = dw
+        print(f"VARIANT (64, 499, 768) {name}: {cs.device_ms(run):.4f} device ms (kernel "
+              f"{cs.device_ms(lambda: P.pos_conv_dw(x, dz, 16, 128)):.4f}); bit-equal to the "
+              f"kernel: {torch.equal(got, want)}", flush=True)
+
+
+# Variants of the activation kernel built from csrc/frontend_conv.cu by
+# replacing its constants: (name, replacements). Each computes every
+# element as the kernel does, so its output is bit-equal to the kernel's.
+ACT_VARIANTS = (
+    ("as built", ()),
+    ("8 rows in flight", (("constexpr int ACT_UNROLL = 4;", "constexpr int ACT_UNROLL = 8;"),)),
+    ("2 rows in flight", (("constexpr int ACT_UNROLL = 4;", "constexpr int ACT_UNROLL = 2;"),)),
+)
+
+
+def activation_probe():
+    import torch.nn.functional as F
+
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.ops import frontend_conv as FC
+
+    b, c = 8, 512
+    stats = (cs.randn((b, 1, c), 55, 0.3, torch.float32),
+             cs.randn((b, 1, c), 56, 0.2, torch.float32).abs() + 0.5,
+             cs.randn((c,), 57, 0.3, torch.float32) + 1.0, cs.randn((c,), 58, 0.1, torch.float32))
+    for t in (999, 1999, 3999, 7999, 15999, 31999):
+        x = cs.randn((b, t, c), 61)
+        y = torch.empty_like(x)
+        gb = 2 * x.numel() * x.element_size() / 1e6  # read once, written once: GB per ms
+        times = [cs.device_ms(fn) for fn in (
+            lambda: FC.frontend_activation_fwd(x, *stats, "gelu"),
+            lambda: FC.frontend_activation_fwd(x, *stats, "norm_gelu"),
+            lambda: F.gelu(x), lambda: y.copy_(x))]
+        print(f"ACT (8, {t}, 512): " + "; ".join(
+            f"{name} {ms:.4f} device ms ({gb / ms:.0f} GB/s)"
+            for name, ms in zip(("gelu", "norm_gelu", "F.gelu", "copy"), times)), flush=True)
+    libs = _edited_libs("frontend_conv.cu", "triad_frontend_act", _ACT_ARGS,
+                        [(name, pairs, "") for name, pairs in ACT_VARIANTS])
+    x = cs.randn((b, 31999, c), 61)
+    y = torch.empty_like(x)
+    flat = [s.reshape(-1).contiguous() for s in stats]
+    for name, _ in ACT_VARIANTS:
+        for mode, act in ((1, "gelu"), (2, "norm_gelu")):
+            def run(fn=libs[name], mode=mode):
+                err = fn(x.data_ptr(), y.data_ptr(), b, 31999, c, mode,
+                         *(s.data_ptr() for s in flat), kernels.stream_ptr(y))
+                if err:
+                    raise RuntimeError(f"edited frontend_act: cudaError_t {err}")
+            run()
+            same = torch.equal(y, FC.frontend_activation_fwd(x, *stats, act))
+            kern = cs.device_ms(lambda: FC.frontend_activation_fwd(x, *stats, act))
+            print(f"ACT VARIANT (8, 31999, 512) {act} {name}: {cs.device_ms(run):.4f} device ms "
+                  f"(kernel {kern:.4f}, F.gelu {cs.device_ms(lambda: F.gelu(x)):.4f}); bit-equal "
+                  f"to the kernel: {same}", flush=True)
+
+
 def main(argv):
-    if argv not in (["eval"], ["di"], ["flash"]):
+    if argv not in (["eval"], ["di"], ["flash"], ["posconv_dw"], ["activation"]):
         raise SystemExit(__doc__)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
@@ -312,7 +533,8 @@ def main(argv):
     kernels.library()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    {"eval": eval_probe, "di": di_probe, "flash": flash_probe}[argv[0]]()
+    {"eval": eval_probe, "di": di_probe, "flash": flash_probe, "posconv_dw": posconv_dw_probe,
+     "activation": activation_probe}[argv[0]]()
 
 
 if __name__ == "__main__":

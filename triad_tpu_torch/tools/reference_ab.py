@@ -30,11 +30,12 @@ and the run goes on. Modes:
            kernels, only the cases of the eval attention (its four modes,
            (8, 999) and (8, 1000) included, which a tree with a key cap
            refuses), the stride-2 conv GEMM's two callers, the training
-           attention and the flash forward and backward (the fused-qkv
-           case included): synchronised and device ms as phase 3 prints
-           them, and a digest of each output; run it on two trees in
-           turns (parent, change, change, parent) to compare them in one
-           call;
+           attention, the flash forward and backward (the fused-qkv
+           case included), the positional conv (forward, dX, dW) and the
+           frontend activation: synchronised and device ms as phase 3
+           prints them, and a digest of each output; run it on two trees
+           in turns (parent, change, change, parent) to compare them in
+           one call;
   flash    the flash forward and backward cases of ``kernels`` alone,
            after the flash kernels' ptxas registers and spills and their
            SASS counts (HGMMA, UTMALDG, highest register) in the
@@ -127,14 +128,16 @@ def attention(cs):
         print(f"  attention_train (8, 1000, 768, p={cs.P_DROP}) raises: {e}", flush=True)
 
 
-# The redesigned kernels (eval attention, conv GEMM, flash) and the
-# training attention, by the names chip_smoke.py's phase 3 gives their
-# cases.
+# The redesigned kernels (eval attention, conv GEMM, flash, posconv dW,
+# the frontend activation), the training attention and the posconv
+# forward and dX (which share posconv.cu with dW), by the names
+# chip_smoke.py's phase 3 gives their cases.
 AB_KERNELS = ("attention_eval", "attention_eval_merged", "attention_eval_pair",
               "attention_eval_merged_pair", "frontend_conv", "fused_frontend_conv",
               "attention_train", "attention_train_bwd", "attention_train_strided",
               "attention_train_strided_bwd", "attention_train_merged",
-              "attention_train_merged_bwd", "flash_attention", "flash_attention_bwd")
+              "attention_train_merged_bwd", "flash_attention", "flash_attention_bwd",
+              "posconv", "posconv_dx", "posconv_dw", "frontend_activation")
 FLASH_KERNELS = ("flash_attention", "flash_attention_bwd")
 
 
