@@ -13,13 +13,15 @@ mqkv + vitmq + loss=pallas set for a few steps each, and runs the
 Phases (any failure exits nonzero before the last line):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. nvcc build of the kernels (one nvcc per source, in parallel), each
-     kernel's registers and spills, and the SASS of the stride-2 conv GEMM
-     and of the flash forward, dK/dV and dQ kernels holding wgmma (HGMMA)
-     and TMA (UTMALDG) instructions;
+     kernel's registers and spills, and the SASS of the stride-2 conv GEMM,
+     of the fused MLP's GEMMs and of the flash forward, dK/dV and dQ
+     kernels holding wgmma (HGMMA) and TMA (UTMALDG) instructions;
   3. each kernel vs its plain twin on the card in bf16: max abs error
      against a stated bound, median time of the kernel, of the twin and
      of one PyTorch library call computing the same function where there
-     is one (CUDA events, one call from an idle card), the kernel's and
+     is one (CUDA events, one call from an idle card; beside the fused
+     MLP, which no one call computes, the cuBLAS composition at p = 0,
+     printed as "composition"), the kernel's and
      the library call's device time per call (CUDA events around calls
      queued behind a sleep kernel, so the wrapper's host work is left out),
      the wrapper's host time per call (host clock
@@ -249,31 +251,38 @@ def max_err(got, ref):
 
 
 def compare(results, name, shape, kernel_fn, plain_fn, tol_rel, bound, library_fn=None,
-            main=False):
+            main=False, composition_fn=None):
     """Kernel vs plain twin: error against tol_rel of the largest output,
-    times of kernel, twin and library call, and the bound (from cost)."""
+    times of kernel, twin and library call, and the bound (from cost).
+    composition_fn, where no one call computes the function: a chain of
+    library calls timed beside it as a yardstick, printed and kept apart
+    from the library call."""
     got = kernel_fn()
     torch.cuda.synchronize()
     ref = plain_fn()
     err, mx = max_err(got, ref)
     tol = tol_rel * mx
-    fns = [kernel_fn, plain_fn] + ([library_fn] if library_fn is not None else [])
-    ms, plain_ms, *lib = time_fns(fns)
-    library_ms = lib[0] if lib else None
+    extra = [fn for fn in (library_fn, composition_fn) if fn is not None]
+    ms, plain_ms, *others = time_fns([kernel_fn, plain_fn] + extra)
+    library_ms = others.pop(0) if library_fn is not None else None
+    comp_ms = others.pop(0) if composition_fn is not None else None
     host_ms = host_time(kernel_fn)
     dev_ms = device_ms(kernel_fn, ms, host_ms)
     lib_dev_ms = None if library_fn is None else device_ms(library_fn, library_ms)
+    comp_dev_ms = None if composition_fn is None else device_ms(composition_fn, comp_ms)
     bound_ms, bound_by = bound
     ok = err <= tol
     lib_txt = "-" if library_ms is None else f"{library_ms:.4f} (device {lib_dev_ms:.4f})"
+    comp_txt = "" if comp_ms is None else f"composition {comp_ms:.4f} (device {comp_dev_ms:.4f}) "
     print(f"  {name:20s} {str(shape):32s} err {err:.4g} (tol {tol:.4g}) kernel {ms:.4f} "
           f"(device {dev_ms:.4f}, host {host_ms:.4f}) plain {plain_ms:.4f} library {lib_txt} "
-          f"bound {bound_ms:.4f} ({bound_by}) ms  {'ok' if ok else 'FAIL'}", flush=True)
+          f"{comp_txt}bound {bound_ms:.4f} ({bound_by}) ms  {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail(f"{name} at {shape} disagrees with its plain version")
     results.append({"name": name, "shape": list(shape), "max_abs_err": err, "tol": tol,
                     "ms": ms, "device_ms": dev_ms, "host_ms": host_ms, "plain_ms": plain_ms,
                     "library_ms": library_ms, "library_device_ms": lib_dev_ms,
+                    "composition_ms": comp_ms, "composition_device_ms": comp_dev_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by, "main": main})
 
 
@@ -573,6 +582,33 @@ def maxmean_real_case(res, MM, bq, bk, nq, nk, d, clamp_min):
             lambda: MM.maxmean_dk_plain(*args), 1e-4, cost(2 * ops, bwd_in + bk * nk * d * 4))
 
 
+def mlp_fwd_composition(x, w1, b1, w2, b2, form):
+    """The forward as cuBLAS and PyTorch compose it at p = 0, bf16
+    throughout: addmm, F.gelu, addmm (three calls, h and g through device
+    memory in bf16). A yardstick, not one library call."""
+    import torch.nn.functional as F
+
+    x2, approx = x.reshape(-1, x.shape[-1]), "tanh" if form == "tanh" else "none"
+    return lambda: torch.addmm(b2, F.gelu(torch.addmm(b1, x2, w1.t()), approximate=approx),
+                               w2.t())
+
+
+def mlp_bwd_composition(x, w1, b1, w2, dy, form):
+    """The backward (dx, dh, g) as a composition at p = 0, bf16
+    throughout: h = addmm, g = F.gelu(h), dg = dy W2, dh = gelu_backward(dg,
+    h), dx = dh W1: the three products and GELU' of the fused kernels."""
+    import torch.nn.functional as F
+
+    x2, dy2 = x.reshape(-1, x.shape[-1]), dy.reshape(-1, dy.shape[-1])
+    approx = "tanh" if form == "tanh" else "none"
+
+    def run():
+        h = torch.addmm(b1, x2, w1.t())
+        dh = torch.ops.aten.gelu_backward(dy2 @ w2, h, approximate=approx)
+        return dh @ w1, dh, F.gelu(h, approximate=approx)
+    return run
+
+
 def mlp_bwd_case(res, M, w, b, n, seed, form, p, main=False):
     w1, b1, w2, _ = w
     x, dy = randn((b, n, 768), seed), randn((b, n, 768), seed + 1)
@@ -581,7 +617,7 @@ def mlp_bwd_case(res, M, w, b, n, seed, form, p, main=False):
             lambda: M.fused_mlp_bwd(x, w1, b1, w2, dy, form, 77, p),
             lambda: M.fused_mlp_bwd_plain(x, w1, b1, w2, dy, form, 77, p), 2 * BF16_ULP,
             cost(6 * m * 768 * 3072, (3 * m * 768 + 2 * m * 3072 + 2 * 768 * 3072) * 2),
-            None, main)
+            None, main, mlp_bwd_composition(x, w1, b1, w2, dy, form))
 
 
 def mlp_fwd_cost(m):
@@ -615,7 +651,9 @@ def kernel_phase():
             2 * BF16_ULP, cost(4 * B * 12 * 261 ** 2 * 64, B * 261 * (2304 + 768) * 2),
             lambda: _sdpa(*qkv.split(768, dim=-1)))
     # fused MLP at both token counts and both GELU forms; 2 ulps. No one
-    # library call computes fc1 + GELU + fc2.
+    # library call computes fc1 + GELU + fc2: the composition addmm +
+    # F.gelu + addmm is timed beside it (at p = 0 also beside the p = 0.1
+    # cases, which it does not compute: their mask is left out).
     w1 = randn((3072, 768), 6, 768 ** -0.5)
     b1 = randn((3072,), 7, 0.1)
     w2 = randn((768, 3072), 8, 3072 ** -0.5)
@@ -626,7 +664,8 @@ def kernel_phase():
             compare(res, "fused_mlp", (B, n, 768, form),
                     lambda: M.fused_mlp(x, w1, b1, w2, b2, form),
                     lambda: M.fused_mlp_plain(x, w1, b1, w2, b2, form), 2 * BF16_ULP,
-                    mlp_fwd_cost(B * n))
+                    mlp_fwd_cost(B * n),
+                    composition_fn=mlp_fwd_composition(x, w1, b1, w2, b2, form))
     # frontend at (B, 160000): stats (fp32 sums in another order, 1e-4
     # of the largest variance), conv_0 and the stride-2 conv (2 ulps).
     # conv_0 runs on fp32 cores (peak 67 TFLOP/s).
@@ -696,7 +735,8 @@ def kernel_phase():
         compare(res, "fused_mlp", (b, 499, 768, "tanh", f"p={P_DROP}"),
                 lambda: M.fused_mlp(x, w1, b1, w2, b2, "tanh", 77, P_DROP),
                 lambda: M.fused_mlp_plain(x, w1, b1, w2, b2, "tanh", 77, P_DROP),
-                2 * BF16_ULP, mlp_fwd_cost(b * 499), None, main)
+                2 * BF16_ULP, mlp_fwd_cost(b * 499), None, main,
+                mlp_fwd_composition(x, w1, b1, w2, b2, "tanh"))
         mlp_bwd_case(res, M, wmlp, b, 499, 26, "tanh", P_DROP, main)
     # dropout + add + LayerNorm, fp32 stats: y, dx and dh round once to
     # bf16 (2 ulps); dscale and dbias are fp32 sums over the rows in
@@ -1814,7 +1854,8 @@ def _kernel_entry(name, results, launches_by_path):
     cases = [r for r in results if r["name"] == name]
     head = next((r for r in cases if r["main"]), cases[0])
     keys = ("shape", "max_abs_err", "tol", "ms", "device_ms", "host_ms", "plain_ms", "library_ms",
-            "library_device_ms", "bound_ms", "bound_by")
+            "library_device_ms", "composition_ms", "composition_device_ms", "bound_ms",
+            "bound_by")
     return {
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": sum(counts[name] for counts in launches_by_path.values()),
@@ -1827,13 +1868,14 @@ def _kernel_entry(name, results, launches_by_path):
 # The kernels whose machine code must hold warpgroup products (HGMMA, from
 # wgmma.mma_async) on tiles brought in by TMA (UTMALDG, from
 # cp.async.bulk.tensor), and how many instantiations each has at least.
-SASS_KERNELS = {"gemm_kernel": 2, "flash_fwd_kernel": 1, "flash_dkv_kernel": 1,
-                "flash_dq_kernel": 1}
+SASS_KERNELS = {"gemm_kernel": 2, "mlp_gemm_kernel": 7, "flash_fwd_kernel": 1,
+                "flash_dkv_kernel": 1, "flash_dq_kernel": 1}
 
 
 def sass_check(path):
     """The Hopper kernels' machine code: every instantiation of
-    conv_s2.cuh's gemm_kernel and the flash forward, dK/dV and dQ kernels
+    conv_s2.cuh's gemm_kernel, of fused_mlp.cu's mlp_gemm_kernel and the
+    flash forward, dK/dV and dQ kernels
     must hold HGMMA and UTMALDG instructions. Counts them per kernel in
     cuobjdump's disassembly of the built library, beside the highest
     register the kernel's code names (past ptxas's launch count where a

@@ -74,20 +74,74 @@ class TestMlp:
     # flipped rounding moves y by ~1 ulp of one term. 2 bf16 ulps of max.
     TOL = 2 * 2.0 ** -7
 
-    @pytest.mark.parametrize("m", [8 * 499, 8 * 261, 45])
+    @staticmethod
+    def _weights(dev, dout=768):
+        return (_randn((3072, 768), dev, 6, 768 ** -0.5), _randn((3072,), dev, 7, 0.1),
+                _randn((dout, 3072), dev, 8, 3072 ** -0.5), _randn((dout,), dev, 9, 0.1))
+
+    # 1 row to 64 x 499: one tile, a tile and one row either side of 128,
+    # serving's 8 x 128 and 8 x 261, and the train steps' largest M.
+    @pytest.mark.parametrize("m", [8 * 499, 8 * 261, 45, 1, 127, 129, 8 * 128, 64 * 499])
     @pytest.mark.parametrize("form", ["tanh", "erf"])
     def test_matches_plain(self, dev, m, form):
         from triad_tpu_torch.ops.mlp import fused_mlp, fused_mlp_plain
 
         x = _randn((m, 768), dev, 5)
-        w1 = _randn((3072, 768), dev, 6, 768 ** -0.5)
-        b1 = _randn((3072,), dev, 7, 0.1)
-        w2 = _randn((768, 3072), dev, 8, 3072 ** -0.5)
-        b2 = _randn((768,), dev, 9, 0.1)
+        w1, b1, w2, b2 = self._weights(dev)
         got = fused_mlp(x, w1, b1, w2, b2, form)
         torch.cuda.synchronize()
         err, mx = _max_err(got, fused_mlp_plain(x, w1, b1, w2, b2, form))
         assert err <= self.TOL * mx, (err, mx)
+
+    @pytest.mark.parametrize("dout", [256, 512, 1024])
+    @pytest.mark.parametrize("m", [129, 8 * 261])
+    def test_other_widths(self, dev, dout, m):
+        from triad_tpu_torch.ops.mlp import fused_mlp, fused_mlp_plain
+
+        x = _randn((m, 768), dev, 10)
+        w1, b1, w2, b2 = self._weights(dev, dout)
+        got = fused_mlp(x, w1, b1, w2, b2, "tanh", 3, 0.1)
+        torch.cuda.synchronize()
+        err, mx = _max_err(got, fused_mlp_plain(x, w1, b1, w2, b2, "tanh", 3, 0.1))
+        assert err <= self.TOL * mx, (err, mx)
+
+    @pytest.mark.parametrize("m", [1, 8 * 261, 64 * 499])
+    def test_repeats_bit_for_bit(self, dev, m):
+        """No atomics and no split of K: two calls on the same inputs give
+        the same bits, forward and backward."""
+        from triad_tpu_torch.ops.mlp import fused_mlp, fused_mlp_bwd
+
+        x, dy = _randn((m, 768), dev, 11), _randn((m, 768), dev, 12)
+        w1, b1, w2, b2 = self._weights(dev)
+        assert torch.equal(fused_mlp(x, w1, b1, w2, b2, "tanh", 9, 0.1),
+                           fused_mlp(x, w1, b1, w2, b2, "tanh", 9, 0.1))
+        for a, b in zip(fused_mlp_bwd(x, w1, b1, w2, dy, "erf", 9, 0.1),
+                        fused_mlp_bwd(x, w1, b1, w2, dy, "erf", 9, 0.1)):
+            assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("p", [0.0, 0.1])
+    def test_autograd_weight_grads(self, dev, p):
+        """FusedMlp on the card: both kernels launch once, dx matches the
+        twin's, and dW1 = dh^T x, dW2 = dy^T g (bf16 tensor cores) lie
+        within 2 bf16 ulps of the largest magnitude of the product of the
+        fp32 upcasts of the same dh, g; db1, db2 fp32 sums, the same."""
+        from triad_tpu_torch import kernels
+        from triad_tpu_torch.ops import mlp as M
+
+        x, dy = _randn((8, 261, 768), dev, 13), _randn((8, 261, 768), dev, 14)
+        leaves = [t.clone().requires_grad_() for t in (x, *self._weights(dev))]
+        kernels.reset_launches()
+        M.FusedMlp.apply(*leaves, "tanh", 21, p).backward(dy)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["fused_mlp"] == 1 and kernels.LAUNCHES["fused_mlp_bwd"] == 1
+        w1, b1, w2 = (leaf.detach() for leaf in leaves[1:4])
+        dx, dh, g = M.fused_mlp_bwd(x, w1, b1, w2, dy, "tanh", 21, p)
+        f32 = torch.float32
+        dh2, g2, x2, dy2 = (t.reshape(-1, t.shape[-1]).to(f32) for t in (dh, g, x, dy))
+        refs = (dx, dh2.t() @ x2, dh2.sum(0), dy2.t() @ g2, dy2.sum(0))
+        for name, leaf, ref in zip(("dx", "dW1", "db1", "dW2", "db2"), leaves, refs):
+            err, mx = _max_err(leaf.grad, ref)
+            assert err <= self.TOL * mx, (name, err, mx)
 
 
 def _frontend_weights(dev):
@@ -216,7 +270,7 @@ class TestMlpBwd:
     # products. 2 bf16 ulps of each output's largest magnitude.
     TOL = 2 * 2.0 ** -7
 
-    @pytest.mark.parametrize("m", [8 * 261, 45])
+    @pytest.mark.parametrize("m", [8 * 261, 45, 1, 127, 129, 64 * 499])
     @pytest.mark.parametrize("form", ["tanh", "erf"])
     def test_matches_plain(self, dev, m, form):
         from triad_tpu_torch.ops.mlp import fused_mlp_bwd, fused_mlp_bwd_plain
@@ -264,7 +318,7 @@ class TestMlpDropout:
     # ulps of each output's largest magnitude.
     TOL = 2 * 2.0 ** -7
 
-    @pytest.mark.parametrize("m", [8 * 499, 45])
+    @pytest.mark.parametrize("m", [8 * 499, 45, 1, 127, 129, 64 * 499])
     @pytest.mark.parametrize("form", ["tanh", "erf"])
     def test_fwd_bwd(self, dev, m, form):
         from triad_tpu_torch.ops import mlp as M

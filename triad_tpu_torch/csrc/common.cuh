@@ -31,15 +31,21 @@ __device__ __forceinline__ float gelu(float x, int tanh_form) {
   return tanh_form ? gelu_tanh(x) : gelu_erf(x);
 }
 
-// d gelu / dx in fp32 (pallas_mlp.py:_gelu_tanh_grad and _gelu_grad).
-__device__ __forceinline__ float gelu_grad(float x, int tanh_form) {
-  if (tanh_form) {
+// GELU (tanh or erf form) of x and d gelu / dx at x, in fp32, their
+// shared transcendental taken once (pallas_mlp.py:_gelu_tanh /
+// _gelu_tanh_grad and _gelu_exact / _gelu_grad).
+template <bool TANH>
+__device__ __forceinline__ void gelu_and_grad(float x, float* g, float* grad) {
+  if constexpr (TANH) {
     const float t = tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x));
     const float du = 0.7978845608028654f * (1.0f + 3.0f * 0.044715f * x * x);
-    return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * du;
+    *g = 0.5f * x * (1.0f + t);
+    *grad = 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * du;
+  } else {
+    const float cdf = 0.5f * (1.0f + erff(x * 0.7071067811865476f));
+    *g = x * cdf;
+    *grad = cdf + x * expf(-0.5f * x * x) * 0.3989422804014327f;
   }
-  const float cdf = 0.5f * (1.0f + erff(x * 0.7071067811865476f));
-  return cdf + x * expf(-0.5f * x * x) * 0.3989422804014327f;
 }
 
 // v = hi + lo with both halves bf16: two bf16 products against an exact

@@ -1,448 +1,517 @@
-// Fused transformer MLP forward: y = dropout(gelu(x W1^T + b1)) W2^T + b2,
-// bf16 in and out, fp32 accumulation; its backward (dx, dh, g) follows
-// further down.
+// Fused transformer MLP on Hopper, forward and backward: y =
+// dropout(gelu(x W1^T + b1)) W2^T + b2, bf16 in and out, fp32 sums.
 //
-// Replaces triad_tpu/ops/pallas_mlp.py:fused_mlp's forward (_fwd :174,
-// body _fwd_kernel :88). Activation dropout (p > 0): the keep bit of
-// (row b * N + t, hidden unit c) is triad::keep4 under key (seed, 0), so
-// the backward replays it whatever its tiling; a kept GELU output is
-// multiplied by 1 / (1 - p) in fp32 before the bf16 rounding, a dropped
-// one is 0. The GELU pass keeps one element per thread, so every thread
-// draws the four words of its unit's group of four and keeps its own
-// (four times the draws, none of the threads idle). The TPU kernel holds a whole
-// (T, 3072) hidden tile in ~100 MB of VMEM; a Hopper SM has 227 KB of
-// shared memory, so this kernel walks the hidden dimension in 16-wide
-// chunks instead: for each chunk it computes h = x W1[chunk]^T + b1 with
-// fp32 accumulation, applies GELU (tanh or erf form) in fp32, rounds to
-// bf16 (the TPU kernel's g.astype(w2.dtype)) and accumulates g W2[:,
-// chunk]^T into a BM x Dout fp32 tile held in registers (WMMA
-// fragments). The hidden activation never reaches device memory.
+// Replaces triad_tpu/ops/pallas_mlp.py:_fwd (:174, pallas_call :180, body
+// _fwd_kernel :88) and _bwd_call (:197, pallas_call :204, body _bwd_kernel
+// :114). Weights take torch's Linear layout: w1 (Dh, Din), w2 (Dout, Dh).
 //
-// Weights use torch's Linear layout: w1 (Dh, Din), w2 (Dout, Dh).
+// What bounds it on the card: operations. At HuBERT's training shape
+// (64 x 499 = 31936 rows, 768 -> 3072 -> 768) the forward is two products
+// of 150.7 GFLOP, 0.30 ms at the 989 TFLOP/s bf16 peak, and the backward
+// three, 0.46 ms, against 0.03-0.05 ms for the bytes of the function.
 //
-// What bounds it on the card: every BM-row block streams all of W1 and
-// W2 (9.4 MB bf16 at 768/3072) from L2 through shared memory, about 32
-// FLOP per byte at BM = 32, so L2 bandwidth, not the tensor cores, sets
-// the ceiling. The chunks arrive through a two-stage cp.async ring, so
-// the next chunk's weights load while the current one computes. BM is 32
-// unless 16-row blocks fit in one wave over the SMs (ViT's 8 x 261
-// rows), which trades weight re-reads for occupancy. Larger row tiles need
-// more accumulator registers than WMMA leaves (the 768-wide fp32 row
-// tile); wgmma with TMA is the next step.
-#include "common.cuh"
-
-using namespace nvcuda;
+// The TPU kernel keeps a whole (T, 3072) hidden tile in ~100 MB of VMEM,
+// so h and g never leave the core. A Hopper SM holds 227 KB: a 128-row
+// block cannot keep its 128 x 768 fp32 output beside its hidden band, and
+// walking Dh in narrow chunks (the WMMA kernels this file held before) makes
+// every row block re-stream all of W1 and W2 from L2 (~32 FLOP a byte,
+// L2-bound at 47-61 TFLOP/s). So each product is a GEMM of its own, and the
+// hidden activation g goes through device memory in bf16, the rounding the
+// TPU kernel applies before its second product anyway (the values are
+// the same): 2 x 31936 x 3072 x 2 bytes, ~0.12 ms at 3.35 TB/s.
+//
+// mlp_gemm_kernel is conv_s2.cuh's design on plain row-major operands:
+//   - persistent: one block per SM walks BM x BN output tiles (tile t,
+//     t + grid, ...; the column tiles of a BM-row band are neighbours, so
+//     the band is read from device memory once). BN is 256, 128 or 64
+//     (at most 128 for the GELU and dual epilogues), picked per call as
+//     the widest whose grid still fills the SMs (pick_bn);
+//   - warp-specialised: one thread of a producer warpgroup keeps a ring of
+//     64-deep slices (A BM x 64 and B BN x 64; 3 to 8 stages, as many as
+//     the staged outputs leave room for) filled by TMA copies (128-byte
+//     swizzle, zero fill past the last row and column), signalling a
+//     "full" mbarrier per stage; two consumer warpgroups (three in GEMM 1;
+//     64 of the BM rows each, BN / 2 fp32 accumulators a thread) run
+//     m64nBNk16 wgmma from shared memory and release a stage on its
+//     "empty" mbarrier once the products that read it retired, one wgmma
+//     group in flight; no block barrier after the start;
+//   - the epilogue maps the accumulator registers to bf16 values in a
+//     staged copy of the warpgroup's 64 x BN output in shared memory
+//     (TMA's swizzled layout), which one thread stores by TMA while the
+//     warpgroup goes on to its next tile. Stored from the registers
+//     straight to device memory (4 bytes a thread, 8 rows a warp), a plain
+//     epilogue (bias and rounding only) cost the forward 0.24 ms on an
+//     H100 80GB HBM3 at 700 W; staged, 0.04.
+// Each output element is one accumulator of one thread summed in K order:
+// no atomics and no split of K, so calls repeat bit for bit.
+//
+// What holds it back (the same card, (64 x 499, 768), tanh, p = 0.1;
+// tools/kernel_probe.py fused_mlp; two consumer warpgroups in GEMM 1): the
+// products alone took 0.43 ms of the forward's 0.72 and 0.69 of the
+// backward's 1.00. The rest is the epilogues' arithmetic (GELU, GELU', the
+// Philox rounds), which the consumer warpgroups run between tiles, with
+// the tensor cores idle, bound by its latency.
+//
+// Forward: GEMM 1 g = bf16(dropout(gelu(x W1^T + b1))) into a transient
+// (M, Dh) buffer the wrapper allocates; GEMM 2 y = bf16(g W2^T + b2). The
+// forward saves neither g nor h: the backward recomputes them, as the JAX
+// VJP does.
+// Backward: kernel 1 is a dual-accumulator GEMM over (M, Dh) tiles: h = x
+// W1^T (K = Din) into one accumulator, then dg = dy W2 (K = Dout) into a
+// second, so h and dg meet in registers (an h written in bf16 would add a
+// rounding the TPU kernel does not have); its epilogue replays the keep
+// mask and writes dh = bf16(keep dg gelu'(h)) and the dropped g, both for
+// the weight gradients. Kernel 2: dx = dh W1, GEMM 2's code with no bias.
+// dy W2 and dh W1 contract over the weights' rows, so the wrapper passes
+// W2^T and W1^T (one transpose each a call, 0.04 ms together at 768 x
+// 3072 on that card) and every operand is K-major.
+//
+// Activation dropout: the keep bit of (row, hidden unit c) is
+// triad::keep4(seed, 0, row, c / 4) word c % 4, a kept value times
+// 1 / (1 - p) in fp32, whatever the tiling. A thread's accumulator holds
+// column pairs (c, c + 1) at rows r and r + 8; lanes 2i and 2i + 1 hold the
+// two halves of one group of four columns. The even lane draws the group
+// at row r, the odd lane at row r + 8, and one shuffle swaps the halves:
+// one Philox draw per four elements.
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int HC = 16;        // hidden chunk
-constexpr int THREADS = 256;  // 8 warps
-constexpr int LDW2 = HC + 8;
-constexpr int LDH = HC + 4;
-constexpr int LDG = HC + 8;
-constexpr int MAX_SMEM = 232448;
+using namespace triad::hopper;
+using triad::bf16;
 
+constexpr int BK = 64;
+constexpr int PRODUCER_REGS = 40;
+constexpr int SMEM_MAX = 232448;                // a block's dynamic shared memory
+constexpr int BOX = 64;                         // staged output boxes: 64 x 64 bf16
+constexpr int BOX_BYTES = BOX * BOX * 2;
+
+// What a tile's fp32 sums become.
+enum Epilogue {
+  EPI_GELU = 0,    // forward GEMM 1: g = bf16(dropout(gelu(acc + b1)))
+  EPI_LINEAR = 1,  // forward GEMM 2 (acc + b2) and backward dx (acc): bf16
+  EPI_DGELU = 2,   // backward kernel 1: dh = bf16(keep dg gelu'(h)) and g
+};
+
+// Consumer warpgroups (64 output rows each) of GEMM 1's blocks: three, so
+// 192-row tiles. Its epilogue's GELU and Philox arithmetic is bound by its
+// latency, and a third warpgroup adds warps to hide it (the forward 0.72
+// -> 0.65 ms at 64 x 499 rows on an H100 80GB HBM3, kernel_probe.py
+// fused_mlp). The other kernels hold 128 accumulators a thread (BN 256, or
+// the dual kernel's two), more than the 152 registers a thread that four
+// warpgroups leave.
+constexpr int GELU_CONSUMERS = 3;
+
+// A block of MODE: its consumer warpgroups, their BM rows, its threads (+
+// the producer warpgroup) and the registers a consumer thread takes after
+// setmaxnreg (what the block's 65536 leave beside the producer's 40).
+template <int MODE>
+struct Block {
+  static constexpr int CONSUMERS = MODE == EPI_GELU ? GELU_CONSUMERS : 2;
+  static constexpr int BM = 64 * CONSUMERS;
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);
+  static constexpr int CONSUMER_REGS = CONSUMERS == 2 ? 232 : 152;
+};
+
+// Shared memory: the ring of A and B slices, then each consumer
+// warpgroup's staged outputs (64 x BN bf16 per output), then the ring's
+// mbarriers; as many stages (at most 8) as the rest leaves room for.
+template <int BN, int MODE>
 struct Layout {
-  size_t x, stage, w2_in_stage, stage_bytes, h, g, total;
+  static constexpr int OUTS = MODE == EPI_DGELU ? 2 : 1;
+  static constexpr int A_BYTES = Block<MODE>::BM * BK * 2, B_BYTES = BN * BK * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int STAGED_BYTES = 64 * BN * 2;  // one output of one warpgroup
+  static constexpr int EPI_BYTES = Block<MODE>::CONSUMERS * OUTS * STAGED_BYTES;
+  static constexpr int FIT = (SMEM_MAX - 1024 - EPI_BYTES) / (STAGE_BYTES + 16);
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;  // BN 256: 3; 128: 4-6; 64: 6-8
+  static constexpr int RING = STAGES * STAGE_BYTES;
+  static constexpr size_t SMEM = (size_t)RING + EPI_BYTES + 2 * STAGES * 8 + 1024;
 };
 
-__host__ __device__ inline size_t up128(size_t v) { return (v + 127) / 128 * 128; }
+struct Params {
+  const bf16* bias;  // (n), or null for none (EPI_LINEAR)
+  int m, n;
+  int kb0, kb1;  // 64-deep slices of the first product and (EPI_DGELU) the second
+  int ntiles, tiles;
+  int tanh_form;
+  triad::Dropout dp;
+};
 
-template <int BM>
-__host__ __device__ inline Layout layout(int din, int dout) {
-  constexpr int KS = 8 / (BM / 16);  // K splits of GEMM 1 (one h fragment per warp)
-  Layout L;
-  const size_t ldx = din + 8;
-  L.x = 0;
-  L.stage = up128(BM * ldx * 2);
-  L.w2_in_stage = up128(HC * ldx * 2);
-  L.stage_bytes = up128(L.w2_in_stage + (size_t)dout * LDW2 * 2);
-  size_t region = 2 * L.stage_bytes;
-  const size_t yb = (size_t)BM * (dout + 4) * 4;  // epilogue reuses the ring
-  if (yb > region) region = yb;
-  L.h = L.stage + up128(region);
-  L.g = L.h + up128((size_t)KS * BM * LDH * 4);
-  L.total = L.g + up128(BM * LDG * 2);
-  return L;
+template <int BN>
+__device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da, uint64_t db, int acc) {
+  if constexpr (BN == 256)
+    wgmma_m64n256k16(d, da, db, acc);
+  else if constexpr (BN == 128)
+    wgmma_m64n128k16(d, da, db, acc);
+  else
+    wgmma_m64n64k16(d, da, db, acc);
 }
 
-template <int BM, int DOUT>
-__global__ void __launch_bounds__(THREADS)
-fused_mlp_kernel(const triad::bf16* __restrict__ x, const triad::bf16* __restrict__ w1,
-                 const triad::bf16* __restrict__ b1, const triad::bf16* __restrict__ w2,
-                 const triad::bf16* __restrict__ b2, triad::bf16* __restrict__ y, int m,
-                 int din, int dh, int tanh_form, triad::Dropout dp) {
-  using triad::bf16;
-  constexpr int WR = BM / 16;       // warp rows in GEMM 2
-  constexpr int WC = 8 / WR;        // warp columns in GEMM 2
-  constexpr int NF = DOUT / 16 / WC;  // output fragments per warp
-  constexpr int KS = 8 / WR;        // GEMM 1: WR h fragments x KS K-splits
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = layout<BM>(din, DOUT);
-  const int ldx = din + 8;
-  bf16* sX = reinterpret_cast<bf16*>(smem + L.x);
-  float* sY = reinterpret_cast<float*>(smem + L.stage);
-  float* sH = reinterpret_cast<float*>(smem + L.h);
-  bf16* sG = reinterpret_cast<bf16*>(smem + L.g);
-  auto sW1 = [&](int s) { return reinterpret_cast<bf16*>(smem + L.stage + s * L.stage_bytes); };
-  auto sW2 = [&](int s) {
-    return reinterpret_cast<bf16*>(smem + L.stage + s * L.stage_bytes + L.w2_in_stage);
-  };
+// The keep words of a thread's elements (row, c), (row, c + 1), (row + 8,
+// c), (row + 8, c + 1), c even: the pair of lanes draws the two rows' groups
+// of four and swaps halves. Every lane of the warp must call it.
+__device__ __forceinline__ void keep_words(const triad::Dropout& dp, int row, int c, int lane,
+                                           uint32_t (&w)[4]) {
+  const bool odd = lane & 1;
+  const triad::Keep4 kb =
+      triad::keep4(dp.seed, 0u, (uint32_t)(row + (odd ? 8 : 0)), (uint32_t)c >> 2);
+  const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? kb.w[0] : kb.w[2], 1);
+  const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? kb.w[1] : kb.w[3], 1);
+  w[0] = odd ? r0 : kb.w[0];
+  w[1] = odd ? r1 : kb.w[1];
+  w[2] = odd ? kb.w[2] : r0;
+  w[3] = odd ? kb.w[3] : r1;
+}
 
-  const int m0 = blockIdx.x * BM;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int vx = din / 8;
+// Puts bf16(a), bf16(b) at (r, c), (r, c + 1) of a warpgroup's staged 64 x
+// BN output: 64-column boxes of 64 rows of 128 bytes in TMA's 128-byte
+// swizzle (the 16-byte chunk of column c in row r is chunk c / 8 ^ r % 8),
+// so a warp's stores of one column block hit every bank once.
+__device__ __forceinline__ void stage_pair(unsigned char* staged, int r, int c, float a, float b) {
+  const int cb = c & (BOX - 1);
+  *reinterpret_cast<__nv_bfloat162*>(staged + (c / BOX) * BOX_BYTES + r * 128 +
+                                     ((cb >> 3) ^ (r & 7)) * 16 + (cb & 7) * 2) =
+      __floats2bfloat162_rn(a, b);
+}
 
-  auto load_chunk = [&](int s, int c0) {
-    bf16* d1 = sW1(s);
-    for (int i = tid; i < HC * vx; i += THREADS) {
-      const int r = i / vx, c = (i % vx) * 8;
-      triad::cp_async16(d1 + r * ldx + c, w1 + (long long)(c0 + r) * din + c, true);
+// Element (j, e) of a thread's accumulator is row r = 16 (t / 32) + (t %
+// 32) / 4 + 8 (e / 2) of the warpgroup's 64, column 8 j + 2 (t % 4) + e % 2
+// of the tile. TANH: the GELU form, fixed per instantiation so a loop holds
+// one form's code. Writes the warpgroup's staged outputs (staged[1]: g,
+// EPI_DGELU).
+template <int BN, int MODE, bool TANH, int N1>
+__device__ __forceinline__ void epilogue(const float (&d0)[BN / 2], const float (&d1)[N1],
+                                         const Params& p, unsigned char* const (&staged)[2],
+                                         int m0, int n0, int t) {
+  const int lane = t & 31, r = (t >> 5) * 16 + (lane >> 2);
+  const int row = m0 + r;  // of the output: the keep mask's row
+  const bool drop = MODE != EPI_LINEAR && p.dp.active;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * (lane & 3);
+    uint32_t kw[4] = {0u, 0u, 0u, 0u};
+    if (drop) keep_words(p.dp, row, n0 + c, lane, kw);
+    float v[4] = {d0[4 * j], d0[4 * j + 1], d0[4 * j + 2], d0[4 * j + 3]};
+    if (p.bias != nullptr && n0 + c < p.n) {
+      const float2 b =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.bias + n0 + c));
+      v[0] += b.x;
+      v[1] += b.y;
+      v[2] += b.x;
+      v[3] += b.y;
     }
-    bf16* d2 = sW2(s);
-    for (int i = tid; i < DOUT * (HC / 8); i += THREADS) {
-      const int r = i / (HC / 8), c = (i % (HC / 8)) * 8;
-      triad::cp_async16(d2 + r * LDW2 + c, w2 + (long long)r * dh + c0 + c, true);
-    }
-  };
-
-  for (int i = tid; i < BM * vx; i += THREADS) {
-    const int r = i / vx, c = (i % vx) * 8;
-    const bool ok = m0 + r < m;
-    triad::cp_async16(sX + r * ldx + c, ok ? x + (long long)(m0 + r) * din + c : x, ok);
-  }
-  load_chunk(0, 0);
-  triad::cp_async_commit();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-  for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[f], 0.0f);
-
-  const int hr = warp % WR, split = warp / WR;  // GEMM 1 role
-  const int k_len = din / KS, k_lo = split * k_len;
-  const int wr = warp / WC, wc = warp % WC;     // GEMM 2 role
-
-  const int nchunks = dh / HC;
-  for (int ci = 0; ci < nchunks; ++ci) {
-    const int s = ci & 1, c0 = ci * HC;
-    triad::cp_async_wait<0>();
-    __syncthreads();  // chunk ci landed; chunk ci-1 fully consumed
-    if (ci + 1 < nchunks) {
-      load_chunk(s ^ 1, c0 + HC);
-      triad::cp_async_commit();
-    }
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc;
-      wmma::fill_fragment(hacc, 0.0f);
-      const bf16* w1s = sW1(s);
-      for (int kk = k_lo; kk < k_lo + k_len; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
-        wmma::load_matrix_sync(a, sX + hr * 16 * ldx + kk, ldx);
-        wmma::load_matrix_sync(bw, w1s + kk, ldx);
-        wmma::mma_sync(hacc, a, bw, hacc);
+    if constexpr (MODE == EPI_GELU) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = TANH ? triad::gelu_tanh(v[e]) : triad::gelu_erf(v[e]);
+        if (drop) v[e] = kw[e] >= p.dp.thresh ? v[e] * p.dp.scale : 0.0f;
       }
-      wmma::store_matrix_sync(sH + (split * BM + hr * 16) * LDH, hacc, LDH,
-                              wmma::mem_row_major);
     }
-    __syncthreads();
-    for (int i = tid; i < BM * HC; i += THREADS) {
-      const int r = i / HC, c = i % HC;
-      float h = __bfloat162float(b1[c0 + c]);
-      for (int k = 0; k < KS; ++k) h += sH[(k * BM + r) * LDH + c];
-      float g = triad::gelu(h, tanh_form);
-      if (dp.active) {
-        const triad::Keep4 kb =
-            triad::keep4(dp.seed, 0u, (uint32_t)(m0 + r), (uint32_t)(c0 + c) >> 2);
-        g = triad::keep_word(kb, c0 + c) >= dp.thresh ? g * dp.scale : 0.0f;
+    if constexpr (MODE == EPI_DGELU) {
+      float g[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float dg = d1[4 * j + e], grad;
+        triad::gelu_and_grad<TANH>(v[e], &g[e], &grad);
+        if (drop) {
+          const bool keep = kw[e] >= p.dp.thresh;
+          g[e] = keep ? g[e] * p.dp.scale : 0.0f;
+          dg = keep ? dg * p.dp.scale : 0.0f;
+        }
+        v[e] = dg * grad;
       }
-      sG[r * LDG + c] = __float2bfloat16(g);
+      stage_pair(staged[1], r, c, g[0], g[1]);
+      stage_pair(staged[1], r + 8, c, g[2], g[3]);
     }
-    __syncthreads();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ga;
-    wmma::load_matrix_sync(ga, sG + wr * 16 * LDG, LDG);
-    const bf16* w2s = sW2(s);
-    for (int f = 0; f < NF; ++f) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
-      wmma::load_matrix_sync(bw, w2s + (wc * NF + f) * 16 * LDW2, LDW2);
-      wmma::mma_sync(acc[f], ga, bw, acc[f]);
-    }
-  }
-  __syncthreads();
-  constexpr int LDY = DOUT + 4;
-  for (int f = 0; f < NF; ++f)
-    wmma::store_matrix_sync(sY + wr * 16 * LDY + (wc * NF + f) * 16, acc[f], LDY,
-                            wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < BM * (DOUT / 2); i += THREADS) {
-    const int r = i / (DOUT / 2), c = (i % (DOUT / 2)) * 2;
-    if (m0 + r >= m) continue;
-    const float v0 = sY[r * LDY + c] + __bfloat162float(b2[c]);
-    const float v1 = sY[r * LDY + c + 1] + __bfloat162float(b2[c + 1]);
-    *reinterpret_cast<__nv_bfloat162*>(y + (long long)(m0 + r) * DOUT + c) =
-        __floats2bfloat162_rn(v0, v1);
+    stage_pair(staged[0], r, c, v[0], v[1]);
+    stage_pair(staged[0], r + 8, c, v[2], v[3]);
   }
 }
 
-template <int BM, int DOUT>
-int launch(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-           void* y, int m, int din, int dh, int tanh_form, triad::Dropout dp,
-           cudaStream_t stream) {
-  const Layout L = layout<BM>(din, DOUT);
-  if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel<BM, DOUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+// A consumer warpgroup's epilogue of a tile in the call's GELU form: once
+// its previous tile's TMA stores have read the staged outputs, it writes
+// this tile's into them and thread 0 stores them by TMA (rows and columns
+// past the output's are not written), which runs on while the warpgroup
+// starts its next tile.
+template <int BN, int MODE, int N1>
+__device__ __forceinline__ void epilogue_any(const float (&d0)[BN / 2], const float (&d1)[N1],
+                                             const Params& p, unsigned char* const (&staged)[2],
+                                             const CUtensorMap* const (&out)[2], int m0, int n0,
+                                             int wg, int t) {
+  if (t == 0) bulk_wait_read<0>();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  if (MODE == EPI_LINEAR || p.tanh_form)
+    epilogue<BN, MODE, true>(d0, d1, p, staged, m0 + wg * 64, n0, t);
+  else
+    epilogue<BN, MODE, false>(d0, d1, p, staged, m0 + wg * 64, n0, t);
+  fence_proxy_async();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  if (t == 0) {
+#pragma unroll
+    for (int o = 0; o < (MODE == EPI_DGELU ? 2 : 1); ++o)
+#pragma unroll
+      for (int b = 0; b < BN / BOX; ++b)
+        tma_store_2d(out[o], staged[o] + b * BOX_BYTES, n0 + b * BOX, m0 + wg * 64);
+    bulk_commit();
+  }
+}
+
+// out (m, n) = epilogue(A0 B0^T [, A1 B1^T]) for row-major bf16 A (m, k)
+// and B (n, k) brought in through the tensor maps map_a*, map_b* (boxes 64
+// x 128 for A, 64 x BN for B); the outputs leave through map_o0 and
+// (EPI_DGELU) map_o1 (boxes 64 x 64).
+template <int BN, int MODE>
+__global__ void __launch_bounds__(Block<MODE>::THREADS, 1)
+mlp_gemm_kernel(const __grid_constant__ CUtensorMap map_a0,
+                const __grid_constant__ CUtensorMap map_b0,
+                const __grid_constant__ CUtensorMap map_a1,
+                const __grid_constant__ CUtensorMap map_b1,
+                const __grid_constant__ CUtensorMap map_o0,
+                const __grid_constant__ CUtensorMap map_o1, const Params p) {
+  using L = Layout<BN, MODE>;
+  constexpr bool DUAL = MODE == EPI_DGELU;
+  constexpr int CONSUMERS = Block<MODE>::CONSUMERS, BM = Block<MODE>::BM;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::RING + L::EPI_BYTES);
+  uint64_t* empty = full + L::STAGES;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // Producer: one thread keeps the ring full, the tiles' slices in order.
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (t == 0) {
+      int stage = 0, phase = 0;
+      const int kblocks = p.kb0 + (DUAL ? p.kb1 : 0);
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        const int n0 = (tile % p.ntiles) * BN, m0 = (tile / p.ntiles) * BM;
+        for (int kb = 0; kb < kblocks; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* dst = smem + stage * L::STAGE_BYTES;
+          mbar_expect_tx(&full[stage], L::STAGE_BYTES);
+          const bool second = DUAL && kb >= p.kb0;
+          const int k = (second ? kb - p.kb0 : kb) * BK;
+          tma_load_2d(dst, second ? &map_a1 : &map_a0, &full[stage], k, m0);
+          tma_load_2d(dst + L::A_BYTES, second ? &map_b1 : &map_b0, &full[stage], k, n0);
+          if (++stage == L::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg owns output rows 64 wg .. 64 wg + 63 of a tile.
+    setmaxnreg_inc<Block<MODE>::CONSUMER_REGS>();
+    unsigned char* const staged[2] = {smem + L::RING + wg * L::OUTS * L::STAGED_BYTES,
+                                      smem + L::RING + (wg * L::OUTS + L::OUTS - 1) *
+                                                          L::STAGED_BYTES};
+    const CUtensorMap* const out[2] = {&map_o0, &map_o1};
+    int stage = 0, phase = 0;
+    float d0[BN / 2];
+    float d1[DUAL ? BN / 2 : 1];
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const int n0 = (tile % p.ntiles) * BN, m0 = (tile / p.ntiles) * BM;
+      int prev = -1;
+      auto products = [&](float (&d)[BN / 2], int kblocks) {
+        for (int kb = 0; kb < kblocks; ++kb) {
+          mbar_wait(&full[stage], phase);
+          const bf16* a =
+              reinterpret_cast<const bf16*>(smem + stage * L::STAGE_BYTES) + wg * 64 * BK;
+          const bf16* b = reinterpret_cast<const bf16*>(smem + stage * L::STAGE_BYTES + L::A_BYTES);
+          wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < BK / 16; ++k)
+            wgmma_ss<BN>(d, desc_sw128(a + k * 16), desc_sw128(b + k * 16), kb > 0 || k > 0);
+          wgmma_commit();
+          // one group in flight: the previous slice's products are done
+          wgmma_wait<1>();
+          if (prev >= 0 && t == 0) mbar_arrive(&empty[prev]);
+          prev = stage;
+          if (++stage == L::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      };
+      products(d0, p.kb0);
+      if constexpr (DUAL) products(d1, p.kb1);
+      wgmma_wait<0>();
+      if (t == 0) mbar_arrive(&empty[prev]);
+      epilogue_any<BN, MODE>(d0, d1, p, staged, out, m0, n0, wg, t);
+    }
+    if (t == 0) bulk_wait<0>();  // the last stores out of shared memory
+  }
+}
+
+// ------------------------------------------------------------------ host
+
+// The current device, its primary context made current on this thread:
+// libcuda encodes the tensor maps, and PyTorch runs a backward on a thread
+// of its own where no runtime call may have done so yet.
+cudaError_t bind_device(int* dev) {
+  if (cudaGetDevice(dev) != cudaSuccess || *dev < 0 || *dev >= MAX_DEVICES)
+    return cudaErrorInvalidDevice;
+  return cudaSetDevice(*dev);
+}
+
+// A row-major bf16 (rows, k) tensor, boxes of 64 columns x box_rows.
+bool map2d(CUtensorMap* map, const void* base, int rows, int k, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {2ull * k};
+  const cuuint32_t box[2] = {BK, (cuuint32_t)box_rows};
+  return encode(map, base, 2, dims, strides, box);
+}
+
+// The tensors of one launch: A0 (m, k0) with B0 (n, k0), for EPI_DGELU A1
+// (m, k1) with B1 (n, k1); the outputs out0 and (EPI_DGELU) out1, (m, n).
+struct Operands {
+  const void *a0, *b0, *a1, *b1;
+  int k0, k1;
+  void *out0, *out1;
+};
+
+// Sets the kernel's dynamic shared memory once per device and process,
+// and refuses a build whose launch leaves the block fewer registers than
+// its warpgroups ask for after setmaxnreg (setmaxnreg.inc would wait for
+// them for ever).
+template <int BN, int MODE>
+cudaError_t prepare(int dev) {
+  static bool done[MAX_DEVICES] = {};
+  if (done[dev]) return cudaSuccess;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, mlp_gemm_kernel<BN, MODE>);
+  if (err != cudaSuccess) return err;
+  using K = Block<MODE>;
+  if (attr.numRegs * K::THREADS < 128 * (PRODUCER_REGS + K::CONSUMERS * K::CONSUMER_REGS))
+    return cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(mlp_gemm_kernel<BN, MODE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Layout<BN, MODE>::SMEM);
+  done[dev] = err == cudaSuccess;
+  return err;
+}
+
+template <int BN, int MODE>
+int launch(const Operands& op, Params p, int dev, int sms, cudaStream_t stream) {
+  static_assert(Layout<BN, MODE>::SMEM <= (size_t)SMEM_MAX, "shared memory");
+  CUtensorMap a0, b0, a1, b1, o0, o1;
+  constexpr int BM = Block<MODE>::BM;
+  if (!map2d(&a0, op.a0, p.m, op.k0, BM) || !map2d(&b0, op.b0, p.n, op.k0, BN) ||
+      !map2d(&o0, op.out0, p.m, p.n, BOX))
+    return (int)cudaErrorInvalidValue;
+  if (MODE == EPI_DGELU) {
+    if (!map2d(&a1, op.a1, p.m, op.k1, BM) || !map2d(&b1, op.b1, p.n, op.k1, BN) ||
+        !map2d(&o1, op.out1, p.m, p.n, BOX))
+      return (int)cudaErrorInvalidValue;
+  } else {
+    a1 = a0;
+    b1 = b0;
+    o1 = o0;
+  }
+  p.kb0 = (op.k0 + BK - 1) / BK;
+  p.kb1 = MODE == EPI_DGELU ? (op.k1 + BK - 1) / BK : 0;
+  p.ntiles = (p.n + BN - 1) / BN;
+  p.tiles = (p.m + BM - 1) / BM * p.ntiles;
+  const cudaError_t err = prepare<BN, MODE>(dev);
   if (err != cudaSuccess) return (int)err;
-  fused_mlp_kernel<BM, DOUT><<<(m + BM - 1) / BM, THREADS, L.total, stream>>>(
-      (const triad::bf16*)x, (const triad::bf16*)w1, (const triad::bf16*)b1,
-      (const triad::bf16*)w2, (const triad::bf16*)b2, (triad::bf16*)y, m, din, dh, tanh_form, dp);
+  mlp_gemm_kernel<BN, MODE>
+      <<<p.tiles < sms ? p.tiles : sms, Block<MODE>::THREADS, Layout<BN, MODE>::SMEM, stream>>>(
+          a0, b0, a1, b1, o0, o1, p);
   return (int)cudaGetLastError();
 }
 
-template <int DOUT>
-int launch_rows(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-                void* y, int m, int din, int dh, int tanh_form, triad::Dropout dp,
-                cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if ((m + 15) / 16 <= sms)  // one wave of 16-row blocks
-    return launch<16, DOUT>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, dp, stream);
-  return launch<32, DOUT>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, dp, stream);
+// The widest tile (BN from `widest` down to 64) whose grid still fills the
+// SMs. At 64 x 499 rows every GEMM takes its widest; serving's 8 x 261 =
+// 2088 rows give forward GEMM 1 (n 3072, 192-row tiles) BN 128, 264 tiles,
+// and GEMM 2 (n 768, 128-row tiles) BN 64, 204 tiles; 8 x 128 rows give BN
+// 128, 144 tiles, and BN 64, 96 tiles.
+int pick_bn(int m, int bm, int n, int sms, int widest) {
+  const long long mt = (m + bm - 1) / bm;
+  for (int bn = widest; bn > 64; bn /= 2)
+    if (mt * ((n + bn - 1) / bn) >= sms) return bn;
+  return 64;
 }
 
-// ------------------------------------------------------------------------
-// Backward: replaces pallas_mlp._bwd_call (:197, body _bwd_kernel :114).
-// Per 16-row block it walks the hidden dimension in the forward's 16-wide
-// chunks through the same two-stage cp.async ring:
-//   h  = x W1[c]^T + b1        (fp32 accumulation)
-//   dg = dy W2[:, c]           (fp32 accumulation of exact bf16 products,
-//                               the TPU body's fp32 dy . W2^T)
-//   with dropout, the forward's keep bits replayed: g = gelu(h) * keep /
-//   (1 - p) and dg = dg * keep / (1 - p)
-//   dh = dg * gelu'(h)         (fp32; tanh or erf form)
-//   writes bf16 dh and the dropped g for the weight gradients, and
-//   dx += bf16(dh) W1[c]       (fp32 accumulator tile in registers)
-// x and dy stay resident in shared memory, so 32-row blocks no longer fit
-// beside the ring; every 16-row block re-streams W1 and W2 from L2 (the
-// same bound as the forward, at half its rows per weight byte).
+// The widest tile of each epilogue. EPI_DGELU holds two accumulators a
+// thread, so 64 x 128 each at most. The GELU epilogue is bound by the
+// latency of its arithmetic (tanh or erf, the Philox rounds): at BN 128 the
+// 64 accumulators a thread leave it the registers to overlap more of it
+// and let a third consumer warpgroup in (kernel_probe.py fused_mlp,
+// VARIANTS).
+constexpr int WIDEST_GELU = 128, WIDEST_LINEAR = 256, WIDEST_DGELU = 128;
 
-constexpr int BBM = 16;  // backward rows per block
-constexpr int BKS = 8;   // K splits of the two chunk GEMMs (one per warp)
-
-struct BwdLayout {
-  size_t x, dy, stage, w2_in_stage, stage_bytes, h, dg, dh, total;
-};
-
-__host__ __device__ inline BwdLayout bwd_layout(int din, int dout) {
-  BwdLayout L;
-  const size_t ldx = din + 8, ldy = dout + 8;
-  L.x = 0;
-  L.dy = up128(BBM * ldx * 2);
-  L.stage = L.dy + up128(BBM * ldy * 2);
-  L.w2_in_stage = up128(HC * ldx * 2);
-  L.stage_bytes = up128(L.w2_in_stage + (size_t)dout * LDW2 * 2);
-  size_t region = 2 * L.stage_bytes;
-  const size_t xb = (size_t)BBM * (din + 4) * 4;  // epilogue reuses the ring
-  if (xb > region) region = xb;
-  L.h = L.stage + up128(region);
-  L.dg = L.h + up128((size_t)BKS * BBM * LDH * 4);
-  L.dh = L.dg + up128((size_t)BKS * BBM * LDH * 4);
-  L.total = L.dh + up128(BBM * LDG * 2);
-  return L;
-}
-
-template <int DIN>
-__global__ void __launch_bounds__(THREADS)
-fused_mlp_bwd_kernel(const triad::bf16* __restrict__ x, const triad::bf16* __restrict__ w1,
-                     const triad::bf16* __restrict__ b1, const triad::bf16* __restrict__ w2,
-                     const triad::bf16* __restrict__ dy, triad::bf16* __restrict__ dx,
-                     triad::bf16* __restrict__ dh_out, triad::bf16* __restrict__ g_out, int m,
-                     int dout, int dh, int tanh_form, triad::Dropout dp) {
-  using triad::bf16;
-  constexpr int NF = DIN / 16 / 8;  // dx fragments per warp (8 warps side by side)
-  extern __shared__ __align__(128) unsigned char smem[];
-  const BwdLayout L = bwd_layout(DIN, dout);
-  const int ldx = DIN + 8, ldy = dout + 8;
-  bf16* sX = reinterpret_cast<bf16*>(smem + L.x);
-  bf16* sDY = reinterpret_cast<bf16*>(smem + L.dy);
-  float* sOut = reinterpret_cast<float*>(smem + L.stage);
-  float* sH = reinterpret_cast<float*>(smem + L.h);
-  float* sDG = reinterpret_cast<float*>(smem + L.dg);
-  bf16* sDH = reinterpret_cast<bf16*>(smem + L.dh);
-  auto sW1 = [&](int s) { return reinterpret_cast<bf16*>(smem + L.stage + s * L.stage_bytes); };
-  auto sW2 = [&](int s) {
-    return reinterpret_cast<bf16*>(smem + L.stage + s * L.stage_bytes + L.w2_in_stage);
-  };
-
-  const int m0 = blockIdx.x * BBM;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-
-  auto load_chunk = [&](int s, int c0) {
-    bf16* d1 = sW1(s);
-    for (int i = tid; i < HC * (DIN / 8); i += THREADS) {
-      const int r = i / (DIN / 8), c = (i % (DIN / 8)) * 8;
-      triad::cp_async16(d1 + r * ldx + c, w1 + (long long)(c0 + r) * DIN + c, true);
-    }
-    bf16* d2 = sW2(s);
-    for (int i = tid; i < dout * (HC / 8); i += THREADS) {
-      const int r = i / (HC / 8), c = (i % (HC / 8)) * 8;
-      triad::cp_async16(d2 + r * LDW2 + c, w2 + (long long)r * dh + c0 + c, true);
-    }
-  };
-
-  for (int i = tid; i < BBM * (DIN / 8); i += THREADS) {
-    const int r = i / (DIN / 8), c = (i % (DIN / 8)) * 8;
-    const bool ok = m0 + r < m;
-    triad::cp_async16(sX + r * ldx + c, ok ? x + (long long)(m0 + r) * DIN + c : x, ok);
-  }
-  for (int i = tid; i < BBM * (dout / 8); i += THREADS) {
-    const int r = i / (dout / 8), c = (i % (dout / 8)) * 8;
-    const bool ok = m0 + r < m;
-    triad::cp_async16(sDY + r * ldy + c, ok ? dy + (long long)(m0 + r) * dout + c : dy, ok);
-  }
-  load_chunk(0, 0);
-  triad::cp_async_commit();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-  for (int f = 0; f < NF; ++f) wmma::fill_fragment(acc[f], 0.0f);
-  const int kx = DIN / BKS, ky = dout / BKS;  // each warp's K slice of h and dg
-
-  const int nchunks = dh / HC;
-  for (int ci = 0; ci < nchunks; ++ci) {
-    const int s = ci & 1, c0 = ci * HC;
-    triad::cp_async_wait<0>();
-    __syncthreads();  // chunk ci landed; chunk ci-1 fully consumed
-    if (ci + 1 < nchunks) {
-      load_chunk(s ^ 1, c0 + HC);
-      triad::cp_async_commit();
-    }
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc, gacc;
-      wmma::fill_fragment(hacc, 0.0f);
-      wmma::fill_fragment(gacc, 0.0f);
-      const bf16* w1s = sW1(s);
-      for (int kk = warp * kx; kk < (warp + 1) * kx; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
-        wmma::load_matrix_sync(a, sX + kk, ldx);
-        wmma::load_matrix_sync(bw, w1s + kk, ldx);
-        wmma::mma_sync(hacc, a, bw, hacc);
-      }
-      const bf16* w2s = sW2(s);
-      for (int kk = warp * ky; kk < (warp + 1) * ky; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-        wmma::load_matrix_sync(a, sDY + kk, ldy);
-        wmma::load_matrix_sync(bw, w2s + kk * LDW2, LDW2);
-        wmma::mma_sync(gacc, a, bw, gacc);
-      }
-      wmma::store_matrix_sync(sH + warp * BBM * LDH, hacc, LDH, wmma::mem_row_major);
-      wmma::store_matrix_sync(sDG + warp * BBM * LDH, gacc, LDH, wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int i = tid; i < BBM * HC; i += THREADS) {
-      const int r = i / HC, c = i % HC;
-      float h = __bfloat162float(b1[c0 + c]);
-      float dg = 0.0f;
-      for (int k = 0; k < BKS; ++k) {
-        h += sH[(k * BBM + r) * LDH + c];
-        dg += sDG[(k * BBM + r) * LDH + c];
-      }
-      float g = triad::gelu(h, tanh_form);
-      if (dp.active) {
-        const triad::Keep4 kb =
-            triad::keep4(dp.seed, 0u, (uint32_t)(m0 + r), (uint32_t)(c0 + c) >> 2);
-        const bool keep = triad::keep_word(kb, c0 + c) >= dp.thresh;
-        g = keep ? g * dp.scale : 0.0f;
-        dg = keep ? dg * dp.scale : 0.0f;
-      }
-      const bf16 dhb = __float2bfloat16(dg * triad::gelu_grad(h, tanh_form));
-      sDH[r * LDG + c] = dhb;
-      if (m0 + r < m) {
-        const long long o = (long long)(m0 + r) * dh + c0 + c;
-        dh_out[o] = dhb;
-        g_out[o] = __float2bfloat16(g);
-      }
-    }
-    __syncthreads();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> da;
-    wmma::load_matrix_sync(da, sDH, LDG);
-    const bf16* w1s = sW1(s);
-    for (int f = 0; f < NF; ++f) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-      wmma::load_matrix_sync(bw, w1s + (warp * NF + f) * 16, ldx);
-      wmma::mma_sync(acc[f], da, bw, acc[f]);
-    }
-  }
-  __syncthreads();
-  constexpr int LDO = DIN + 4;
-  for (int f = 0; f < NF; ++f)
-    wmma::store_matrix_sync(sOut + (warp * NF + f) * 16, acc[f], LDO, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < BBM * (DIN / 2); i += THREADS) {
-    const int r = i / (DIN / 2), c = (i % (DIN / 2)) * 2;
-    if (m0 + r >= m) continue;
-    *reinterpret_cast<__nv_bfloat162*>(dx + (long long)(m0 + r) * DIN + c) =
-        __floats2bfloat162_rn(sOut[r * LDO + c], sOut[r * LDO + c + 1]);
-  }
-}
-
-template <int DIN>
-int launch_bwd(const void* x, const void* w1, const void* b1, const void* w2, const void* dy,
-               void* dx, void* dh_out, void* g_out, int m, int dout, int dh, int tanh_form,
-               triad::Dropout dp, cudaStream_t stream) {
-  const BwdLayout L = bwd_layout(DIN, dout);
-  if (L.total > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_bwd_kernel<DIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+template <int MODE>
+int run(const Operands& op, const Params& p, cudaStream_t stream) {
+  int dev = 0;
+  const cudaError_t err = bind_device(&dev);
   if (err != cudaSuccess) return (int)err;
-  fused_mlp_bwd_kernel<DIN><<<(m + BBM - 1) / BBM, THREADS, L.total, stream>>>(
-      (const triad::bf16*)x, (const triad::bf16*)w1, (const triad::bf16*)b1,
-      (const triad::bf16*)w2, (const triad::bf16*)dy, (triad::bf16*)dx, (triad::bf16*)dh_out,
-      (triad::bf16*)g_out, m, dout, dh, tanh_form, dp);
-  return (int)cudaGetLastError();
+  const int sms = sm_count(dev);
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  constexpr int widest = MODE == EPI_GELU    ? WIDEST_GELU
+                         : MODE == EPI_DGELU ? WIDEST_DGELU
+                                             : WIDEST_LINEAR;
+  const int bn = pick_bn(p.m, Block<MODE>::BM, p.n, sms, widest);
+  if constexpr (widest >= 256)
+    if (bn == 256) return launch<256, MODE>(op, p, dev, sms, stream);
+  if constexpr (widest >= 128)
+    if (bn == 128) return launch<128, MODE>(op, p, dev, sms, stream);
+  return launch<64, MODE>(op, p, dev, sms, stream);
+}
+
+bool bad_shape(int m, int a, int b, int c) {
+  return m <= 0 || a <= 0 || b <= 0 || c <= 0 || a % 8 || b % 8 || c % 8;
 }
 
 }  // namespace
 
-// x (m, din), w1 (dh, din), b1 (dh), w2 (dout, dh), dy (m, dout); outputs
-// dx (m, din), dh_out and g (m, dh): contiguous bf16. din == 768 (the
-// width of the ViT and HuBERT, the only one on a path), dout % 128 == 0,
-// dh % 16 == 0; the dropout arguments are the forward's. Returns a
-// cudaError_t.
-extern "C" int triad_fused_mlp_bwd(const void* x, const void* w1, const void* b1,
-                                   const void* w2, const void* dy, void* dx, void* dh_out,
-                                   void* g_out, int m, int din, int dh, int dout, int tanh_form,
-                                   unsigned seed, unsigned thresh, float keep_scale, int active,
-                                   void* stream) {
-  if (m <= 0 || dout % 128 || dh % HC) return (int)cudaErrorInvalidValue;
+// x (m, din), w1 (dh, din), b1 (dh), w2 (dout, dh), b2 (dout), y (m,
+// dout), g (m, dh) scratch: contiguous bf16, 16-byte aligned; din, dh and
+// dout multiples of 8. Dropout: keep iff bits >= thresh, kept values times
+// keep_scale, none when active == 0. Two grids on one stream (GEMM 1 then
+// GEMM 2). Returns a cudaError_t.
+extern "C" int triad_fused_mlp(const void* x, const void* w1, const void* b1, const void* w2,
+                               const void* b2, void* y, void* g, int m, int din, int dh,
+                               int dout, int tanh_form, unsigned seed, unsigned thresh,
+                               float keep_scale, int active, void* stream) {
+  if (bad_shape(m, din, dh, dout)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const triad::Dropout dp{seed, thresh, keep_scale, active};
-  switch (din) {
-    case 768:
-      return launch_bwd<768>(x, w1, b1, w2, dy, dx, dh_out, g_out, m, dout, dh, tanh_form, dp, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const Params p1{(const bf16*)b1, m, dh, 0, 0, 0, 0, tanh_form, dp};
+  const int err = run<EPI_GELU>(Operands{x, w1, nullptr, nullptr, din, 0, g, nullptr}, p1, s);
+  if (err != 0) return err;
+  const Params p2{(const bf16*)b2, m, dout, 0, 0, 0, 0, tanh_form, dp};
+  return run<EPI_LINEAR>(Operands{g, w2, nullptr, nullptr, dh, 0, y, nullptr}, p2, s);
 }
 
-// x (m, din), w1 (dh, din), b1 (dh), w2 (dout, dh), b2 (dout), y (m, dout):
-// contiguous bf16. din % 128 == 0, dh % 16 == 0, dout in {256, 512, 768,
-// 1024}; dropout: keep iff bits >= thresh, kept values times keep_scale,
-// none when active == 0. Returns a cudaError_t.
-extern "C" int triad_fused_mlp(const void* x, const void* w1, const void* b1,
-                               const void* w2, const void* b2, void* y, int m, int din,
-                               int dh, int dout, int tanh_form, unsigned seed, unsigned thresh,
-                               float keep_scale, int active, void* stream) {
-  if (m <= 0 || din % 128 || dh % HC) return (int)cudaErrorInvalidValue;
+// x (m, din), w1 (dh, din) and its transpose w1t (din, dh), b1 (dh), w2t
+// (dh, dout) = w2^T, dy (m, dout); outputs dx (m, din), dh_out and g (m,
+// dh): contiguous bf16, 16-byte aligned, widths multiples of 8; the
+// dropout arguments are the forward's. Two grids on one stream (dh and g,
+// then dx). Returns a cudaError_t.
+extern "C" int triad_fused_mlp_bwd(const void* x, const void* w1, const void* w1t,
+                                   const void* b1, const void* w2t, const void* dy, void* dx,
+                                   void* dh_out, void* g_out, int m, int din, int dh, int dout,
+                                   int tanh_form, unsigned seed, unsigned thresh,
+                                   float keep_scale, int active, void* stream) {
+  if (bad_shape(m, din, dh, dout)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const triad::Dropout dp{seed, thresh, keep_scale, active};
-  switch (dout) {
-    case 256: return launch_rows<256>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, dp, s);
-    case 512: return launch_rows<512>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, dp, s);
-    case 768: return launch_rows<768>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, dp, s);
-    case 1024: return launch_rows<1024>(x, w1, b1, w2, b2, y, m, din, dh, tanh_form, dp, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const Params p1{(const bf16*)b1, m, dh, 0, 0, 0, 0, tanh_form, dp};
+  const int err =
+      run<EPI_DGELU>(Operands{x, w1, dy, w2t, din, dout, dh_out, g_out}, p1, s);
+  if (err != 0) return err;
+  const Params p2{nullptr, m, din, 0, 0, 0, 0, tanh_form, dp};
+  return run<EPI_LINEAR>(Operands{dh_out, w1t, nullptr, nullptr, dh, 0, dx, nullptr}, p2, s);
 }

@@ -71,10 +71,12 @@ def fused_mlp(x, w1, b1, w2, b2, form: str = "erf", seed: int = 0,
         )
     lead = x.shape[:-1]
     x2 = x.reshape(-1, din).contiguous()
-    y = torch.empty((x2.shape[0], dout), dtype=x.dtype, device=x.device)
+    m = x2.shape[0]
+    y = torch.empty((m, dout), dtype=x.dtype, device=x.device)
+    g = torch.empty((m, dh), dtype=x.dtype, device=x.device)  # GEMM 1 -> GEMM 2, transient
     kernels.call(
         "fused_mlp", x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), y.data_ptr(), x2.shape[0], din, dh, dout,
+        w2.data_ptr(), b2.data_ptr(), y.data_ptr(), g.data_ptr(), m, din, dh, dout,
         int(form == "tanh"), *kernels.dropout_args(seed, p_drop), kernels.stream_ptr(y),
     )
     kernels.LAUNCHES["fused_mlp"] += 1
@@ -139,20 +141,39 @@ def fused_mlp_bwd(x, w1, b1, w2, dy, form: str = "erf", seed: int = 0, p_drop: f
     m = x2.shape[0]
     dx = torch.empty((m, din), dtype=x.dtype, device=x.device)
     dhid, g = (torch.empty((m, dh), dtype=x.dtype, device=x.device) for _ in range(2))
+    # dy W2 and dh W1 contract over the weights' rows: the kernels take
+    # both weights K-major, so W1 and W2 are transposed once a call.
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
     kernels.call(
-        "fused_mlp_bwd", x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        dy2.data_ptr(), dx.data_ptr(), dhid.data_ptr(), g.data_ptr(), m, din, dh, dout,
-        int(form == "tanh"), *kernels.dropout_args(seed, p_drop), kernels.stream_ptr(dx),
+        "fused_mlp_bwd", x2.data_ptr(), w1.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
+        w2t.data_ptr(), dy2.data_ptr(), dx.data_ptr(), dhid.data_ptr(), g.data_ptr(), m, din,
+        dh, dout, int(form == "tanh"), *kernels.dropout_args(seed, p_drop),
+        kernels.stream_ptr(dx),
     )
     kernels.LAUNCHES["fused_mlp_bwd"] += 1
     return dx.reshape(*lead, din), dhid.reshape(*lead, dh), g.reshape(*lead, dh)
 
 
+def weight_grad(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+    """a^T b for a (M, P) and b (M, Q) in their own dtype, rounded once to
+    dtype: pallas_mlp._fused_mlp_bwd's einsum with preferred_element_type=
+    f32. On the card, bf16 operands go to bf16 tensor cores with an fp32
+    output (torch.mm's out_dtype), so cuBLAS sums and reduces any split-K
+    partials in fp32: the product of the operands' exact fp32 upcasts up
+    to the order of the sums. Elsewhere the operands multiply in their
+    own dtype (fp32 in the CPU parity tests, as before; the CPU's bf16
+    product also sums in fp32)."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        return torch.mm(a.t(), b, out_dtype=torch.float32).to(dtype)
+    return (a.t() @ b).to(dtype)
+
+
 class FusedMlp(torch.autograd.Function):
     """fused_mlp with _fused_mlp_bwd's VJP: the kernels give dx, dh and the
     dropped g (the mask replayed from the seed); the weight gradients dW1
-    = dh^T x, db1, dW2 = dy^T g and db2 are plain products, formed only
-    for the inputs that need a gradient (the frozen ViT base needs none).
+    = dh^T x and dW2 = dy^T g are plain products (weight_grad), db1 and db2
+    fp32 sums, formed only for the inputs that need a gradient (the frozen
+    ViT base needs none).
     Apply as FusedMlp.apply(x, w1, b1, w2, b2, form, seed, p_drop)."""
 
     @staticmethod
@@ -167,10 +188,9 @@ class FusedMlp(torch.autograd.Function):
         need = ctx.needs_input_grad
         dx, dh, g = fused_mlp_bwd(x, w1, b1, w2, dy, *ctx.args)
         f32 = torch.float32
-        dy2 = dy.reshape(-1, dy.shape[-1]).to(f32)
-        dh2 = dh.reshape(-1, dh.shape[-1]).to(f32)
-        dw1 = (dh2.t() @ x.reshape(-1, x.shape[-1]).to(f32)).to(w1.dtype) if need[1] else None
-        db1 = dh2.sum(dim=0).to(b1.dtype) if need[2] else None
-        dw2 = (dy2.t() @ g.reshape(-1, g.shape[-1]).to(f32)).to(w2.dtype) if need[3] else None
-        db2 = dy2.sum(dim=0).to(ctx.b2_dtype) if need[4] else None
+        dy2, dh2, x2, g2 = (t.reshape(-1, t.shape[-1]) for t in (dy, dh, x, g))
+        dw1 = weight_grad(dh2, x2, w1.dtype) if need[1] else None
+        db1 = dh2.sum(dim=0, dtype=f32).to(b1.dtype) if need[2] else None
+        dw2 = weight_grad(dy2, g2, w2.dtype) if need[3] else None
+        db2 = dy2.sum(dim=0, dtype=f32).to(ctx.b2_dtype) if need[4] else None
         return dx if need[0] else None, dw1, db1, dw2, db2, None, None, None

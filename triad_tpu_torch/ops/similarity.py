@@ -171,7 +171,11 @@ def aggregate_crossbatch(query, key, temperature, *, clamp_min: float, query_mas
     (multiplied); query_mask optional (Bq, Nq) for the TV masked mean.
     implementation "dense" materializes the volume (autograd through
     amax, which splits ties evenly); "chunked" walks key chunks under
-    activation checkpointing; "chunked_vjp" is MaxMeanChunked; "pallas"
+    activation checkpointing; "chunked_unrolled" is "chunked" (the JAX
+    package unrolls the chunks' scan, which changes only how XLA
+    schedules them; eager torch has no scan to unroll, and the JAX values
+    differ from "chunked" only by fp32 reassociation); "chunked_vjp" is
+    MaxMeanChunked; "pallas"
     is ops/maxmean.py's MaxMeanKernel (the max-mean kernels on the card,
     first-argmax routing; Nk and D multiples of 128; volume_dtype float32
     only)."""
@@ -185,7 +189,7 @@ def aggregate_crossbatch(query, key, temperature, *, clamp_min: float, query_mas
         clip = _masked_mean_over_queries(ts.amax(dim=3), query_mask)
         clamped = ts.clamp(clamp_min, 0.0)
         nonneg = (clamped * clamped).sum()
-    elif implementation in ("chunked", "chunked_vjp"):
+    elif implementation in ("chunked", "chunked_unrolled", "chunked_vjp"):
         coeff = coefficients(bq, nq, query_mask, q.device)
         if implementation == "chunked_vjp":
             clip, nonneg = MaxMeanChunked.apply(q, k, temperature, coeff, clamp_min,

@@ -1,12 +1,14 @@
-"""Five measurements behind PERF.md's notes on the eval attention, the
-training attention's di, the flash kernels, the positional conv's dW and
-the frontend activation, on one CUDA card, from the repo root:
+"""Six measurements behind PERF.md's notes on the eval attention, the
+training attention's di, the flash kernels, the positional conv's dW, the
+frontend activation and the fused MLP, on one CUDA card, from the repo
+root:
 
     python3 triad_tpu_torch/tools/kernel_probe.py eval
     python3 triad_tpu_torch/tools/kernel_probe.py di
     python3 triad_tpu_torch/tools/kernel_probe.py flash
     python3 triad_tpu_torch/tools/kernel_probe.py posconv_dw
     python3 triad_tpu_torch/tools/kernel_probe.py activation
+    python3 triad_tpu_torch/tools/kernel_probe.py fused_mlp
 
 eval  what holds the eval attention back against SDPA. (1) Waves: its
       device ms at HuBERT's (B, 499, 768) for B = 1 .. 16, beside the
@@ -59,6 +61,19 @@ activation  the frontend activation against the card's copy rate: device
       input read once and the output written once); then ACT_VARIANTS,
       copies of the kernel with other constants (rows in flight), timed
       beside it at (8, 31999, 512) and held bit-equal to it.
+fused_mlp  the fused MLP's forward and backward (csrc/fused_mlp.cu) at
+      (B, N, 768 -> 3072 -> 768), tanh GELU, p = 0.1, for serving's and
+      the train steps' row counts (8 x 128 .. 96 x 499): device ms,
+      TFLOP/s and share of the bound (chip_smoke.py's), the cuBLAS
+      composition at p = 0 beside them, and what the hidden activation's
+      trip through device memory costs (one copy of g's bytes: its write
+      by GEMM 1 and read by GEMM 2) as a share of the forward; at (64,
+      499) the profiler's split of each call into its two grids,
+      MLP_VARIANTS (copies of csrc/fused_mlp.cu with one text edit each:
+      the epilogue plain or skipped, other widest tiles) timed beside the
+      kernel, dW1 as ops/mlp.py:weight_grad forms it against the bf16-out
+      product and the product of fp32 upcasts, the backward wrapper's
+      transposes of W1 and W2, and the SM clock and power draw under load.
 """
 
 import ctypes
@@ -353,6 +368,14 @@ VARIANTS = (
 )
 
 
+def _edited_lib(source, name):
+    """Where _edited_libs builds the copy of csrc/source called name."""
+    from triad_tpu_torch import kernels
+
+    stem = re.sub(r"\W+", "_", f"{source}_{name}")
+    return kernels.BUILD_DIR / "probe" / f"lib{stem}.so"
+
+
 def _edited_libs(source, entry, argtypes, variants):
     """Copies of csrc/<source>, each with its (what, by what) replacements
     and a line of defines first, built alone and at once into
@@ -371,11 +394,11 @@ def _edited_libs(source, entry, argtypes, variants):
             if old not in src:
                 raise SystemExit(f"kernel_probe: {old!r} is not in csrc/{source}")
             src = src.replace(old, new)
-        stem = re.sub(r"\W+", "_", f"{source}_{name}")
-        (out / f"{stem}.cu").write_text(define + src)
-        procs[name] = (out / f"lib{stem}.so", subprocess.Popen(
-            [kernels._nvcc(), *flags, "-I", str(kernels.CSRC), "-shared", "-o",
-             str(out / f"lib{stem}.so"), str(out / f"{stem}.cu")]))
+        lib = _edited_lib(source, name)
+        lib.with_suffix(".cu").write_text(define + src)
+        procs[name] = (lib, subprocess.Popen(
+            [kernels._nvcc(), *flags, "-I", str(kernels.CSRC), "-shared", "-o", str(lib),
+             str(lib.with_suffix(".cu"))]))
     fns = {}
     for name, (lib, proc) in procs.items():
         if proc.wait() != 0:
@@ -522,8 +545,137 @@ def activation_probe():
                   f"to the kernel: {same}", flush=True)
 
 
+def _split(fn, calls=10):
+    """Self device ms per call of each kernel fn launches, by name, under
+    torch.profiler over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / (calls * 1e3)) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return "; ".join(f"{name[:48]} {t:.4f}" for name, t in sorted(rows, key=lambda r: -r[1]))
+
+
+# Variants of the fused MLP built from csrc/fused_mlp.cu by replacing a
+# line: (name, replacements). "plain epilogue" stores every tile's sums
+# as bf16 with the bias and nothing else (no GELU, GELU', mask or second
+# output): what the epilogues' arithmetic costs; "no epilogue" skips the
+# epilogue (the products alone). Their outputs differ; the tile and block
+# variants' are bit-equal.
+MLP_VARIANTS = (
+    ("as built", ()),
+    ("plain epilogue", (("epilogue_any<BN, MODE>(d0, d1, p,",
+                         "epilogue_any<BN, EPI_LINEAR>(d0, d1, p,"),)),
+    ("no epilogue", (("epilogue_any<BN, MODE>(d0, d1, p,",
+                      "if (p.m < 0) epilogue_any<BN, MODE>(d0, d1, p,"),)),
+    ("GEMM 1 at BN 256", (("WIDEST_GELU = 128", "WIDEST_GELU = 256"),)),
+    ("one-product GEMMs at BN 128", (("WIDEST_LINEAR = 256", "WIDEST_LINEAR = 128"),)),
+    ("dual kernel at BN 64", (("WIDEST_DGELU = 128", "WIDEST_DGELU = 64"),)),
+    ("GEMM 1 on two consumer warpgroups", (("constexpr int GELU_CONSUMERS = 3;",
+                                            "constexpr int GELU_CONSUMERS = 2;"),)),
+)
+
+
+def _mlp_runner(fn, x, w1, b1, w2, b2, dy, p, backward):
+    """A call of an edited copy's entry point on phase 3's operands."""
+    from triad_tpu_torch import kernels
+
+    m, din = x.shape[0] * x.shape[1], x.shape[-1]
+    dh, dout = w1.shape[0], w2.shape[0]
+    y = torch.empty((m, dout), dtype=x.dtype, device="cuda")
+    g, dhid, dx = (torch.empty((m, n), dtype=x.dtype, device="cuda") for n in (dh, dh, din))
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    drop = kernels.dropout_args(77, p)
+
+    def run():
+        if backward:
+            err = fn(x.data_ptr(), w1.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
+                     dy.data_ptr(), dx.data_ptr(), dhid.data_ptr(), g.data_ptr(), m, din, dh,
+                     dout, 1, *drop, kernels.stream_ptr(x))
+        else:
+            err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                     y.data_ptr(), g.data_ptr(), m, din, dh, dout, 1, *drop,
+                     kernels.stream_ptr(x))
+        if err:
+            raise RuntimeError(f"edited fused_mlp: cudaError_t {err}")
+        return (dx, dhid, g) if backward else y
+    return run
+
+
+def fused_mlp_probe():
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.ops import mlp as M
+
+    w1, b1 = cs.randn((3072, 768), 6, 768 ** -0.5), cs.randn((3072,), 7, 0.1)
+    w2, b2 = cs.randn((768, 3072), 8, 3072 ** -0.5), cs.randn((768,), 9, 0.1)
+    for b, n in ((8, 128), (8, 261), (8, 499), (64, 261), (64, 499), (96, 499)):
+        m = b * n
+        x, dy = cs.randn((b, n, 768), 25), cs.randn((b, n, 768), 26)
+        g = torch.empty((m, 3072), dtype=torch.bfloat16, device="cuda")
+        g2 = torch.empty_like(g)
+        fwd_bound, _ = cs.mlp_fwd_cost(m)
+        bwd_bound = 6 * m * 768 * 3072 / cs.PEAK_BF16 * 1e3
+        times = [cs.device_ms(fn) for fn in (
+            lambda: M.fused_mlp(x, w1, b1, w2, b2, "tanh", 77, cs.P_DROP),
+            lambda: M.fused_mlp_bwd(x, w1, b1, w2, dy, "tanh", 77, cs.P_DROP),
+            cs.mlp_fwd_composition(x, w1, b1, w2, b2, "tanh"),
+            cs.mlp_bwd_composition(x, w1, b1, w2, dy, "tanh"),
+            lambda: g2.copy_(g))]
+        fwd, bwd, cfwd, cbwd, trip = times
+        print(f"MLP ({b}, {n}, 768) M {m:6d} tanh p={cs.P_DROP}: forward {fwd:.4f} device ms "
+              f"({4 * m * 768 * 3072 / fwd / 1e9:.1f} TFLOP/s, {100 * fwd_bound / fwd:.1f}% of "
+              f"the bound {fwd_bound:.4f}); backward {bwd:.4f} ({6 * m * 768 * 3072 / bwd / 1e9:.1f}"
+              f" TFLOP/s, {100 * bwd_bound / bwd:.1f}% of {bwd_bound:.4f}); composition at p = 0: "
+              f"forward {cfwd:.4f}, backward {cbwd:.4f}; g round trip (one copy of g's bytes) "
+              f"{trip:.4f} ms, {100 * trip / fwd:.1f}% of the forward", flush=True)
+    x, dy = cs.randn((64, 499, 768), 25), cs.randn((64, 499, 768), 26)
+    fwd = lambda: M.fused_mlp(x, w1, b1, w2, b2, "tanh", 77, cs.P_DROP)  # noqa: E731
+    bwd = lambda: M.fused_mlp_bwd(x, w1, b1, w2, dy, "tanh", 77, cs.P_DROP)  # noqa: E731
+    for p in (0.0, cs.P_DROP):
+        print(f"SPLIT p={p} forward (64, 499, 768), ms per call: "
+              f"{_split(lambda: M.fused_mlp(x, w1, b1, w2, b2, 'tanh', 77, p))}", flush=True)
+        print(f"SPLIT p={p} backward (64, 499, 768), ms per call: "
+              f"{_split(lambda: M.fused_mlp_bwd(x, w1, b1, w2, dy, 'tanh', 77, p))}", flush=True)
+    fwd_fns = _edited_libs("fused_mlp.cu", "triad_fused_mlp", kernels._SIGNATURES[
+        "triad_fused_mlp"], [(name, pairs, "") for name, pairs in MLP_VARIANTS])
+    bwd_fns = {}
+    for name, _ in MLP_VARIANTS:
+        bwd_fns[name] = ctypes.CDLL(str(_edited_lib("fused_mlp.cu", name))).triad_fused_mlp_bwd
+        bwd_fns[name].argtypes = kernels._SIGNATURES["triad_fused_mlp_bwd"]
+        bwd_fns[name].restype = ctypes.c_int
+    want = fwd(), bwd()
+    for name, _ in MLP_VARIANTS:
+        runs = [_mlp_runner(fns[name], x, w1, b1, w2, b2, dy, cs.P_DROP, backward)
+                for fns, backward in ((fwd_fns, False), (bwd_fns, True))]
+        same = [torch.equal(runs[0](), want[0].reshape(-1, 768)),
+                all(torch.equal(a, b.reshape(a.shape)) for a, b in zip(runs[1](), want[1]))]
+        print(f"VARIANT (64, 499, 768) {name}: forward {cs.device_ms(runs[0]):.4f} backward "
+              f"{cs.device_ms(runs[1]):.4f} device ms (kernel {cs.device_ms(fwd):.4f} / "
+              f"{cs.device_ms(bwd):.4f}); bit-equal to the kernel: {same}", flush=True)
+    f32, dh2 = torch.float32, cs.randn((64 * 499, 3072), 27)
+    x2 = x.reshape(-1, 768)
+    times = [cs.device_ms(fn) for fn in (
+        lambda: M.weight_grad(dh2, x2, torch.bfloat16),
+        lambda: (dh2.t() @ x2),
+        lambda: (dh2.to(f32).t() @ x2.to(f32)).to(torch.bfloat16))]
+    print(f"WGRAD dW1 = dh^T x at (64, 499): weight_grad (bf16, fp32 out) {times[0]:.4f}, bf16 "
+          f"out {times[1]:.4f}, the fp32 upcasts (TF32 off) {times[2]:.4f} device ms", flush=True)
+    print(f"TRANSPOSES of W1 and W2 (the backward wrapper's): "
+          f"{cs.device_ms(lambda: (w1.t().contiguous(), w2.t().contiguous())):.4f} device ms",
+          flush=True)
+    print(f"LOAD (64, 499, 768): clocks.sm, power.draw: forward {_under_load(fwd)}; backward "
+          f"{_under_load(bwd)}", flush=True)
+
+
 def main(argv):
-    if argv not in (["eval"], ["di"], ["flash"], ["posconv_dw"], ["activation"]):
+    if argv not in (["eval"], ["di"], ["flash"], ["posconv_dw"], ["activation"],
+                    ["fused_mlp"]):
         raise SystemExit(__doc__)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
@@ -534,7 +686,7 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     {"eval": eval_probe, "di": di_probe, "flash": flash_probe, "posconv_dw": posconv_dw_probe,
-     "activation": activation_probe}[argv[0]]()
+     "activation": activation_probe, "fused_mlp": fused_mlp_probe}[argv[0]]()
 
 
 if __name__ == "__main__":

@@ -29,7 +29,9 @@ and the run goes on. Modes:
   kernels  phase 3 of this tree's chip_smoke.py on the checkout's
            kernels, only the cases of the eval attention (its four modes,
            (8, 999) and (8, 1000) included, which a tree with a key cap
-           refuses), the stride-2 conv GEMM's two callers, the training
+           refuses), the fused MLP forward and backward (every case,
+           the cuBLAS composition beside them), the stride-2 conv GEMM's
+           two callers, the training
            attention, the flash forward and backward (the fused-qkv
            case included), the positional conv (forward, dX, dW) and the
            frontend activation: synchronised and device ms as phase 3
@@ -42,7 +44,13 @@ and the run goes on. Modes:
            checkout's build: for trees that differ in the flash kernels;
   tv_flash phase 14 of the checkout's chip_smoke.py (the text-visual step
            with the ViT on "flash", B = 64): ms per step and the
-           torch.profiler split of one more step (its top rows).
+           torch.profiler split of one more step (its top rows);
+  tv       phase 6 of the checkout's chip_smoke.py (the text-visual step,
+           B = 64): ms per step and its profiler split (the top rows);
+  mm_shapes  which products launch the joint step's GEMM kernels: one
+           joint step of phase 8 under torch.profiler with record_shapes,
+           each kernel that a matrix-product op launched summed by (op,
+           input shapes, kernel name), beside the step's largest kernels.
 """
 
 import hashlib
@@ -128,12 +136,13 @@ def attention(cs):
         print(f"  attention_train (8, 1000, 768, p={cs.P_DROP}) raises: {e}", flush=True)
 
 
-# The redesigned kernels (eval attention, conv GEMM, flash, posconv dW,
-# the frontend activation), the training attention and the posconv
+# The redesigned kernels (eval attention, fused MLP, conv GEMM, flash,
+# posconv dW, the frontend activation), the training attention and the posconv
 # forward and dX (which share posconv.cu with dW), by the names
 # chip_smoke.py's phase 3 gives their cases.
 AB_KERNELS = ("attention_eval", "attention_eval_merged", "attention_eval_pair",
-              "attention_eval_merged_pair", "frontend_conv", "fused_frontend_conv",
+              "attention_eval_merged_pair", "fused_mlp", "fused_mlp_bwd", "frontend_conv",
+              "fused_frontend_conv",
               "attention_train", "attention_train_bwd", "attention_train_strided",
               "attention_train_strided_bwd", "attention_train_merged",
               "attention_train_merged_bwd", "flash_attention", "flash_attention_bwd",
@@ -200,6 +209,48 @@ def kernel_times(names=AB_KERNELS):
     cs.kernel_phase()
 
 
+# The ops that launch matrix-product kernels themselves (aten::matmul and
+# aten::linear reach them through these).
+MM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def mm_shapes(cs, torch):
+    """Which products launch the joint step's GEMM kernels: one joint step
+    (phase 8's state, batches and step, after one warm-up step) under
+    torch.profiler with record_shapes; each kernel a matrix-product op
+    launched, summed by (op, input shapes, kernel), the 20 largest by
+    device time, and the step's 8 largest kernels by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from triad_tpu_torch.config import OptimConfig, perf_train_loss_config
+    from triad_tpu_torch.train.step import StepFactory
+
+    ocfg = OptimConfig(gradient_accumulation_steps=1, unfreeze_audio_step=0,
+                       unfreeze_text_step=0, unfreeze_vit_step=0)
+    state = cs._new_state(ocfg, 1)
+    step = StepFactory(perf_train_loss_config(), ocfg).make_step("joint")
+    av = {k: v.cuda() for k, v in cs._av_batch(cs.TRAIN_B, 5).items()}
+    tv = {k: v.cuda() for k, v in cs._train_batch(cs.TRAIN_B, 6).items()}
+    step(state, av, tv, 0.5, 0.5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step(state, av, tv, 0.5, 0.5)
+        torch.cuda.synchronize()
+    by_op, by_kernel = {}, {}
+    for e in prof.events():
+        for k in e.kernels:
+            by_kernel[k.name] = by_kernel.get(k.name, 0.0) + k.duration
+            if e.name in MM_OPS:
+                key = (e.name, str(e.input_shapes), k.name)
+                ms, n = by_op.get(key, (0.0, 0))
+                by_op[key] = (ms + k.duration, n + 1)
+    for (op, shapes, kernel), (us, n) in sorted(by_op.items(), key=lambda r: -r[1][0])[:20]:
+        print(f"MM {us / 1e3:9.4f} ms {n:4d}x {op} {shapes} -> {kernel[:90]}", flush=True)
+    for kernel, us in sorted(by_kernel.items(), key=lambda r: -r[1])[:8]:
+        print(f"KERNEL {us / 1e3:9.4f} ms {kernel[:110]}", flush=True)
+
+
 def tv_flash(cs):
     """Phase 14 of the checkout's chip_smoke.py: the TV step with the ViT
     on "flash" at B = 64 (2 warm-up and 3 timed steps, then a profiled
@@ -242,6 +293,11 @@ def one(root, mode):
         kernel_times(FLASH_KERNELS)
     elif mode == "tv_flash":
         tv_flash(cs)
+    elif mode == "mm_shapes":
+        mm_shapes(cs, torch)
+    elif mode == "tv":
+        _, _, ms = cs.train_phase()
+        print(f"TV step {ms:.3f} ms", flush=True)
     elif mode.partition("@")[0] == "joint":
         seed = int(mode.partition("@")[2] or 1)
         new_state = cs._new_state
