@@ -514,7 +514,8 @@ def maxmean_cases(res, MM, bq, bk, nq, nk, d, masked, clamp_min, main=False):
     library call computes the function. Bounds at the bf16 tensor-core
     peak, the peak of the products the kernels run: 2 Bq Bk Nq Nk D
     operations forward, twice that per backward pass (recompute the sims,
-    then dts K or dts^T Q)."""
+    then dts K or dts^T Q). At the main shape the backward's composition
+    (maxmean_bwd_composition) is timed beside each backward kernel."""
     q, k = grid((bq, nq, d), 91, False), grid((bk, nk, d), 92, True)
     mask = None
     if masked:
@@ -543,10 +544,41 @@ def maxmean_cases(res, MM, bq, bk, nq, nk, d, masked, clamp_min, main=False):
     bwd_in = qb + kb + nb + bq * bk * nq * 4 + bq * bk * 4
     compare(res, "maxmean_dq", shape, lambda: MM.maxmean_dq(*args),
             lambda: MM.maxmean_dq_plain(*args), 1e-4, cost(2 * ops, bwd_in + bq * nq * d * 4),
-            None, main)
+            None, main, maxmean_bwd_composition(args) if main else None)
     compare(res, "maxmean_dk", shape, lambda: MM.maxmean_dk(*args),
             lambda: MM.maxmean_dk_plain(*args), 1e-4, cost(2 * ops, bwd_in + bk * nk * d * 4),
-            None, main)
+            None, main, maxmean_bwd_composition(args, dk=True) if main else None)
+
+
+def maxmean_bwd_composition(args, dk=False):
+    """dQ (or, with dk, dK) of the max-mean backward as PyTorch composes
+    it: the sims of every pair in one bf16 product with fp32 output
+    (torch.mm, out_dtype), the dts arithmetic on that (Bq Nq, Bk Nk) volume
+    (the window term, g_clip coeff scattered to each row's first argmax,
+    times T), dts as bf16 hi + lo, and two products with K (or Q) with
+    fp32 output. A yardstick, not one library call; the port never calls
+    it (2.1 GB of fp32 volume at the AV shape)."""
+    q, k, temp, coeff, clamp_min, amax, g_clip, g_nn = args
+    f32, bf16 = torch.float32, torch.bfloat16
+    bq, nq, d = q.shape
+    bk, nk, _ = k.shape
+    q2, k2 = q.reshape(-1, d), k.reshape(-1, d)
+    cols = (torch.arange(bk, device=q.device)[None, :, None] * nk + amax.long()).transpose(1, 2)
+    cols = cols.reshape(bq * nq, bk)
+    g_max = (g_clip[:, :, None] * coeff[:, None, :]).transpose(1, 2).reshape(bq * nq, bk)
+
+    def run():
+        ts = torch.mm(q2, k2.t(), out_dtype=f32).mul_(temp)
+        dts = torch.where((ts > clamp_min) & (ts < 0.0), ts * (2.0 * g_nn), 0.0)
+        del ts
+        dts.scatter_add_(1, cols, g_max).mul_(temp)
+        hi = dts.to(bf16)
+        lo = dts.sub_(hi.to(f32)).to(bf16)
+        del dts
+        if dk:
+            return torch.mm(hi.t(), q2, out_dtype=f32).add_(torch.mm(lo.t(), q2, out_dtype=f32))
+        return torch.mm(hi, k2, out_dtype=f32).add_(torch.mm(lo, k2, out_dtype=f32))
+    return run
 
 
 def maxmean_real_case(res, MM, bq, bk, nq, nk, d, clamp_min):
@@ -1869,14 +1901,16 @@ def _kernel_entry(name, results, launches_by_path):
 # wgmma.mma_async) on tiles brought in by TMA (UTMALDG, from
 # cp.async.bulk.tensor), and how many instantiations each has at least.
 SASS_KERNELS = {"gemm_kernel": 2, "mlp_gemm_kernel": 7, "flash_fwd_kernel": 1,
-                "flash_dkv_kernel": 1, "flash_dq_kernel": 1}
+                "flash_dkv_kernel": 1, "flash_dq_kernel": 1, "maxmean_dq_kernel": 6,
+                "maxmean_dk_kernel": 6}
 
 
 def sass_check(path):
     """The Hopper kernels' machine code: every instantiation of
-    conv_s2.cuh's gemm_kernel, of fused_mlp.cu's mlp_gemm_kernel and the
-    flash forward, dK/dV and dQ kernels
-    must hold HGMMA and UTMALDG instructions. Counts them per kernel in
+    conv_s2.cuh's gemm_kernel, of fused_mlp.cu's mlp_gemm_kernel, the
+    flash forward, dK/dV and dQ kernels and maxmean.cu's dQ and dK kernels
+    (bf16 and split features, 3 widths each) must hold HGMMA and UTMALDG
+    instructions. Counts them per kernel in
     cuobjdump's disassembly of the built library, beside the highest
     register the kernel's code names (past ptxas's launch count where a
     warpgroup raises its own with setmaxnreg)."""

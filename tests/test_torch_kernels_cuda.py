@@ -646,6 +646,75 @@ class TestMaxMean:
             err, mx = _max_err(g, r)
             assert err <= self.TOL * mx, (name, err, mx)
 
+    @staticmethod
+    def _backward_case(dev, bq, bk, nq, nk, d, masked, seed):
+        """The backward's arguments on _grid inputs, the twin's argmax."""
+        from triad_tpu_torch.ops import maxmean as MM
+
+        q, k = _grid((bq, nq, d), dev, seed), _grid((bk, nk, d), dev, seed + 1)
+        mask = None
+        if masked:
+            mask = torch.ones((bq, nq), device=dev)
+            mask[1::2, nq * 3 // 4:] = 0.0
+        coeff = MM.coefficients(bq, nq, mask, dev)
+        temp = torch.tensor(1.5, device=dev)
+        amax = MM.maxmean_plain(q, k, temp, coeff, -20.0)[3]
+        g_clip = _randn((bq, bk), dev, seed + 2, dtype=torch.float32)
+        return q, k, temp, coeff, -20.0, amax, g_clip, torch.tensor(0.37, device=dev)
+
+    @pytest.mark.parametrize("bq,bk,nq,nk,d,masked", [
+        (2, 2, 1, 64, 64, False),      # one query row: 2 dQ row tiles, 2 dK key tiles
+        (3, 2, 63, 128, 256, True),    # a row tile one short
+        (3, 2, 65, 64, 512, False),    # one row past a tile
+        (64, 64, 32, 256, 512, True),  # the TV loss's shape: 64 dQ row tiles, fewer than SMs
+        (20, 36, 499, 256, 512, False),  # 160 dQ row tiles, 144 dK key tiles: more than SMs
+        (2, 3, 40, 192, 192, True),    # D padded with a zero chunk
+    ])
+    def test_backward_shapes(self, dev, bq, bk, nq, nk, d, masked):
+        """dQ and dK against the twins at ragged Nq (1, 63, 65, 499), the TV
+        shape with a mask, D 64, 192, 256 and 512, and grids with fewer
+        and more row tiles than the card has SMs."""
+        from triad_tpu_torch.ops import maxmean as MM
+
+        args = self._backward_case(dev, bq, bk, nq, nk, d, masked, 81)
+        refs = MM.maxmean_dq_plain(*args), MM.maxmean_dk_plain(*args)
+        for name, g, r in zip(("dq", "dk"), (MM.maxmean_dq(*args), MM.maxmean_dk(*args)), refs):
+            torch.cuda.synchronize()
+            err, mx = _max_err(g, r)
+            assert err <= self.TOL * mx, (name, err, mx)
+
+    @pytest.mark.parametrize("nq", [37, 499])
+    def test_fp32_split_d512(self, dev, nq):
+        """Split fp32 features at D = 512 (32-row streamed tiles, one ring
+        stage): dQ and dK against the twins, fed the twin's argmax."""
+        from triad_tpu_torch.ops import maxmean as MM
+
+        q = _randn((3, nq, 512), dev, 84, 0.05, torch.float32)
+        k = _randn((2, 128, 512), dev, 85, 0.05, torch.float32)
+        coeff = MM.coefficients(3, nq, None, dev)
+        temp = torch.tensor(1.5, device=dev)
+        amax = MM.maxmean_plain(q, k, temp, coeff, -2.0)[3]
+        args = (q, k, temp, coeff, -2.0, amax, _randn((3, 2), dev, 86, dtype=torch.float32),
+                torch.tensor(0.5, device=dev))
+        for name, g, r in zip(("dq", "dk"), (MM.maxmean_dq(*args), MM.maxmean_dk(*args)),
+                              (MM.maxmean_dq_plain(*args), MM.maxmean_dk_plain(*args))):
+            torch.cuda.synchronize()
+            err, mx = _max_err(g, r)
+            assert err <= self.TOL * mx, (name, err, mx)
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_backward_repeats_bit_for_bit(self, dev, dtype):
+        """No atomics, sums in a fixed order: two runs of dQ and of dK at
+        the AV shape are bit-equal."""
+        from triad_tpu_torch.ops import maxmean as MM
+
+        args = list(self._backward_case(dev, 64, 64, 499, 256, 512, False, 87))
+        args[:2] = [x.to(dtype) for x in args[:2]]
+        for fn in (MM.maxmean_dq, MM.maxmean_dk):
+            a, b = fn(*args), fn(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b), fn.__name__
+
     def test_autograd_counts_launches(self, dev):
         from triad_tpu_torch import kernels
         from triad_tpu_torch.ops.similarity import aggregate_crossbatch

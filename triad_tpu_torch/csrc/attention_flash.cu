@@ -854,15 +854,6 @@ bool encode_operand(CUtensorMap* map, const void* base, const long long* plan, i
   return encode(map, base, 4, dims, strides, box);
 }
 
-// The current device, its primary context made current on this thread:
-// libcuda encodes the tensor maps, and PyTorch runs a backward on a
-// thread of its own where no runtime call may have done so yet.
-cudaError_t bind_device(int* dev) {
-  if (cudaGetDevice(dev) != cudaSuccess || *dev < 0 || *dev >= MAX_DEVICES)
-    return cudaErrorInvalidDevice;
-  return cudaSetDevice(*dev);
-}
-
 // The persistent grid of a kernel: one block per SM, at most one per item;
 // sets the kernel's dynamic shared memory once per device and process, and
 // refuses a build whose launch leaves the block fewer registers than its

@@ -357,15 +357,6 @@ mlp_gemm_kernel(const __grid_constant__ CUtensorMap map_a0,
 
 // ------------------------------------------------------------------ host
 
-// The current device, its primary context made current on this thread:
-// libcuda encodes the tensor maps, and PyTorch runs a backward on a thread
-// of its own where no runtime call may have done so yet.
-cudaError_t bind_device(int* dev) {
-  if (cudaGetDevice(dev) != cudaSuccess || *dev < 0 || *dev >= MAX_DEVICES)
-    return cudaErrorInvalidDevice;
-  return cudaSetDevice(*dev);
-}
-
 // A row-major bf16 (rows, k) tensor, boxes of 64 columns x box_rows.
 bool map2d(CUtensorMap* map, const void* base, int rows, int k, int box_rows) {
   const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)rows};

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels, shared
 // by the stride-2 conv GEMM (conv_s2.cuh), the fused MLP's GEMMs
-// (fused_mlp.cu), the flash attention (attention_flash.cu) and the
-// positional conv's dW (posconv.cu):
+// (fused_mlp.cu), the flash attention (attention_flash.cu), the
+// positional conv's dW (posconv.cu) and the max-mean backward
+// (maxmean.cu):
 // mbarriers, TMA copies into shared memory and out of it
 // (cp.async.bulk.tensor, 128-byte swizzle), wgmma shared-memory
 // descriptors and products with their fence / commit / wait, and the
@@ -122,15 +123,20 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
 // The same tile read MN-major (wgmma's transposed B, imm-trans-b = 1):
 // the tile's rows are the contraction, its 64 columns the output columns,
 // one 128-byte swizzle row each. Stride between 8-row groups of the
-// contraction 1024 bytes; a second 64-column band, which no m64n64
-// product reads, would sit 8 KB on. A k16 step advances 16 rows, 2048
-// bytes.
-__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p) {
+// contraction 1024 bytes; the next 64-column band (read by products wider
+// than 64) sits band_bytes on, 8 KB for bands of 64 rows. A k16 step
+// advances 16 rows, 2048 bytes.
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p, uint32_t band_bytes = 8192) {
   const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (512ull << 16) | (64ull << 32) | (1ull << 62);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(band_bytes >> 4) << 16) | (64ull << 32) |
+         (1ull << 62);
 }
 
+// The SS products below: d (+)= A . B with both operands in shared memory
+// by descriptor; B K-major (TRANS_B 0: rows are the output columns) or
+// MN-major (TRANS_B 1: desc_sw128_mn, rows are the contraction).
 // d (64 x 256 fp32 of a warpgroup) (+)= A (64 x 16) . B (256 x 16)^T.
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db,
                                                  int accumulate) {
   asm volatile(
@@ -146,7 +152,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
       "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, "
       "%102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
       "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, 0, 0;\n"
+      " %128, %129, p, 1, 1, 0, %131;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
@@ -170,10 +176,11 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
         "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
         "+f"(d[127])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
 // d (64 x 128 fp32 of a warpgroup) (+)= A (64 x 16) . B (128 x 16)^T.
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
                                                  int accumulate) {
   asm volatile(
@@ -185,7 +192,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
       "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
       "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 0;\n"
+      " %64, %65, p, 1, 1, 0, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
@@ -198,10 +205,29 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// d (64 x 32 fp32 of a warpgroup) (+)= A (64 x 16) . B (32 x 16)^T.
+template <int TRANS_B = 0>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, %19;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
 // d (64 x 64 fp32 of a warpgroup) (+)= A (64 x 16) . B (64 x 16)^T.
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
                                                  int accumulate) {
   asm volatile(
@@ -211,7 +237,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16\n"
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
       "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 0;\n"
+      " %32, %33, p, 1, 1, 0, %35;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
@@ -219,7 +245,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -333,6 +359,15 @@ inline bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_
 }
 
 constexpr int MAX_DEVICES = 64;
+
+// The current device, its primary context made current on this thread:
+// libcuda encodes the tensor maps, and PyTorch runs a backward on a thread
+// of its own where no runtime call may have done so yet.
+inline cudaError_t bind_device(int* dev) {
+  if (cudaGetDevice(dev) != cudaSuccess || *dev < 0 || *dev >= MAX_DEVICES)
+    return cudaErrorInvalidDevice;
+  return cudaSetDevice(*dev);
+}
 
 // The current device's SM count, read once per device and process.
 inline int sm_count(int dev) {

@@ -29,58 +29,93 @@
 // because the argmax routing and the clamp window read single sims. The
 // backward products take the fp32 dts (and the fp32 K or Q of the
 // reference, :250-254, :313-317) as bf16 hi + lo halves (triad::
-// split_bf16, ~16 mantissa bits). Every kernel computes a sim tile with the
-// same function over the same 16 x 16 blocks in the same order, so the
-// backward's recomputed ts equal the forward's to the bit.
+// split_bf16, ~16 mantissa bits). The forward sums a sim tile in WMMA 16 x
+// 16 blocks and the backward in wgmma tiles, so the backward's recomputed
+// ts may differ from the forward's in the last bit. That matters only for
+// a ts at clamp_min or at 0 exactly, whose window test could then differ
+// (a term of 2 clamp_min g_nn T, or of 0): the argmax comes from the
+// forward's int32 amax residual, never from the backward's sims.
 //
-// What bounds it on the card: 2 Bq Bk Nq Nk D operations per pass (4 for
-// each backward pass, whose dts is split in two); at the AV shape (64 x 499
-// queries, 64 x 256 keys, D = 512) the forward is 5.4e11 operations, 0.54
-// ms at the bf16 tensor-core peak, far above its 45 MB of input. The
-// design is the simple one (WMMA, synchronous tile loads, whole-D tiles in
-// shared memory); it sits well above that bound.
-//   forward  one block per pair (i, j): a 64-key tile of K_j stays in
-//            shared memory while 32-query tiles of Q_i stream past it; a
-//            running (max, first argmax) per query row lives in shared
-//            memory; the block writes clip[i, j] itself (no atomics), its
-//            clamp^2 and window ts^2 sums to a per-pair buffer that the
-//            wrapper sums in a fixed order, and the first argmax of every
-//            query row to an int32 (Bq, Bk, Nq) residual (8.2 MB at the AV
-//            shape) that the backward reads: the dK kernel tiles the keys
-//            and could not find a row's argmax over all of them itself.
-//   dQ       one block per (i, 32-query tile), walking every (j, 64-key
-//            tile); the (32, D) fp32 dQ tile accumulates in registers.
-//   dK       one block per (j, 32-key tile), walking every (i, 64-query
-//            tile); the (32, D) fp32 dK tile accumulates in registers.
+// What bounds it on the card: operations. A forward pass is 2 Bq Bk Nq Nk
+// D of them; a backward pass recomputes the sims (the same count) and
+// multiplies dts, as hi and lo, by K or Q (twice it). At the AV shape (64
+// x 499 queries, 64 x 256 keys, D = 512) the forward is 5.4e11
+// operations, 0.54 ms at the bf16 tensor-core peak, and each backward pass
+// 1.6e12, 1.63 ms, far above their 45 MB of input.
+//   forward  the simple design (WMMA, synchronous tile loads, whole-D
+//            tiles in shared memory): one block per pair (i, j); a 64-key
+//            tile of K_j stays in shared memory while 32-query tiles of Q_i
+//            stream past it; a running (max, first argmax) per query row
+//            lives in shared memory; the block writes clip[i, j] itself (no
+//            atomics), its clamp^2 and window ts^2 sums to a per-pair
+//            buffer that the wrapper sums in a fixed order, and the first
+//            argmax of every query row to an int32 (Bq, Bk, Nq) residual
+//            (8.2 MB at the AV shape) that the backward reads: the dK
+//            kernel tiles the keys and could not find a row's argmax over
+//            all of them itself.
+//   dQ, dK   Hopper kernels (hopper.cuh's helpers), one body: a block per
+//            item of 64 resident rows (dQ: query rows of clip i, dK: keys of
+//            clip j), 384 threads: a producer warpgroup, one warp of which
+//            keeps a 2-stage ring of 64-row streamed tiles full by TMA (dQ:
+//            keys of every clip j, dK: query rows of every clip i; rank-3
+//            maps over (D, N, B), so rows past Nq read as zeros and never as
+//            the next clip's), with each tile's 64 scalars (amax and g_clip
+//            coeff of its query rows, read once per tile, -1 and 0 past Nq),
+//            and two consumer warpgroups on wgmma (setmaxnreg: producer 40,
+//            consumers 232 registers a thread).
+//            The output's 64 x D fp32 tile would need 256 accumulator
+//            registers a thread at D = 512 in one warpgroup, so each
+//            consumer owns half of D (128 accumulators at D = 512). Both
+//            need the whole 64 x 64 sim tile, whose contraction runs over
+//            all of D: each computes it itself (wgmma m64n64k16, both
+//            operands from shared memory; 4 product passes where 3 would
+//            do). tools/kernel_probe.py maxmean times this against a third
+//            consumer warpgroup that computes the sims and dts once for
+//            both (SIM_WG; slower: at 512 threads ptxas kept every thread
+//            to 128 registers and spilled); PERF.md has the halves-added
+//            variant and the earlier register-fragment designs.
+//            dts goes from the sims' fp32 accumulator to the warpgroup's
+//            own dts tiles in shared memory as bf16 hi and lo (16 KB, TMA's
+//            swizzle), and out += dts . tile runs with both operands from
+//            shared memory, the tile read MN-major (wgmma m64n128k16, two
+//            per 16 rows at D = 512; hi, lo, and hi times the lo of split
+//            features). In registers as A fragments, dts and the sims beside
+//            128 accumulators made ptxas spill the accumulators around every
+//            product. Each warpgroup's products retire before its next
+//            tile's sims, and the stage is released at once; the other
+//            warpgroup's products fill the tensor cores meanwhile. ptxas
+//            still spills ~200 bytes a thread at D = 512 and serialises the
+//            sims' wgmma (its note C7512, phase 2): the bound that is left.
+//            Shared memory at D = 512: the resident 64 x 512 tile (64 KB),
+//            two 64-row ring stages (128 KB) and the dts tiles (32 KB).
+//            Split fp32 features double the resident tile and the stages:
+//            they stream 32-row tiles, one stage at D = 512 (the products
+//            then wait for each copy). D under 512 is padded with zero
+//            chunks to 128, 256 or 512 (chunks_per_half).
+//            dQ: grid (ceil(Nq / 64), Bq), walking (j, 64-key tile); dK: grid
+//            (Nk / 64, Bk), walking (i, 64-query tile). At the TV shape (Nq
+//            = 32) dQ has 64 blocks for 132 SMs, half of each tile's rows
+//            past Nq: it is left so (PERF.md).
 // Both backward kernels sum in a fixed order: deterministic, no atomics.
 // D a multiple of 64 up to 512; Nk a multiple of 64; ragged Nq (rows past
 // Nq are zero-filled and skipped).
-#include "common.cuh"
+#include "hopper.cuh"
 
 using namespace nvcuda;
+using namespace triad::hopper;
 
 namespace {
 
 using triad::bf16;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 constexpr int THREADS = 256;  // 8 warps
-constexpr int MAX_D = 512;    // 8 fp32 accumulator fragments per warp
+constexpr int MAX_D = 512;
 constexpr int MAX_SMEM = 232448;
 // forward: 32 query rows x 64 keys per sim tile
 constexpr int FQ = 32, FK = 64;
-// dQ: 32 query rows, 64 keys per step
-constexpr int GQ = 32, GK = 64;
-// dK: 32 keys, 64 query rows per step
-constexpr int HK = 32, HQ = 64;
-
-// The warp's accumulator fragments, fully unrolled so they stay in
-// registers; f < nf (= D / 64) are live.
-#define FOR_FRAGS(f) _Pragma("unroll") for (int f = 0; f < MAX_D / 64; ++f) if (f < nf)
 
 __host__ __device__ inline size_t align128(size_t x) { return (x + 127) / 128 * 128; }
 
@@ -105,10 +140,9 @@ __device__ inline void load_tile(bf16* dst, const bf16* src, int rows, int valid
   }
 }
 
-// One 16 x 16 block of raw sims <q, k> over all of d, in 16-wide steps:
-// qh/ql point at 16 query rows, kh/kl at 16 keys (both row-major [.][d]
-// with row stride ld). Every kernel uses this, so equal blocks give equal
-// bits.
+// One 16 x 16 block of the forward's raw sims <q, k> over all of d, in
+// 16-wide steps: qh/ql point at 16 query rows, kh/kl at 16 keys (both
+// row-major [.][d] with row stride ld).
 __device__ inline void sim_block(FragC& acc, const bf16* qh, const bf16* ql, const bf16* kh,
                                  const bf16* kl, int ld, int d, bool split) {
   wmma::fill_fragment(acc, 0.0f);
@@ -139,7 +173,7 @@ __device__ inline float block_sum(float v, float* red) {
   return s;
 }
 
-// dL/d(raw sim) of one element (zero for a row past nq).
+// dL/d(raw sim) of one element.
 __device__ inline float dts_of(float s, float temp, bool is_max, float g_max, float g_nn,
                                float clamp_min) {
   const float ts = s * temp;
@@ -249,179 +283,478 @@ maxmean_fwd_kernel(Inputs in, float* __restrict__ clip, int* __restrict__ amax,
   }
 }
 
-// --------------------------------------------------------------------- dQ
+// --------------------------------------------------------------- backward
+//
+// One kernel body for dQ and dK. An item is 64 resident rows (dQ: query
+// rows of clip i; dK: keys of clip j); the ring streams tiles of the other
+// operand (dQ: KT keys of every clip j; dK: KT query rows of every clip i)
+// with the 64 (amax, g_clip coeff) scalars of the tile's pair. Per tile:
+// the sim tile (dQ: S = Q K^T, dK: S^T = K Q^T), dts from it, then out +=
+// dts . tile.
 
-__host__ inline size_t dq_smem(int d, bool split) {
-  const int ld = d + 8;
-  return align128(sizeof(bf16) * (size_t)(GQ + GK) * ld * (split ? 2 : 1)) +
-         align128(sizeof(float) * GQ * (GK + 4)) + 2 * align128(sizeof(bf16) * GQ * (GK + 8));
+// Who computes a tile's sims and dts, which both output warpgroups read
+// from shared memory: 1, a third consumer warpgroup of its own (the two
+// output warpgroups then hold only their accumulators); 0, each output
+// warpgroup computes the whole tile itself before its products (tools/
+// kernel_probe.py maxmean times both).
+constexpr int SIM_WG = 0;
+constexpr int BW_CONSUMERS = 2;  // output warpgroups: the item's 64 rows, half of D each
+constexpr int BW_THREADS = 128 * (BW_CONSUMERS + SIM_WG + 1);  // + the producer warpgroup
+// Registers a thread after setmaxnreg, within the block's 65536: the
+// producer 40 and the outputs 232 (40 + 2 x 232 = 504 of 384 x 168); with
+// SIM_WG the producer 24, the sims 112 and the outputs 184 (24 + 112 + 2 x
+// 184 = 504 of 512 x 128).
+constexpr int BW_PRODUCER_REGS = SIM_WG ? 24 : 40, BW_SIM_REGS = 112;
+constexpr int BW_CONSUMER_REGS = SIM_WG ? 184 : 232;
+constexpr int BW_ROWS = 64;     // rows of the resident tile: one wgmma M
+constexpr int CHUNK = 64;       // columns of D a TMA box (one 128-byte swizzle row) holds
+constexpr int MAX_STAGES = 4;
+
+// Rows of a streamed tile: 64, or 32 for split fp32 features, whose
+// resident tile and ring take twice the bytes.
+template <bool SPLIT>
+constexpr int stream_rows() { return SPLIT ? 32 : 64; }
+
+// The 64-column chunks of D that each consumer warpgroup owns; D is padded
+// with zero chunks to twice that.
+inline int chunks_per_half(int d) { return d <= 128 ? 1 : d <= 256 ? 2 : 4; }
+
+template <bool SPLIT, int NC>
+struct BwdLayout {
+  static constexpr int KT = stream_rows<SPLIT>();
+  static constexpr int HALVES = SPLIT ? 2 : 1;  // bf16 hi (+ lo) of each operand
+  static constexpr int CHUNKS = 2 * NC;
+  static constexpr int RES_CHUNK = BW_ROWS * CHUNK, TILE_CHUNK = KT * CHUNK;  // elements
+  static constexpr int RES_BYTES = HALVES * CHUNKS * RES_CHUNK * 2;
+  static constexpr int TILE_BYTES = HALVES * CHUNKS * TILE_CHUNK * 2;
+  // Two dts tiles, bf16 hi and lo, 64 x 64 (KT columns used): one per
+  // tile parity with SIM_WG, else one per output warpgroup.
+  static constexpr int DTS_BYTES = 2 * 2 * BW_ROWS * CHUNK * 2;
+  static constexpr int SCALAR_BYTES = 2 * BW_ROWS * 4;  // a stage's amax and g_max
+  static constexpr int FIT = (MAX_SMEM - 1024 - RES_BYTES - DTS_BYTES - 40) /
+                             (TILE_BYTES + SCALAR_BYTES + 16);
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
+  static constexpr size_t SMEM = 1024 + (size_t)RES_BYTES + (size_t)STAGES * TILE_BYTES +
+                                 DTS_BYTES + (size_t)STAGES * SCALAR_BYTES +
+                                 (2 * STAGES + 5) * 8;
+  static_assert(STAGES >= 1 && SMEM <= (size_t)MAX_SMEM, "max-mean backward: no room");
+};
+
+struct BwdArgs {
+  const float *coeff, *temp, *g_clip, *g_nn;
+  const int* amax;
+  float* out;
+  int bq, bk, nq, nk, d;
+  float clamp_min;
+};
+
+// Shared memory, 1024-aligned: the resident tile [HALVES][CHUNKS][64][64],
+// the ring [STAGES][HALVES][CHUNKS][KT][64] (each chunk a TMA box in the
+// 128-byte swizzle), the dts tiles [2][hi | lo][64][64] (the same
+// swizzle), the stages' scalars [STAGES][amax | g_max][64], then the
+// barriers.
+struct BwdSmem {
+  bf16 *res, *ring, *dts;
+  float* scal;
+  uint64_t *res_full, *full, *empty, *dts_full, *dts_empty;
+};
+
+template <class L>
+__device__ __forceinline__ BwdSmem carve_bwd(unsigned char* raw) {
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  BwdSmem s;
+  s.res = reinterpret_cast<bf16*>(base);
+  s.ring = reinterpret_cast<bf16*>(base + L::RES_BYTES);
+  s.dts = reinterpret_cast<bf16*>(base + L::RES_BYTES + L::STAGES * L::TILE_BYTES);
+  s.scal = reinterpret_cast<float*>(base + L::RES_BYTES + L::STAGES * L::TILE_BYTES +
+                                    L::DTS_BYTES);
+  s.res_full = reinterpret_cast<uint64_t*>(s.scal + L::STAGES * 2 * BW_ROWS);
+  s.full = s.res_full + 1;
+  s.empty = s.full + L::STAGES;
+  s.dts_full = s.empty + L::STAGES;
+  s.dts_empty = s.dts_full + 2;
+  return s;
 }
 
-__global__ void __launch_bounds__(THREADS)
-maxmean_dq_kernel(Inputs in, const float* __restrict__ g_clip, const float* __restrict__ g_nn,
-                  const int* __restrict__ amax, float* __restrict__ dq) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int q0 = blockIdx.x * GQ, i = blockIdx.y;
-  const int d = in.d, ld = d + 8, nq = in.nq, nk = in.nk;
-  const bool split = in.ql != nullptr;
-  const int warp = threadIdx.x / 32;
-  constexpr int LDS = GK + 4, LDD = GK + 8;
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + GQ * ld;
-  bf16* sQl = sK + GK * ld;  // used when split
-  bf16* sKl = sQl + GQ * ld;
-  size_t off = align128(sizeof(bf16) * (size_t)(GQ + GK) * ld * (split ? 2 : 1));
-  float* sS = reinterpret_cast<float*>(smem + off);
-  off += align128(sizeof(float) * GQ * LDS);
-  bf16* sDh = reinterpret_cast<bf16*>(smem + off);
-  bf16* sDl = sDh + align128(sizeof(bf16) * GQ * LDD) / sizeof(bf16);
+// The item of a block and its tiles: dQ (clip i, rows r0 .. r0 + 63 of
+// Nq), tiles (j, KT keys) for every key clip j; dK (clip j, keys r0 .. r0
+// + 63), tiles (i, KT query rows) for every query clip i. Tile t is tile t
+// % per of streamed clip t / per.
+template <bool DQ, int KT>
+struct Walk {
+  int clip, r0, per, ntiles;
+  __device__ Walk(const BwdArgs& a) {
+    clip = blockIdx.y;
+    r0 = blockIdx.x * BW_ROWS;
+    per = DQ ? a.nk / KT : (a.nq + KT - 1) / KT;
+    ntiles = (DQ ? a.bk : a.bq) * per;
+  }
+};
 
-  const float temp = *in.temp, gnn = *g_nn;
-  const long long qbase = ((long long)i * nq + q0) * d;
-  load_tile(sQ, in.qh + qbase, GQ, nq - q0, d, ld);
-  if (split) load_tile(sQl, in.ql + qbase, GQ, nq - q0, d, ld);
+__device__ __forceinline__ void advance(int& stage, int& phase, int stages) {
+  if (++stage == stages) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
 
-  const int rt = warp & 1, ct = warp >> 1;  // sim block; dQ: rows rt, column group ct
-  const int nf = d / 64, col0 = ct * (d / 4);
-  FragC acc[MAX_D / 64];
-  FOR_FRAGS(f) wmma::fill_fragment(acc[f], 0.0f);
-  for (int j = 0; j < in.bk; ++j) {
-    const long long pair = (long long)i * in.bk + j;
-    const float g = g_clip[pair];
-    for (int k0 = 0; k0 < nk; k0 += GK) {
-      __syncthreads();
-      const long long kbase = ((long long)j * nk + k0) * d;
-      load_tile(sK, in.kh + kbase, GK, GK, d, ld);
-      if (split) load_tile(sKl, in.kl + kbase, GK, GK, d, ld);
-      __syncthreads();
-      FragC s;
-      sim_block(s, sQ + rt * 16 * ld, sQl + rt * 16 * ld, sK + ct * 16 * ld,
-                sKl + ct * 16 * ld, ld, d, split);
-      wmma::store_matrix_sync(sS + rt * 16 * LDS + ct * 16, s, LDS, wmma::mem_row_major);
-      __syncthreads();
-      for (int e = threadIdx.x; e < GQ * GK; e += THREADS) {
-        const int r = e / GK, c = e % GK, a = q0 + r;
-        float v = 0.0f;
-        if (a < nq)
-          v = dts_of(sS[r * LDS + c], temp, amax[pair * nq + a] == k0 + c,
-                     g * in.coeff[(long long)i * nq + a], gnn, in.clamp_min);
-        triad::split_bf16(v, sDh + r * LDD + c, sDl + r * LDD + c);
-      }
-      __syncthreads();
-      // dQ += dts K over this tile's 64 keys
-      for (int kk = 0; kk < GK; kk += 16) {
-        FragA ah, al;
-        wmma::load_matrix_sync(ah, sDh + rt * 16 * LDD + kk, LDD);
-        wmma::load_matrix_sync(al, sDl + rt * 16 * LDD + kk, LDD);
-        FOR_FRAGS(f) {
-          FragB b;
-          wmma::load_matrix_sync(b, sK + kk * ld + col0 + f * 16, ld);
-          wmma::mma_sync(acc[f], ah, b, acc[f]);
-          wmma::mma_sync(acc[f], al, b, acc[f]);
-          if (split) {
-            wmma::load_matrix_sync(b, sKl + kk * ld + col0 + f * 16, ld);
-            wmma::mma_sync(acc[f], ah, b, acc[f]);
-          }
-        }
+// The producer warp: the resident tile's real chunks (those that hold D's
+// columns) once, then per tile the 64 scalars of its pair, (amax, g_clip
+// coeff) of query rows q0 .. q0 + 63 (-1 and 0 past Nq or past the tile,
+// so that no row past Nq reads amax or coeff), and the tile's real chunks.
+template <bool DQ, bool SPLIT, int NC>
+__device__ __forceinline__ void bwd_produce(const BwdSmem& s, const CUtensorMap* map_rh,
+                                            const CUtensorMap* map_rl, const CUtensorMap* map_th,
+                                            const CUtensorMap* map_tl, const BwdArgs& a,
+                                            int lane) {
+  using L = BwdLayout<SPLIT, NC>;
+  const Walk<DQ, L::KT> w(a);
+  const int real = a.d / CHUNK;
+  if (lane == 0) {
+    mbar_expect_tx(s.res_full, L::HALVES * real * L::RES_CHUNK * 2);
+    for (int h = 0; h < L::HALVES; ++h)
+      for (int c = 0; c < real; ++c)
+        tma_load_3d(s.res + (h * L::CHUNKS + c) * L::RES_CHUNK, h ? map_rl : map_rh, s.res_full,
+                    c * CHUNK, w.r0, w.clip);
+  }
+  int stage = 0, phase = 0;
+  for (int t = 0; t < w.ntiles; ++t) {
+    const int other = t / w.per, row = (t % w.per) * L::KT;
+    const int i = DQ ? w.clip : other, j = DQ ? other : w.clip;
+    const int q0 = DQ ? w.r0 : row, npos = DQ ? BW_ROWS : L::KT;
+    const long long pair = (long long)i * a.bk + j;
+    int am[2];
+    float g[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int p = lane + 32 * e, q = q0 + p;
+      const bool ok = p < npos && q < a.nq;
+      am[e] = ok ? a.amax[pair * a.nq + q] : -1;
+      g[e] = ok ? a.g_clip[pair] * a.coeff[(long long)i * a.nq + q] : 0.0f;
+    }
+    mbar_wait(&s.empty[stage], phase ^ 1);
+    int* sam = reinterpret_cast<int*>(s.scal + stage * 2 * BW_ROWS);
+    float* sg = s.scal + stage * 2 * BW_ROWS + BW_ROWS;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sam[lane + 32 * e] = am[e];
+      sg[lane + 32 * e] = g[e];
+    }
+    if (lane == 0) {
+      bf16* dst = s.ring + stage * (L::TILE_BYTES / 2);
+      mbar_expect_tx(&s.full[stage], L::HALVES * real * L::TILE_CHUNK * 2);
+      for (int h = 0; h < L::HALVES; ++h)
+        for (int c = 0; c < real; ++c)
+          tma_load_3d(dst + (h * L::CHUNKS + c) * L::TILE_CHUNK, h ? map_tl : map_th,
+                      &s.full[stage], c * CHUNK, row, other);
+    } else {
+      mbar_arrive(&s.full[stage]);
+    }
+    advance(stage, phase, L::STAGES);
+  }
+}
+
+// d (64 x KT) (+)= A (64 x 16) . B (KT x 16)^T, both K-major in shared memory.
+template <int KT>
+__device__ __forceinline__ void mma_sim(float (&d)[KT / 2], const bf16* a, const bf16* b,
+                                        int accumulate) {
+  if constexpr (KT == 64)
+    wgmma_m64n64k16(d, desc_sw128(a), desc_sw128(b), accumulate);
+  else
+    wgmma_m64n32k16(d, desc_sw128(a), desc_sw128(b), accumulate);
+}
+
+// Named barrier 1 + wg over the 128 threads of warpgroup wg.
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// Puts bf16 (a, b) at (row, col), (row, col + 1) of a 64 x 64 bf16 tile in
+// TMA's 128-byte swizzle (the 16-byte chunk of column c in row r is chunk
+// c / 8 ^ r % 8), so a warp's stores of one column group hit every bank
+// once; col even.
+__device__ __forceinline__ void put_pair(bf16* tile, int row, int col, __nv_bfloat162 v) {
+  *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<unsigned char*>(tile) + row * 128 +
+                                     (((col >> 3) ^ (row & 7)) << 4) + (col & 7) * 2) = v;
+}
+
+// A tile's sims, summed over all of D by warpgroup-thread t: sv holds
+// element (j, e) of the 64 x KT tile, row r + 8 (e / 2), column 8 j + col
+// + e % 2 (r = 16 (t / 32) + t % 32 / 4, col = 2 (t % 4)).
+template <bool SPLIT, int NC>
+__device__ __forceinline__ void tile_sims(float (&sv)[BwdLayout<SPLIT, NC>::KT / 2],
+                                          const BwdSmem& s, const bf16* tile) {
+  using L = BwdLayout<SPLIT, NC>;
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < L::CHUNKS; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const bf16* rp = s.res + c * L::RES_CHUNK + kk * 16;
+      const bf16* tp = tile + c * L::TILE_CHUNK + kk * 16;
+      mma_sim<L::KT>(sv, rp, tp, c > 0 || kk > 0);
+      if constexpr (SPLIT) {
+        mma_sim<L::KT>(sv, rp + L::CHUNKS * L::RES_CHUNK, tp, 1);
+        mma_sim<L::KT>(sv, rp, tp + L::CHUNKS * L::TILE_CHUNK, 1);
       }
     }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sv);
+}
+
+// dts in place of the sims of tile tt (dQ: rows are query rows and columns
+// keys; dK: rows keys and columns query rows), from the stage's scalars.
+template <bool DQ, int KT>
+__device__ __forceinline__ void tile_dts(float (&sv)[KT / 2], const float* scal, int k0,
+                                         const BwdArgs& a, float temp, float gnn, int t) {
+  const int r = (t >> 5) * 16 + ((t & 31) >> 2), col = 2 * (t & 3);
+  const int* sam = reinterpret_cast<const int*>(scal);
+  const float* sg = scal + BW_ROWS;
+  int am_r[2] = {0, 0};
+  float g_r[2] = {0.0f, 0.0f};
+  if constexpr (DQ) {
+    am_r[0] = sam[r];
+    am_r[1] = sam[r + 8];
+    g_r[0] = sg[r];
+    g_r[1] = sg[r + 8];
   }
-  // Rows past nq are not stored: each warp stages its blocks in sS.
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rr = r + 8 * (e >> 1), cc = 8 * j + col + (e & 1);
+      const int am = DQ ? am_r[e >> 1] : sam[cc];
+      const float gm = DQ ? g_r[e >> 1] : sg[cc];
+      const int key = DQ ? k0 + cc : k0 + rr;
+      sv[4 * j + e] = dts_of(sv[4 * j + e], temp, am == key, gm, gnn, a.clamp_min);
+    }
+}
+
+// dts as bf16 hi and lo into a pair of dts tiles (hi, then lo 8 KB on).
+// The thread's row is laundered so that its 16 store addresses are formed
+// anew every tile: hoisted out of the tile loop, they held 32 registers
+// beside the accumulators and ptxas spilled.
+template <int KT>
+__device__ __forceinline__ void put_dts(const float (&v)[KT / 2], bf16* hi, int t) {
+  int r = (t >> 5) * 16 + ((t & 31) >> 2);
+  asm volatile("" : "+r"(r));
+  const int col = 2 * (t & 3);
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __nv_bfloat162 bh = __floats2bfloat162_rn(v[4 * j + 2 * h], v[4 * j + 2 * h + 1]);
+      const float2 back = __bfloat1622float2(bh);
+      put_pair(hi, r + 8 * h, 8 * j + col, bh);
+      put_pair(hi + BW_ROWS * CHUNK, r + 8 * h, 8 * j + col,
+               __floats2bfloat162_rn(v[4 * j + 2 * h] - back.x, v[4 * j + 2 * h + 1] - back.y));
+    }
+}
+
+// out (64 x 64 NC) += A (64 x 16, K-major) . B (16 rows of the tile's NC
+// chunks read MN-major, chunks KT rows apart): wgmma n128 per two chunks
+// (n256 needs more registers than the launch leaves), n64 for one.
+template <int NC, int KT>
+__device__ __forceinline__ void mma_out(float (&d)[NC * 32], const bf16* a, const bf16* b) {
+  const uint64_t da = desc_sw128(a);
+  if constexpr (NC == 1) {
+    wgmma_m64n64k16<1>(d, da, desc_sw128_mn(b), 1);
+  } else {
+#pragma unroll
+    for (int p = 0; p < NC / 2; ++p)
+      wgmma_m64n128k16<1>(*reinterpret_cast<float(*)[64]>(d + 64 * p), da,
+                          desc_sw128_mn(b + 2 * p * KT * CHUNK, KT * CHUNK * 2), 1);
+  }
+}
+
+// out += dts . tile over output warpgroup wg's chunks, both from shared
+// memory: the tile read MN-major (its rows are the contraction); hi, lo
+// (and hi times the lo of split features) per 16 rows; waited for.
+template <bool SPLIT, int NC>
+__device__ __forceinline__ void tile_outputs(float (&acc)[NC * 32], const bf16* dts_hi,
+                                             const bf16* tile, int wg) {
+  using L = BwdLayout<SPLIT, NC>;
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < L::KT / 16; ++kk) {
+    const bf16* bp = tile + wg * NC * L::TILE_CHUNK + kk * 16 * CHUNK;
+    mma_out<NC, L::KT>(acc, dts_hi + kk * 16, bp);
+    mma_out<NC, L::KT>(acc, dts_hi + BW_ROWS * CHUNK + kk * 16, bp);
+    if constexpr (SPLIT)
+      mma_out<NC, L::KT>(acc, dts_hi + kk * 16, bp + L::CHUNKS * L::TILE_CHUNK);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// The sims warpgroup (SIM_WG): per tile the sims, dts, and dts into the
+// dts tiles of the tile's parity once both output warpgroups are done
+// with them (dts_empty), announced on dts_full by all 128 threads.
+template <bool DQ, bool SPLIT, int NC>
+__device__ __forceinline__ void bwd_sims(const BwdSmem& s, const BwdArgs& a, int t) {
+  using L = BwdLayout<SPLIT, NC>;
+  const Walk<DQ, L::KT> w(a);
+  const float temp = *a.temp, gnn = *a.g_nn;
+  mbar_wait(s.res_full, 0);
+  int stage = 0, phase = 0, buf = 0, bphase = 0;
+  for (int tt = 0; tt < w.ntiles; ++tt) {
+    mbar_wait(&s.full[stage], phase);
+    float sv[L::KT / 2];
+    tile_sims<SPLIT, NC>(sv, s, s.ring + stage * (L::TILE_BYTES / 2));
+    tile_dts<DQ, L::KT>(sv, s.scal + stage * 2 * BW_ROWS, DQ ? (tt % w.per) * L::KT : w.r0, a,
+                        temp, gnn, t);
+    mbar_wait(&s.dts_empty[buf], bphase ^ 1);
+    put_dts<L::KT>(sv, s.dts + buf * 2 * BW_ROWS * CHUNK, t);
+    fence_proxy_async();
+    mbar_arrive(&s.dts_full[buf]);
+    advance(stage, phase, L::STAGES);
+    advance(buf, bphase, 2);
+  }
+}
+
+// The store of output warpgroup wg's accumulators: rows (dQ: below Nq)
+// and the chunks that hold D's columns.
+template <bool DQ, int NC>
+__device__ __forceinline__ void store_out(const float (&acc)[NC * 32], const BwdArgs& a,
+                                          int clip, int r0, int wg, int t) {
+  const int row = r0 + (t >> 5) * 16 + ((t & 31) >> 2), col = 2 * (t & 3);
+  const int nrows = DQ ? a.nq : a.nk;
+  float* out = a.out + (long long)clip * nrows * a.d;
+#pragma unroll
+  for (int j = 0; j < NC * 8; ++j) {
+    const int cc = wg * NC * CHUNK + 8 * j + col;
+    if (cc >= a.d) continue;
+    if (row < nrows)
+      *reinterpret_cast<float2*>(out + (long long)row * a.d + cc) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (row + 8 < nrows)
+      *reinterpret_cast<float2*>(out + (long long)(row + 8) * a.d + cc) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// Output warpgroup wg: the output's 64 rows x its NC chunks of D, NC x 32
+// fp32 accumulators a thread. With SIM_WG it takes each tile's dts from
+// the sims warpgroup; else it computes the tile's sims and dts itself into
+// dts tiles of its own. Either way it releases the stage once its
+// products retired (and, with SIM_WG, the dts tiles).
+template <bool DQ, bool SPLIT, int NC>
+__device__ __forceinline__ void bwd_outputs(const BwdSmem& s, const BwdArgs& a, int wg, int t) {
+  using L = BwdLayout<SPLIT, NC>;
+  const Walk<DQ, L::KT> w(a);
+  float acc[NC * 32];
+#pragma unroll
+  for (int e = 0; e < NC * 32; ++e) acc[e] = 0.0f;
+  if constexpr (!SIM_WG) mbar_wait(s.res_full, 0);
+  int stage = 0, phase = 0, buf = 0, bphase = 0;
+  for (int tt = 0; tt < w.ntiles; ++tt) {
+    mbar_wait(&s.full[stage], phase);
+    const bf16* tile = s.ring + stage * (L::TILE_BYTES / 2);
+    bf16* dts_hi = s.dts + (SIM_WG ? buf : wg) * 2 * BW_ROWS * CHUNK;
+    if constexpr (SIM_WG) {
+      mbar_wait(&s.dts_full[buf], bphase);
+    } else {
+      float sv[L::KT / 2];
+      tile_sims<SPLIT, NC>(sv, s, tile);
+      tile_dts<DQ, L::KT>(sv, s.scal + stage * 2 * BW_ROWS, DQ ? (tt % w.per) * L::KT : w.r0,
+                          a, *a.temp, *a.g_nn, t);
+      put_dts<L::KT>(sv, dts_hi, t);
+      fence_proxy_async();
+      warpgroup_sync(wg);
+    }
+    tile_outputs<SPLIT, NC>(acc, dts_hi, tile, wg);
+    if (t == 0) {
+      if constexpr (SIM_WG) mbar_arrive(&s.dts_empty[buf]);
+      mbar_arrive(&s.empty[stage]);
+    }
+    advance(stage, phase, L::STAGES);
+    advance(buf, bphase, 2);
+  }
+  store_out<DQ, NC>(acc, a, w.clip, w.r0, wg, t);
+}
+
+template <bool DQ, bool SPLIT, int NC>
+__device__ __forceinline__ void bwd_body(const CUtensorMap* map_rh, const CUtensorMap* map_rl,
+                                         const CUtensorMap* map_th, const CUtensorMap* map_tl,
+                                         const BwdArgs& a) {
+  using L = BwdLayout<SPLIT, NC>;
+  extern __shared__ unsigned char smem_raw[];
+  const BwdSmem s = carve_bwd<L>(smem_raw);
+  const int real = a.d / CHUNK;
+  if (real < L::CHUNKS) {
+    // The chunks past D, which no copy writes, read as zeros.
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    for (int h = 0; h < L::HALVES; ++h)
+      for (int c = real; c < L::CHUNKS; ++c) {
+        uint4* p = reinterpret_cast<uint4*>(s.res + (h * L::CHUNKS + c) * L::RES_CHUNK);
+        for (int i = threadIdx.x; i < L::RES_CHUNK / 8; i += BW_THREADS) p[i] = z;
+        for (int st = 0; st < L::STAGES; ++st) {
+          uint4* q = reinterpret_cast<uint4*>(s.ring + st * (L::TILE_BYTES / 2) +
+                                              (h * L::CHUNKS + c) * L::TILE_CHUNK);
+          for (int i = threadIdx.x; i < L::TILE_CHUNK / 8; i += BW_THREADS) q[i] = z;
+        }
+      }
+    fence_proxy_async();
+  }
+  // Barriers: the resident tile's full takes the producer's one arrival
+  // and its bytes; a stage's full the producer warp's 32 arrivals (lane
+  // 0's with the bytes) after its scalars are written, its empty one
+  // arrival per output warpgroup once the products that read it retired;
+  // a dts pair's full the sims warpgroup's 128 arrivals after its writes,
+  // its empty one arrival per output warpgroup.
+  if (threadIdx.x == 0) {
+    mbar_init(s.res_full, 1);
+    for (int i = 0; i < L::STAGES; ++i) {
+      mbar_init(&s.full[i], 32);
+      mbar_init(&s.empty[i], BW_CONSUMERS);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&s.dts_full[i], 128);
+      mbar_init(&s.dts_empty[i], BW_CONSUMERS);
+    }
+    fence_mbarrier_init();
+  }
   __syncthreads();
-  float* stage = sS + warp * 256;
-  const int lane = threadIdx.x % 32;
-  FOR_FRAGS(f) {
-    wmma::store_matrix_sync(stage, acc[f], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e / 16, c = e % 16, a = q0 + rt * 16 + r;
-      if (a < nq) dq[((long long)i * nq + a) * d + col0 + f * 16 + c] = stage[e];
+  // The warpgroup, warp-uniform to the compiler (broadcast from lane 0).
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0), t = threadIdx.x % 128;
+  if (wg == BW_CONSUMERS + SIM_WG) {
+    setmaxnreg_dec<BW_PRODUCER_REGS>();
+    if (t < 32) bwd_produce<DQ, SPLIT, NC>(s, map_rh, map_rl, map_th, map_tl, a, t);
+  } else if (wg == BW_CONSUMERS) {
+    if constexpr (SIM_WG) {
+      setmaxnreg_dec<BW_SIM_REGS>();
+      bwd_sims<DQ, SPLIT, NC>(s, a, t);
     }
-    __syncwarp();
+  } else {
+    setmaxnreg_inc<BW_CONSUMER_REGS>();
+    bwd_outputs<DQ, SPLIT, NC>(s, a, wg, t);
   }
 }
 
-// --------------------------------------------------------------------- dK
-
-__host__ inline size_t dk_smem(int d, bool split) {
-  const int ld = d + 8;
-  return align128(sizeof(bf16) * (size_t)(HK + HQ) * ld * (split ? 2 : 1)) +
-         align128(sizeof(float) * HQ * (HK + 4)) + 2 * align128(sizeof(bf16) * HQ * (HK + 8));
+// dQ: grid (ceil(Nq / 64), Bq); the maps: Q (resident, 64-row boxes) and
+// K (streamed, KT-row boxes), hi and lo (lo = hi for bf16 features).
+template <bool SPLIT, int NC>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+maxmean_dq_kernel(const __grid_constant__ CUtensorMap map_qh,
+                  const __grid_constant__ CUtensorMap map_ql,
+                  const __grid_constant__ CUtensorMap map_kh,
+                  const __grid_constant__ CUtensorMap map_kl, const BwdArgs a) {
+  bwd_body<true, SPLIT, NC>(&map_qh, &map_ql, &map_kh, &map_kl, a);
 }
 
-__global__ void __launch_bounds__(THREADS)
-maxmean_dk_kernel(Inputs in, const float* __restrict__ g_clip, const float* __restrict__ g_nn,
-                  const int* __restrict__ amax, float* __restrict__ dk) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int k0 = blockIdx.x * HK, j = blockIdx.y;
-  const int d = in.d, ld = d + 8, nq = in.nq, nk = in.nk;
-  const bool split = in.ql != nullptr;
-  const int warp = threadIdx.x / 32;
-  constexpr int LDS = HK + 4, LDD = HK + 8;
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sQ = sK + HK * ld;
-  bf16* sKl = sQ + HQ * ld;  // used when split
-  bf16* sQl = sKl + HK * ld;
-  size_t off = align128(sizeof(bf16) * (size_t)(HK + HQ) * ld * (split ? 2 : 1));
-  float* sS = reinterpret_cast<float*>(smem + off);
-  off += align128(sizeof(float) * HQ * LDS);
-  bf16* sDh = reinterpret_cast<bf16*>(smem + off);
-  bf16* sDl = sDh + align128(sizeof(bf16) * HQ * LDD) / sizeof(bf16);
-
-  const float temp = *in.temp, gnn = *g_nn;
-  const long long kbase = ((long long)j * nk + k0) * d;
-  load_tile(sK, in.kh + kbase, HK, HK, d, ld);
-  if (split) load_tile(sKl, in.kl + kbase, HK, HK, d, ld);
-
-  const int rt = warp & 3, ct = warp >> 2;  // sim block of the 64 x 32 tile
-  const int kt = warp & 1, cg = warp >> 1;  // dK: keys kt, column group cg
-  const int nf = d / 64, col0 = cg * (d / 4);
-  FragC acc[MAX_D / 64];
-  FOR_FRAGS(f) wmma::fill_fragment(acc[f], 0.0f);
-  for (int i = 0; i < in.bq; ++i) {
-    const long long pair = (long long)i * in.bk + j;
-    const float g = g_clip[pair];
-    for (int q0 = 0; q0 < nq; q0 += HQ) {
-      __syncthreads();
-      const long long qbase = ((long long)i * nq + q0) * d;
-      load_tile(sQ, in.qh + qbase, HQ, nq - q0, d, ld);
-      if (split) load_tile(sQl, in.ql + qbase, HQ, nq - q0, d, ld);
-      __syncthreads();
-      FragC s;
-      sim_block(s, sQ + rt * 16 * ld, sQl + rt * 16 * ld, sK + ct * 16 * ld,
-                sKl + ct * 16 * ld, ld, d, split);
-      wmma::store_matrix_sync(sS + rt * 16 * LDS + ct * 16, s, LDS, wmma::mem_row_major);
-      __syncthreads();
-      for (int e = threadIdx.x; e < HQ * HK; e += THREADS) {
-        const int r = e / HK, c = e % HK, a = q0 + r;
-        float v = 0.0f;
-        if (a < nq)
-          v = dts_of(sS[r * LDS + c], temp, amax[pair * nq + a] == k0 + c,
-                     g * in.coeff[(long long)i * nq + a], gnn, in.clamp_min);
-        triad::split_bf16(v, sDh + r * LDD + c, sDl + r * LDD + c);
-      }
-      __syncthreads();
-      // dK += dts^T Q over this tile's 64 query rows
-      for (int kk = 0; kk < HQ; kk += 16) {
-        FragAT ah, al;
-        wmma::load_matrix_sync(ah, sDh + kk * LDD + kt * 16, LDD);
-        wmma::load_matrix_sync(al, sDl + kk * LDD + kt * 16, LDD);
-        FOR_FRAGS(f) {
-          FragB b;
-          wmma::load_matrix_sync(b, sQ + kk * ld + col0 + f * 16, ld);
-          wmma::mma_sync(acc[f], ah, b, acc[f]);
-          wmma::mma_sync(acc[f], al, b, acc[f]);
-          if (split) {
-            wmma::load_matrix_sync(b, sQl + kk * ld + col0 + f * 16, ld);
-            wmma::mma_sync(acc[f], ah, b, acc[f]);
-          }
-        }
-      }
-    }
-  }
-  FOR_FRAGS(f)
-    wmma::store_matrix_sync(dk + ((long long)j * nk + k0 + kt * 16) * d + col0 + f * 16, acc[f],
-                            d, wmma::mem_row_major);
+// dK: grid (Nk / 64, Bk); the maps: K (resident, 64-row boxes) and Q
+// (streamed, KT-row boxes; rows past Nq read as zeros).
+template <bool SPLIT, int NC>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+maxmean_dk_kernel(const __grid_constant__ CUtensorMap map_kh,
+                  const __grid_constant__ CUtensorMap map_kl,
+                  const __grid_constant__ CUtensorMap map_qh,
+                  const __grid_constant__ CUtensorMap map_ql, const BwdArgs a) {
+  bwd_body<false, SPLIT, NC>(&map_kh, &map_kl, &map_qh, &map_ql, a);
 }
 
 template <typename K>
@@ -441,6 +774,67 @@ Inputs inputs_of(const void* qh, const void* ql, const void* kh, const void* kl,
                  float clamp_min) {
   return Inputs{(const bf16*)qh, (const bf16*)ql, (const bf16*)kh, (const bf16*)kl,
                 (const float*)coeff, (const float*)temp, bq, bk, nq, nk, d, clamp_min};
+}
+
+// A contiguous bf16 (b, n, d) operand as a rank-3 tensor map (d, n, b),
+// boxes of 64 columns x rows x 1: rows past n read as zeros, never the
+// next clip's.
+bool map3d(CUtensorMap* map, const bf16* base, int b, int n, int d, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)b};
+  const cuuint64_t strides[2] = {2ull * d, 2ull * d * n};
+  const cuuint32_t box[3] = {(cuuint32_t)CHUNK, (cuuint32_t)rows, 1};
+  return encode(map, base, 3, dims, strides, box);
+}
+
+// One backward grid on the stream: its tensor maps and its dynamic shared
+// memory (set once per device and process).
+template <bool DQ, bool SPLIT, int NC>
+int launch_bwd(const Inputs& in, const BwdArgs& a, cudaStream_t stream) {
+  using L = BwdLayout<SPLIT, NC>;
+  auto kernel = DQ ? maxmean_dq_kernel<SPLIT, NC> : maxmean_dk_kernel<SPLIT, NC>;
+  static bool ready[MAX_DEVICES];
+  int dev = 0;
+  const cudaError_t err = bind_device(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (!ready[dev]) {
+    const int set = prepare(kernel, L::SMEM);
+    if (set) return set;
+    ready[dev] = true;
+  }
+  // The resident operand (dQ: q, dK: k) in 64-row boxes, the streamed one
+  // in KT-row boxes.
+  const bf16 *rh = DQ ? in.qh : in.kh, *rl = DQ ? in.ql : in.kl;
+  const bf16 *th = DQ ? in.kh : in.qh, *tl = DQ ? in.kl : in.ql;
+  const int rb = DQ ? in.bq : in.bk, rn = DQ ? in.nq : in.nk;
+  const int tb = DQ ? in.bk : in.bq, tn = DQ ? in.nk : in.nq;
+  CUtensorMap m[4];
+  if (!map3d(&m[0], rh, rb, rn, in.d, BW_ROWS) || !map3d(&m[2], th, tb, tn, in.d, L::KT))
+    return (int)cudaErrorInvalidValue;
+  m[1] = m[0];
+  m[3] = m[2];
+  if (SPLIT && (!map3d(&m[1], rl, rb, rn, in.d, BW_ROWS) || !map3d(&m[3], tl, tb, tn, in.d, L::KT)))
+    return (int)cudaErrorInvalidValue;
+  kernel<<<dim3((rn + BW_ROWS - 1) / BW_ROWS, rb), BW_THREADS, L::SMEM, stream>>>(m[0], m[1], m[2],
+                                                                                 m[3], a);
+  return (int)cudaGetLastError();
+}
+
+template <bool DQ>
+int backward(const Inputs& in, const void* g_clip, const void* g_nn, const void* amax, void* out,
+             void* stream) {
+  if (bad_shape(in)) return (int)cudaErrorInvalidValue;
+  const BwdArgs a{in.coeff,         in.temp, (const float*)g_clip, (const float*)g_nn,
+                  (const int*)amax, (float*)out, in.bq, in.bk, in.nq, in.nk, in.d, in.clamp_min};
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool split = in.ql != nullptr;
+  switch (chunks_per_half(in.d)) {
+    case 1:
+      return split ? launch_bwd<DQ, true, 1>(in, a, st) : launch_bwd<DQ, false, 1>(in, a, st);
+    case 2:
+      return split ? launch_bwd<DQ, true, 2>(in, a, st) : launch_bwd<DQ, false, 2>(in, a, st);
+    default:
+      return split ? launch_bwd<DQ, true, 4>(in, a, st) : launch_bwd<DQ, false, 4>(in, a, st);
+  }
 }
 
 }  // namespace
@@ -471,14 +865,8 @@ extern "C" int triad_maxmean_dq(const void* qh, const void* ql, const void* kh, 
                                 const void* coeff, const void* temp, const void* g_clip,
                                 const void* g_nn, const void* amax, void* dq, int bq, int bk,
                                 int nq, int nk, int d, float clamp_min, void* stream) {
-  const Inputs in = inputs_of(qh, ql, kh, kl, coeff, temp, bq, bk, nq, nk, d, clamp_min);
-  if (bad_shape(in)) return (int)cudaErrorInvalidValue;
-  const size_t smem = dq_smem(d, ql != nullptr);
-  int err = prepare(maxmean_dq_kernel, smem);
-  if (err) return err;
-  maxmean_dq_kernel<<<dim3((nq + GQ - 1) / GQ, bq), THREADS, smem, (cudaStream_t)stream>>>(
-      in, (const float*)g_clip, (const float*)g_nn, (const int*)amax, (float*)dq);
-  return (int)cudaGetLastError();
+  return backward<true>(inputs_of(qh, ql, kh, kl, coeff, temp, bq, bk, nq, nk, d, clamp_min),
+                        g_clip, g_nn, amax, dq, stream);
 }
 
 // dk (Bk, Nk, D) fp32, with the arguments of triad_maxmean_dq.
@@ -486,12 +874,6 @@ extern "C" int triad_maxmean_dk(const void* qh, const void* ql, const void* kh, 
                                 const void* coeff, const void* temp, const void* g_clip,
                                 const void* g_nn, const void* amax, void* dk, int bq, int bk,
                                 int nq, int nk, int d, float clamp_min, void* stream) {
-  const Inputs in = inputs_of(qh, ql, kh, kl, coeff, temp, bq, bk, nq, nk, d, clamp_min);
-  if (bad_shape(in)) return (int)cudaErrorInvalidValue;
-  const size_t smem = dk_smem(d, ql != nullptr);
-  int err = prepare(maxmean_dk_kernel, smem);
-  if (err) return err;
-  maxmean_dk_kernel<<<dim3(nk / HK, bk), THREADS, smem, (cudaStream_t)stream>>>(
-      in, (const float*)g_clip, (const float*)g_nn, (const int*)amax, (float*)dk);
-  return (int)cudaGetLastError();
+  return backward<false>(inputs_of(qh, ql, kh, kl, coeff, temp, bq, bk, nq, nk, d, clamp_min),
+                         g_clip, g_nn, amax, dk, stream);
 }

@@ -17,7 +17,9 @@ A CUDA tensor runs ``csrc/maxmean.cu`` (a forward, a dQ and a dK kernel;
 ``maxmean_fwd``, ``maxmean_dq``, ``maxmean_dk``); a CPU tensor runs the
 plain twins (``maxmean_plain``, ``maxmean_dq_plain``, ``maxmean_dk_plain``),
 which route to the first argmax too. The forward keeps every query row's first argmax as an
-int32 (Bq, Bk, Nq) residual for the backward.
+int32 (Bq, Bk, Nq) residual for the backward. ``maxmean_dq_tiled_plain`` and
+``maxmean_dk_tiled_plain`` walk the backward kernels' tiles in their order
+(for tests; nothing on the main path calls them).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 from triad_tpu_torch import kernels
 
 LANE = 128  # the reference's Nk and D granularity (pallas_maxmean.py:453)
-MAX_D = 512  # the kernels' widest feature (8 accumulator blocks per warp)
+MAX_D = 512  # the kernels' widest feature
 
 
 def coefficients(bq: int, nq: int, query_mask: Optional[torch.Tensor], device) -> torch.Tensor:
@@ -109,6 +111,113 @@ def maxmean_dk_plain(q, k, temperature, coeff, clamp_min: float, amax, g_clip, g
     qf = q.to(torch.float32)
     return torch.cat([torch.einsum("ijqk,iqd->jkd", dts, qf) for _, dts in
                       _dts_chunks(q, k, temperature, coeff, clamp_min, amax, g_clip, g_nn)])
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels' order (csrc/maxmean.cu), for tests
+# ---------------------------------------------------------------------------
+
+ROWS = 64  # rows of a backward kernel's resident tile (BW_ROWS)
+
+
+def stream_rows(split: bool) -> int:
+    """Rows of a backward kernel's streamed tile (stream_rows): 64, or 32
+    for split fp32 features."""
+    return 32 if split else 64
+
+
+def chunks_per_half(d: int) -> int:
+    """The 64-column chunks of D each consumer warpgroup owns
+    (chunks_per_half); D is padded with zero chunks to twice that."""
+    return 1 if d <= 128 else 2 if d <= 256 else 4
+
+
+def _tiled_halves(x: torch.Tensor, rows: int):
+    """(hi, lo) of x as fp32 values, rows padded with zeros to a multiple
+    of ``rows`` and D with zero chunks (lo zero for bf16 features)."""
+    hi, lo = _halves(x)
+    n, d = x.shape[1], x.shape[2]
+    pad = (0, 128 * chunks_per_half(d) - d, 0, -n % rows)
+    hi = torch.nn.functional.pad(hi.to(torch.float32), pad)
+    lo = torch.zeros_like(hi) if lo is None else torch.nn.functional.pad(lo.to(torch.float32), pad)
+    return hi, lo
+
+
+def _tiled_sims(r_hi, r_lo, t_hi, t_lo):
+    """A tile's sims as the kernels sum them, over all of D: hh + lh +
+    hl."""
+    return (r_hi @ t_hi.transpose(-1, -2) + r_lo @ t_hi.transpose(-1, -2)
+            + r_hi @ t_lo.transpose(-1, -2))
+
+
+def _tiled_dts(s, is_max, g_max, temp, g_nn, clamp_min: float):
+    """dts of a tile (dts_of), rounded to bf16 hi and lo halves (fp32
+    values)."""
+    ts = s * temp
+    zero = torch.zeros((), dtype=torch.float32)
+    v = torch.where(is_max, g_max, zero)
+    v = v + torch.where((ts > clamp_min) & (ts < 0.0), 2.0 * ts * g_nn, zero)
+    v = v * temp
+    hi = v.to(torch.bfloat16).to(torch.float32)
+    return hi, (v - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def _tiled_scalars(coeff, amax, g_clip, nq_pad):
+    """amax (-1 past Nq) and g_clip coeff (0 past Nq), (Bq, Bk, nq_pad)."""
+    nq = coeff.shape[1]
+    am = torch.nn.functional.pad(amax.to(torch.int64), (0, nq_pad - nq), value=-1)
+    g = torch.nn.functional.pad(g_clip.to(torch.float32)[:, :, None]
+                                * coeff.to(torch.float32)[:, None, :], (0, nq_pad - nq))
+    return am, g
+
+
+def maxmean_dq_tiled_plain(q, k, temperature, coeff, clamp_min: float, amax, g_clip, g_nn):
+    """dq in the dQ kernel's order, on CPU tensors: for every 64-row tile
+    of every query clip (all at once), the key tiles of clip 0, 1, ... in
+    order; per tile the sims over all of D, dts rounded to bf16 hi + lo,
+    and dq += hi K + lo K (+ hi K_lo for fp32 features) in fp32.
+    Uses nothing of the main path."""
+    split = q.dtype == torch.float32
+    kt = stream_rows(split)
+    qh, ql = _tiled_halves(q, ROWS)
+    kh, kl = _tiled_halves(k, kt)
+    temp = temperature.to(torch.float32)
+    g_nn = g_nn.to(torch.float32)
+    am, g = _tiled_scalars(coeff, amax, g_clip, qh.shape[1])
+    acc = torch.zeros_like(qh)
+    for j in range(k.shape[0]):
+        for k0 in range(0, k.shape[1], kt):
+            th, tl = kh[j, k0:k0 + kt], kl[j, k0:k0 + kt]
+            s = _tiled_sims(qh, ql, th, tl)  # (Bq, rows, kt)
+            is_max = am[:, j, :, None] == torch.arange(k0, k0 + kt)
+            hi, lo = _tiled_dts(s, is_max, g[:, j, :, None], temp, g_nn, clamp_min)
+            acc = acc + (hi @ th + lo @ th + hi @ tl)
+    return acc[:, :q.shape[1], :q.shape[2]]
+
+
+def maxmean_dk_tiled_plain(q, k, temperature, coeff, clamp_min: float, amax, g_clip, g_nn):
+    """dk in the dK kernel's order, on CPU tensors: for every 64-key tile
+    of every key clip (all at once), the query tiles of clip 0, 1, ... in
+    order (rows past Nq zero); per tile the sims S^T over all of D, dts^T
+    rounded to bf16 hi + lo, and dk += hi Q + lo Q (+ hi Q_lo) in fp32.
+    Uses nothing of the main path."""
+    split = q.dtype == torch.float32
+    kt = stream_rows(split)
+    qh, ql = _tiled_halves(q, kt)
+    kh, kl = _tiled_halves(k, ROWS)
+    temp = temperature.to(torch.float32)
+    g_nn = g_nn.to(torch.float32)
+    am, g = _tiled_scalars(coeff, amax, g_clip, qh.shape[1])
+    keys = torch.arange(k.shape[1])[None, :, None]
+    acc = torch.zeros_like(kh)
+    for i in range(q.shape[0]):
+        for q0 in range(0, qh.shape[1], kt):
+            th, tl = qh[i, q0:q0 + kt], ql[i, q0:q0 + kt]
+            s = _tiled_sims(kh, kl, th, tl)  # (Bk, Nk, kt)
+            is_max = am[i, :, None, q0:q0 + kt] == keys
+            hi, lo = _tiled_dts(s, is_max, g[i, :, None, q0:q0 + kt], temp, g_nn, clamp_min)
+            acc = acc + (hi @ th + lo @ th + hi @ tl)
+    return acc[:, :, :k.shape[2]]
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""Six measurements behind PERF.md's notes on the eval attention, the
+"""Seven measurements behind PERF.md's notes on the eval attention, the
 training attention's di, the flash kernels, the positional conv's dW, the
-frontend activation and the fused MLP, on one CUDA card, from the repo
-root:
+frontend activation, the fused MLP and the max-mean backward, on one CUDA
+card, from the repo root:
 
     python3 triad_tpu_torch/tools/kernel_probe.py eval
     python3 triad_tpu_torch/tools/kernel_probe.py di
@@ -9,6 +9,7 @@ root:
     python3 triad_tpu_torch/tools/kernel_probe.py posconv_dw
     python3 triad_tpu_torch/tools/kernel_probe.py activation
     python3 triad_tpu_torch/tools/kernel_probe.py fused_mlp
+    python3 triad_tpu_torch/tools/kernel_probe.py maxmean
 
 eval  what holds the eval attention back against SDPA. (1) Waves: its
       device ms at HuBERT's (B, 499, 768) for B = 1 .. 16, beside the
@@ -74,6 +75,14 @@ fused_mlp  the fused MLP's forward and backward (csrc/fused_mlp.cu) at
       kernel, dW1 as ops/mlp.py:weight_grad forms it against the bf16-out
       product and the product of fp32 upcasts, the backward wrapper's
       transposes of W1 and W2, and the SM clock and power draw under load.
+maxmean  the max-mean backward kernels (csrc/maxmean.cu) at phase 3's AV
+      and TV shapes (D = 512, bf16): device ms of dQ and dK, TFLOP/s of
+      their three product passes (the sims, then dts hi and lo times K or
+      Q) and their share of the bf16 peak, the profiler's split of a call;
+      MAXMEAN_VARIANTS (copies of csrc/maxmean.cu with one text edit each:
+      how the two consumer warpgroups share the sim tile, the streamed
+      tile's rows) timed beside the kernel and compared with its output;
+      the SM clock and power draw under load.
 """
 
 import ctypes
@@ -673,9 +682,109 @@ def fused_mlp_probe():
           f"{_under_load(bwd)}", flush=True)
 
 
+# Variants of the max-mean backward built from csrc/maxmean.cu by
+# replacing a line: (name, replacements). The kernel as built is design
+# (a): each output warpgroup computes a tile's whole sim tile and dts
+# itself (4 product passes). "sims warpgroup" is design (c): a third
+# consumer warpgroup computes each tile's sims and dts once (3 passes) and
+# the two output warpgroups read dts from shared memory. "32-row tiles"
+# streams 32-row tiles for bf16 features too (4 stages at D = 512 instead
+# of 2). On phase 3's inputs every sim is exact, so all of them give the
+# kernel's bits.
+_SIMS = "constexpr int SIM_WG = 0;"
+_ROWS32 = ("constexpr int stream_rows() { return SPLIT ? 32 : 64; }",
+           "constexpr int stream_rows() { return 32; }")
+MAXMEAN_VARIANTS = (
+    ("as built", ()),
+    ("sims warpgroup", ((_SIMS, "constexpr int SIM_WG = 1;"),)),
+    ("32-row tiles", (_ROWS32,)),
+)
+
+
+def _maxmean_runner(fn, args, dq):
+    """A call of an edited copy's dQ (or dK) entry point on the arguments
+    of ops/maxmean.py:maxmean_dq."""
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.ops import maxmean as MM
+
+    q, k, temp, coeff, clamp_min, amax, g_clip, g_nn = args
+    keep, ptrs, (bq, bk, nq, nk, d) = MM._kernel_args("maxmean", q, k, temp, coeff)
+    g_nn = g_nn.reshape(1).contiguous()
+    out = torch.empty(q.shape if dq else k.shape, dtype=torch.float32, device="cuda")
+
+    def run():
+        err = fn(*ptrs, g_clip.data_ptr(), g_nn.data_ptr(), amax.data_ptr(), out.data_ptr(), bq,
+                 bk, nq, nk, d, float(clamp_min), kernels.stream_ptr(out))
+        if err:
+            raise RuntimeError(f"edited maxmean: cudaError_t {err}")
+        return out
+    run.keep = keep
+    return run
+
+
+def _maxmean_args(nq, masked, clamp_min):
+    """phase 3's max-mean backward arguments at (64 x nq) x (64 x 256), D =
+    512 (chip_smoke.py:maxmean_cases' inputs)."""
+    from triad_tpu_torch.ops import maxmean as MM
+
+    q, k = cs.grid((64, nq, 512), 91, False), cs.grid((64, 256, 512), 92, True)
+    mask = None
+    if masked:
+        mask = torch.ones((64, nq), device="cuda")
+        mask[1::2, nq * 3 // 4:] = 0.0
+    coeff = MM.coefficients(64, nq, mask, "cuda")
+    temp = torch.tensor(1.5, device="cuda")
+    amax = MM.maxmean_plain(q, k, temp, coeff, clamp_min)[3]
+    return (q, k, temp, coeff, clamp_min, amax, cs.randn((64, 64), 93, 1.0 / 64, torch.float32),
+            torch.tensor(0.01, device="cuda"))
+
+
+def maxmean_probe():
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.ops import maxmean as MM
+
+    cases = (("AV (64 x 499) x (64 x 256)", _maxmean_args(499, False, -60.0)),
+             ("TV (64 x 32 masked) x (64 x 256)", _maxmean_args(32, True, -20.0)))
+    for label, args in cases:
+        q, k = args[0], args[1]
+        ops = 2 * q.shape[0] * k.shape[0] * q.shape[1] * k.shape[1] * q.shape[2]
+        for name, fn in (("dQ", MM.maxmean_dq), ("dK", MM.maxmean_dk)):
+            ms = cs.device_ms(lambda: fn(*args))
+            print(f"MAXMEAN {label} {name}: {ms:.4f} device ms, {3 * ops / ms / 1e9:.1f} TFLOP/s "
+                  f"of its three product passes ({100 * 3 * ops / cs.PEAK_BF16 * 1e3 / ms:.1f}% "
+                  f"of their {3 * ops / cs.PEAK_BF16 * 1e3:.4f} ms at the bf16 peak)", flush=True)
+        print(f"SPLIT {label}, ms per call: "
+              f"{_split(lambda: (MM.maxmean_dq(*args), MM.maxmean_dk(*args)))}", flush=True)
+    fns = {"triad_maxmean_dq": _edited_libs(
+        "maxmean.cu", "triad_maxmean_dq", kernels._SIGNATURES["triad_maxmean_dq"],
+        [(name, pairs, "") for name, pairs in MAXMEAN_VARIANTS])}
+    fns["triad_maxmean_dk"] = {}
+    for name in fns["triad_maxmean_dq"]:
+        fn = ctypes.CDLL(str(_edited_lib("maxmean.cu", name))).triad_maxmean_dk
+        fn.argtypes = kernels._SIGNATURES["triad_maxmean_dk"]
+        fn.restype = ctypes.c_int
+        fns["triad_maxmean_dk"][name] = fn
+    for label, args in cases:
+        want = MM.maxmean_dq(*args), MM.maxmean_dk(*args)
+        for name, _ in MAXMEAN_VARIANTS:
+            runs = [_maxmean_runner(fns[entry][name], args, dq)
+                    for entry, dq in (("triad_maxmean_dq", True), ("triad_maxmean_dk", False))]
+            outs = [run().clone() for run in runs]
+            errs = [cs.max_err(o, w) for o, w in zip(outs, want)]
+            print(f"VARIANT {label} {name}: dQ {cs.device_ms(runs[0]):.4f} dK "
+                  f"{cs.device_ms(runs[1]):.4f} device ms (kernel "
+                  f"{cs.device_ms(lambda: MM.maxmean_dq(*args)):.4f} / "
+                  f"{cs.device_ms(lambda: MM.maxmean_dk(*args)):.4f}); bit-equal to the kernel: "
+                  f"{[torch.equal(o, w) for o, w in zip(outs, want)]}, largest difference over "
+                  f"the largest output {[e / max(m, 1e-30) for e, m in errs]}", flush=True)
+    args = cases[0][1]
+    print(f"LOAD AV: clocks.sm, power.draw: dQ {_under_load(lambda: MM.maxmean_dq(*args))}; dK "
+          f"{_under_load(lambda: MM.maxmean_dk(*args))}", flush=True)
+
+
 def main(argv):
     if argv not in (["eval"], ["di"], ["flash"], ["posconv_dw"], ["activation"],
-                    ["fused_mlp"]):
+                    ["fused_mlp"], ["maxmean"]):
         raise SystemExit(__doc__)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
@@ -686,7 +795,8 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     {"eval": eval_probe, "di": di_probe, "flash": flash_probe, "posconv_dw": posconv_dw_probe,
-     "activation": activation_probe, "fused_mlp": fused_mlp_probe}[argv[0]]()
+     "activation": activation_probe, "fused_mlp": fused_mlp_probe,
+     "maxmean": maxmean_probe}[argv[0]]()
 
 
 if __name__ == "__main__":

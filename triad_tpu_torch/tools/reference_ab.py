@@ -34,10 +34,11 @@ and the run goes on. Modes:
            two callers, the training
            attention, the flash forward and backward (the fused-qkv
            case included), the positional conv (forward, dX, dW) and the
-           frontend activation: synchronised and device ms as phase 3
-           prints them, and a digest of each output; run it on two trees
-           in turns (parent, change, change, parent) to compare them in
-           one call;
+           frontend activation and the max-mean forward, dQ and dK (the
+           backward's composition beside them): synchronised and device
+           ms as phase 3 prints them, and a digest of each output; run it
+           on two trees in turns (parent, change, change, parent) to
+           compare them in one call;
   flash    the flash forward and backward cases of ``kernels`` alone,
            after the flash kernels' ptxas registers and spills and their
            SASS counts (HGMMA, UTMALDG, highest register) in the
@@ -137,16 +138,18 @@ def attention(cs):
 
 
 # The redesigned kernels (eval attention, fused MLP, conv GEMM, flash,
-# posconv dW, the frontend activation), the training attention and the posconv
-# forward and dX (which share posconv.cu with dW), by the names
-# chip_smoke.py's phase 3 gives their cases.
+# posconv dW, the frontend activation, the max-mean dQ and dK), the training
+# attention, the posconv forward and dX (which share posconv.cu with dW)
+# and the max-mean forward (which shares maxmean.cu with dQ and dK), by the
+# names chip_smoke.py's phase 3 gives their cases.
 AB_KERNELS = ("attention_eval", "attention_eval_merged", "attention_eval_pair",
               "attention_eval_merged_pair", "fused_mlp", "fused_mlp_bwd", "frontend_conv",
               "fused_frontend_conv",
               "attention_train", "attention_train_bwd", "attention_train_strided",
               "attention_train_strided_bwd", "attention_train_merged",
               "attention_train_merged_bwd", "flash_attention", "flash_attention_bwd",
-              "posconv", "posconv_dx", "posconv_dw", "frontend_activation")
+              "posconv", "posconv_dx", "posconv_dw", "frontend_activation", "maxmean",
+              "maxmean_dq", "maxmean_dk")
 FLASH_KERNELS = ("flash_attention", "flash_attention_bwd")
 
 
