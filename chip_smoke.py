@@ -14,8 +14,9 @@ Phases (any failure exits nonzero before the last line):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. nvcc build of the kernels (one nvcc per source, in parallel), each
      kernel's registers and spills, and the SASS of the stride-2 conv GEMM,
-     of the fused MLP's GEMMs and of the flash forward, dK/dV and dQ
-     kernels holding wgmma (HGMMA) and TMA (UTMALDG) instructions;
+     of the fused MLP's GEMMs, of the flash forward, dK/dV and dQ kernels,
+     of the max-mean forward, dQ and dK kernels and of the positional
+     conv's forward holding wgmma (HGMMA) and TMA (UTMALDG) instructions;
   3. each kernel vs its plain twin on the card in bf16: max abs error
      against a stated bound, median time of the kernel, of the twin and
      of one PyTorch library call computing the same function where there
@@ -581,6 +582,36 @@ def maxmean_bwd_composition(args, dk=False):
     return run
 
 
+def real_features(bq, bk, nq, nk, d, dtype):
+    """q (bq, nq, d) and k (bk, nk, d): L2-normalised Gaussians (seed 94)
+    on the card in dtype."""
+    rng = np.random.default_rng(94)
+    return (torch.nn.functional.normalize(torch.from_numpy(
+        rng.standard_normal(shape, dtype=np.float32)), dim=-1).to("cuda", dtype)
+        for shape in ((bq, nq, d), (bk, nk, d)))
+
+
+def maxmean_split_case(res, MM, bq, bk, nq, nk, d, clamp_min):
+    """The max-mean forward on real fp32 features, which the loss receives
+    from a model with compute_dtype float32: the kernel splits them into
+    bf16 hi + lo and sums hh + lh + hl. clip, nonneg and tsq within 1e-4 of
+    the twin's largest; the share of rows whose first argmax agrees
+    printed. The bound counts the kernel's three bf16 products."""
+    q, k = real_features(bq, bk, nq, nk, d, torch.float32)
+    coeff = MM.coefficients(bq, nq, None, "cuda")
+    temp = torch.tensor(10.0, device="cuda")
+    amax = MM.maxmean_fwd(q, k, temp, coeff, clamp_min)[3]
+    agree = float((amax == MM.maxmean_plain(q, k, temp, coeff, clamp_min)[3]).float().mean())
+    print(f"  maxmean on real fp32 features: the first argmax of {100 * agree:.4f}% of "
+          f"{amax.numel()} rows equals the twin's", flush=True)
+    ops = 2 * bq * bk * nq * nk * d
+    nbytes = bq * nq * d * 4 + bk * nk * d * 4 + bq * nq * 4 + bq * bk * 4 + bq * bk * nq * 4
+    compare(res, "maxmean", (bq, nq, bk, nk, d, "real", "fp32"),
+            lambda: MM.maxmean_fwd(q, k, temp, coeff, clamp_min)[:3],
+            lambda: MM.maxmean_plain(q, k, temp, coeff, clamp_min)[:3], 1e-4,
+            cost(3 * ops, nbytes))
+
+
 def maxmean_real_case(res, MM, bq, bk, nq, nk, d, clamp_min):
     """The max-mean kernels on real features: L2-normalised bf16 Gaussians,
     whose sims sum in another order in kernel and twin and whose rows may
@@ -589,10 +620,7 @@ def maxmean_real_case(res, MM, bq, bk, nq, nk, d, clamp_min):
     rows whose first argmax agrees printed; dQ and dK with kernel and twin
     fed the kernel's own argmax, so a near tie can neither hide nor fake a
     routing error. T = 10 puts most sims in the clamp window."""
-    rng = np.random.default_rng(94)
-    q, k = (torch.nn.functional.normalize(torch.from_numpy(
-        rng.standard_normal(shape, dtype=np.float32)), dim=-1).to("cuda", torch.bfloat16)
-        for shape in ((bq, nq, d), (bk, nk, d)))
+    q, k = real_features(bq, bk, nq, nk, d, torch.bfloat16)
     coeff = MM.coefficients(bq, nq, None, "cuda")
     temp = torch.tensor(10.0, device="cuda")
     amax = MM.maxmean_fwd(q, k, temp, coeff, clamp_min)[3]
@@ -849,6 +877,7 @@ def kernel_phase():
     maxmean_cases(res, MM, TRAIN_B, TRAIN_B, 499, 256, 512, False, -60.0, main=True)
     maxmean_cases(res, MM, TRAIN_B, TRAIN_B, TRAIN_TXT, 256, 512, True, -20.0)
     maxmean_real_case(res, MM, TRAIN_B, TRAIN_B, 499, 256, 512, -60.0)
+    maxmean_split_case(res, MM, TRAIN_B, TRAIN_B, 499, 256, 512, -60.0)
     eval_slice_cases(res, A)
     # The eval attention in its four modes past the old 512-key cap:
     # HuBERT on 20 s clips, N = 999, and N = 1000.
@@ -1902,15 +1931,15 @@ def _kernel_entry(name, results, launches_by_path):
 # cp.async.bulk.tensor), and how many instantiations each has at least.
 SASS_KERNELS = {"gemm_kernel": 2, "mlp_gemm_kernel": 7, "flash_fwd_kernel": 1,
                 "flash_dkv_kernel": 1, "flash_dq_kernel": 1, "maxmean_dq_kernel": 6,
-                "maxmean_dk_kernel": 6}
+                "maxmean_dk_kernel": 6, "maxmean_fwd_kernel": 6, "posconv_kernel": 1}
 
 
 def sass_check(path):
     """The Hopper kernels' machine code: every instantiation of
     conv_s2.cuh's gemm_kernel, of fused_mlp.cu's mlp_gemm_kernel, the
-    flash forward, dK/dV and dQ kernels and maxmean.cu's dQ and dK kernels
-    (bf16 and split features, 3 widths each) must hold HGMMA and UTMALDG
-    instructions. Counts them per kernel in
+    flash forward, dK/dV and dQ kernels, maxmean.cu's forward, dQ and dK
+    kernels (bf16 and split features, 3 widths each) and posconv.cu's
+    forward must hold HGMMA and UTMALDG instructions. Counts them per kernel in
     cuobjdump's disassembly of the built library, beside the highest
     register the kernel's code names (past ptxas's launch count where a
     warpgroup raises its own with setmaxnreg)."""
@@ -1943,8 +1972,10 @@ def sass_check(path):
 
 def _kernel_name(mangled):
     """The name of the kernel a mangled symbol of ptxas's report holds:
-    its length-prefixed identifier that ends in "kernel"."""
-    for i in range(len(mangled)):
+    its length-prefixed identifier that ends in "kernel", the rightmost
+    (an anonymous namespace's hash may hold digits that frame a false
+    one before it)."""
+    for i in reversed(range(len(mangled))):
         digits = re.match(r"\d+", mangled[i:])
         if digits:
             start = i + digits.end()
@@ -1984,12 +2015,12 @@ def main():
     for line in kernels.build_log.splitlines():
         if "Compiling entry function" in line:
             kernel = _kernel_name(line.split("'")[1])
-        elif "registers" in line or "spill" in line:
-            print(f"  {kernel}: {line.strip()}", flush=True)
         elif "Performance Loss" in line:  # a note that names its kernel
             named = re.search(r"function '([^']+)'", line)
             print(f"  {_kernel_name(named.group(1)) if named else kernel}: {line.strip()}",
                   flush=True)
+        elif "registers" in line or "spill" in line:
+            print(f"  {kernel}: {line.strip()}", flush=True)
     print(f"  built {os.path.relpath(path, ROOT)}", flush=True)
     sass_check(path)
 

@@ -411,6 +411,38 @@ class TestPosConv:
         assert got.shape == (768, 48, k)
         assert err <= 1e-4 * mx, (err, mx)
 
+    # Forward and dX at the edges of the kernel's 512-row pieces and 64-row
+    # tiles: N = 1, N < K, one row either side of a tile, HuBERT's 499 at
+    # the train steps' B = 64, and 20 s clips (N = 1000: two pieces).
+    @pytest.mark.parametrize("b,n", [(1, 1), (3, 40), (1, 127), (3, 128), (1, 129),
+                                     (64, 499), (3, 1000)])
+    def test_fwd_dx_shapes(self, dev, b, n):
+        from triad_tpu_torch.ops import posconv as P
+
+        x, dz = _randn((b, n, 768), dev, 91), _randn((b, n, 768), dev, 92)
+        w = _randn((768, 48, 128), dev, 93, (48 * 128) ** -0.5)
+        bias = _randn((768,), dev, 94, 0.1, torch.float32)
+        for act, bb in (("erf", bias), ("id", bias), ("id", None)):
+            got = P.pos_conv(x, w, bb, 16, act)
+            torch.cuda.synchronize()
+            err, mx = _max_err(got, P.pos_conv_plain(x, w, bb, 16, act))
+            assert err <= self.TOL * mx, (act, bb is None, err, mx)
+        got = P.pos_conv_dx(dz, w, 16)
+        torch.cuda.synchronize()
+        err, mx = _max_err(got, P.pos_conv_dx_plain(dz, w, 16))
+        assert err <= self.TOL * mx, ("dx", err, mx)
+
+    def test_fwd_is_deterministic(self, dev):
+        """One fixed order per sum: the forward twice gives bit-equal
+        outputs."""
+        from triad_tpu_torch.ops import posconv as P
+
+        x = _randn((7, 499, 768), dev, 95)
+        w = _randn((768, 48, 128), dev, 96, (48 * 128) ** -0.5)
+        first, second = (P.pos_conv(x, w, None, 16, "erf") for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
     def test_dw_is_deterministic(self, dev):
         """No atomics, one fixed order per sum: the same call twice gives
         bit-equal dW."""
@@ -714,6 +746,53 @@ class TestMaxMean:
             a, b = fn(*args), fn(*args)
             torch.cuda.synchronize()
             assert torch.equal(a, b), fn.__name__
+
+    @pytest.mark.parametrize("bq,bk,nq,nk,d,masked,dtype", [
+        (2, 3, 1, 64, 64, False, torch.bfloat16),     # one query row, D padded with a zero chunk
+        (3, 2, 63, 256, 192, True, torch.bfloat16),   # a tile one row short, D 192
+        (4, 5, 64, 1024, 512, False, torch.bfloat16),  # a whole tile, 16 key tiles a clip
+        (5, 3, 65, 64, 512, True, torch.float32),     # split at D = 512: one item a block
+        (3, 2, 499, 64, 192, False, torch.float32),   # split at D 192: two items a block
+        (20, 37, 499, 256, 512, False, torch.bfloat16),  # 80 blocks: 4 ranges of 10, 10, 10, 7
+        (64, 64, 32, 256, 512, True, torch.bfloat16),  # the TV loss: 8 ranges of 8 key clips
+        (7, 13, 32, 128, 512, True, torch.bfloat16),  # 4 blocks: a range per key clip
+    ])
+    def test_forward_shapes(self, dev, bq, bk, nq, nk, d, masked, dtype):
+        """The forward kernel against the twin at ragged Nq (1, 63, 65,
+        499), whole tiles, Nk 64 to 1024, D 64, 192 and 512, Bq != Bk, a
+        masked mean, split fp32 features, and key-clip ranges that do and
+        do not divide Bk. _grid's sims are exact and tie often: the first
+        argmax of every row equals the twin's."""
+        from triad_tpu_torch.ops import maxmean as MM
+
+        q, k = _grid((bq, nq, d), dev, 91, dtype), _grid((bk, nk, d), dev, 92, dtype)
+        mask = None
+        if masked:
+            mask = torch.ones((bq, nq), device=dev)
+            mask[1::2, nq * 3 // 4:] = 0.0
+        coeff = MM.coefficients(bq, nq, mask, dev)
+        temp = torch.tensor(1.5, device=dev)
+        got = MM.maxmean_fwd(q, k, temp, coeff, -20.0)
+        ref = MM.maxmean_plain(q, k, temp, coeff, -20.0)
+        torch.cuda.synchronize()
+        assert torch.equal(got[3], ref[3])
+        for name, g, r in zip(("clip", "nonneg", "tsq"), got[:3], ref[:3]):
+            err, mx = _max_err(g, r)
+            assert err <= self.TOL * mx, (name, err, mx)
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_forward_repeats_bit_for_bit(self, dev, dtype):
+        """No atomics: two forward runs at the AV shape are bit-equal."""
+        from triad_tpu_torch.ops import maxmean as MM
+
+        q = _randn((64, 499, 512), dev, 88, 0.05, dtype)
+        k = _randn((64, 256, 512), dev, 89, 0.05, dtype)
+        coeff = MM.coefficients(64, 499, None, dev)
+        temp = torch.tensor(10.0, device=dev)
+        a, b = (MM.maxmean_fwd(q, k, temp, coeff, -60.0) for _ in range(2))
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
 
     def test_autograd_counts_launches(self, dev):
         from triad_tpu_torch import kernels

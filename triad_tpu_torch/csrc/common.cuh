@@ -109,13 +109,6 @@ struct Dropout {
   int active;
 };
 
-// 16-byte copy global -> shared, zero-filled when `valid` is false.
-__device__ __forceinline__ void copy16(void* dst, const void* src, bool valid) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (valid) v = *reinterpret_cast<const uint4*>(src);
-  *reinterpret_cast<uint4*>(dst) = v;
-}
-
 // Asynchronous 16-byte copy global -> shared (cp.async, sm_80+), zero-
 // filled when `valid` is false (src must still be a mapped address).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {

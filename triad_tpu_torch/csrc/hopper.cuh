@@ -1,12 +1,11 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels, shared
 // by the stride-2 conv GEMM (conv_s2.cuh), the fused MLP's GEMMs
 // (fused_mlp.cu), the flash attention (attention_flash.cu), the
-// positional conv's dW (posconv.cu) and the max-mean backward
-// (maxmean.cu):
+// positional conv (posconv.cu) and the max-mean kernels (maxmean.cu):
 // mbarriers, TMA copies into shared memory and out of it
-// (cp.async.bulk.tensor, 128-byte swizzle), wgmma shared-memory
-// descriptors and products with their fence / commit / wait, and the
-// host-side tensor-map encoder (libcuda's
+// (cp.async.bulk.tensor, 128-byte swizzle) and plain bulk copies, wgmma
+// shared-memory descriptors (swizzled and plain) and products with their
+// fence / commit / wait, and the host-side tensor-map encoder (libcuda's
 // cuTensorMapEncodeTiled, looked up at run time).
 #pragma once
 
@@ -85,6 +84,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A bulk copy of `bytes` contiguous bytes (a multiple of 16, both addresses
+// 16-byte aligned) from device memory into shared memory, completing on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // A TMA store of a box of shared memory to the tensor map's coordinates
 // (c0 innermost), into this thread's bulk group; elements outside the
 // tensor's dims are not written.
@@ -130,6 +140,16 @@ __device__ __forceinline__ uint64_t desc_sw128_mn(const void* p, uint32_t band_b
   const uint64_t addr = smem_u32(p);
   return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(band_bytes >> 4) << 16) | (64ull << 32) |
          (1ull << 62);
+}
+
+// A K-major operand descriptor without swizzle: core matrices of 8 rows of
+// 16 bytes (8 bf16) each, stored as 128 contiguous bytes; the next core
+// matrix along the contraction lbo bytes on, the next 8 rows sbo bytes on.
+// The start needs only 16-byte alignment, so a tile may begin at any row
+// of such a layout.
+__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
 // The SS products below: d (+)= A . B with both operands in shared memory
@@ -226,6 +246,25 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da, uin
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
+// d (64 x 48 fp32 of a warpgroup) (+)= A (64 x 16) . B (48 x 16)^T.
+__device__ __forceinline__ void wgmma_m64n48k16(float (&d)[24], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23},"
+      " %24, %25, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 64 fp32 of a warpgroup) (+)= A (64 x 16) . B (64 x 16)^T.
 template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
@@ -306,6 +345,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[4][4]) {
 // after them.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier 1 + wg over the 128 threads of warpgroup wg.
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
 __device__ __forceinline__ void fence_mbarrier_init() {

@@ -29,12 +29,19 @@
 // because the argmax routing and the clamp window read single sims. The
 // backward products take the fp32 dts (and the fp32 K or Q of the
 // reference, :250-254, :313-317) as bf16 hi + lo halves (triad::
-// split_bf16, ~16 mantissa bits). The forward sums a sim tile in WMMA 16 x
-// 16 blocks and the backward in wgmma tiles, so the backward's recomputed
-// ts may differ from the forward's in the last bit. That matters only for
-// a ts at clamp_min or at 0 exactly, whose window test could then differ
-// (a term of 2 clamp_min g_nn T, or of 0): the argmax comes from the
-// forward's int32 amax residual, never from the backward's sims.
+// split_bf16, ~16 mantissa bits). The forward and the backward sum a sim
+// the same way: wgmma products with both operands from shared memory in
+// the 128-byte swizzle, D's 64-column chunks in order, 16 columns a
+// product, hi.hi, lo.hi, hi.lo per step, zero chunks past D adding +0; the
+// forward's tiles are 128 keys wide (m64n128k16), dQ's 64 (m64n64k16; 32
+// split), and dK multiplies the transposed tile, K . Q^T. On the card the
+// backward's recomputed sims equal the forward's bit for bit for bf16
+// features, in dQ and dK, and in dQ for split fp32 features; dK's split
+// sims differ from them in the last bit (7.5e-9 on sims below 1;
+// tools/kernel_probe.py maxmean_fwd, TS lines). A sim that differs could
+// change its window test only at clamp_min or at 0 exactly (a term of 2
+// clamp_min g_nn T, or of 0): the argmax comes from the forward's int32
+// amax residual, never from the backward's sims.
 //
 // What bounds it on the card: operations. A forward pass is 2 Bq Bk Nq Nk
 // D of them; a backward pass recomputes the sims (the same count) and
@@ -42,17 +49,42 @@
 // x 499 queries, 64 x 256 keys, D = 512) the forward is 5.4e11
 // operations, 0.54 ms at the bf16 tensor-core peak, and each backward pass
 // 1.6e12, 1.63 ms, far above their 45 MB of input.
-//   forward  the simple design (WMMA, synchronous tile loads, whole-D
-//            tiles in shared memory): one block per pair (i, j); a 64-key
-//            tile of K_j stays in shared memory while 32-query tiles of Q_i
-//            stream past it; a running (max, first argmax) per query row
-//            lives in shared memory; the block writes clip[i, j] itself (no
-//            atomics), its clamp^2 and window ts^2 sums to a per-pair
-//            buffer that the wrapper sums in a fixed order, and the first
-//            argmax of every query row to an int32 (Bq, Bk, Nq) residual
-//            (8.2 MB at the AV shape) that the backward reads: the dK
-//            kernel tiles the keys and could not find a row's argmax over
-//            all of them itself.
+//   forward  a Hopper kernel (hopper.cuh's helpers), the dQ kernel's frame:
+//            items of 64 query rows of one clip (the tile's rows past Nq
+//            read as zeros from a rank-3 (D, N, B) tensor map); a block of
+//            two consumer warpgroups (one for split features at D = 512)
+//            holds one item each, resident in shared memory, and a producer
+//            thread streams every key of a range of key clips past both
+//            through a 4-stage ring of 128-key x 64-column stages (16 KB,
+//            32 KB split) by TMA. The two items share each stage, so K
+//            crosses L2 once per 128 query rows: 256 blocks x 16.8 MB = 4.3
+//            GB a call at the AV shape. A consumer sums its 64 x 128 sim
+//            tile over D's chunks on SS wgmma m64n128k16 (three quarters
+//            of the shared-memory reads per operation of m64n64k16, which
+//            the first build used), and holds two sim tiles in turn: while one
+//            tile's chunks are multiplied, it folds the other, a slice of
+//            its columns per chunk, into its two rows' running (max, first
+//            argmax), clamp^2 and window ts^2 sums in registers. No sim
+//            goes to shared memory and no barrier spans the block. At a
+//            clip's end the quad's rows reduce by shuffles (lowest key on
+//            ties), the first argmax of every row goes to the int32 (Bq, Bk,
+//            Nq) residual that the backward reads (8.2 MB at the AV shape;
+//            the dK kernel tiles the keys and could not find a row's argmax
+//            over all of them itself), and one (sum coeff max, clamp^2,
+//            window ts^2) partial per (query tile, i, j) goes to device
+//            memory through one named barrier of the warpgroup; the wrapper
+//            sums the partials over the tiles (one torch reduction, a fixed
+//            order). No atomics. Items alone fill the card
+//            at the AV shape (512 items, 256 blocks); at the TV shape (Nq =
+//            32: 64 items, each half past Nq) the key clips are cut into
+//            ranges (grid.y) so that at least two blocks an SM run, without
+//            more L2 reads per block. What was hard: ptxas (CUDA 12.8)
+//            decides per build whether the fold beside products in flight
+//            serialises them (C7514, printed by chip_smoke.py phase 2): at
+//            6 stages it did and the kernel lost a third; at 4 it does not.
+//            A rolled chunk loop makes it wait after every product (the
+//            backward's lesson), so the chunk loop stays unrolled with the
+//            stage waits inside.
 //   dQ, dK   Hopper kernels (hopper.cuh's helpers), one body: a block per
 //            item of 64 resident rows (dQ: query rows of clip i, dK: keys of
 //            clip j), 384 threads: a producer warpgroup, one warp of which
@@ -99,25 +131,18 @@
 // Both backward kernels sum in a fixed order: deterministic, no atomics.
 // D a multiple of 64 up to 512; Nk a multiple of 64; ragged Nq (rows past
 // Nq are zero-filled and skipped).
+#include <algorithm>
+
 #include "hopper.cuh"
 
-using namespace nvcuda;
 using namespace triad::hopper;
 
 namespace {
 
 using triad::bf16;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
-constexpr int THREADS = 256;  // 8 warps
 constexpr int MAX_D = 512;
 constexpr int MAX_SMEM = 232448;
-// forward: 32 query rows x 64 keys per sim tile
-constexpr int FQ = 32, FK = 64;
-
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) / 128 * 128; }
 
 // The inputs as the kernels take them: bf16 halves (lo null for bf16
 // features) and their shapes.
@@ -129,50 +154,6 @@ struct Inputs {
   float clamp_min;
 };
 
-// rows x d of a (.., d) row-major tensor -> shared memory with row stride
-// ld; rows at or past `valid` are zero-filled.
-__device__ inline void load_tile(bf16* dst, const bf16* src, int rows, int valid, int d, int ld) {
-  const int per_row = d / 8;
-  for (int i = threadIdx.x; i < rows * per_row; i += THREADS) {
-    const int r = i / per_row, c = (i % per_row) * 8;
-    const bool ok = r < valid;
-    triad::copy16(dst + r * ld + c, ok ? src + (long long)r * d + c : src, ok);
-  }
-}
-
-// One 16 x 16 block of the forward's raw sims <q, k> over all of d, in
-// 16-wide steps: qh/ql point at 16 query rows, kh/kl at 16 keys (both
-// row-major [.][d] with row stride ld).
-__device__ inline void sim_block(FragC& acc, const bf16* qh, const bf16* ql, const bf16* kh,
-                                 const bf16* kl, int ld, int d, bool split) {
-  wmma::fill_fragment(acc, 0.0f);
-  for (int kk = 0; kk < d; kk += 16) {
-    FragA a;
-    FragBT b;
-    wmma::load_matrix_sync(a, qh + kk, ld);
-    wmma::load_matrix_sync(b, kh + kk, ld);
-    wmma::mma_sync(acc, a, b, acc);
-    if (split) {
-      FragA al;
-      FragBT bl;
-      wmma::load_matrix_sync(al, ql + kk, ld);
-      wmma::mma_sync(acc, al, b, acc);
-      wmma::load_matrix_sync(bl, kl + kk, ld);
-      wmma::mma_sync(acc, a, bl, acc);
-    }
-  }
-}
-
-__device__ inline float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float s = 0.0f;
-  for (int w = 0; w < THREADS / 32; ++w) s += red[w];  // fixed order
-  return s;
-}
-
 // dL/d(raw sim) of one element.
 __device__ inline float dts_of(float s, float temp, bool is_max, float g_max, float g_nn,
                                float clamp_min) {
@@ -180,107 +161,6 @@ __device__ inline float dts_of(float s, float temp, bool is_max, float g_max, fl
   float d = is_max ? g_max : 0.0f;
   if (ts > clamp_min && ts < 0.0f) d += 2.0f * ts * g_nn;
   return d * temp;
-}
-
-// ---------------------------------------------------------------- forward
-
-__host__ inline size_t fwd_smem(int d, int nq, bool split) {
-  const int ld = d + 8;
-  const size_t tiles = sizeof(bf16) * (size_t)(FK + FQ) * ld * (split ? 2 : 1);
-  return align128(tiles) + align128(sizeof(float) * FQ * (FK + 4)) +
-         align128(sizeof(float) * nq) + align128(sizeof(int) * nq) + 128;
-}
-
-__global__ void __launch_bounds__(THREADS)
-maxmean_fwd_kernel(Inputs in, float* __restrict__ clip, int* __restrict__ amax,
-                   float* __restrict__ partials) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int j = blockIdx.x, i = blockIdx.y;
-  const int d = in.d, ld = d + 8, nq = in.nq, nk = in.nk;
-  const bool split = in.ql != nullptr;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sQ = sK + FK * ld;
-  bf16* sKl = sQ + FQ * ld;  // used when split
-  bf16* sQl = sKl + FK * ld;
-  size_t off = align128(sizeof(bf16) * (size_t)(FK + FQ) * ld * (split ? 2 : 1));
-  float* sS = reinterpret_cast<float*>(smem + off);
-  off += align128(sizeof(float) * FQ * (FK + 4));
-  float* sMax = reinterpret_cast<float*>(smem + off);
-  off += align128(sizeof(float) * nq);
-  int* sArg = reinterpret_cast<int*>(smem + off);
-  off += align128(sizeof(int) * nq);
-  float* red = reinterpret_cast<float*>(smem + off);
-  constexpr int LDS = FK + 4;
-
-  const float temp = *in.temp;
-  for (int a = threadIdx.x; a < nq; a += THREADS) {
-    sMax[a] = -INFINITY;
-    sArg[a] = 0;
-  }
-  const long long qbase = (long long)i * nq * d, kbase = (long long)j * nk * d;
-  float nn = 0.0f, tsq = 0.0f;
-  const int rt = warp & 1, ct = warp >> 1;  // the warp's 16 x 16 block of the 32 x 64 tile
-  for (int k0 = 0; k0 < nk; k0 += FK) {
-    __syncthreads();
-    load_tile(sK, in.kh + kbase + (long long)k0 * d, FK, FK, d, ld);
-    if (split) load_tile(sKl, in.kl + kbase + (long long)k0 * d, FK, FK, d, ld);
-    for (int q0 = 0; q0 < nq; q0 += FQ) {
-      __syncthreads();
-      load_tile(sQ, in.qh + qbase + (long long)q0 * d, FQ, nq - q0, d, ld);
-      if (split) load_tile(sQl, in.ql + qbase + (long long)q0 * d, FQ, nq - q0, d, ld);
-      __syncthreads();
-      FragC s;
-      sim_block(s, sQ + rt * 16 * ld, sQl + rt * 16 * ld, sK + ct * 16 * ld,
-                sKl + ct * 16 * ld, ld, d, split);
-      wmma::store_matrix_sync(sS + rt * 16 * LDS + ct * 16, s, LDS, wmma::mem_row_major);
-      __syncthreads();
-      // warp w owns rows 4w .. 4w + 3 of the tile; a lane two keys
-      for (int rr = 0; rr < FQ / 8; ++rr) {
-        const int r = warp * (FQ / 8) + rr, a = q0 + r;
-        if (a >= nq) break;
-        const float t0 = sS[r * LDS + lane] * temp, t1 = sS[r * LDS + lane + 32] * temp;
-        const float c0 = fminf(fmaxf(t0, in.clamp_min), 0.0f);
-        const float c1 = fminf(fmaxf(t1, in.clamp_min), 0.0f);
-        nn += c0 * c0 + c1 * c1;
-        if (t0 > in.clamp_min && t0 < 0.0f) tsq += t0 * t0;
-        if (t1 > in.clamp_min && t1 < 0.0f) tsq += t1 * t1;
-        float best = t0;
-        int arg = lane;
-        if (t1 > t0) {
-          best = t1;
-          arg = lane + 32;
-        }
-        for (int o = 16; o > 0; o >>= 1) {  // max, lowest key on ties
-          const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-          const int oa = __shfl_xor_sync(0xffffffffu, arg, o);
-          if (ob > best || (ob == best && oa < arg)) {
-            best = ob;
-            arg = oa;
-          }
-        }
-        if (lane == 0 && best > sMax[a]) {  // an earlier key tile wins a tie
-          sMax[a] = best;
-          sArg[a] = k0 + arg;
-        }
-      }
-    }
-  }
-  __syncthreads();
-  const long long pair = (long long)i * in.bk + j;
-  float c = 0.0f;
-  for (int a = threadIdx.x; a < nq; a += THREADS) {
-    c += in.coeff[(long long)i * nq + a] * sMax[a];
-    amax[pair * nq + a] = sArg[a];
-  }
-  c = block_sum(c, red);
-  nn = block_sum(nn, red);
-  tsq = block_sum(tsq, red);
-  if (threadIdx.x == 0) {
-    clip[pair] = c;
-    partials[2 * pair] = nn;
-    partials[2 * pair + 1] = tsq;
-  }
 }
 
 // --------------------------------------------------------------- backward
@@ -463,11 +343,6 @@ __device__ __forceinline__ void mma_sim(float (&d)[KT / 2], const bf16* a, const
     wgmma_m64n64k16(d, desc_sw128(a), desc_sw128(b), accumulate);
   else
     wgmma_m64n32k16(d, desc_sw128(a), desc_sw128(b), accumulate);
-}
-
-// Named barrier 1 + wg over the 128 threads of warpgroup wg.
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
 // Puts bf16 (a, b) at (row, col), (row, col + 1) of a 64 x 64 bf16 tile in
@@ -757,6 +632,342 @@ maxmean_dk_kernel(const __grid_constant__ CUtensorMap map_kh,
   bwd_body<false, SPLIT, NC>(&map_kh, &map_kl, &map_qh, &map_ql, a);
 }
 
+// ---------------------------------------------------------------- forward
+//
+// An item is 64 query rows of one clip (tile r of clip i, rows 64 r ..
+// 64 r + 63, zeros past Nq); a block holds FwdLayout::CONS items, one per
+// consumer warpgroup (items CONS blockIdx.x + wg of the (i, r) list), and
+// streams the keys of the key clips j0 .. j1 - 1 of its range past them,
+// one FW_KEYS-key x 64-column chunk a ring stage, D's chunks in order.
+// Each consumer warpgroup sums a 64 x FW_KEYS sim tile over the chunks
+// (SS wgmma), and folds the previous tile into its rows' running (max,
+// first argmax) and clamp^2 / window ts^2 sums in registers, a slice per
+// chunk while that chunk's products run; at clip j's last key tile it
+// writes its rows' first argmax and one partial (sum of coeff max,
+// clamp^2, window ts^2) for (tile, i, j).
+
+constexpr int FW_KEYS = 128;  // keys of a ring stage and of a sim tile (one wgmma's N)
+// Stages of the ring: 4 (64 KB). At 6 (what fits beside two D = 512
+// items) ptxas serialised the products (C7514) and the kernel ran 35%
+// slower (tools/kernel_probe.py maxmean_fwd).
+constexpr int FW_MAX_STAGES = 4;
+// Registers a thread after setmaxnreg (two items a block, 384 threads):
+// the producer 40, the consumers 232, which hold two sim tiles.
+constexpr int FW_PRODUCER_REGS = 40, FW_CONSUMER_REGS = 232;
+
+// The 64-column chunks a forward item holds: D padded to 128, 256 or 512
+// (the padding's copies read zeros past D), as the backward pads it.
+inline int fwd_chunks(int d) { return 2 * chunks_per_half(d); }
+
+template <bool SPLIT, int NC>
+struct FwdLayout {
+  static constexpr int HALVES = SPLIT ? 2 : 1;
+  // Consumer warpgroups (items) a block: split features at D = 512 take
+  // one, their 64 resident rows being 128 KB.
+  static constexpr int CONS = SPLIT && NC == 8 ? 1 : 2;
+  static constexpr int THREADS = 128 * (CONS + 1);  // + the producer warpgroup
+  static constexpr int BOX = BW_ROWS * CHUNK;        // elements of a 64-row TMA box
+  static constexpr int KBOX = FW_KEYS * CHUNK;       // elements of a key box
+  static constexpr int RES_BYTES = CONS * HALVES * NC * BOX * 2;
+  static constexpr int STAGE_BYTES = HALVES * KBOX * 2;
+  static constexpr int RED_BYTES = 2 * CONS * 4 * 4 * 4;  // [clip parity][wg][warp][4]
+  static constexpr int FIT =
+      (MAX_SMEM - 1024 - RES_BYTES - RED_BYTES - 8 * CONS) / (STAGE_BYTES + 16);
+  static constexpr int STAGES = FIT < FW_MAX_STAGES ? FIT : FW_MAX_STAGES;
+  static constexpr size_t SMEM = 1024 + (size_t)RES_BYTES + (size_t)STAGES * STAGE_BYTES +
+                                 RED_BYTES + (CONS + 2 * STAGES) * 8;
+  static_assert(STAGES >= 2 && SMEM <= (size_t)MAX_SMEM, "max-mean forward: no room");
+};
+
+struct FwdArgs {
+  const float *coeff, *temp;
+  int* amax;    // (Bq, Bk, Nq)
+  float* part;  // (ntq, Bq, Bk, 3): per query tile, pair: sum coeff max, clamp^2, window ts^2
+  int bq, bk, nq, nk, ntq, per;  // ntq: 64-row tiles of a clip; per: key clips of a range
+  float clamp_min;
+};
+
+// Shared memory, 1024-aligned: the resident items [CONS][HALVES][NC][64][64]
+// and the ring [STAGES][HALVES][FW_KEYS][64] (TMA boxes in the 128-byte
+// swizzle), the warps' partial sums, then the barriers.
+struct FwdSmem {
+  bf16 *res, *ring;
+  float* red;
+  uint64_t *res_full, *full, *empty;
+};
+
+template <class L>
+__device__ __forceinline__ FwdSmem carve_fwd(unsigned char* raw) {
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+  FwdSmem s;
+  s.res = reinterpret_cast<bf16*>(base);
+  s.ring = reinterpret_cast<bf16*>(base + L::RES_BYTES);
+  s.red = reinterpret_cast<float*>(base + L::RES_BYTES + L::STAGES * L::STAGE_BYTES);
+  s.res_full = reinterpret_cast<uint64_t*>(base + L::RES_BYTES + L::STAGES * L::STAGE_BYTES +
+                                           L::RED_BYTES);
+  s.full = s.res_full + L::CONS;
+  s.empty = s.full + L::STAGES;
+  return s;
+}
+
+// One producer thread: each item's resident tile once, then per key clip
+// of the range, per FW_KEYS-key tile, per chunk of D one stage (keys past
+// Nk read as zeros).
+template <bool SPLIT, int NC>
+__device__ __forceinline__ void fwd_produce(const FwdSmem& s, const CUtensorMap* map_qh,
+                                            const CUtensorMap* map_ql, const CUtensorMap* map_kh,
+                                            const CUtensorMap* map_kl, const FwdArgs& a,
+                                            int active) {
+  using L = FwdLayout<SPLIT, NC>;
+  for (int w = 0; w < active; ++w) {
+    const int item = L::CONS * blockIdx.x + w;
+    const int i = item / a.ntq, r0 = (item % a.ntq) * BW_ROWS;
+    mbar_expect_tx(&s.res_full[w], L::HALVES * NC * L::BOX * 2);
+    for (int h = 0; h < L::HALVES; ++h)
+      for (int c = 0; c < NC; ++c)
+        tma_load_3d(s.res + ((w * L::HALVES + h) * NC + c) * L::BOX, h ? map_ql : map_qh,
+                    &s.res_full[w], c * CHUNK, r0, i);
+  }
+  const int j0 = blockIdx.y * a.per, j1 = min(a.bk, j0 + a.per);
+  int stage = 0, phase = 0;
+  for (int j = j0; j < j1; ++j)
+    for (int k0 = 0; k0 < a.nk; k0 += FW_KEYS)
+      for (int c = 0; c < NC; ++c) {
+        mbar_wait(&s.empty[stage], phase ^ 1);
+        bf16* dst = s.ring + stage * (L::STAGE_BYTES / 2);
+        mbar_expect_tx(&s.full[stage], L::STAGE_BYTES);
+        tma_load_3d(dst, map_kh, &s.full[stage], c * CHUNK, k0, j);
+        if constexpr (SPLIT) tma_load_3d(dst + L::KBOX, map_kl, &s.full[stage], c * CHUNK, k0, j);
+        advance(stage, phase, L::STAGES);
+      }
+}
+
+// d (64 x FW_KEYS) (+)= A (64 x 16) . B (FW_KEYS x 16)^T, both K-major in
+// shared memory.
+__device__ __forceinline__ void mma_keys(float (&d)[FW_KEYS / 2], const bf16* a, const bf16* b,
+                                         int accumulate) {
+  wgmma_m64n128k16(d, desc_sw128(a), desc_sw128(b), accumulate);
+}
+
+// A consumer's running state for the rows r and r + 8 of its item that
+// thread t holds (r = 16 (t / 32) + t % 32 / 4): the max ts and its first
+// key, and the thread's clamp^2 and window ts^2 sums over the clip.
+struct Fold {
+  float best[2], nn, tsq;
+  int arg[2];
+  __device__ __forceinline__ void reset() {
+    best[0] = best[1] = -INFINITY;
+    arg[0] = arg[1] = 0;
+    nn = tsq = 0.0f;
+  }
+};
+
+// Folds slice c of NC of a sim tile (key columns 8 jj + col + {0, 1},
+// jj in the slice) whose first key is k0: keys in increasing order within
+// the thread, so a strict > keeps the first max; keys past Nk (zeros of
+// the last tile) take no part in the max.
+template <int NC>
+__device__ __forceinline__ void fold_slice(const float (&sv)[FW_KEYS / 2], Fold& f, int c, int k0,
+                                           int col, float temp, float cm, int nk) {
+  constexpr int JPS = FW_KEYS / 8 / NC;
+#pragma unroll
+  for (int jj = c * JPS; jj < (c + 1) * JPS; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float ts = sv[4 * jj + e] * temp;
+      const float cl = fminf(fmaxf(ts, cm), 0.0f);
+      f.nn += cl * cl;
+      if (ts > cm && ts < 0.0f) f.tsq += ts * ts;
+      const int key = k0 + 8 * jj + col + (e & 1);
+      if (ts > f.best[e >> 1] && key < nk) {
+        f.best[e >> 1] = ts;
+        f.arg[e >> 1] = key;
+      }
+    }
+}
+
+// One key tile of a consumer: per chunk c, wait for its stage, issue its
+// products into cur, release the previous chunk's stage once its products
+// retired (pending), then fold slice c of prev (the previous tile, whose
+// first key is prev_k0) while chunk c's products run.
+template <bool SPLIT, int NC, bool FOLD>
+__device__ __forceinline__ void fwd_tile(float (&cur)[FW_KEYS / 2], float (&prev)[FW_KEYS / 2],
+                                         Fold& f, const FwdSmem& s, const bf16* res, int& stage,
+                                         int& phase, int& pending, int prev_k0, int col,
+                                         float temp, float cm, int nk, int t) {
+  using L = FwdLayout<SPLIT, NC>;
+  fence_regs(cur);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    mbar_wait(&s.full[stage], phase);
+    const bf16* kt = s.ring + stage * (L::STAGE_BYTES / 2);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const bf16* rp = res + c * L::BOX + kk * 16;
+      const bf16* tp = kt + kk * 16;
+      mma_keys(cur, rp, tp, c > 0 || kk > 0);
+      if constexpr (SPLIT) {
+        mma_keys(cur, rp + NC * L::BOX, tp, 1);
+        mma_keys(cur, rp, tp + L::KBOX, 1);
+      }
+    }
+    wgmma_commit();
+    if (pending >= 0) {  // all but this chunk's products retired
+      wgmma_wait<1>();
+      if (t == 0) mbar_arrive(&s.empty[pending]);
+    }
+    pending = stage;
+    advance(stage, phase, L::STAGES);
+    if constexpr (FOLD) {
+      if (c == 0) fence_regs(prev);
+      fold_slice<NC>(prev, f, c, prev_k0, col, temp, cm, nk);
+    }
+  }
+}
+
+// Consumer warpgroup wg: its item's 64 rows against every key of the
+// range, tile by tile (the flattened (key clip, key tile) sequence), two
+// sim tiles in turn so that each is folded while the next one's products
+// run.
+template <bool SPLIT, int NC>
+__device__ __forceinline__ void fwd_consume(const FwdSmem& s, const FwdArgs& a, int wg, int t) {
+  using L = FwdLayout<SPLIT, NC>;
+  const int item = L::CONS * blockIdx.x + wg;
+  const int i = item / a.ntq, tile = item % a.ntq;
+  const int warp = t >> 5, lane = t & 31;
+  const int q0 = tile * BW_ROWS + warp * 16 + (lane >> 2), col = 2 * (lane & 3);
+  const float temp = *a.temp, cm = a.clamp_min;
+  float cf[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    cf[h] = q0 + 8 * h < a.nq ? a.coeff[(long long)i * a.nq + q0 + 8 * h] : 0.0f;
+  const bf16* res = s.res + wg * L::HALVES * NC * L::BOX;
+  const int j0 = blockIdx.y * a.per, j1 = min(a.bk, j0 + a.per);
+  const int per_clip = (a.nk + FW_KEYS - 1) / FW_KEYS, ntiles = (j1 - j0) * per_clip;
+  int parity = 0;
+  // Clip j's end: the rows' max over the quad's keys (lowest key on ties),
+  // the first argmax of every row, and the warpgroup's partials of (tile,
+  // i, j), the warps' sums added in a fixed order.
+  auto clip_end = [&](Fold& f, int j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, f.best[h], o);
+        const int oa = __shfl_xor_sync(0xffffffffu, f.arg[h], o);
+        if (ob > f.best[h] || (ob == f.best[h] && oa < f.arg[h])) {
+          f.best[h] = ob;
+          f.arg[h] = oa;
+        }
+      }
+    float clip = 0.0f, nn = f.nn, tsq = f.tsq;
+    if ((lane & 3) == 0) {
+      const long long pair = (long long)i * a.bk + j;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (q0 + 8 * h < a.nq) {
+          a.amax[pair * a.nq + q0 + 8 * h] = f.arg[h];
+          clip += cf[h] * f.best[h];
+        }
+    }
+    for (int o = 1; o < 32; o <<= 1) {
+      clip += __shfl_xor_sync(0xffffffffu, clip, o);
+      nn += __shfl_xor_sync(0xffffffffu, nn, o);
+      tsq += __shfl_xor_sync(0xffffffffu, tsq, o);
+    }
+    float* red = s.red + (parity * L::CONS + wg) * 16;
+    if (lane == 0) {
+      red[warp * 4] = clip;
+      red[warp * 4 + 1] = nn;
+      red[warp * 4 + 2] = tsq;
+    }
+    warpgroup_sync(wg);
+    if (t == 0) {
+      float* out = a.part + (((long long)tile * a.bq + i) * a.bk + j) * 3;
+#pragma unroll
+      for (int v = 0; v < 3; ++v) out[v] = red[v] + red[4 + v] + red[8 + v] + red[12 + v];
+    }
+    parity ^= 1;  // the next clip writes the other half, so no second barrier
+    f.reset();
+  };
+  // After tile n's products are issued, tile n - 1 has been folded: close
+  // its clip if it was the clip's last tile.
+  auto after = [&](Fold& f, int n) {
+    if (n % per_clip == 0) clip_end(f, j0 + n / per_clip - 1);
+  };
+  Fold f;
+  f.reset();
+  float sa[FW_KEYS / 2], sb[FW_KEYS / 2];
+  int stage = 0, phase = 0, pending = -1;
+  mbar_wait(&s.res_full[wg], 0);
+  fwd_tile<SPLIT, NC, false>(sa, sb, f, s, res, stage, phase, pending, 0, col, temp, cm, a.nk,
+                             t);
+  int n = 1;
+  for (; n + 1 < ntiles; n += 2) {
+    fwd_tile<SPLIT, NC, true>(sb, sa, f, s, res, stage, phase, pending,
+                              ((n - 1) % per_clip) * FW_KEYS, col, temp, cm, a.nk, t);
+    after(f, n);
+    fwd_tile<SPLIT, NC, true>(sa, sb, f, s, res, stage, phase, pending,
+                              (n % per_clip) * FW_KEYS, col, temp, cm, a.nk, t);
+    after(f, n + 1);
+  }
+  // n == ntiles - 1 (one tile left to issue) or n == ntiles (none)
+  const int last_k0 = ((ntiles - 1) % per_clip) * FW_KEYS;
+  if (n < ntiles) {
+    fwd_tile<SPLIT, NC, true>(sb, sa, f, s, res, stage, phase, pending,
+                              ((n - 1) % per_clip) * FW_KEYS, col, temp, cm, a.nk, t);
+    after(f, n);
+    wgmma_wait<0>();
+    fence_regs(sb);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fold_slice<NC>(sb, f, c, last_k0, col, temp, cm, a.nk);
+  } else {
+    wgmma_wait<0>();
+    fence_regs(sa);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fold_slice<NC>(sa, f, c, last_k0, col, temp, cm, a.nk);
+  }
+  if (t == 0) mbar_arrive(&s.empty[pending]);
+  clip_end(f, j1 - 1);
+}
+
+// Grid (ceil(items / CONS), ranges of key clips); the maps: Q (resident,
+// 64-row boxes; rows past Nq read as zeros) and K (FW_KEYS-row boxes), hi
+// and lo (lo = hi for bf16 features).
+template <bool SPLIT, int NC>
+__global__ void __launch_bounds__(FwdLayout<SPLIT, NC>::THREADS, 1)
+maxmean_fwd_kernel(const __grid_constant__ CUtensorMap map_qh,
+                   const __grid_constant__ CUtensorMap map_ql,
+                   const __grid_constant__ CUtensorMap map_kh,
+                   const __grid_constant__ CUtensorMap map_kl, const FwdArgs a) {
+  using L = FwdLayout<SPLIT, NC>;
+  extern __shared__ unsigned char smem_raw[];
+  const FwdSmem s = carve_fwd<L>(smem_raw);
+  const int active = min(L::CONS, a.bq * a.ntq - L::CONS * (int)blockIdx.x);
+  // Barriers: an item's full takes the producer's one arrival and its
+  // bytes; a stage's full likewise, its empty one arrival per active
+  // consumer warpgroup once the products that read it retired.
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < L::CONS; ++w) mbar_init(&s.res_full[w], 1);
+    for (int st = 0; st < L::STAGES; ++st) {
+      mbar_init(&s.full[st], 1);
+      mbar_init(&s.empty[st], active);
+    }
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0), t = threadIdx.x % 128;
+  if (wg == L::CONS) {
+    if constexpr (L::CONS == 2) setmaxnreg_dec<FW_PRODUCER_REGS>();
+    if (t == 0) fwd_produce<SPLIT, NC>(s, &map_qh, &map_ql, &map_kh, &map_kl, a, active);
+  } else {
+    if constexpr (L::CONS == 2) setmaxnreg_inc<FW_CONSUMER_REGS>();
+    if (wg < active) fwd_consume<SPLIT, NC>(s, a, wg, t);
+  }
+}
+
 template <typename K>
 int prepare(K kernel, size_t smem) {
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
@@ -784,6 +995,47 @@ bool map3d(CUtensorMap* map, const bf16* base, int b, int n, int d, int rows) {
   const cuuint64_t strides[2] = {2ull * d, 2ull * d * n};
   const cuuint32_t box[3] = {(cuuint32_t)CHUNK, (cuuint32_t)rows, 1};
   return encode(map, base, 3, dims, strides, box);
+}
+
+// The forward's key-clip ranges: enough blocks for two per SM where the
+// items alone give fewer than one per SM (the TV loss's 32-row clips).
+// Returns the key clips a range holds.
+inline int fwd_per(int blocks, int bk, int sms) {
+  int ranges = 1;
+  if (blocks < sms) ranges = std::min(bk, (2 * sms + blocks - 1) / blocks);
+  return (bk + ranges - 1) / ranges;
+}
+
+template <bool SPLIT, int NC>
+int launch_fwd(const Inputs& in, int* amax, float* part, cudaStream_t stream) {
+  using L = FwdLayout<SPLIT, NC>;
+  auto kernel = maxmean_fwd_kernel<SPLIT, NC>;
+  static bool ready[MAX_DEVICES];
+  int dev = 0;
+  const cudaError_t err = bind_device(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (!ready[dev]) {
+    const int set = prepare(kernel, L::SMEM);
+    if (set) return set;
+    ready[dev] = true;
+  }
+  CUtensorMap m[4];
+  if (!map3d(&m[0], in.qh, in.bq, in.nq, in.d, BW_ROWS) ||
+      !map3d(&m[2], in.kh, in.bk, in.nk, in.d, FW_KEYS))
+    return (int)cudaErrorInvalidValue;
+  m[1] = m[0];
+  m[3] = m[2];
+  if (SPLIT && (!map3d(&m[1], in.ql, in.bq, in.nq, in.d, BW_ROWS) ||
+                !map3d(&m[3], in.kl, in.bk, in.nk, in.d, FW_KEYS)))
+    return (int)cudaErrorInvalidValue;
+  const int ntq = (in.nq + BW_ROWS - 1) / BW_ROWS;
+  const int blocks = (in.bq * ntq + L::CONS - 1) / L::CONS;
+  const int per = fwd_per(blocks, in.bk, sm_count(dev));
+  const FwdArgs a{in.coeff, in.temp, amax, part, in.bq, in.bk, in.nq, in.nk, ntq, per,
+                  in.clamp_min};
+  kernel<<<dim3(blocks, (in.bk + per - 1) / per), L::THREADS, L::SMEM, stream>>>(m[0], m[1], m[2],
+                                                                                 m[3], a);
+  return (int)cudaGetLastError();
 }
 
 // One backward grid on the stream: its tensor maps and its dynamic shared
@@ -842,21 +1094,30 @@ int backward(const Inputs& in, const void* g_clip, const void* g_nn, const void*
 // q (Bq, Nq, D) and k (Bk, Nk, D) contiguous bf16, as hi and lo halves (the
 // lo pointers null for bf16 features, both set for split fp32 features);
 // coeff (Bq, Nq) fp32; temp: the fp32 temperature on the device. Writes
-// clip (Bq, Bk) fp32, amax (Bq, Bk, Nq) int32 (first argmax over keys) and
-// partials (Bq, Bk, 2) fp32 (the pair's clamp^2 and window ts^2 sums).
-// Returns a cudaError_t.
+// amax (Bq, Bk, Nq) int32 (first argmax over keys) and partials
+// (ceil(Nq / 64), Bq, Bk, 3) fp32: per 64-row query tile and pair, the
+// tile's sum of coeff max, its clamp^2 sum and its window ts^2 sum. clip
+// is not written: the caller sums the partials over the tiles
+// (ops/maxmean.py:maxmean_fwd), clip[i, j] the first column's. Returns a
+// cudaError_t.
 extern "C" int triad_maxmean_fwd(const void* qh, const void* ql, const void* kh, const void* kl,
                                  const void* coeff, const void* temp, void* clip, void* amax,
                                  void* partials, int bq, int bk, int nq, int nk, int d,
                                  float clamp_min, void* stream) {
   const Inputs in = inputs_of(qh, ql, kh, kl, coeff, temp, bq, bk, nq, nk, d, clamp_min);
   if (bad_shape(in)) return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_smem(d, nq, ql != nullptr);
-  int err = prepare(maxmean_fwd_kernel, smem);
-  if (err) return err;
-  maxmean_fwd_kernel<<<dim3(bk, bq), THREADS, smem, (cudaStream_t)stream>>>(
-      in, (float*)clip, (int*)amax, (float*)partials);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* p = (float*)partials;
+  int* am = (int*)amax;
+  const bool split = ql != nullptr;
+  switch (fwd_chunks(d)) {
+    case 2:
+      return split ? launch_fwd<true, 2>(in, am, p, st) : launch_fwd<false, 2>(in, am, p, st);
+    case 4:
+      return split ? launch_fwd<true, 4>(in, am, p, st) : launch_fwd<false, 4>(in, am, p, st);
+    default:
+      return split ? launch_fwd<true, 8>(in, am, p, st) : launch_fwd<false, 8>(in, am, p, st);
+  }
 }
 
 // dq (Bq, Nq, D) fp32 from the forward's inputs and amax, g_clip (Bq, Bk)

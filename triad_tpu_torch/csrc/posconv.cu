@@ -9,17 +9,35 @@
 // across the sequential grid; Hopper blocks run in no order, so here dW
 // sums inside one block's loop over every row instead.
 //
-// Forward, an implicit GEMM per (128-row tile, group, batch row):
+// Forward (and dX), an implicit GEMM per (512-row piece, group, batch row):
 //   out[t, o] = act(sum_k sum_i in[t - left + k, g*48 + i] * W[g][k][i][o]
 //                   + bias[g*48 + o])
-// with the weight prepared as W[g][k][i][o] (bf16), so for each tap k the
-// B operand is a contiguous 48 x 48 tile. The block stages the input
-// window (its 128 rows + K - 1 more, zero outside [0, N)) once, and
-// streams the group's taps in chunks of 8 through a two-stage cp.async
-// ring; warp w computes rows 16w .. 16w + 15 against all 48 outputs, one
-// 16-deep step per (tap, 16 input channels) on bf16 tensor cores (WMMA)
-// with fp32 accumulation; bias and the activation (identity or exact
-// GELU) in the epilogue, the output rounded to bf16 once.
+// on TMA + wgmma (hopper.cuh). The block's input window, 512 + K - 1 rows
+// x 48 channels (61 KB at K = 128, zeros outside [0, N)), lands once by
+// TMA as 6 planes of 8 channels: each row of a plane is 16 bytes, so 8
+// consecutive rows form a wgmma core matrix (the no-swizzle layout) that
+// may start at ANY row. A tap shifts the A rows by one, which the 128-byte
+// swizzle (atoms of 8 rows) cannot follow; here the A operand of tap k for
+// an output tile at row r is the plain descriptor of window row r + k
+// (next 8 rows 128 bytes on, next 8 channels a plane on). The wrapper lays
+// the weight out as the B operand wants, W[g][k][p][o][e] (input channel
+// 8 p + e, ops/posconv.py:_kernel_weight), and one producer thread streams
+// the group's 590 KB of taps once per 512 rows, 4 taps (18 KB) a stage by
+// bulk copy, through a 6-stage mbarrier ring: 0.6 GB of L2 reads a call
+// at (64, 499, 768), and no __syncthreads or cp.async in the tap loop. Two
+// consumer warpgroups own four 64-row tiles each (96 fp32 sums a thread)
+// and issue, per tap and 16 input channels, one wgmma m64n48k16 per tile
+// (3 per tap), a stage's 48 products in flight while the next stage is
+// awaited. The epilogue adds the bias in fp32, applies the activation
+// (identity or exact GELU), rounds to bf16 once, stages each tile in
+// shared memory and stores 16-byte row pieces in the (B, N, C) layout.
+// Rows past N (the last piece's) are computed from zeros and not stored.
+// Its outputs equal those of the WMMA kernel it replaced bit for bit at
+// chip_smoke.py phase 3's shapes. tools/kernel_probe.py posconv_fwd times it against
+// (b), the transposed products out^T = W^T . X^T (the 48 outputs padded to
+// wgmma's M of 64, 256 rows as N; an edited copy of this file), 18%
+// slower, and against the mma.sync dW kernel below, which runs the same
+// products.
 // The forward uses left = K / 2 (SAME padding with the even-kernel
 // trailing trim); dX uses left = K - 1 - K / 2 and the flipped weight.
 //
@@ -46,31 +64,39 @@
 // What bounds it on the card: operations. Each pass (forward, dX, dW) is
 // 2 * B * N * C * K * 48 = 301.4 GFLOP at (64, 499, 768), K = 128: 0.305 ms
 // at the bf16 tensor-core peak; the bytes (x and the output, 98 MB) take
-// 0.03 ms. Every forward block re-streams its group's 590 KB of weights
-// from L2; every dW block reads its group's x and dz (6.1 MB at B = 64)
-// through L2, 8 times over the 8 tap blocks of a group.
+// 0.03 ms. A forward block's 64 x 48 products are narrow (n48): both
+// operands come from shared memory, 3.5 KB per 49 K multiply-adds, about
+// what the SM's shared memory delivers in the time its tensor cores take.
+// It runs at 66% of the bound at (64, 499, 768), and no ring depth, stage
+// width or epilogue moves it (the probe's variants). Every
+// dW block reads its group's x and dz (6.1 MB at B = 64) through L2, 8
+// times over the 8 tap blocks of a group.
 #include "attention_tiles.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
 using triad::bf16;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 constexpr int CPG = 48;        // channels per group (768 / 16)
 constexpr int NB = CPG / 16;   // 16-wide blocks of a group's channels
-constexpr int TM = 128;        // forward: output rows per block
-constexpr int KCH = 8;         // taps per staged weight chunk
-constexpr int THREADS = 256;   // 8 warps
-constexpr int LDX = CPG;       // bf16 row stride: 96 B keeps every WMMA row 32-byte aligned
-constexpr int LDO = CPG + 4;   // fp32 epilogue row stride
-constexpr int WCHUNK = KCH * CPG * CPG;  // bf16 elements of one weight chunk
+constexpr int KCH = 8;         // the kernels take K a multiple of this
+constexpr int THREADS = 256;   // dW: 8 warps
 constexpr int MAX_SMEM = 232448;
+// Forward and dX
+constexpr int PC_ROWS = 512;                       // output rows a block covers
+constexpr int PC_CONS = 2;                         // consumer warpgroups
+constexpr int PC_TILES = PC_ROWS / 64 / PC_CONS;   // 64-row tiles a consumer owns
+constexpr int PC_PLANES = CPG / 8;                 // 8-channel planes of the window
+constexpr int PC_BOX = 160;                        // window rows a TMA box holds (<= 256)
+constexpr int PC_TAPS = 4;                         // taps a weight stage holds
+constexpr int PC_STAGES = 6;
+constexpr int PC_TAP_BYTES = CPG * CPG * 2;        // one tap's 48 x 48 bf16 block
+constexpr int PC_STAGE_BYTES = PC_TAPS * PC_TAP_BYTES;
+constexpr int PC_OUT = 64 * CPG;                   // bf16 elements of a staged output tile
+constexpr int PC_THREADS = 128 * (PC_CONS + 1);    // + the producer warpgroup
+static_assert(PC_STAGE_BYTES % 1024 == 0 && KCH % PC_TAPS == 0, "stages: whole taps, aligned");
 // dW
 constexpr int DW_TAPS = 16;                      // taps per block, 2 per warp
 constexpr int DW_ROWS = 128;                     // rows per staged tile
@@ -91,82 +117,159 @@ constexpr size_t DW_BUF =
     DW_RING > DW_TAPS * DW_PLANE * sizeof(float) ? DW_RING : DW_TAPS * DW_PLANE * sizeof(float);
 constexpr size_t DW_SMEM = DW_BUF + 2 * DW_STAGES * sizeof(uint64_t);
 
-__host__ __device__ inline size_t fwd_smem(int k) {
-  return sizeof(bf16) * ((size_t)(TM + k) * LDX + 2 * (size_t)WCHUNK);
+// TMA boxes of the input window: 512 output rows read 512 + K - 1 rows.
+__host__ __device__ inline int pc_boxes(int k) { return (PC_ROWS + k - 1 + PC_BOX - 1) / PC_BOX; }
+
+// The ring [PC_STAGES][PC_TAPS][6 planes][48 outputs][8 inputs], the window
+// [6 planes][pc_boxes(k) * PC_BOX rows][8 channels], the consumers' output
+// tiles, the barriers; 1024 bytes for the alignment.
+__host__ __device__ inline size_t pc_smem(int k) {
+  return 1024 + (size_t)PC_STAGES * PC_STAGE_BYTES + (size_t)PC_PLANES * pc_boxes(k) * PC_BOX * 16 +
+         (size_t)PC_CONS * PC_OUT * 2 + (1 + 2 * PC_STAGES) * 8;
 }
 
-__global__ void __launch_bounds__(THREADS)
-posconv_kernel(const bf16* __restrict__ in, const bf16* __restrict__ w,
-               const float* __restrict__ bias, bf16* __restrict__ out, int nin, int nout, int c,
-               int k, int left, int act) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sX = reinterpret_cast<bf16*>(smem);
-  bf16* sW = sX + (size_t)(TM + k) * LDX;
-  float* sO = reinterpret_cast<float*>(sW);  // epilogue reuses the ring
-
-  const int t0 = blockIdx.x * TM, g = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const bf16* wg = w + (size_t)g * k * CPG * CPG;
-
-  // The input window: rows t0 - left .. t0 - left + TM + k - 2.
-  for (int i = tid; i < (TM + k - 1) * (CPG / 8); i += THREADS) {
-    const int r = i / (CPG / 8), c8 = (i % (CPG / 8)) * 8;
-    const int src = t0 - left + r;
-    const bool ok = src >= 0 && src < nin;
-    triad::cp_async16(sX + r * LDX + c8,
-                      ok ? in + ((long long)b * nin + src) * c + g * CPG + c8 : in, ok);
+__device__ __forceinline__ void pc_advance(int& stage, int& phase) {
+  if (++stage == PC_STAGES) {
+    stage = 0;
+    phase ^= 1;
   }
-  auto load_chunk = [&](int stage, int chunk) {
-    const bf16* src = wg + (size_t)chunk * WCHUNK;
-    bf16* dst = sW + stage * WCHUNK;
-    for (int i = tid; i < WCHUNK / 8; i += THREADS) triad::cp_async16(dst + i * 8, src + i * 8, true);
-  };
-  load_chunk(0, 0);
-  triad::cp_async_commit();
+}
 
-  FragC acc[NB];
-  for (int f = 0; f < NB; ++f) wmma::fill_fragment(acc[f], 0.0f);
-  const int nchunks = k / KCH;
-  for (int ci = 0; ci < nchunks; ++ci) {
-    const int s = ci & 1;
-    triad::cp_async_wait<0>();
-    __syncthreads();  // chunk ci landed; chunk ci - 1 fully consumed
-    if (ci + 1 < nchunks) {
-      load_chunk(s ^ 1, ci + 1);
-      triad::cp_async_commit();
+// Block (512-row piece, group g, batch row b). Its producer thread copies
+// the input window once (plane p: channels 48 g + 8 p .. + 7 of rows t0 -
+// left .. t0 - left + 639, zeros outside [0, nin)), then streams the
+// group's taps, 4 a stage. Consumer wg owns output rows 256 wg .. 256 wg +
+// 255 of the piece, four 64-row tiles, 24 fp32 sums a thread each; per tap
+// and 16 input channels one wgmma m64n48k16 a tile, A the window from row
+// (tile row + tap), B the tap's block.
+__global__ void __launch_bounds__(PC_THREADS, 1)
+posconv_kernel(const __grid_constant__ CUtensorMap map_in, const bf16* __restrict__ w,
+               const float* __restrict__ bias, bf16* __restrict__ out, int nout, int c, int k,
+               int left, int act) {
+  namespace hp = triad::hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int plane = pc_boxes(k) * PC_BOX;  // rows of a window plane
+  bf16* ring = reinterpret_cast<bf16*>(base);
+  bf16* win = reinterpret_cast<bf16*>(base + PC_STAGES * PC_STAGE_BYTES);
+  bf16* staged = win + (size_t)PC_PLANES * plane * 8;
+  uint64_t* win_full = reinterpret_cast<uint64_t*>(staged + PC_CONS * PC_OUT);
+  uint64_t* full = win_full + 1;
+  uint64_t* empty = full + PC_STAGES;
+  const int t0 = blockIdx.x * PC_ROWS, g = blockIdx.y, b = blockIdx.z;
+  const int nst = k / PC_TAPS;
+  if (threadIdx.x == 0) {
+    hp::mbar_init(win_full, 1);
+    for (int i = 0; i < PC_STAGES; ++i) {
+      hp::mbar_init(&full[i], 1);
+      hp::mbar_init(&empty[i], PC_CONS);
     }
-    const bf16* ws = sW + s * WCHUNK;
-    for (int kk = 0; kk < KCH; ++kk) {
-      const int tap = ci * KCH + kk;
-      for (int cs = 0; cs < NB; ++cs) {
-        FragA a;
-        wmma::load_matrix_sync(a, sX + (warp * 16 + tap) * LDX + cs * 16, LDX);
-        for (int f = 0; f < NB; ++f) {
-          FragB bw;
-          wmma::load_matrix_sync(bw, ws + (kk * CPG + cs * 16) * CPG + f * 16, CPG);
-          wmma::mma_sync(acc[f], a, bw, acc[f]);
-        }
+    hp::fence_mbarrier_init();
+  }
+  __syncthreads();
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0), t = threadIdx.x % 128;
+  if (wg == PC_CONS) {
+    if (t == 0) {
+      hp::mbar_expect_tx(win_full, PC_PLANES * plane * 16);
+      for (int p = 0; p < PC_PLANES; ++p)
+        for (int r = 0; r < plane; r += PC_BOX)
+          hp::tma_load_3d(win + ((size_t)p * plane + r) * 8, &map_in, win_full, g * CPG + 8 * p,
+                          t0 - left + r, b);
+      const bf16* src = w + (size_t)g * k * CPG * CPG;
+      int stage = 0, phase = 0;
+      for (int s = 0; s < nst; ++s) {
+        hp::mbar_wait(&empty[stage], phase ^ 1);
+        hp::mbar_expect_tx(&full[stage], PC_STAGE_BYTES);
+        hp::bulk_load(ring + stage * (PC_STAGE_BYTES / 2), src + (size_t)s * PC_TAPS * CPG * CPG,
+                      PC_STAGE_BYTES, &full[stage]);
+        pc_advance(stage, phase);
       }
     }
+    return;
   }
-  __syncthreads();
-  for (int f = 0; f < NB; ++f)
-    wmma::store_matrix_sync(sO + warp * 16 * LDO + f * 16, acc[f], LDO, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < TM * (CPG / 2); i += THREADS) {
-    const int r = i / (CPG / 2), cc = (i % (CPG / 2)) * 2;
-    if (t0 + r >= nout) continue;
-    float v0 = sO[r * LDO + cc], v1 = sO[r * LDO + cc + 1];
-    if (bias != nullptr) {
-      v0 += bias[g * CPG + cc];
-      v1 += bias[g * CPG + cc + 1];
+  const uint32_t win_a = hp::smem_u32(win), ring_a = hp::smem_u32(ring);
+  const uint32_t plane_bytes = plane * 16;
+  const int row0 = wg * PC_TILES * 64;  // the consumer's first row in the piece
+  const int r = (t >> 5) * 16 + ((t & 31) >> 2), col = 2 * (t & 3);
+  // The descriptors of one product: A or B from the window (window row w,
+  // input channels 16 kk .. + 15: planes 2 kk, 2 kk + 1) and from the
+  // stage's tap (its 48 outputs of the same inputs).
+  auto window = [&](int w, int kk) {
+    return hp::desc_plain(win_a + 2 * kk * plane_bytes + 16 * w, plane_bytes, 128);
+  };
+  auto taps = [&](int stage, int tap, int kk) {
+    return hp::desc_plain(ring_a + stage * PC_STAGE_BYTES + tap * PC_TAP_BYTES +
+                              kk * 2 * (CPG * 16), CPG * 16, 128);
+  };
+  auto activate = [&](float v) { return act ? triad::gelu_erf(v) : v; };
+  // The staged 64-row tile tt to (B, N, C) in 16-byte row pieces.
+  bf16* so = staged + wg * PC_OUT;
+  auto store = [&](int tt) {
+    hp::warpgroup_sync(wg);
+    const int tr = t0 + row0 + tt * 64;
+    for (int e = t; e < 64 * PC_PLANES; e += 128) {
+      const int row = e / PC_PLANES, piece = e - row * PC_PLANES;
+      if (tr + row < nout)
+        *reinterpret_cast<uint4*>(out + ((long long)b * nout + tr + row) * c + g * CPG + 8 * piece) =
+            *reinterpret_cast<const uint4*>(so + row * CPG + 8 * piece);
     }
-    if (act) {
-      v0 = triad::gelu_erf(v0);
-      v1 = triad::gelu_erf(v1);
+    hp::warpgroup_sync(wg);
+  };
+  // Per stage: wait for it; per tap and 16 input channels, one product a
+  // 64-row tile (A the window from row tile row + tap, B the tap's block,
+  // 64 rows x 48 outputs, 24 sums a thread); release the previous stage
+  // once its products retired.
+  float acc[PC_TILES][24];
+#pragma unroll
+  for (int tt = 0; tt < PC_TILES; ++tt)
+#pragma unroll
+    for (int e = 0; e < 24; ++e) acc[tt][e] = 0.0f;
+  int stage = 0, phase = 0, prev = 0;
+  hp::mbar_wait(win_full, 0);
+  for (int s = 0; s < nst; ++s) {
+    hp::mbar_wait(&full[stage], phase);
+#pragma unroll
+    for (int tt = 0; tt < PC_TILES; ++tt) hp::fence_regs(acc[tt]);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < PC_TAPS; ++tap)
+#pragma unroll
+      for (int kk = 0; kk < NB; ++kk) {
+        const uint64_t db = taps(stage, tap, kk);
+#pragma unroll
+        for (int tt = 0; tt < PC_TILES; ++tt)
+          hp::wgmma_m64n48k16(acc[tt], window(row0 + tt * 64 + s * PC_TAPS + tap, kk), db, 1);
+      }
+    hp::wgmma_commit();
+    if (s > 0) {
+      hp::wgmma_wait<1>();
+      if (t == 0) hp::mbar_arrive(&empty[prev]);
     }
-    *reinterpret_cast<__nv_bfloat162*>(out + ((long long)b * nout + t0 + r) * c + g * CPG + cc) =
-        __floats2bfloat162_rn(v0, v1);
+    prev = stage;
+    pc_advance(stage, phase);
+  }
+  hp::wgmma_wait<0>();
+#pragma unroll
+  for (int tt = 0; tt < PC_TILES; ++tt) hp::fence_regs(acc[tt]);
+  // Epilogue: bias and the activation in fp32, one rounding to bf16, the
+  // tile staged in shared memory.
+  float bv[2 * NB * 2];
+#pragma unroll
+  for (int jj = 0; jj < 2 * NB; ++jj)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      bv[2 * jj + e] = bias != nullptr ? bias[g * CPG + 8 * jj + col + e] : 0.0f;
+#pragma unroll
+  for (int tt = 0; tt < PC_TILES; ++tt) {
+#pragma unroll
+    for (int jj = 0; jj < 2 * NB; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<__nv_bfloat162*>(so + (r + 8 * h) * CPG + 8 * jj + col) =
+            __floats2bfloat162_rn(activate(acc[tt][4 * jj + 2 * h] + bv[2 * jj]),
+                                  activate(acc[tt][4 * jj + 2 * h + 1] + bv[2 * jj + 1]));
+    store(tt);
   }
 }
 
@@ -287,22 +390,34 @@ posconv_dw_kernel(const __grid_constant__ CUtensorMap map_x,
 
 }  // namespace
 
-// in (B, nin, c), out (B, nout, c): contiguous bf16; w: bf16 (c / 48, k, 48,
-// 48) as W[g][k][i][o]; bias: fp32 (c) or null; act 0 = identity, 1 =
-// exact GELU. c % 48 == 0, k % 8 == 0. Returns a cudaError_t.
+// in (B, nin, c), out (B, nout, c): contiguous bf16, 16-byte aligned; w:
+// bf16 (c / 48, k, 6, 48, 8), W[g][k][p][o][e] the weight of input channel
+// 8 p + e to output channel o of tap k (ops/posconv.py:_kernel_weight);
+// bias: fp32 (c) or null; act 0 = identity, 1 = exact GELU. c % 48 == 0,
+// k % 8 == 0. Returns a cudaError_t.
 extern "C" int triad_posconv(const void* in, const void* w, const void* bias, void* out,
                              int batch, int nin, int nout, int c, int k, int left, int act,
                              void* stream) {
   if (batch <= 0 || nin <= 0 || nout <= 0 || c % CPG || k % KCH || k <= 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_smem(k);
+  const size_t smem = pc_smem(k);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(posconv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  int dev = 0;
+  cudaError_t err = triad::hopper::bind_device(&dev);
   if (err != cudaSuccess) return (int)err;
-  posconv_kernel<<<dim3((nout + TM - 1) / TM, c / CPG, batch), THREADS, smem,
-                   (cudaStream_t)stream>>>((const bf16*)in, (const bf16*)w, (const float*)bias,
-                                           (bf16*)out, nin, nout, c, k, left, act);
+  // (channel, row, batch row), innermost first; 8-channel boxes of PC_BOX rows
+  const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)nin, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)c * sizeof(bf16), (cuuint64_t)nin * c * sizeof(bf16)};
+  const cuuint32_t box[3] = {8, PC_BOX, 1};
+  CUtensorMap map_in;
+  if (!triad::hopper::encode(&map_in, in, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(posconv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             MAX_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  posconv_kernel<<<dim3((nout + PC_ROWS - 1) / PC_ROWS, c / CPG, batch), PC_THREADS, smem,
+                   (cudaStream_t)stream>>>(map_in, (const bf16*)w, (const float*)bias, (bf16*)out,
+                                           nout, c, k, left, act);
   return (int)cudaGetLastError();
 }
 

@@ -17,9 +17,9 @@ A CUDA tensor runs ``csrc/maxmean.cu`` (a forward, a dQ and a dK kernel;
 ``maxmean_fwd``, ``maxmean_dq``, ``maxmean_dk``); a CPU tensor runs the
 plain twins (``maxmean_plain``, ``maxmean_dq_plain``, ``maxmean_dk_plain``),
 which route to the first argmax too. The forward keeps every query row's first argmax as an
-int32 (Bq, Bk, Nq) residual for the backward. ``maxmean_dq_tiled_plain`` and
-``maxmean_dk_tiled_plain`` walk the backward kernels' tiles in their order
-(for tests; nothing on the main path calls them).
+int32 (Bq, Bk, Nq) residual for the backward. ``maxmean_fwd_tiled_plain``,
+``maxmean_dq_tiled_plain`` and ``maxmean_dk_tiled_plain`` walk the kernels'
+tiles in their order (for tests; nothing on the main path calls them).
 """
 
 from __future__ import annotations
@@ -220,6 +220,58 @@ def maxmean_dk_tiled_plain(q, k, temperature, coeff, clamp_min: float, amax, g_c
     return acc[:, :, :k.shape[2]]
 
 
+FWD_KEYS = 128  # keys of a forward sim tile (FW_KEYS)
+
+
+def maxmean_fwd_tiled_plain(q, k, temperature, coeff, clamp_min: float):
+    """(clip, nonneg, tsq, amax) in the forward kernel's order, on CPU
+    tensors: for every 64-row query tile of every clip (all at once; rows
+    past Nq zero), the key clips in order, their 128-key tiles in order
+    (keys past Nk zero, and out of the max); per tile the sims over all of
+    D (hh + lh + hl), the rows' running max (an earlier tile keeps a tie,
+    and within a tile the first key) and the tile's clamp^2 and window
+    ts^2 sums; per (tile, i, j) one partial of each, the clip partial the
+    sum of coeff max over the tile's rows; then, as maxmean_fwd adds
+    them, the partials summed over the tiles, nonneg and tsq then over
+    the pairs. The kernel's ranges of key clips (grid.y) change none of
+    this: each (tile, i, j) is one warpgroup's. Uses nothing of the main
+    path."""
+    f32 = torch.float32
+    bq, nq, _ = q.shape
+    bk, nk, _ = k.shape
+    qh, ql = _tiled_halves(q, ROWS)
+    kh, kl = _tiled_halves(k, FWD_KEYS)
+    ntq = qh.shape[1] // ROWS
+    temp = temperature.to(f32)
+    cf = torch.nn.functional.pad(coeff.to(f32), (0, ntq * ROWS - nq))
+    part = torch.zeros((ntq, bq, bk, 3), dtype=f32)
+    amax = torch.zeros((bq, bk, nq), dtype=torch.int32)
+    for j in range(bk):
+        best = torch.full((bq, ntq * ROWS), float("-inf"))
+        arg = torch.zeros((bq, ntq * ROWS), dtype=torch.int64)
+        nn = torch.zeros((bq, ntq))
+        tsq = torch.zeros((bq, ntq))
+        for k0 in range(0, nk, FWD_KEYS):
+            ts = _tiled_sims(qh, ql, kh[j, k0:k0 + FWD_KEYS], kl[j, k0:k0 + FWD_KEYS]) * temp
+            c = ts.clamp(clamp_min, 0.0)
+            window = (ts > clamp_min) & (ts < 0.0)
+            nn = nn + (c * c).reshape(bq, ntq, -1).sum(-1)
+            tsq = tsq + torch.where(window, ts * ts, 0.0).reshape(bq, ntq, -1).sum(-1)
+            ts = ts.masked_fill(torch.arange(k0, k0 + FWD_KEYS) >= nk, float("-inf"))
+            tile_arg = ts.argmax(dim=2)  # the first maximal key of the tile
+            tile_max = ts.gather(2, tile_arg[..., None])[..., 0]
+            take = tile_max > best
+            best = torch.where(take, tile_max, best)
+            arg = torch.where(take, tile_arg + k0, arg)
+        amax[:, j] = arg[:, :nq].to(torch.int32)
+        part[:, :, j, 0] = (cf * best).reshape(bq, ntq, ROWS).sum(-1).T
+        part[:, :, j, 1] = nn.T
+        part[:, :, j, 2] = tsq.T
+    summed = part.sum(dim=0)
+    nonneg, tsq = summed[..., 1:].sum(dim=(0, 1))
+    return summed[..., 0], nonneg, tsq, amax
+
+
 # ---------------------------------------------------------------------------
 # The kernels (csrc/maxmean.cu)
 # ---------------------------------------------------------------------------
@@ -260,20 +312,23 @@ def _kernel_args(name, q, k, temperature, coeff):
 
 def maxmean_fwd(q, k, temperature, coeff, clamp_min: float):
     """(clip, nonneg, tsq, amax) as maxmean_plain: the twin for a CPU
-    tensor, the forward kernel for a CUDA one (the pairs' partial sums
-    added in a fixed order)."""
+    tensor, the forward kernel for a CUDA one. The kernel writes amax and
+    one partial of each sum per (64-row query tile, pair); they are added
+    here, over the tiles, then nonneg and tsq over the pairs: torch's
+    reductions, a fixed order (no atomics), so runs repeat bit for bit.
+    The kernel leaves its clip argument unwritten."""
     if q.device.type == "cpu":
         return maxmean_plain(q, k, temperature, coeff, clamp_min)
     _keep, args, (bq, bk, nq, nk, d) = _kernel_args("maxmean", q, k, temperature, coeff)
     dev = q.device
-    clip = torch.empty((bq, bk), dtype=torch.float32, device=dev)
     amax = torch.empty((bq, bk, nq), dtype=torch.int32, device=dev)
-    partials = torch.empty((bq * bk, 2), dtype=torch.float32, device=dev)
-    kernels.call("maxmean_fwd", *args, clip.data_ptr(), amax.data_ptr(), partials.data_ptr(),
-                 bq, bk, nq, nk, d, float(clamp_min), kernels.stream_ptr(clip))
+    partials = torch.empty((-(-nq // ROWS), bq, bk, 3), dtype=torch.float32, device=dev)
+    kernels.call("maxmean_fwd", *args, None, amax.data_ptr(), partials.data_ptr(),
+                 bq, bk, nq, nk, d, float(clamp_min), kernels.stream_ptr(amax))
     kernels.LAUNCHES["maxmean"] += 1
-    nonneg, tsq = partials.sum(dim=0)
-    return clip, nonneg, tsq, amax
+    summed = partials.sum(dim=0)
+    nonneg, tsq = summed[..., 1:].sum(dim=(0, 1))
+    return summed[..., 0], nonneg, tsq, amax
 
 
 def _bwd_kernel(name, q, k, temperature, coeff, clamp_min, amax, g_clip, g_nn, out_shape):

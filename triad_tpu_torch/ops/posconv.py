@@ -42,6 +42,15 @@ def _flip_weight(w, groups):
     return w.reshape(groups, c // groups, cpg, k).flip(-1).permute(0, 3, 1, 2)
 
 
+def _kernel_weight(wk):
+    """W[g][k][i][o] -> the forward kernel's B operand, (G, K, CPG / 8,
+    CPG_out, 8) bf16: W[g][k][p][o][e] for input channel 8 p + e, so that
+    8 outputs x 8 inputs of a tap are 128 contiguous bytes (a wgmma core
+    matrix)."""
+    g, k, cin, cout = wk.shape
+    return wk.reshape(g, k, cin // 8, 8, cout).transpose(3, 4).to(torch.bfloat16).contiguous()
+
+
 def _left(k: int, dx: bool) -> int:
     return k - 1 - k // 2 if dx else k // 2
 
@@ -92,7 +101,9 @@ def _launch(name, x, wk, bias, left: int, act: str):
     b, n, c = x.shape
     k = wk.shape[1]
     x = x.contiguous()
-    wk = wk.to(torch.bfloat16).contiguous()
+    if x.data_ptr() % 16:  # a TMA base
+        x = x.clone()
+    wk = _kernel_weight(wk)
     if bias is not None:
         bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty_like(x)

@@ -1,7 +1,7 @@
-"""Seven measurements behind PERF.md's notes on the eval attention, the
-training attention's di, the flash kernels, the positional conv's dW, the
-frontend activation, the fused MLP and the max-mean backward, on one CUDA
-card, from the repo root:
+"""Nine measurements behind PERF.md's notes on the eval attention, the
+training attention's di, the flash kernels, the positional conv's dW and
+forward, the frontend activation, the fused MLP and the max-mean backward
+and forward, on one CUDA card, from the repo root:
 
     python3 triad_tpu_torch/tools/kernel_probe.py eval
     python3 triad_tpu_torch/tools/kernel_probe.py di
@@ -10,6 +10,8 @@ card, from the repo root:
     python3 triad_tpu_torch/tools/kernel_probe.py activation
     python3 triad_tpu_torch/tools/kernel_probe.py fused_mlp
     python3 triad_tpu_torch/tools/kernel_probe.py maxmean
+    python3 triad_tpu_torch/tools/kernel_probe.py maxmean_fwd
+    python3 triad_tpu_torch/tools/kernel_probe.py posconv_fwd
 
 eval  what holds the eval attention back against SDPA. (1) Waves: its
       device ms at HuBERT's (B, 499, 768) for B = 1 .. 16, beside the
@@ -83,6 +85,26 @@ maxmean  the max-mean backward kernels (csrc/maxmean.cu) at phase 3's AV
       how the two consumer warpgroups share the sim tile, the streamed
       tile's rows) timed beside the kernel and compared with its output;
       the SM clock and power draw under load.
+maxmean_fwd  the max-mean forward (csrc/maxmean.cu) at phase 3's AV and
+      TV shapes on grid features and the AV shape on real features: device
+      ms, TFLOP/s and share of the bf16 peak, the key-clip ranges of its
+      grid, the profiler's split of a call (the kernel, the clip sum, the
+      wrapper's sums); MAXMEAN_FWD_VARIANTS (copies of csrc/maxmean.cu with
+      one text edit each: 64-row items, a shorter ring, each chunk's
+      products drained, no key ranges) timed beside the kernel and held
+      bit-equal to it; the SM clock and power draw under load; then
+      TS_EDITS, a copy in which the forward, dQ and dK kernels each write
+      one tile of raw sims (real features, bf16 and split fp32): are the
+      backward's recomputed sims the forward's, bit for bit?
+posconv_fwd  the positional conv's forward and dX (csrc/posconv.cu) at
+      (B, N, 768), K = 128, 16 groups, for (8, 499), (64, 499) and (8,
+      1000): device ms, TFLOP/s, share of the bound and blocks, beside the
+      mma.sync dW kernel (the same products) and cuDNN's grouped conv1d;
+      the profiler's split at (64, 499); POSCONV_FWD_VARIANTS (copies of
+      csrc/posconv.cu with one text edit each: (b) the outputs as wgmma's
+      M, no epilogue, each stage's products drained, other rings, 256-row
+      pieces) timed beside the kernel and held to its bits; the SM clock
+      and power draw under load.
 """
 
 import ctypes
@@ -348,11 +370,10 @@ def flash_probe():
               flush=True)
 
 
-# The edit that stops the dW kernel's copies after its first row tiles,
-# for each form of csrc/posconv.cu's dW kernel: the (what, by what)
-# replacements, and the condition under which the edited kernel still
-# copies or waits for a copy, which the edited source defines as
-# PROBE_STAGE.
+# The edit that stops the dW kernel's copies after its first row tiles:
+# the (what, by what) replacements, and the condition under which the
+# edited kernel still copies or waits for a copy, which the edited source
+# defines as PROBE_STAGE.
 EDITS = (
     # the TMA ring: the prologue fills the 4 slots once, no slot is refilled
     # and no later tile waits for one
@@ -360,9 +381,6 @@ EDITS = (
       ("if (tid == 0 && it + DW_STAGES < ntiles) {",
        "if (tid == 0 && it + DW_STAGES < ntiles && PROBE_STAGE) {")),
      "(it < DW_STAGES)"),
-    # the earlier WMMA kernel's 16-byte synchronous copies between two
-    # barriers per 64-row tile: only the first tile is copied
-    ((("triad::copy16(", "if (PROBE_STAGE) triad::copy16("),), "(b == 0 && t0 == 0)"),
 )
 
 
@@ -782,9 +800,326 @@ def maxmean_probe():
           f"{_under_load(lambda: MM.maxmean_dk(*args))}", flush=True)
 
 
+# Variants of the max-mean forward built from csrc/maxmean.cu by
+# replacing a line: (name, replacements). As built, a block holds two
+# 64-row items (128 query rows) that share each 128-key stage, and each
+# warpgroup folds a sim tile while the next one's products run. "64-row
+# items" gives a block one item (twice the blocks, each streaming all of
+# K); "64-key tiles" m64n64 products on 64-key stages (4 or 8 of them);
+# "6 stages" and "3 stages" other rings; "folds not overlapped" waits for every chunk's products
+# before going on (no fold overlaps a product); "one key range" never
+# cuts the key clips (the TV shape then runs 32 blocks). Every variant
+# sums each sim in the kernel's order, so its outputs are bit-equal to the
+# kernel's.
+_FWD_CONS = "static constexpr int CONS = SPLIT && NC == 8 ? 1 : 2;"
+_FWD_STAGES = "constexpr int FW_MAX_STAGES = 4;"
+_FWD_64_KEYS = (("constexpr int FW_KEYS = 128;", "constexpr int FW_KEYS = 64;"),
+                ("  wgmma_m64n128k16(d, desc_sw128(a), desc_sw128(b), accumulate);",
+                 "  wgmma_m64n64k16(d, desc_sw128(a), desc_sw128(b), accumulate);"))
+MAXMEAN_FWD_VARIANTS = (
+    ("as built", ()),
+    ("64-row items", ((_FWD_CONS, "static constexpr int CONS = 1;"),)),
+    ("64-key tiles", _FWD_64_KEYS),
+    ("64-key tiles, 8 stages", _FWD_64_KEYS + ((_FWD_STAGES, "constexpr int FW_MAX_STAGES = 8;"),)),
+    ("6 stages", ((_FWD_STAGES, "constexpr int FW_MAX_STAGES = 6;"),)),
+    ("3 stages", ((_FWD_STAGES, "constexpr int FW_MAX_STAGES = 3;"),)),
+    ("folds not overlapped", (("      wgmma_wait<1>();\n      if (t == 0) mbar_arrive(&s.empty[pending]);",
+                               "      wgmma_wait<0>();\n      if (t == 0) mbar_arrive(&s.empty[pending]);"),)),
+    ("one key range", (("  if (blocks < sms) ranges", "  if (blocks < 0) ranges"),)),
+)
+
+
+def _maxmean_fwd_runner(fn, q, k, temp, coeff, clamp_min):
+    """A call of an edited copy's forward entry point on the arguments of
+    ops/maxmean.py:maxmean_fwd; returns (clip, amax, partials), clip the
+    partials summed over the query tiles as the wrapper sums them."""
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.ops import maxmean as MM
+
+    keep, ptrs, (bq, bk, nq, nk, d) = MM._kernel_args("maxmean", q, k, temp, coeff)
+    amax = torch.empty((bq, bk, nq), dtype=torch.int32, device="cuda")
+    part = torch.empty((-(-nq // MM.ROWS), bq, bk, 3), dtype=torch.float32, device="cuda")
+
+    def run():
+        err = fn(*ptrs, None, amax.data_ptr(), part.data_ptr(), bq, bk, nq, nk, d,
+                 float(clamp_min), kernels.stream_ptr(amax))
+        if err:
+            raise RuntimeError(f"edited maxmean forward: cudaError_t {err}")
+        return part[..., 0].sum(dim=0), amax, part
+    run.keep = keep
+    return run
+
+
+def _maxmean_fwd_cases():
+    """phase 3's forward inputs: the AV and TV shapes on grid features, and
+    the AV shape on real L2-normalised features (chip_smoke.py)."""
+    import numpy as np
+
+    from triad_tpu_torch.ops import maxmean as MM
+
+    cases = []
+    for label, nq, masked, cm in (("AV (64 x 499) x (64 x 256)", 499, False, -60.0),
+                                  ("TV (64 x 32 masked) x (64 x 256)", 32, True, -20.0)):
+        q, k = cs.grid((64, nq, 512), 91, False), cs.grid((64, 256, 512), 92, True)
+        mask = None
+        if masked:
+            mask = torch.ones((64, nq), device="cuda")
+            mask[1::2, nq * 3 // 4:] = 0.0
+        cases.append((label, (q, k, torch.tensor(1.5, device="cuda"),
+                              MM.coefficients(64, nq, mask, "cuda"), cm)))
+    rng = np.random.default_rng(94)
+    q, k = (torch.nn.functional.normalize(torch.from_numpy(
+        rng.standard_normal(shape, dtype=np.float32)), dim=-1).to("cuda", torch.bfloat16)
+        for shape in ((64, 499, 512), (64, 256, 512)))
+    cases.append(("AV real features", (q, k, torch.tensor(10.0, device="cuda"),
+                                       MM.coefficients(64, 499, None, "cuda"), -60.0)))
+    return cases
+
+
+# An edited copy of csrc/maxmean.cu in which the forward, the dQ and the
+# dK kernel each write the raw sims of one tile to a device buffer: query
+# rows 0-63 of clip 0 against keys 0-63 of clip 0 (block (0, 0), first
+# warpgroup, first tile; the forward's at a grid of two key tiles a
+# block), read back by probe_read. Are the backward's
+# recomputed sims the forward's, bit for bit?
+_TS_STORE = """
+        for (int jj = 0; jj < NCOL / 8; ++jj)
+          for (int e = 0; e < 4; ++e)
+            g_probe[BASE + (pr + 8 * (e >> 1)) * 64 + 8 * jj + pc + (e & 1)] = sv[4 * jj + e];
+      }
+"""
+TS_EDITS = (
+    ("    after(f, n);\n    wgmma_wait<0>();\n    fence_regs(sb);\n",
+     "    after(f, n);\n"
+     "    if (n == 1 && blockIdx.x == 0 && blockIdx.y == 0 && wg == 0) {\n"
+     "        const int pr = warp * 16 + (lane >> 2), pc = col;\n"
+     + _TS_STORE.replace("NCOL", "64").replace("BASE", "0").replace("sv", "sa")
+     + "    wgmma_wait<0>();\n    fence_regs(sb);\n"),
+    ("      tile_sims<SPLIT, NC>(sv, s, tile);\n",
+     "      tile_sims<SPLIT, NC>(sv, s, tile);\n"
+     "      if (blockIdx.x == 0 && blockIdx.y == 0 && wg == 0 && tt == 0) {\n"
+     "        const int pr = (t >> 5) * 16 + ((t & 31) >> 2), pc = 2 * (t & 3);\n"
+     + _TS_STORE.replace("NCOL", "L::KT").replace("BASE", "(DQ ? 4096 : 8192)")),
+)
+TS_DEFINES = ("__device__ float g_probe[3 * 4096];\n"
+              "extern \"C\" int probe_read(void* dst) {\n"
+              "  return (int)cudaMemcpyFromSymbol(dst, g_probe, sizeof(g_probe));\n}\n")
+
+
+def _ts_check():
+    """The edited copy's tile of sims from the forward, the dQ and the dK
+    kernel on real features, (4 x 499) x (4 x 256), D 512, as bf16 and as
+    split fp32 features: bit-equal?"""
+    import numpy as np
+
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.ops import maxmean as MM
+
+    rng = np.random.default_rng(96)
+    q, k = (torch.nn.functional.normalize(torch.from_numpy(
+        rng.standard_normal(shape, dtype=np.float32)), dim=-1).to("cuda")
+        for shape in ((4, 499, 512), (4, 256, 512)))
+    cases = [("(4 x 499) x (4 x 256) real features", (
+        q, k, torch.tensor(10.0, device="cuda"), MM.coefficients(4, 499, None, "cuda"), -60.0))]
+
+    fns = _edited_libs("maxmean.cu", "triad_maxmean_fwd", kernels._SIGNATURES[
+        "triad_maxmean_fwd"], [("sims", TS_EDITS, TS_DEFINES)])
+    lib = ctypes.CDLL(str(_edited_lib("maxmean.cu", "sims")))
+    lib.probe_read.argtypes = [ctypes.c_void_p]
+    bwd = {}
+    for entry in ("triad_maxmean_dq", "triad_maxmean_dk"):
+        bwd[entry] = getattr(lib, entry)
+        bwd[entry].argtypes = kernels._SIGNATURES[entry]
+        bwd[entry].restype = ctypes.c_int
+    for label, args in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k = args[0].to(dtype), args[1].to(dtype)
+            rest = args[2:]
+            amax = _maxmean_fwd_runner(fns["sims"], q, k, *rest)()[1]
+            bargs = (q, k, *rest, amax, cs.randn((4, 4), 93, 1.0 / 4, torch.float32),
+                     torch.tensor(0.01, device="cuda"))
+            _maxmean_runner(bwd["triad_maxmean_dq"], bargs, True)()
+            _maxmean_runner(bwd["triad_maxmean_dk"], bargs, False)()
+            buf = torch.zeros(3 * 4096, dtype=torch.float32)
+            torch.cuda.synchronize()
+            lib.probe_read(buf.data_ptr())
+            fwd, dq, dk = buf.view(3, 64, 64)
+            kt = MM.stream_rows(dtype == torch.float32)
+            print(f"TS {label} {dtype}: forward == dQ's recomputed sims (64 x {kt}): "
+                  f"{torch.equal(fwd[:, :kt], dq[:, :kt])}; == dK's (transposed, {kt} x 64): "
+                  f"{torch.equal(fwd[:kt].T, dk[:, :kt])}; largest difference "
+                  f"{float((fwd[:, :kt] - dq[:, :kt]).abs().max()):.3g} / "
+                  f"{float((fwd[:kt].T - dk[:, :kt]).abs().max()):.3g}", flush=True)
+
+
+def maxmean_fwd_probe():
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.ops import maxmean as MM
+
+    cases = _maxmean_fwd_cases()
+    for label, args in cases:
+        q, k = args[0], args[1]
+        ops = 2 * q.shape[0] * k.shape[0] * q.shape[1] * k.shape[1] * q.shape[2]
+        ms = cs.device_ms(lambda: MM.maxmean_fwd(*args))
+        print(f"MAXMEAN_FWD {label}: {ms:.4f} device ms, {ops / ms / 1e9:.1f} TFLOP/s "
+              f"({100 * ops / cs.PEAK_BF16 * 1e3 / ms:.1f}% of its "
+              f"{ops / cs.PEAK_BF16 * 1e3:.4f} ms at the bf16 peak)", flush=True)
+        print(f"SPLIT {label}, ms per call: {_split(lambda: MM.maxmean_fwd(*args))}", flush=True)
+    fns = _edited_libs("maxmean.cu", "triad_maxmean_fwd", kernels._SIGNATURES[
+        "triad_maxmean_fwd"], [(name, pairs, "") for name, pairs in MAXMEAN_FWD_VARIANTS])
+    for label, args in cases:
+        want = MM.maxmean_fwd(*args)
+        kernel_ms = cs.device_ms(lambda: MM.maxmean_fwd(*args))
+        for name, _ in MAXMEAN_FWD_VARIANTS:
+            run = _maxmean_fwd_runner(fns[name], *args)
+            clip, amax, _ = (t.clone() for t in run())
+            print(f"VARIANT {label} {name}: {cs.device_ms(run):.4f} device ms (kernel "
+                  f"{kernel_ms:.4f}); clip and amax bit-equal to the kernel's: "
+                  f"{torch.equal(clip, want[0]) and torch.equal(amax, want[3])}", flush=True)
+    args = cases[0][1]
+    print(f"LOAD AV: clocks.sm, power.draw: {_under_load(lambda: MM.maxmean_fwd(*args))}",
+          flush=True)
+    _ts_check()
+
+
+# Variants of the positional conv's forward built from csrc/posconv.cu by
+# replacing text: (name, replacements). As built, design (a): output
+# rows as wgmma's M, m64n48k16 per 64-row tile. "(b) outputs as M" runs
+# out^T = W^T . X^T, the 48 outputs padded to 64 as M and 256 rows as N
+# (m64n256k16: a quarter of its products wasted, a third of (a)'s
+# shared-memory reads per operation): _PC_B, put before (a)'s main loop,
+# which it leaves unreached. "no epilogue" stores nothing (the
+# bias, activation, staging and stores left out: the products alone);
+# "stages drained" waits for each stage's products before the next stage
+# (none in flight across a stage wait); "8 taps a stage" and "4 stages"
+# other rings; "2 tiles a warpgroup" 256-row pieces (twice the blocks,
+# each streaming the group's weights). The rings' outputs are bit-equal to
+# the kernel's. The repo's mma.sync design of the same products, posconv
+# dW, is timed beside them in the POSCONV lines.
+_PC_STAGES = "constexpr int PC_STAGES = 6;"
+_PC_A = "  // Per stage: wait for it; per tap and 16 input channels, one product a\n"
+# Design (b): A the tap's block (64 output rows, of which 48 are real: rows
+# 48-63 read the next bytes and are dropped), B the consumer's 256 window
+# rows from row0 + tap, 128 sums a thread; the tile transposed through
+# shared memory in the epilogue.
+_PC_B = """  {
+    static_assert(PC_TILES == 4, "(b) takes a consumer's 256 rows as one N");
+    float acc[128];
+#pragma unroll
+    for (int e = 0; e < 128; ++e) acc[e] = 0.0f;
+    int stage = 0, phase = 0, prev = 0;
+    hp::mbar_wait(win_full, 0);
+    for (int s = 0; s < nst; ++s) {
+      hp::mbar_wait(&full[stage], phase);
+      hp::fence_regs(acc);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int tap = 0; tap < PC_TAPS; ++tap)
+#pragma unroll
+        for (int kk = 0; kk < NB; ++kk)
+          hp::wgmma_m64n256k16(acc, taps(stage, tap, kk), window(row0 + s * PC_TAPS + tap, kk), 1);
+      hp::wgmma_commit();
+      if (s > 0) {
+        hp::wgmma_wait<1>();
+        if (t == 0) hp::mbar_arrive(&empty[prev]);
+      }
+      prev = stage;
+      pc_advance(stage, phase);
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_regs(acc);
+    float bv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      bv[h] = bias != nullptr && r + 8 * h < CPG ? bias[g * CPG + r + 8 * h] : 0.0f;
+#pragma unroll
+    for (int tt = 0; tt < PC_TILES; ++tt) {
+#pragma unroll
+      for (int jj = 8 * tt; jj < 8 * tt + 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int o = r + 8 * (e >> 1);
+          if (o < CPG)
+            so[(8 * (jj - 8 * tt) + col + (e & 1)) * CPG + o] =
+                __float2bfloat16_rn(activate(acc[4 * jj + e] + bv[e >> 1]));
+        }
+      store(tt);
+    }
+    return;
+  }
+"""
+POSCONV_FWD_VARIANTS = (
+    ("as built", ()),
+    ("(b) outputs as M", ((_PC_A, _PC_B + _PC_A),)),
+    ("no epilogue", (("      if (tr + row < nout)", "      if (tr + row < 0)"),)),
+    ("stages drained", (("      hp::wgmma_wait<1>();", "      hp::wgmma_wait<0>();"),)),
+    ("8 taps a stage", (("constexpr int PC_TAPS = 4;", "constexpr int PC_TAPS = 8;"),
+                        (_PC_STAGES, "constexpr int PC_STAGES = 3;"))),
+    ("4 stages", ((_PC_STAGES, "constexpr int PC_STAGES = 4;"),)),
+    ("2 tiles a warpgroup", (("constexpr int PC_ROWS = 512;", "constexpr int PC_ROWS = 256;"),)),
+)
+
+
+def _posconv_runner(fn, x, wk, bias, left, act):
+    """A call of an edited copy's entry point as ops/posconv.py:_launch
+    makes it."""
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.ops import posconv as P
+
+    b, n, c = x.shape
+    wk = P._kernel_weight(wk)
+    out = torch.empty_like(x)
+
+    def run():
+        err = fn(x.data_ptr(), wk.data_ptr(), None if bias is None else bias.data_ptr(),
+                 out.data_ptr(), b, n, n, c, wk.shape[1], left, act, kernels.stream_ptr(out))
+        if err:
+            raise RuntimeError(f"edited posconv: cudaError_t {err}")
+        return out
+    return run
+
+
+def posconv_fwd_probe():
+    import torch.nn.functional as F
+
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.ops import posconv as P
+
+    w = cs.randn((768, 48, 128), 41, (48 * 128) ** -0.5)
+    bias = cs.randn((768,), 42, 0.1, torch.float32)
+    for b, n in ((8, 499), (64, 499), (8, 1000)):
+        x = cs.randn((b, n, 768), 43)
+        xt = x.transpose(1, 2).contiguous()
+        flops = 2 * b * n * 768 * 128 * 48
+        bound = flops / cs.PEAK_BF16 * 1e3
+        fwd, dx, dw, lib = (cs.device_ms(fn) for fn in (
+            lambda: P.pos_conv(x, w, bias, 16, "erf"), lambda: P.pos_conv_dx(x, w, 16),
+            lambda: P.pos_conv_dw(x, x, 16, 128),
+            lambda: F.conv1d(xt, w, bias.to(torch.bfloat16), padding=64, groups=16)))
+        print(f"POSCONV ({b}, {n}, 768) K 128: forward {fwd:.4f}, dX {dx:.4f} device ms "
+              f"({flops / fwd / 1e9:.1f} / {flops / dx / 1e9:.1f} TFLOP/s, {100 * bound / fwd:.1f}"
+              f"% / {100 * bound / dx:.1f}% of the bound {bound:.4f}); blocks "
+              f"{-(-n // 512) * 16 * b}; the mma.sync dW of the same products {dw:.4f}; "
+              f"cuDNN grouped conv1d {lib:.4f}", flush=True)
+    x = cs.randn((64, 499, 768), 43)
+    print(f"SPLIT forward (64, 499, 768), ms per call: "
+          f"{_split(lambda: P.pos_conv(x, w, bias, 16, 'erf'))}", flush=True)
+    fns = _edited_libs("posconv.cu", "triad_posconv", kernels._SIGNATURES["triad_posconv"],
+                       [(name, pairs, "") for name, pairs in POSCONV_FWD_VARIANTS])
+    want = P.pos_conv(x, w, bias, 16, "erf")
+    kernel_ms = cs.device_ms(lambda: P.pos_conv(x, w, bias, 16, "erf"))
+    for name, _ in POSCONV_FWD_VARIANTS:
+        run = _posconv_runner(fns[name], x, P._conv_weight(w, 16), bias, P._left(128, False), 1)
+        same = torch.equal(run().clone(), want)
+        print(f"VARIANT (64, 499, 768) {name}: {cs.device_ms(run):.4f} device ms (kernel "
+              f"{kernel_ms:.4f}); bit-equal to the kernel: {same}", flush=True)
+    print(f"LOAD (64, 499, 768): clocks.sm, power.draw: "
+          f"{_under_load(lambda: P.pos_conv(x, w, bias, 16, 'erf'))}", flush=True)
+
+
 def main(argv):
     if argv not in (["eval"], ["di"], ["flash"], ["posconv_dw"], ["activation"],
-                    ["fused_mlp"], ["maxmean"]):
+                    ["fused_mlp"], ["maxmean"], ["maxmean_fwd"], ["posconv_fwd"]):
         raise SystemExit(__doc__)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
@@ -796,7 +1131,8 @@ def main(argv):
     torch.backends.cudnn.allow_tf32 = False
     {"eval": eval_probe, "di": di_probe, "flash": flash_probe, "posconv_dw": posconv_dw_probe,
      "activation": activation_probe, "fused_mlp": fused_mlp_probe,
-     "maxmean": maxmean_probe}[argv[0]]()
+     "maxmean": maxmean_probe, "maxmean_fwd": maxmean_fwd_probe,
+     "posconv_fwd": posconv_fwd_probe}[argv[0]]()
 
 
 if __name__ == "__main__":

@@ -38,7 +38,8 @@ and the run goes on. Modes:
            backward's composition beside them): synchronised and device
            ms as phase 3 prints them, and a digest of each output; run it
            on two trees in turns (parent, change, change, parent) to
-           compare them in one call;
+           compare them in one call; kernels@NAME+NAME... only the cases
+           of those names (e.g. kernels@maxmean+posconv+posconv_dx);
   flash    the flash forward and backward cases of ``kernels`` alone,
            after the flash kernels' ptxas registers and spills and their
            SASS counts (HGMMA, UTMALDG, highest register) in the
@@ -138,10 +139,9 @@ def attention(cs):
 
 
 # The redesigned kernels (eval attention, fused MLP, conv GEMM, flash,
-# posconv dW, the frontend activation, the max-mean dQ and dK), the training
-# attention, the posconv forward and dX (which share posconv.cu with dW)
-# and the max-mean forward (which shares maxmean.cu with dQ and dK), by the
-# names chip_smoke.py's phase 3 gives their cases.
+# posconv forward, dX and dW, the frontend activation, the max-mean
+# forward, dQ and dK) and the training attention, by the names
+# chip_smoke.py's phase 3 gives their cases.
 AB_KERNELS = ("attention_eval", "attention_eval_merged", "attention_eval_pair",
               "attention_eval_merged_pair", "fused_mlp", "fused_mlp_bwd", "frontend_conv",
               "fused_frontend_conv",
@@ -289,8 +289,9 @@ def one(root, mode):
         probe(cs, torch)
     elif mode == "attention":
         attention(cs)
-    elif mode == "kernels":
-        kernel_times()
+    elif mode.partition("@")[0] == "kernels":
+        names = mode.partition("@")[2]
+        kernel_times(tuple(names.split("+")) if names else AB_KERNELS)
     elif mode == "flash":
         flash_build(path)
         kernel_times(FLASH_KERNELS)
