@@ -160,8 +160,10 @@ AUDIO = 160_000  # 10 s of 16 kHz audio
 P_DROP = 0.1  # HuBERT's attention, activation and hidden dropout
 BF16_ULP = 2.0 ** -7
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32
-# outside them, HBM bandwidth.
+# outside them, HBM bandwidth; fp64 on the tensor cores (twice the fp64
+# rate outside them).
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_FP64 = 67e12
 
 
 def phase(msg):
@@ -684,6 +686,77 @@ def mlp_fwd_cost(m):
     return cost(4 * m * 768 * 3072, (2 * m * 768 + 2 * 768 * 3072 + 3072 + 768) * 2)
 
 
+def stats_cost(b, t):
+    """The GroupNorm stats' bound: the waveform and w0 read once, (mean,
+    var) written, and the Gram pass's work, 65 fp64 multiply-adds a conv_0
+    step (the tap Gram's 55 products, the 10 tap sums)."""
+    m0 = (t - 10) // 5 + 1
+    return cost(2 * 65 * b * m0, b * t * 4 + 512 * 10 * 4 + 2 * b * 512 * 4, PEAK_FP64)
+
+
+def stats_composition(wave, w0):
+    """The stats by library calls: the fp32 conv_0 (cuDNN, TF32 off) and
+    the means of y and y^2. A yardstick, not one library call."""
+    import torch.nn.functional as F
+
+    def run():
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            y = F.conv1d(wave[:, None, :], w0, stride=5)
+        return y.mean(dim=-1), (y * y).mean(dim=-1)
+    return run
+
+
+def conv0_composition(wave, w0, scale, bias, form):
+    """conv_0 by library calls: F.conv1d on bf16 operands, the affine in
+    fp32, bf16, F.gelu and the transpose to (B, m0, 512)."""
+    import torch.nn.functional as F
+
+    w0b, approx = w0.to(torch.bfloat16), "tanh" if form == "tanh" else "none"
+
+    def run():
+        y = F.conv1d(wave.to(torch.bfloat16)[:, None, :], w0b, stride=5)
+        z = torch.addcmul(bias[:, :, None], y, scale[:, :, None]).to(torch.bfloat16)
+        return F.gelu(z, approximate=approx).transpose(1, 2).contiguous()
+    return run
+
+
+def frontend_cases(res, FE, wave, w0, gs, gb):
+    """The stats and conv_0 at wave's (B, T) beside their twins and
+    compositions; returns conv_0's folded affine (scale, bias). B = 64,
+    the train steps' shape, is the kernels' main case. The stats
+    are fp64 Gram sums against the fp32 recompute (1e-4 of the largest
+    variance), and within an fp32 ulp (1e-6) of the Gram twin, which takes
+    the same exact products in another order; conv_0 2 bf16 ulps."""
+    b, t = wave.shape
+    m0 = (t - 10) // 5 + 1
+    compare(res, "frontend_stats", (b, t), lambda: FE.conv0_stats(wave, w0),
+            lambda: FE.conv0_stats_plain(wave, w0), 1e-4, stats_cost(b, t),
+            main=b == TRAIN_B, composition_fn=stats_composition(wave, w0))
+    if hasattr(FE, "conv0_stats_gram_plain"):  # an older checkout's kernels lack it
+        mean, var = FE.conv0_stats(wave, w0)
+        rm, rv = FE.conv0_stats_gram_plain(wave, w0)
+        gap = max(float((mean - rm).abs().max()) / float(rv.sqrt().max()),
+                  float((var - rv).abs().max()) / float(rv.max()))
+        print(f"  frontend_stats vs the Gram twin {(b, t)}: {gap:.3g} of the largest "
+              f"variance (tol 1e-6)", flush=True)
+        if not gap <= 1e-6:
+            fail(f"frontend_stats at {(b, t)} disagrees with its Gram twin")
+    mean, var = FE.conv0_stats_plain(wave, w0)
+    scale = torch.rsqrt(var + FE.GN_EPS) * gs
+    bias = gb - mean * scale
+    compare(res, "frontend_conv0", (b, t),
+            lambda: FE.conv0_norm_gelu(wave, w0, scale, bias, "tanh"),
+            lambda: FE.conv0_norm_gelu_plain(wave, w0, scale, bias, "tanh"), 2 * BF16_ULP,
+            cost(2 * b * m0 * 512 * 10, b * t * 4 + 512 * 10 * 4 + b * m0 * 512 * 2),
+            main=b == TRAIN_B, composition_fn=conv0_composition(wave, w0, scale, bias, "tanh"))
+    got = FE.conv0_norm_gelu(wave, w0, scale, bias, "tanh")
+    ref = FE.conv0_norm_gelu_plain(wave, w0, scale, bias, "tanh")
+    print(f"  frontend_conv0 {(b, t)}: {100 * float((got != ref).float().mean()):.4f}% of the "
+          f"outputs differ from the twin's bits", flush=True)
+    del got, ref
+    return scale, bias
+
+
 def kernel_phase():
     import torch.nn.functional as F
 
@@ -726,9 +799,8 @@ def kernel_phase():
                     lambda: M.fused_mlp_plain(x, w1, b1, w2, b2, form), 2 * BF16_ULP,
                     mlp_fwd_cost(B * n),
                     composition_fn=mlp_fwd_composition(x, w1, b1, w2, b2, form))
-    # frontend at (B, 160000): stats (fp32 sums in another order, 1e-4
-    # of the largest variance), conv_0 and the stride-2 conv (2 ulps).
-    # conv_0 runs on fp32 cores (peak 67 TFLOP/s).
+    # frontend at (B, 160000) and at the train steps' (64, 160000): the
+    # stats and conv_0 (frontend_cases), the stride-2 conv (2 ulps).
     rng = np.random.default_rng(11)
     f = lambda a: torch.from_numpy(a.astype(np.float32)).to("cuda")
     w0 = f(rng.standard_normal((512, 1, 10)) * (2 / 10) ** 0.5)
@@ -736,18 +808,10 @@ def kernel_phase():
     gb = f(rng.standard_normal(512) * 0.1)
     ws = [f(rng.standard_normal((512, 512, kk)) * (2 / (kk * 512)) ** 0.5)
           for kk in FE.KERNELS[1:]]
+    frontend_cases(res, FE, randn((TRAIN_B, AUDIO), 15, dtype=torch.float32), w0, gs, gb)
     wave = randn((B, AUDIO), 12, dtype=torch.float32)
     m0 = (AUDIO - 10) // 5 + 1
-    compare(res, "frontend_stats", (B, AUDIO), lambda: FE.conv0_stats(wave, w0),
-            lambda: FE.conv0_stats_plain(wave, w0), 1e-4,
-            cost(2 * B * m0 * 512 * 11, B * AUDIO * 4 + 2 * B * 512 * 4, PEAK_FP32))
-    mean, var = FE.conv0_stats_plain(wave, w0)
-    scale = torch.rsqrt(var + FE.GN_EPS) * gs
-    bias = gb - mean * scale
-    compare(res, "frontend_conv0", (B, AUDIO),
-            lambda: FE.conv0_norm_gelu(wave, w0, scale, bias, "tanh"),
-            lambda: FE.conv0_norm_gelu_plain(wave, w0, scale, bias, "tanh"), 2 * BF16_ULP,
-            cost(2 * B * m0 * 512 * 10, B * AUDIO * 4 + B * m0 * 512 * 2, PEAK_FP32))
+    scale, bias = frontend_cases(res, FE, wave, w0, gs, gb)
     # conv_1's input as the stack hands it over: (B, T, 512) contiguous
     # (the plain conv_0 returns a transposed view, which the wrapper would
     # copy)
@@ -1387,8 +1451,10 @@ def profile_step(fn, filename):
     total = sum(e.self_device_time_total for e in rows) / 1e3
     lines = [f"step {ms:.3f} ms (CUDA events), kernel self device time {total:.3f} ms "
              f"({100 * total / ms:.1f}% busy)"]
-    lines += [f"{e.self_device_time_total / 1e3:10.4f} ms {e.count:6d}x  {e.key[:110]}"
-              for e in rows[:80]]
+    row = lambda e: f"{e.self_device_time_total / 1e3:10.4f} ms {e.count:6d}x  {e.key[:110]}"
+    lines += [row(e) for e in rows[:80]]
+    # and the frontend's kernels wherever they rank (their rows in PERF.md)
+    lines += ["frontend kernels:"] + [row(e) for e in rows if "frontend_" in e.key]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", filename), "w") as f:
         f.write("\n".join(lines) + "\n")

@@ -156,7 +156,28 @@ def _frontend_weights(dev):
     return w0, gs, gb, ws
 
 
+# (b, t) of the conv_0 and stats cases: B 1, 8 and 64 (serving, the
+# kernel phase, the train steps) at T = 400 (m0 = 79), 12345 (a ragged
+# last tile and block), 160000 (10 s) and 320000 (20 s, m0 = 63999).
+FRONTEND_SHAPES = [(b, t) for b in (1, 8, 64) for t in (400, 12345, 160000, 320000)]
+
+
+def _conv0_case(dev, b, t):
+    from triad_tpu_torch.ops.frontend import GN_EPS, conv0_stats_plain
+
+    w0, gs, gb, _ = _frontend_weights(dev)
+    wave = _randn((b, t), dev, 12, dtype=torch.float32)
+    mean, var = conv0_stats_plain(wave, w0)
+    scale = torch.rsqrt(var + GN_EPS) * gs
+    return wave, w0, scale, gb - mean * scale
+
+
 class TestFrontend:
+    # conv_0: bf16 products summed in fp32 in another order (the tensor
+    # cores' in place of an fma chain) can flip one bf16 rounding of z and
+    # of the output: 2 bf16 ulps of the largest output.
+    CONV0_TOL = 2 * 2.0 ** -7
+
     def test_stats(self, dev):
         from triad_tpu_torch.ops.frontend import conv0_stats, conv0_stats_plain
 
@@ -169,6 +190,75 @@ class TestFrontend:
         assert float((mean - rm).abs().max()) <= 1e-4 * float(rv.sqrt().max())
         assert float((var - rv).abs().max()) <= 1e-4 * float(rv.max())
         assert float(var.min()) >= 0.0
+
+    @pytest.mark.parametrize("b,t", FRONTEND_SHAPES)
+    def test_stats_shapes(self, dev, b, t):
+        """Against the fp32 recompute at 1e-4 (as test_stats) and against
+        the Gram twin, whose fp64 sums of the same exact products differ
+        from the kernel's in order only: an fp32 ulp, 1e-6 relative."""
+        from triad_tpu_torch.ops.frontend import (
+            conv0_stats,
+            conv0_stats_gram_plain,
+            conv0_stats_plain,
+        )
+
+        w0, *_ = _frontend_weights(dev)
+        wave = _randn((b, t), dev, 21, dtype=torch.float32)
+        mean, var = conv0_stats(wave, w0)
+        torch.cuda.synchronize()
+        for (rm, rv), tol in ((conv0_stats_plain(wave, w0), 1e-4),
+                              (conv0_stats_gram_plain(wave, w0), 1e-6)):
+            assert float((mean - rm).abs().max()) <= tol * float(rv.sqrt().max())
+            assert float((var - rv).abs().max()) <= tol * float(rv.max())
+        assert float(var.min()) > 0.0
+
+    @pytest.mark.parametrize("form", ["tanh", "erf"])
+    @pytest.mark.parametrize("b,t", FRONTEND_SHAPES)
+    def test_conv0_shapes(self, dev, b, t, form):
+        from triad_tpu_torch.ops.frontend import conv0_norm_gelu, conv0_norm_gelu_plain
+
+        wave, w0, scale, bias = _conv0_case(dev, b, t)
+        got = conv0_norm_gelu(wave, w0, scale, bias, form)
+        torch.cuda.synchronize()
+        assert got.shape == (b, (t - 10) // 5 + 1, 512) and got.is_contiguous()
+        # the twin a few rows at a time (its fp32 intermediates at B = 64,
+        # 20 s take 8 GB each)
+        err = mx = 0.0
+        for r in range(0, b, 8):
+            ref = conv0_norm_gelu_plain(wave[r:r + 8], w0, scale[r:r + 8], bias[r:r + 8], form)
+            e, m = _max_err(got[r:r + 8], ref)
+            err, mx = max(err, e), max(mx, m)
+            del ref
+        assert err <= self.CONV0_TOL * mx, (err, mx)
+
+    def test_strided_waveform_views(self, dev):
+        """Truncated views (T % 10 != 0, as the stack passes it) with a
+        batch stride of two rows, one of them starting 7 samples into its
+        row: both kernels read them in place and return what they return
+        for a contiguous copy, bit for bit."""
+        from triad_tpu_torch.ops.frontend import conv0_norm_gelu, conv0_stats
+
+        _, w0, scale, bias = _conv0_case(dev, 3, 400)
+        full = _randn((3, 2, 80007), dev, 22, dtype=torch.float32)
+        for view in (full[:, 0, :80000], full[:, 1, 7:]):
+            assert not view.is_contiguous()
+            copy = view.contiguous()
+            for x, y in zip(conv0_stats(view, w0), conv0_stats(copy, w0)):
+                assert torch.equal(x, y)
+            for form in ("tanh", "erf"):
+                assert torch.equal(conv0_norm_gelu(view, w0, scale, bias, form),
+                                   conv0_norm_gelu(copy, w0, scale, bias, form))
+
+    @pytest.mark.parametrize("b", [1, 64])
+    def test_repeat_bit_for_bit(self, dev, b):
+        """No atomics: two calls of each kernel return the same bits."""
+        from triad_tpu_torch.ops.frontend import conv0_norm_gelu, conv0_stats
+
+        wave, w0, scale, bias = _conv0_case(dev, b, 160000)
+        first, second = conv0_stats(wave, w0), conv0_stats(wave, w0)
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
+        assert torch.equal(conv0_norm_gelu(wave, w0, scale, bias, "tanh"),
+                           conv0_norm_gelu(wave, w0, scale, bias, "tanh"))
 
     @pytest.mark.parametrize("b,t", [(8, 160000), (1, 12345)])
     def test_stack(self, dev, b, t):
@@ -188,20 +278,24 @@ class TestFrontend:
 
     def test_nan_culprit_rows(self, dev):
         """The audio rows behind the TPU rounds' GroupNorm NaN
-        (docs/evidence/nan_culprit_audio_rows.npz) through the kernels."""
+        (docs/evidence/nan_culprit_audio_rows.npz) through the kernels: the
+        stats positive and within an fp32 ulp (1e-6) of the Gram twin."""
         import os
 
         from triad_tpu_torch.models.hubert import normalize_waveform
-        from triad_tpu_torch.ops.frontend import conv0_stats, frontend
+        from triad_tpu_torch.ops.frontend import conv0_stats, conv0_stats_gram_plain, frontend
 
         path = os.path.join(os.path.dirname(__file__), "..", "docs", "evidence",
                             "nan_culprit_audio_rows.npz")
         wave = normalize_waveform(torch.from_numpy(np.load(path)["av_audio"]).to(dev))
         w0, gs, gb, ws = _frontend_weights(dev)
-        _, var = conv0_stats(wave, w0)
+        mean, var = conv0_stats(wave, w0)
         out = frontend(wave, w0, gs, gb, ws, "tanh")
         torch.cuda.synchronize()
         assert float(var.min()) > 0.0
+        rm, rv = conv0_stats_gram_plain(wave, w0)
+        assert float((mean - rm).abs().max()) <= 1e-6 * float(rv.sqrt().max())
+        assert float((var - rv).abs().max()) <= 1e-6 * float(rv.max())
         assert bool(torch.isfinite(out.float()).all())
 
 

@@ -14,7 +14,9 @@ Every C entry point launches on the stream it is given and returns
 where it launches its kernel and nowhere else; a wrapper whose entry
 point runs two grids (``attention_train_bwd``: dQ, then dK/dV;
 ``fused_mlp``: GEMM 1, then GEMM 2; ``fused_mlp_bwd``: dh and g, then
-dx) adds one per call; so do the strided and merged training attention
+dx; ``frontend_stats``: the Gram partials, then their sum and
+contraction; ``frontend_conv0``: the GELU table, then conv_0) adds one
+per call; so do the strided and merged training attention
 (``attention_train_strided_bwd``, ``attention_train_merged_bwd``) and the
 flash backward (``flash_attention_bwd``: di, dK/dV, then dQ).
 :func:`reset_launches` zeroes the counts, so a caller can
@@ -83,8 +85,8 @@ _SIGNATURES = {
     "triad_attention_train_bwd": [_VP] * 11 + [_LLP] + [_I] * 3 + [_F] + _DROP + [_VP],
     "triad_fused_mlp": [_VP] * 7 + [_I] * 5 + _DROP + [_VP],
     "triad_fused_mlp_bwd": [_VP] * 9 + [_I] * 5 + _DROP + [_VP],
-    "triad_frontend_stats": [_VP, _LL, _VP, _VP, _VP, _I, _I, _VP],
-    "triad_frontend_conv0": [_VP, _LL] + [_VP] * 4 + [_I] * 3 + [_VP],
+    "triad_frontend_stats": [_VP, _LL] + [_VP] * 4 + [_I, _I, _VP],
+    "triad_frontend_conv0": [_VP, _LL] + [_VP] * 5 + [_I] * 3 + [_VP],
     "triad_frontend_conv": [_VP, _I, _VP, _VP] + [_I] * 4 + [_VP],
     "triad_frontend_conv_fused": [_VP, _LL, _I, _VP, _I, _VP] + [_I] * 4 + [_VP] * 5,
     "triad_frontend_act": [_VP, _VP, _I, _LL, _I, _I] + [_VP] * 5,

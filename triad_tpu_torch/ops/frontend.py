@@ -6,9 +6,10 @@ GroupNorm affine -> GELU -> 6 x (stride-2 conv -> GELU)), with the TPU
 kernel's rounding points: conv_0 on bf16 operands with fp32
 accumulation, the affine in fp32 rounded to bf16, every GELU in fp32 on
 a bf16 value and rounded to bf16, the stride-2 convs on bf16 operands
-with fp32 accumulation. The statistics are fp32 over every conv_0 step,
-from the fp32 waveform, with the variance clamped at 0 (the TPU rounds'
-NaN: ``pallas_frontend.py:379-398``).
+with fp32 accumulation. The statistics are over every conv_0 step, from
+the fp32 waveform, with the variance clamped at 0 (the TPU rounds' NaN:
+``pallas_frontend.py:379-398``); the kernel takes them by the "xt" layout's
+Gram pass in fp64 (``conv0_stats_gram_plain`` is its twin).
 
 Three wrappers, each launching its kernel from ``csrc/frontend.cu`` for a
 CUDA tensor and running its ``*_plain`` twin for a CPU tensor:
@@ -39,7 +40,9 @@ KERNELS = (10, 3, 3, 3, 3, 2, 2)
 STRIDES = (5, 2, 2, 2, 2, 2, 2)
 C = 512
 GN_EPS = 1e-5
-STATS_STEPS = 256  # conv_0 steps per block of csrc/frontend.cu's stats kernel (ST_T)
+STATS_STEPS = 2048  # conv_0 steps per block of csrc/frontend.cu's Gram pass (ST_T)
+GRAM_PARTS = 65  # a block's partial sums: the tap Gram's upper triangle, then the tap sums
+GELU_TABLE = 1 << 16  # conv_0's table: the GELU of every bf16
 
 
 def num_tokens(t: int) -> int:
@@ -64,6 +67,20 @@ def _m0(t: int) -> int:
     return (t - KERNELS[0]) // STRIDES[0] + 1
 
 
+def _wave_rows(wave) -> torch.Tensor:
+    """wave as fp32 with unit sample stride: a view where it already is
+    (the stack's truncated waveform), else a copy; the kernels take the
+    batch stride."""
+    wave = wave.to(torch.float32)
+    return wave if wave.stride(-1) == 1 else wave.contiguous()
+
+
+def _taps(w0) -> torch.Tensor:
+    """(512, 1, 10) -> (512, 10) fp32: a view of torch's layout where it is
+    already fp32 and contiguous."""
+    return w0.reshape(C, KERNELS[0]).to(torch.float32).contiguous()
+
+
 # ------------------------------------------------------------------ stats
 
 
@@ -74,6 +91,31 @@ def conv0_stats_plain(wave, w0) -> Tuple[torch.Tensor, torch.Tensor]:
     return mean, var
 
 
+def conv0_stats_gram_plain(wave, w0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """conv0_stats as the kernel takes it (pallas_frontend.py's "xt" Gram
+    pass), in its block order and precision: x_t = wave[5t : 5t + 10]; per
+    block of STATS_STEPS steps of a row, the tap Gram G = sum x_t x_t^T and
+    the tap sum S = sum x_t in fp64; the blocks' partials summed in order;
+    mean = w.S / m0 and var = max(w^T G w / m0 - mean^2, 0) in fp64, then
+    rounded to fp32. Within a block the kernel adds the same exact fp64
+    products in another order (thread by thread, then by xor shuffles)."""
+    b, t = wave.shape
+    m0 = _m0(t)
+    taps = wave.to(torch.float64).unfold(1, KERNELS[0], STRIDES[0])  # (B, m0, 10)
+    nblk = -(-m0 // STATS_STEPS)
+    taps = F.pad(taps, (0, 0, 0, nblk * STATS_STEPS - m0)).reshape(b, nblk, STATS_STEPS, -1)
+    grams = taps.transpose(2, 3) @ taps  # (B, nblk, 10, 10)
+    sums = taps.sum(dim=2)
+    g, s = grams[:, 0], sums[:, 0]
+    for k in range(1, nblk):
+        g, s = g + grams[:, k], s + sums[:, k]
+    w = w0.reshape(C, KERNELS[0]).to(torch.float64)
+    mean = s @ w.t() / m0
+    sq = torch.einsum("bij,ci,cj->bc", g, w, w)
+    var = torch.clamp(sq / m0 - mean * mean, min=0.0)
+    return mean.to(torch.float32), var.to(torch.float32)
+
+
 def conv0_stats(wave, w0) -> Tuple[torch.Tensor, torch.Tensor]:
     """wave (B, T) fp32, w0 (512, 1, 10) -> (mean, var), each (B, 512)
     fp32, over all conv_0 output steps."""
@@ -82,20 +124,19 @@ def conv0_stats(wave, w0) -> Tuple[torch.Tensor, torch.Tensor]:
     kernels.require_cuda("conv0_stats", wave, w0)
     b, t = wave.shape
     m0 = _m0(t)
-    wave = wave.to(torch.float32).contiguous()
-    w0k = w0.reshape(C, KERNELS[0]).t().to(torch.float32).contiguous()
-    # per-block partials, summed here in a fixed order: the same stats
-    # every run (atomics would add them in launch order)
-    parts = torch.empty((2, b, -(-m0 // STATS_STEPS), C), dtype=torch.float32,
+    wave, w0k = _wave_rows(wave), _taps(w0)
+    # per-block partials, summed by the second grid in a fixed order: the
+    # same stats every run (atomics would add them in launch order)
+    parts = torch.empty((b, -(-m0 // STATS_STEPS), GRAM_PARTS), dtype=torch.float64,
                         device=wave.device)
+    mean = torch.empty((b, C), dtype=torch.float32, device=wave.device)
+    var = torch.empty_like(mean)
     kernels.call(
-        "frontend_stats", wave.data_ptr(), wave.stride(0), w0k.data_ptr(),
-        parts[0].data_ptr(), parts[1].data_ptr(), b, m0, kernels.stream_ptr(parts),
+        "frontend_stats", wave.data_ptr(), wave.stride(0), w0k.data_ptr(), parts.data_ptr(),
+        mean.data_ptr(), var.data_ptr(), b, m0, kernels.stream_ptr(mean),
     )
     kernels.LAUNCHES["frontend_stats"] += 1
-    s, sq = parts.sum(dim=2)
-    mean = s / m0
-    return mean, torch.clamp(sq / m0 - mean * mean, min=0.0)
+    return mean, var
 
 
 # ------------------------------------------------------------------ conv_0
@@ -117,14 +158,16 @@ def conv0_norm_gelu(wave, w0, scale, bias, form: str = "tanh") -> torch.Tensor:
     kernels.require_cuda("conv0_norm_gelu", wave, w0, scale, bias)
     b, t = wave.shape
     m0 = _m0(t)
-    wave = wave.to(torch.float32).contiguous()
-    w0k = w0.reshape(C, KERNELS[0]).t().to(torch.float32).contiguous()
-    scale = scale.to(torch.float32).contiguous()
-    bias = bias.to(torch.float32).contiguous()
+    wave, w0k = _wave_rows(wave), _taps(w0)
+    # (B, 512) fp32, read as channel pairs: 8-byte aligned
+    scale, bias = (x.to(torch.float32).contiguous() for x in (scale, bias))
+    scale, bias = (x if x.data_ptr() % 8 == 0 else x.clone() for x in (scale, bias))
     y = torch.empty((b, m0, C), dtype=torch.bfloat16, device=wave.device)
+    # scratch: the kernel's first grid tabulates the GELU of every bf16 here
+    table = torch.empty(GELU_TABLE, dtype=torch.int16, device=wave.device)
     kernels.call(
         "frontend_conv0", wave.data_ptr(), wave.stride(0), w0k.data_ptr(),
-        scale.data_ptr(), bias.data_ptr(), y.data_ptr(), b, m0,
+        scale.data_ptr(), bias.data_ptr(), table.data_ptr(), y.data_ptr(), b, m0,
         int(form == "tanh"), kernels.stream_ptr(y),
     )
     kernels.LAUNCHES["frontend_conv0"] += 1

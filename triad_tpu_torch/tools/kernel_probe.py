@@ -1,7 +1,8 @@
-"""Nine measurements behind PERF.md's notes on the eval attention, the
+"""Ten measurements behind PERF.md's notes on the eval attention, the
 training attention's di, the flash kernels, the positional conv's dW and
-forward, the frontend activation, the fused MLP and the max-mean backward
-and forward, on one CUDA card, from the repo root:
+forward, the frontend activation, the fused MLP, the max-mean backward
+and forward and HuBERT's conv_0 and its GroupNorm stats, on one CUDA
+card, from the repo root:
 
     python3 triad_tpu_torch/tools/kernel_probe.py eval
     python3 triad_tpu_torch/tools/kernel_probe.py di
@@ -12,6 +13,7 @@ and forward, on one CUDA card, from the repo root:
     python3 triad_tpu_torch/tools/kernel_probe.py maxmean
     python3 triad_tpu_torch/tools/kernel_probe.py maxmean_fwd
     python3 triad_tpu_torch/tools/kernel_probe.py posconv_fwd
+    python3 triad_tpu_torch/tools/kernel_probe.py frontend
 
 eval  what holds the eval attention back against SDPA. (1) Waves: its
       device ms at HuBERT's (B, 499, 768) for B = 1 .. 16, beside the
@@ -105,6 +107,18 @@ posconv_fwd  the positional conv's forward and dX (csrc/posconv.cu) at
       M, no epilogue, each stage's products drained, other rings, 256-row
       pieces) timed beside the kernel and held to its bits; the SM clock
       and power draw under load.
+frontend  conv_0 and its GroupNorm stats (csrc/frontend.cu) at (B,
+      160000) for B = 1, 8, 64: device ms of each wrapper beside its bound
+      (chip_smoke.py's) and its library composition, and the profiler's
+      split of a call (each wrapper's two grids); CONV0_VARIANTS (copies
+      of csrc/frontend.cu with one text edit each: the stores cut, what
+      the arithmetic costs; the GELU cut, what the stores cost; both; the
+      GELU computed per element in place of the table; the lookups free
+      of bank conflicts, timing only; other warp grids and tile heights;
+      each copy's ptxas registers and spills) and STATS_VARIANTS (other
+      block sizes) timed beside the kernels at B = 8 and 64, conv_0's held
+      to the kernel's bits, the stats' largest difference from the
+      kernel's given; the SM clock and power draw under load.
 """
 
 import ctypes
@@ -403,17 +417,18 @@ def _edited_lib(source, name):
     return kernels.BUILD_DIR / "probe" / f"lib{stem}.so"
 
 
-def _edited_libs(source, entry, argtypes, variants):
+def _edited_libs(source, entry, argtypes, variants, report=None):
     """Copies of csrc/<source>, each with its (what, by what) replacements
     and a line of defines first, built alone and at once into
     _build/probe/; returns each one's ctypes entry point, by name.
-    variants: (name, replacements, defines)."""
+    variants: (name, replacements, defines). report: print each copy's
+    ptxas registers and spills of the kernels whose name holds it."""
     from triad_tpu_torch import kernels
 
     base = (kernels.CSRC / source).read_text()
     out = kernels.BUILD_DIR / "probe"
     out.mkdir(parents=True, exist_ok=True)
-    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    flags = [f for f in kernels.NVCC_FLAGS if report or f not in ("-Xptxas", "-v")]
     procs = {}
     for name, pairs, define in variants:
         src = base
@@ -425,11 +440,19 @@ def _edited_libs(source, entry, argtypes, variants):
         lib.with_suffix(".cu").write_text(define + src)
         procs[name] = (lib, subprocess.Popen(
             [kernels._nvcc(), *flags, "-I", str(kernels.CSRC), "-shared", "-o", str(lib),
-             str(lib.with_suffix(".cu"))]))
+             str(lib.with_suffix(".cu"))], stdout=subprocess.PIPE if report else None,
+            stderr=subprocess.STDOUT if report else None, text=True))
     fns = {}
     for name, (lib, proc) in procs.items():
-        if proc.wait() != 0:
+        log = proc.communicate()[0] or ""
+        if proc.returncode != 0:
             raise SystemExit(f"kernel_probe: the {name!r} copy of csrc/{source} did not build")
+        kernel = ""
+        for line in log.splitlines():
+            hit = re.search(r"Compiling entry function '([^']+)'", line)
+            kernel = hit.group(1) if hit else kernel
+            if report and report in kernel and ("registers" in line or "spill" in line):
+                print(f"PTXAS {name}: {kernel[-48:]} {line.strip()[-90:]}", flush=True)
         fn = getattr(ctypes.CDLL(str(lib)), entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -1117,9 +1140,141 @@ def posconv_fwd_probe():
           f"{_under_load(lambda: P.pos_conv(x, w, bias, 16, 'erf'))}", flush=True)
 
 
+# Variants of conv_0 built from csrc/frontend.cu by replacing a line:
+# (name, replacements). The tile, block and "per-element GELU" variants
+# write the kernel's bits; "no stores" and "no GELU" do not (the first
+# writes nothing, the second bf16(y * scale + bias)).
+_C0_STORE = "        if (s + r < nt)\n"
+_C0_NO_STORES = (_C0_STORE, "        if (s + r < nt && m0 < 0)\n")
+_C0_NT = "constexpr int C0_NT = 8;  "
+_C0_ROWG = "constexpr int C0_ROWG = 2;"
+_C0_TMAX = "constexpr int C0_TMAX = 512;"
+_C0_LOOKUP = "  return uint32_t(lut[z & 0xffffu]) | uint32_t(lut[z >> 16]) << 16;"
+_C0_NO_GELU = (_C0_LOOKUP, "  return z;")
+CONV0_VARIANTS = (
+    ("as built", ()),
+    ("no stores", (_C0_NO_STORES,)),
+    ("no GELU", (_C0_NO_GELU,)),
+    ("no GELU, no stores", (_C0_NO_GELU, _C0_NO_STORES)),
+    # triad::gelu per element, the table left unread
+    ("per-element GELU", ((_C0_LOOKUP, "  return gelu_bits<true>(z & 0xffffu) | "
+                                       "gelu_bits<true>(z >> 16) << 16;"),)),
+    # timing only (other outputs): each lane's lookups in its own bank
+    ("lookups without bank conflicts", ((_C0_LOOKUP, "  return uint32_t(lut[(z & 1) | lane_bank()]) "
+                                         "| uint32_t(lut[(z >> 16 & 1) | lane_bank()]) << 16;"),)),
+    ("8 warps (one a channel slab)", ((_C0_ROWG, "constexpr int C0_ROWG = 1;"),)),
+    ("32 warps of 32 channels", ((_C0_NT, "constexpr int C0_NT = 4;  "),)),
+    ("32 warps (four a slab)", ((_C0_ROWG, "constexpr int C0_ROWG = 4;"),)),
+    ("tiles of 256 steps at most", ((_C0_TMAX, "constexpr int C0_TMAX = 256;"),)),
+    ("tiles of 1024 steps at most", ((_C0_TMAX, "constexpr int C0_TMAX = 1024;"),)),
+)
+# Variants of the Gram pass: other steps or threads a block (the sums in
+# another fp64 order).
+STATS_VARIANTS = (
+    ("as built", ()),
+    ("1024 steps a block", (("constexpr int ST_T = 2048;", "constexpr int ST_T = 1024;"),)),
+    ("256 threads", (("constexpr int ST_THREADS = 128;", "constexpr int ST_THREADS = 256;"),)),
+)
+
+
+def frontend_probe():
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.ops import frontend as FE
+
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    w0 = torch.from_numpy((rng.standard_normal((512, 1, 10)) * 0.45).astype(np.float32)).cuda()
+    gs = cs.randn((512,), 16, 0.2, torch.float32) + 1.0
+    gb = cs.randn((512,), 17, 0.1, torch.float32)
+    t = cs.AUDIO
+    m0 = (t - 10) // 5 + 1
+    cases = {}
+    for b in (1, 8, 64):
+        wave = cs.randn((b, t), 12, dtype=torch.float32)
+        mean, var = FE.conv0_stats_plain(wave, w0)
+        scale = torch.rsqrt(var + FE.GN_EPS) * gs
+        bias = gb - mean * scale
+        cases[b] = (wave, scale, bias)
+        st = cs.device_ms(lambda: FE.conv0_stats(wave, w0))
+        st_comp = cs.device_ms(cs.stats_composition(wave, w0))
+        c0 = cs.device_ms(lambda: FE.conv0_norm_gelu(wave, w0, scale, bias, "tanh"))
+        c0_erf = cs.device_ms(lambda: FE.conv0_norm_gelu(wave, w0, scale, bias, "erf"))
+        c0_comp = cs.device_ms(cs.conv0_composition(wave, w0, scale, bias, "tanh"))
+        st_bound = cs.stats_cost(b, t)[0]
+        c0_bound = cs.cost(2 * b * m0 * 512 * 10, b * t * 4 + 512 * 10 * 4 + b * m0 * 512 * 2)[0]
+        print(f"FRONTEND ({b}, {t}): stats {st:.4f} device ms ({100 * st_bound / st:.1f}% of the "
+              f"bound {st_bound:.4f}; composition {st_comp:.4f}); conv_0 tanh {c0:.4f}, erf "
+              f"{c0_erf:.4f} ({100 * c0_bound / c0:.1f}% of the bound {c0_bound:.4f}; "
+              f"composition {c0_comp:.4f}; {b * m0 * 512 * 2 / c0 / 1e6:.0f} GB/s written)",
+              flush=True)
+    for b in (8, 64):
+        wave, scale, bias = cases[b]
+        print(f"SPLIT ({b}, {t}) stats, ms per call: {_split(lambda: FE.conv0_stats(wave, w0))}; "
+              f"conv_0: {_split(lambda: FE.conv0_norm_gelu(wave, w0, scale, bias, 'tanh'))}",
+              flush=True)
+    # one build of every copy (conv_0's and the stats' variants at once);
+    # the stats' entry point taken from the same libraries
+    lane_bank = ("__device__ __forceinline__ unsigned lane_bank() { return (threadIdx.x & 31) << 1; "
+                 "}\n")
+    c0_fns = _edited_libs("frontend.cu", "triad_frontend_conv0",
+                          kernels._SIGNATURES["triad_frontend_conv0"],
+                          [(name, pairs, lane_bank) for name, pairs in CONV0_VARIANTS]
+                          + [("stats " + name, pairs, "") for name, pairs in STATS_VARIANTS],
+                          report="conv0")
+    st_fns = {}
+    for name, _ in STATS_VARIANTS:
+        fn = ctypes.CDLL(str(_edited_lib("frontend.cu", "stats " + name))).triad_frontend_stats
+        fn.argtypes, fn.restype = kernels._SIGNATURES["triad_frontend_stats"], ctypes.c_int
+        st_fns["stats " + name] = fn
+    w0k = FE._taps(w0)
+    for b in (8, 64):
+        wave, scale, bias = cases[b]
+        want = FE.conv0_norm_gelu(wave, w0, scale, bias, "tanh")
+        kernel_ms = cs.device_ms(lambda: FE.conv0_norm_gelu(wave, w0, scale, bias, "tanh"))
+        y = torch.empty_like(want)
+        table = torch.empty(FE.GELU_TABLE, dtype=torch.int16, device="cuda")
+        for name, _ in CONV0_VARIANTS:
+            def launch(fn=c0_fns[name]):
+                err = fn(wave.data_ptr(), wave.stride(0), w0k.data_ptr(), scale.data_ptr(),
+                         bias.data_ptr(), table.data_ptr(), y.data_ptr(), b, m0, 1,
+                         kernels.stream_ptr(y))
+                if err:
+                    raise RuntimeError(f"edited conv_0: cudaError_t {err}")
+
+            def run():
+                y.zero_()
+                launch()
+            run()
+            same = torch.equal(y, want)
+            print(f"CONV0 VARIANT ({b}, {t}) {name}: {cs.device_ms(launch):.4f} device ms (kernel "
+                  f"{kernel_ms:.4f}); bit-equal to the kernel: {same}", flush=True)
+        mean, var = FE.conv0_stats(wave, w0)
+        kernel_ms = cs.device_ms(lambda: FE.conv0_stats(wave, w0))
+        nb = -(-m0 // 1024)  # the most blocks a variant has
+        part = torch.empty((b, nb, FE.GRAM_PARTS), dtype=torch.float64, device="cuda")
+        vm, vv = torch.empty_like(mean), torch.empty_like(var)
+        for name, _ in STATS_VARIANTS:
+            def launch(fn=st_fns["stats " + name]):
+                err = fn(wave.data_ptr(), wave.stride(0), w0k.data_ptr(), part.data_ptr(),
+                         vm.data_ptr(), vv.data_ptr(), b, m0, kernels.stream_ptr(vm))
+                if err:
+                    raise RuntimeError(f"edited stats: cudaError_t {err}")
+            launch()
+            gap = float((vv - var).abs().max()) / float(var.max())
+            print(f"STATS VARIANT ({b}, {t}) {name}: {cs.device_ms(launch):.4f} device ms (kernel "
+                  f"{kernel_ms:.4f}); var differs from the kernel's by {gap:.3g} of the largest",
+                  flush=True)
+    wave, scale, bias = cases[64]
+    print(f"LOAD (64, {t}): clocks.sm, power.draw: conv_0 "
+          f"{_under_load(lambda: FE.conv0_norm_gelu(wave, w0, scale, bias, 'tanh'))}; stats "
+          f"{_under_load(lambda: FE.conv0_stats(wave, w0))}", flush=True)
+
+
 def main(argv):
     if argv not in (["eval"], ["di"], ["flash"], ["posconv_dw"], ["activation"],
-                    ["fused_mlp"], ["maxmean"], ["maxmean_fwd"], ["posconv_fwd"]):
+                    ["fused_mlp"], ["maxmean"], ["maxmean_fwd"], ["posconv_fwd"],
+                    ["frontend"]):
         raise SystemExit(__doc__)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
@@ -1132,7 +1287,7 @@ def main(argv):
     {"eval": eval_probe, "di": di_probe, "flash": flash_probe, "posconv_dw": posconv_dw_probe,
      "activation": activation_probe, "fused_mlp": fused_mlp_probe,
      "maxmean": maxmean_probe, "maxmean_fwd": maxmean_fwd_probe,
-     "posconv_fwd": posconv_fwd_probe}[argv[0]]()
+     "posconv_fwd": posconv_fwd_probe, "frontend": frontend_probe}[argv[0]]()
 
 
 if __name__ == "__main__":

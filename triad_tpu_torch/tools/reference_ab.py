@@ -33,13 +33,17 @@ and the run goes on. Modes:
            the cuBLAS composition beside them), the stride-2 conv GEMM's
            two callers, the training
            attention, the flash forward and backward (the fused-qkv
-           case included), the positional conv (forward, dX, dW) and the
-           frontend activation and the max-mean forward, dQ and dK (the
-           backward's composition beside them): synchronised and device
-           ms as phase 3 prints them, and a digest of each output; run it
-           on two trees in turns (parent, change, change, parent) to
-           compare them in one call; kernels@NAME+NAME... only the cases
-           of those names (e.g. kernels@maxmean+posconv+posconv_dx);
+           case included), the positional conv (forward, dX, dW), the
+           frontend activation, the max-mean forward, dQ and dK (the
+           backward's composition beside them) and conv_0 and its
+           GroupNorm stats (their compositions beside them): synchronised
+           and device ms as phase 3 prints them, and a digest of each
+           output; conv_0's output at (8, 160000) is also held against
+           the first tree's of the call (the share of elements whose bits
+           differ); run it on two trees in turns (parent, change, change,
+           parent) to compare them in one call; kernels@NAME+NAME... only
+           the cases of those names (e.g. kernels@maxmean+posconv+posconv_dx,
+           kernels@frontend_stats+frontend_conv0);
   flash    the flash forward and backward cases of ``kernels`` alone,
            after the flash kernels' ptxas registers and spills and their
            SASS counts (HGMMA, UTMALDG, highest register) in the
@@ -140,8 +144,8 @@ def attention(cs):
 
 # The redesigned kernels (eval attention, fused MLP, conv GEMM, flash,
 # posconv forward, dX and dW, the frontend activation, the max-mean
-# forward, dQ and dK) and the training attention, by the names
-# chip_smoke.py's phase 3 gives their cases.
+# forward, dQ and dK, conv_0 and its stats) and the training attention,
+# by the names chip_smoke.py's phase 3 gives their cases.
 AB_KERNELS = ("attention_eval", "attention_eval_merged", "attention_eval_pair",
               "attention_eval_merged_pair", "fused_mlp", "fused_mlp_bwd", "frontend_conv",
               "fused_frontend_conv",
@@ -149,7 +153,7 @@ AB_KERNELS = ("attention_eval", "attention_eval_merged", "attention_eval_pair",
               "attention_train_strided_bwd", "attention_train_merged",
               "attention_train_merged_bwd", "flash_attention", "flash_attention_bwd",
               "posconv", "posconv_dx", "posconv_dw", "frontend_activation", "maxmean",
-              "maxmean_dq", "maxmean_dk")
+              "maxmean_dq", "maxmean_dk", "frontend_stats", "frontend_conv0")
 FLASH_KERNELS = ("flash_attention", "flash_attention_bwd")
 
 
@@ -181,6 +185,26 @@ def flash_build(path):
     cs.sass_check(path)
 
 
+# conv_0's output of the call's first tree, for the later trees' runs.
+FIRST_CONV0 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "_build",
+                           "ab_first_conv0.pt")
+
+
+def _against_first_tree(out):
+    """The share of out's elements whose bits differ from the first tree's
+    output of the same case in this call (saved by the first run)."""
+    import torch
+
+    if not os.path.exists(FIRST_CONV0):
+        os.makedirs(os.path.dirname(FIRST_CONV0), exist_ok=True)
+        torch.save(out.cpu(), FIRST_CONV0)
+        return
+    first = torch.load(FIRST_CONV0).to(out.device)
+    diff = first.view(torch.int16) != out.view(torch.int16)
+    print(f"CONV0 vs the first tree's output: {int(diff.sum())} of {diff.numel()} elements "
+          f"differ ({100 * float(diff.float().mean()):.4f}%)", flush=True)
+
+
 def kernel_times(names=AB_KERNELS):
     """Phase 3 (kernel_phase) of THIS tree's chip_smoke.py, run on the
     checkout's kernels (its triad_tpu_torch is the one already imported),
@@ -207,6 +231,8 @@ def kernel_times(names=AB_KERNELS):
             h.update(t.detach().float().cpu().numpy().tobytes())
         print(f"KERNEL {name:28s} {str(shape):34s} sync {r['ms']:.4f} device "
               f"{r['device_ms']:.4f} ms digest {h.hexdigest()[:16]}", flush=True)
+        if name == "frontend_conv0" and tuple(shape) == (cs.B, cs.AUDIO):
+            _against_first_tree(got)
 
     cs.compare = only
     cs.kernel_phase()
@@ -340,6 +366,8 @@ def main(argv):
         return one(os.path.abspath(argv[1]), argv[2])
     if not argv:
         raise SystemExit(__doc__)
+    if os.path.exists(FIRST_CONV0):
+        os.remove(FIRST_CONV0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     for spec in argv:
