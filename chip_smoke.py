@@ -5,8 +5,9 @@ full-width perf_eval_model_config() TriadModel (random weights from a
 seed) over HTTP and checks the answers, then trains the full-width
 text-visual, joint and audio-visual steps of perf_train_model_config(),
 the joint step of configs/default.yaml and the joint step of the
-mqkv + vitmq + loss=pallas set for a few steps each, and runs the
-1000-way retrieval eval on the head-pair attention and the fused frontend.
+mqkv + vitmq + loss=pallas set for a few steps each, runs the
+1000-way retrieval eval on the head-pair attention and the fused frontend,
+and feeds the joint step from files on disk through the port's data layer.
 
     python3 chip_smoke.py
 
@@ -108,7 +109,24 @@ Phases (any failure exits nonzero before the last line):
      cap): a ServingModel of perf_eval_model_config() embeds 8 clips with
      HuBERT on its serving impl, on "packed_pair" and on "flash" (same
      weights, counts zeroed before each, the impl's kernel launched once
-     per layer), the first two held against flash (token cosine > 0.999).
+     per layer), the first two held against flash (token cosine > 0.999);
+ 16. the joint step of phase 8 fed from files on disk: two TriadPack
+     shards of 96 clips (224^2, 10 s int16 audio) packed by the port from
+     its seeded synthetic dataset and a folder of 192 JPEG captions, all
+     written into a temporary directory and removed after; AVLoader and
+     TVLoader (DataConfig's 4 thread workers, raw uint8 batches), cycling,
+     two pinned-memory Prefetchers running device_ingest_av / _tv on a
+     side stream: the native data library loaded (and a resample checked),
+     each loader's host ms per batch (raw and host-augmented forms), the
+     host-to-device ms of a batch from pinned and pageable memory, the
+     device augmentation against the host path (apply_av_batch /
+     apply_tv_image, same draws) within 1e-4 abs and its ms; 6 fed steps
+     across the 3-batch epoch (every joint kernel launched, counts zeroed
+     before them; every HuBERT parameter moved; the median fed step beside
+     phase 8's; ms blocked in next()); the state copied after step 3 and
+     continued by a second pair of loaders from cycling(1, 1): the next 2
+     steps' losses and every parameter bit-equal to the uninterrupted
+     run's; a profiler split of one more fed step (fed_profile.txt).
 The port's kernels add in a fixed order (no atomics), so phase 8 trains
 the same weights every run (PERF.md) and phase 9 reads the same each run.
 Phase 3 also holds posconv dW at B = 96 and the activation at 768
@@ -125,9 +143,10 @@ fused (64, 261, 3, 12, 64) qkv tensor, the training attention at
 (8, 1000, 768) with dropout live, the eval attention in its four modes at
 (8, 999) and (8, 1000) (no kernel has a key cap), and the stride-2 conv
 at conv_1's (64, 31999, 512), the train steps' batch.
-The line before the last is one JSON object with one entry per kernel:
-its launches in the paths that run it (phases 4, 6, 8, 10, 11, 12, 13, 14
-and 15, each counted from zero), and its error, times and bound at its main case of
+The line before the last is one JSON object with one entry per kernel
+(and the step times, and phase 16's numbers under "data"):
+its launches in the paths that run it (phases 4, 6, 8, 10, 11, 12, 13, 14,
+15 and 16, each counted from zero), and its error, times and bound at its main case of
 phase 3 (the shape the train steps give it, else the first); every shape
 of phase 3 goes to chiprun_out/kernel_cases.json. The last line is
 {"ok": true, "device": {...}}.
@@ -1438,7 +1457,8 @@ def knobs_phase():
 
 
 def profile_step(fn, filename):
-    """torch.profiler over one step: kernel self device time by name."""
+    """torch.profiler over one step: kernel self device time by name.
+    Returns the step's ms (CUDA events) and its kernels' device ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1459,6 +1479,7 @@ def profile_step(fn, filename):
     with open(os.path.join(ROOT, "chiprun_out", filename), "w") as f:
         f.write("\n".join(lines) + "\n")
     print("\n".join("  " + line for line in lines[:25]), flush=True)
+    return ms, total
 
 
 def model_cfg_knobs():
@@ -1976,6 +1997,329 @@ def long_clip_phase():
     return total
 
 
+DATA_CLIPS = 96  # clips per TriadPack shard: two shards, three B = 64 batches an epoch
+DATA_SEED = 21  # the loaders' seed: every draw keyed on (seed, epoch, batch, idx)
+RESUME_AFTER = 4  # fed steps before the copy: the copy resumes at epoch 1, batch 1
+AUG_TOL = 1e-4  # device vs host augmentation, abs (normalized pixels lie within about 2.7)
+
+
+def _write_data(root):
+    """Everything phase 16 reads, written from seeds under ``root``: two
+    TriadPack shards of DATA_CLIPS clips each (224^2 frames, AUDIO int16
+    samples) packed by the port from its SyntheticAVDataset, and a caption
+    folder (two subfolders) of 2 * DATA_CLIPS JPEGs with their captions.
+    The card has PIL, so the TV source is JPEGs."""
+    from PIL import Image
+
+    from triad_tpu_torch.data.datasets import SyntheticAVDataset, SyntheticTVDataset
+    from triad_tpu_torch.data.packed import pack_dataset
+
+    av_dir, tv_dir = os.path.join(root, "av"), os.path.join(root, "tv")
+    os.makedirs(av_dir)
+    src = SyntheticAVDataset(size=2 * DATA_CLIPS, image_size=224, audio_seconds=AUDIO / 16_000,
+                             seed=3)
+    for s in range(2):
+        pack_dataset(src, os.path.join(av_dir, f"shard{s}.tpack"), 224, AUDIO,
+                     range(s * DATA_CLIPS, (s + 1) * DATA_CLIPS))
+    captions = SyntheticTVDataset(2 * DATA_CLIPS, 224, seed=4).captions()
+    rng = np.random.default_rng(5)
+    for i, caption in enumerate(captions):
+        part = os.path.join(tv_dir, f"part{i % 2}")
+        os.makedirs(part, exist_ok=True)
+        Image.fromarray(rng.integers(0, 256, (224, 224, 3), np.uint8)).save(
+            os.path.join(part, f"{i:04d}.jpg"), quality=90)
+        with open(os.path.join(part, f"{i:04d}.txt"), "w") as f:
+            f.write(caption + "\n")
+    return av_dir, tv_dir, captions
+
+
+def _data_loaders(av_dir, tv_dir, tokenizer, device_augment=True):
+    """AVLoader over the shards and TVLoader over the caption folder, with
+    DataConfig's workers (4, thread mode), B = TRAIN_B and TRAIN_TXT
+    tokens (phase 8's text length)."""
+    from triad_tpu_torch.config import DataConfig
+    from triad_tpu_torch.data.datasets import LocalCaptionDataset
+    from triad_tpu_torch.data.packed import PackedAVDataset
+    from triad_tpu_torch.data.pipeline import AVLoader, TVLoader
+
+    dc = DataConfig()
+    av = AVLoader(PackedAVDataset(av_dir), TRAIN_B, AUDIO, seed=DATA_SEED,
+                  num_workers=dc.num_workers, worker_mode=dc.worker_mode,
+                  device_augment=device_augment)
+    tv = TVLoader(LocalCaptionDataset(tv_dir, 224), tokenizer, TRAIN_B,
+                  max_text_tokens=TRAIN_TXT, seed=DATA_SEED, num_workers=dc.num_workers,
+                  worker_mode=dc.worker_mode, device_augment=device_augment)
+    if av.device_augment != device_augment or tv.device_augment != device_augment:
+        fail("a loader did not take the device augmentation it was asked for")
+    if len(av) != 2 * DATA_CLIPS // TRAIN_B or len(tv) != len(av):
+        fail(f"loaders of {len(av)} and {len(tv)} batches an epoch")
+    return av, tv
+
+
+def _prefetchers(av, tv, start_epoch=0, start_batch=0):
+    """The two pinned-memory prefetchers on the card, each running its
+    device ingest (augmentation) on its side stream."""
+    from triad_tpu_torch.config import DataConfig
+    from triad_tpu_torch.data.device_aug import device_ingest_av, device_ingest_tv
+    from triad_tpu_torch.data.pipeline import Prefetcher, cycling
+
+    prefetch = DataConfig().prefetch
+    return (Prefetcher(cycling(av.epoch, start_epoch, start_batch), prefetch, device_ingest_av),
+            Prefetcher(cycling(tv.epoch, start_epoch, start_batch), prefetch, device_ingest_tv))
+
+
+def _loader_ms(loader):
+    """Host ms per batch of a loader alone (the median over one epoch)
+    and the batches."""
+    times, batches = [], []
+    it = loader.epoch(0)
+    while True:
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        if batch is None:
+            break
+        times.append((time.perf_counter() - t0) * 1e3)
+        batches.append(batch)
+    loader.pool.close()
+    return statistics.median(times), batches
+
+
+def _h2d_ms(batch):
+    """Host-to-device ms of a batch's arrays (median of 20, CUDA events):
+    from pinned memory (non-blocking) and from pageable memory; and its
+    bytes."""
+    host = [torch.from_numpy(v) for v in batch.values() if isinstance(v, np.ndarray)]
+    pinned = [t.pin_memory() for t in host]
+    ms = time_fns([lambda: [t.to("cuda", non_blocking=True) for t in pinned],
+                   lambda: [t.to("cuda") for t in host]])
+    return ms[0], ms[1], sum(t.numel() * t.element_size() for t in host)
+
+
+def _copy_state(state):
+    """What a checkpoint holds of a TrainState, on the host: the model's
+    and each AdamW's state dicts, the bank's update counts, the global
+    step and the seed."""
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().clone()
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [host(v) for v in x]
+        return x
+
+    return {"model": host(state.model.state_dict()),
+            "opts": {g: host(o.state_dict()) for g, o in state.bank.opts.items()},
+            "counts": dict(state.bank.counts), "global_step": state.global_step,
+            "seed": state.seed}
+
+
+def _restore_state(saved, ocfg):
+    """A TrainState on the card from _copy_state's dict (a model built
+    from another seed, then loaded)."""
+    from triad_tpu_torch.train.step import TrainState
+
+    state = _new_state(ocfg, 99)
+    state.model.load_state_dict(saved["model"])
+    for g, opt in state.bank.opts.items():
+        opt.load_state_dict(saved["opts"][g])
+    state.bank.counts = dict(saved["counts"])
+    return TrainState(state.model, state.bank, saved["global_step"], saved["seed"])
+
+
+def _fed_steps(step, state, av_pf, tv_pf, n, first, warmup=0):
+    """n joint steps, each fed by one batch of each prefetcher; returns
+    each step's losses, its ms (CUDA events, the next() calls included)
+    and the host ms it spent blocked in next()."""
+    losses, step_ms, blocked = [], [], []
+    for i in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        av, tv = next(av_pf), next(tv_pf)
+        blocked.append((time.perf_counter() - t0) * 1e3)
+        state, m = step(state, av, tv, 0.5, 0.5)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append((float(m["loss_av"]), float(m["loss_tv"])))
+        print(f"  fed step {first + i} ({'warm-up' if i < warmup else 'timed'}): loss_av "
+              f"{losses[-1][0]:.6f}  loss_tv {losses[-1][1]:.6f}  {step_ms[-1]:.3f} ms, "
+              f"{blocked[-1]:.3f} ms blocked in next()", flush=True)
+        if not all(np.isfinite(losses[-1])):
+            fail(f"fed step {first + i}: losses {losses[-1]}")
+    return losses, step_ms, blocked
+
+
+def data_phase(resident_ms):
+    """Phase 16: the full-width joint step (phase 8's: perf_train_model_config,
+    every group unfrozen, B = TRAIN_B) fed from files on disk through the
+    port's loaders, two pinned-memory Prefetchers and the device
+    augmentation; the loaders, copies and augmentation timed on their own;
+    the device augmentation held to the host path on the same draws; and
+    an exact mid-epoch resume. Returns the phase's summary and the launch
+    counts of the fed steps."""
+    import shutil
+    import tempfile
+
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.config import OptimConfig, perf_train_loss_config
+    from triad_tpu_torch.data import native
+    from triad_tpu_torch.data.device_aug import (device_augment_av, device_augment_tv,
+                                                 device_ingest_av, device_ingest_tv)
+    from triad_tpu_torch.data.images import apply_av_batch, draw_av_params
+    from triad_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from triad_tpu_torch.train.step import StepFactory
+
+    out = {"tv_source": "jpeg captions (LocalCaptionDataset.raw_item)"}
+    print(f"  TV source: {out['tv_source']}", flush=True)
+    if not native.available():
+        fail(f"the native data library did not load: {native.load_error}")
+    out["native"] = {"loaded": True, "avcodec": native.avdec_supported()}
+    print(f"  native library {os.path.relpath(native.library_path(), ROOT)} loaded "
+          f"(libavcodec {'linked' if out['native']['avcodec'] else 'absent'})", flush=True)
+    tone = np.sin(np.arange(48_000, dtype=np.float32) * (2 * np.pi * 440 / 48_000))
+    fed = native.resample(tone, 48_000, 16_000)
+    if fed.shape != (16_000,) or abs(float(np.abs(fed[100:-100]).max()) - 1) > 0.05:
+        fail(f"native resample of a 440 Hz tone: {fed.shape}, peak {np.abs(fed).max()}")
+
+    root = tempfile.mkdtemp(prefix="triad_data_")
+    try:
+        t0 = time.perf_counter()
+        av_dir, tv_dir, captions = _write_data(root)
+        sizes = {d: sum(os.path.getsize(os.path.join(p, f)) for p, _, fs in os.walk(d)
+                        for f in fs) for d in (av_dir, tv_dir)}
+        print(f"  wrote 2 TriadPack shards ({sizes[av_dir]} bytes) and "
+              f"{len(captions)} JPEG captions ({sizes[tv_dir]} bytes) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        tokenizer = WordPieceTokenizer.build_from_corpus(captions)
+
+        # The loaders alone, host clock: the raw (device-augment) form and
+        # the host-augmented one, one epoch each.
+        loader_ms, raw, host = {}, {}, {}
+        for augment_on_device in (True, False):
+            av, tv = _data_loaders(av_dir, tv_dir, tokenizer, augment_on_device)
+            form = "raw" if augment_on_device else "host_aug"
+            loader_ms[f"av_{form}"], batches = _loader_ms(av)
+            (raw if augment_on_device else host)["av"] = batches[0]
+            loader_ms[f"tv_{form}"], batches = _loader_ms(tv)
+            (raw if augment_on_device else host)["tv"] = batches[0]
+        t0 = time.perf_counter()
+        apply_av_batch(raw["av"]["frames_u8"].astype(np.float32) / 255.0,
+                       [draw_av_params(np.random.default_rng(i)) for i in range(TRAIN_B)])
+        loader_ms["apply_av_batch"] = (time.perf_counter() - t0) * 1e3
+        out["loader_host_ms"] = loader_ms
+        print("  host ms per B = 64 batch, loaders alone: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in loader_ms.items()), flush=True)
+
+        # Host-to-device copies of one batch each, pinned against pageable.
+        h2d = {}
+        for kind in ("av", "tv"):
+            h2d[f"{kind}_pinned"], h2d[f"{kind}_pageable"], h2d[f"{kind}_bytes"] = _h2d_ms(
+                raw[kind])
+        out["h2d_ms"] = h2d
+        print("  host-to-device ms per batch: " + ", ".join(
+            f"{k} {v:.4f}" if "bytes" not in k else f"{k} {v}" for k, v in h2d.items()),
+            flush=True)
+
+        # The device augmentation against the host path on the same draws.
+        errs, aug_ms = {}, {}
+        for kind, ingest, augment in (("av", device_ingest_av, device_augment_av),
+                                      ("tv", device_ingest_tv, device_augment_tv)):
+            got = ingest({k: v for k, v in raw[kind].items()}, device="cuda")
+            errs[kind] = float(np.abs(got["images"].cpu().numpy() - host[kind]["images"]).max())
+            if errs[kind] > AUG_TOL:
+                fail(f"device {kind} augmentation differs from the host path by {errs[kind]}")
+            if kind == "av":
+                if not np.array_equal(got["audio"].cpu().numpy(), host["av"]["audio"]):
+                    fail("the device's audio conversion differs from the host path")
+                args = [raw["av"][k] for k in ("frames_u8", "aug_flip", "aug_brightness",
+                                               "aug_contrast", "aug_saturation")]
+            else:
+                if not np.array_equal(got["token_ids"].cpu().numpy(), host["tv"]["token_ids"]):
+                    fail("the TV batches' token ids differ between the two forms")
+                args = [raw["tv"][k] for k in ("frames_u8", "aug_flip", "aug_dx", "aug_dy",
+                                               "aug_perm", "aug_factors")]
+            args = [torch.from_numpy(a).cuda() for a in args]
+            fn = lambda: augment(*args)  # noqa: E731
+            sync = time_fns([fn])[0]
+            aug_ms[kind] = {"ms": sync, "device_ms": device_ms(fn, sync)}
+        out["aug_max_abs_err"], out["device_aug_ms"] = errs, aug_ms
+        print(f"  device augmentation vs the host path (apply_av_batch / apply_tv_image, same "
+              f"draws): max abs err av {errs['av']:.3g}, tv {errs['tv']:.3g} (tol {AUG_TOL}); "
+              f"audio bit-equal; ms (sync / device) av {aug_ms['av']['ms']:.4f} / "
+              f"{aug_ms['av']['device_ms']:.4f}, tv {aug_ms['tv']['ms']:.4f} / "
+              f"{aug_ms['tv']['device_ms']:.4f}", flush=True)
+        del raw, host
+
+        # The fed joint steps: every group unfrozen, as phase 8.
+        ocfg = _unfrozen(OptimConfig(gradient_accumulation_steps=1))
+        step = StepFactory(perf_train_loss_config(), ocfg).make_step("joint")
+        state = _new_state(ocfg, 1)
+        before = {n: p.detach().clone() for n, p in state.model.named_parameters()
+                  if n.startswith("audio_backbone")}
+        av, tv = _data_loaders(av_dir, tv_dir, tokenizer)
+        av_pf, tv_pf = _prefetchers(av, tv)
+        kernels.reset_launches()
+        _, ms1, blocked1 = _fed_steps(step, state, av_pf, tv_pf, RESUME_AFTER, 0, 2)
+        saved = _copy_state(state)
+        rest, ms2, blocked2 = _fed_steps(step, state, av_pf, tv_pf, 2, RESUME_AFTER)
+        launches = dict(kernels.LAUNCHES)
+        av_pf.close()
+        tv_pf.close()
+        av.pool.close()
+        tv.pool.close()
+        _check_launches(launches, JOINT_KERNELS, "fed joint")
+        for name, p in state.model.named_parameters():
+            if name in before and torch.equal(p, before[name]):
+                fail(f"{name} did not move in the fed steps")
+        print("  every HuBERT parameter moved", flush=True)
+        timed_ms = (ms1 + ms2)[2:]
+        out["fed_step_ms"] = statistics.median(timed_ms)
+        out["fed_steps_ms"] = ms1 + ms2
+        out["resident_step_ms"] = resident_ms
+        out["blocked_ms_per_step"] = statistics.median((blocked1 + blocked2)[2:])
+        out["blocked_ms_all"] = blocked1 + blocked2
+        print(f"  median of {len(timed_ms)} timed fed steps {out['fed_step_ms']:.3f} ms "
+              f"(phase 8's resident batches: {resident_ms}); blocked in next() "
+              f"{out['blocked_ms_per_step']:.3f} ms a timed step (median)", flush=True)
+
+        # Exact mid-epoch resume: the copy after RESUME_AFTER steps, fed by
+        # a second pair of loaders from cycling(1, 1).
+        final = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        del state, before
+        torch.cuda.empty_cache()
+        epoch, batch = divmod(RESUME_AFTER, len(av))
+        resumed = _restore_state(saved, ocfg)
+        av, tv = _data_loaders(av_dir, tv_dir, tokenizer)
+        av_pf, tv_pf = _prefetchers(av, tv, epoch, batch)
+        again, _, _ = _fed_steps(step, resumed, av_pf, tv_pf, 2, RESUME_AFTER)
+        if again != rest:
+            fail(f"resumed losses {again} differ from the uninterrupted run's {rest}")
+        differ = [n for n, p in resumed.model.named_parameters() if not torch.equal(p, final[n])]
+        if differ:
+            fail(f"{len(differ)} parameter tensors differ after the resume, e.g. {differ[:3]}")
+        out["resume"] = {"after_steps": RESUME_AFTER, "cursor": [epoch, batch],
+                         "bit_equal": True}
+        print(f"  resumed after step {RESUME_AFTER - 1} at cycling({epoch}, {batch}): the next 2 "
+              "steps' losses and every parameter bit-equal to the uninterrupted run", flush=True)
+        del final
+        busy = profile_step(lambda: step(resumed, next(av_pf), next(tv_pf), 0.5, 0.5),
+                            "fed_profile.txt")
+        out["fed_profile"] = {"step_ms": busy[0], "kernel_ms": busy[1],
+                              "busy_share": busy[1] / busy[0]}
+        av_pf.close()
+        tv_pf.close()
+        av.pool.close()
+        tv.pool.close()
+        del resumed
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out, launches
+
+
 def _kernel_entry(name, results, launches_by_path):
     src, replaces = KERNELS[name]
     cases = [r for r in results if r["name"] == name]
@@ -2207,11 +2551,17 @@ def main():
     long_clip_launches = long_clip_phase()
     torch.cuda.empty_cache()
 
+    phase(f"16. the joint step of phase 8 fed from files on disk (TriadPack shards, JPEG "
+          f"captions) through the port's loaders, pinned-memory prefetchers and the device "
+          f"augmentation, B = {TRAIN_B}, with a mid-epoch resume")
+    data, fed_launches = data_phase(joint_ms)
+    torch.cuda.empty_cache()
+
     by_path = {"serve": serve_launches, "train_tv": tv_launches, "train_joint": joint_launches,
                "train_default": default_launches, "train_knobs": knobs_launches,
                "retrieval": retrieval_launches, "retrieval_conv_act": conv_act_launches,
                "flash_eval": flash_eval_launches, "train_tv_flash": tv_flash_launches,
-               "long_clips": long_clip_launches}
+               "long_clips": long_clip_launches, "train_joint_fed": fed_launches}
     kernels_json = [_kernel_entry(name, results, by_path) for name in KERNELS]
     # every shape of phase 3, too long for the line the kernels entries take
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -2222,7 +2572,7 @@ def main():
                       "default_peak_bytes": default_peak, "knobs_step_ms": knobs_ms,
                       "knobs_peak_bytes": knobs_peak, "layouts_agree": agree,
                       "retrieval": retrieval, "flash_eval": flash_eval,
-                      "tv_flash_step_ms": tv_flash_ms}), flush=True)
+                      "tv_flash_step_ms": tv_flash_ms, "data": data}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
