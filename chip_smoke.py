@@ -7,7 +7,9 @@ text-visual, joint and audio-visual steps of perf_train_model_config(),
 the joint step of configs/default.yaml and the joint step of the
 mqkv + vitmq + loss=pallas set for a few steps each, runs the
 1000-way retrieval eval on the head-pair attention and the fused frontend,
-and feeds the joint step from files on disk through the port's data layer.
+feeds the joint step from files on disk through the port's data layer, and
+trains the whole curriculum through the Trainer's train / eval commands,
+killed mid-epoch and resumed bit for bit.
 
     python3 chip_smoke.py
 
@@ -126,7 +128,29 @@ Phases (any failure exits nonzero before the last line):
      phase 8's; ms blocked in next()); the state copied after step 3 and
      continued by a second pair of loaders from cycling(1, 1): the next 2
      steps' losses and every parameter bit-equal to the uninterrupted
-     run's; a profiler split of one more fed step (fed_profile.txt).
+     run's; a profiler split of one more fed step (fed_profile.txt);
+ 17. the Trainer through its commands (triad_tpu_torch.cli.train and
+     cli.eval): TriadPack shards and JPEG captions written from seeds (2
+     x 96 clips and 192 captions to train on, 64 of each to validate on)
+     and a JSON config (perf_train_model_config + perf_train_loss_config,
+     B = 64, 10 s clips, 32 tokens, device augmentation, one epoch each of
+     av_focus, tv_warmup, weighted_joint and full_joint at 3 steps,
+     accumulation 3, async saves every 7 steps and at each epoch end, viz
+     every 5). Run A, cli.train.main in this process (counts zeroed
+     before it): every joint kernel launched, every logged loss finite,
+     each epoch's phase and weights, every HuBERT parameter took a
+     gradient and every DistilBERT one moved, the ViT base bit-unchanged,
+     the viz PNGs (and the attention video's writer), checkpoints at 3,
+     6, 8, 9 and 12 with best/; ms per step by phase (CUDA events), the
+     hooks' seconds, the async saves' blocking and write seconds, a
+     synchronous save, a restore, the peak memory. Run B, the same command
+     in a subprocess, SIGKILLed once its mid-epoch, mid-accumulation
+     step-8 checkpoint has committed; run C, the command again, resumes
+     and ends with every tensor of its step-12 checkpoint, the progress
+     and the losses after the resume bit-equal to run A's. cli.eval of run
+     A (latest, and --best) prints run A's last retrieval metrics exactly;
+     then the eval legs (validation, retrieval, viz) with counts zeroed:
+     the forward kernels only. Run logs in chiprun_out/trainer_run_*.txt.
 The port's kernels add in a fixed order (no atomics), so phase 8 trains
 the same weights every run (PERF.md) and phase 9 reads the same each run.
 Phase 3 also holds posconv dW at B = 96 and the activation at 768
@@ -144,9 +168,9 @@ fused (64, 261, 3, 12, 64) qkv tensor, the training attention at
 (8, 999) and (8, 1000) (no kernel has a key cap), and the stride-2 conv
 at conv_1's (64, 31999, 512), the train steps' batch.
 The line before the last is one JSON object with one entry per kernel
-(and the step times, and phase 16's numbers under "data"):
-its launches in the paths that run it (phases 4, 6, 8, 10, 11, 12, 13, 14,
-15 and 16, each counted from zero), and its error, times and bound at its main case of
+(and the step times, phase 16's numbers under "data" and phase 17's under
+"trainer"): its launches in the paths that run it (phases 4, 6, 8, 10, 11,
+12, 13, 14, 15, 16 and 17, each counted from zero), and its error, times and bound at its main case of
 phase 3 (the shape the train steps give it, else the first); every shape
 of phase 3 goes to chiprun_out/kernel_cases.json. The last line is
 {"ok": true, "device": {...}}.
@@ -2003,12 +2027,13 @@ RESUME_AFTER = 4  # fed steps before the copy: the copy resumes at epoch 1, batc
 AUG_TOL = 1e-4  # device vs host augmentation, abs (normalized pixels lie within about 2.7)
 
 
-def _write_data(root):
-    """Everything phase 16 reads, written from seeds under ``root``: two
-    TriadPack shards of DATA_CLIPS clips each (224^2 frames, AUDIO int16
-    samples) packed by the port from its SyntheticAVDataset, and a caption
-    folder (two subfolders) of 2 * DATA_CLIPS JPEGs with their captions.
-    The card has PIL, so the TV source is JPEGs."""
+def _write_data(root, shards=2, clips=DATA_CLIPS, seed=3):
+    """Everything phase 16 reads, written from seeds under ``root``:
+    ``shards`` TriadPack shards of ``clips`` clips each (224^2 frames,
+    AUDIO int16 samples) packed by the port from its SyntheticAVDataset
+    (seed ``seed``), and a caption folder (two subfolders) of shards *
+    clips JPEGs with their captions (seeds ``seed`` + 1 and + 2). The
+    card has PIL, so the TV source is JPEGs."""
     from PIL import Image
 
     from triad_tpu_torch.data.datasets import SyntheticAVDataset, SyntheticTVDataset
@@ -2016,13 +2041,13 @@ def _write_data(root):
 
     av_dir, tv_dir = os.path.join(root, "av"), os.path.join(root, "tv")
     os.makedirs(av_dir)
-    src = SyntheticAVDataset(size=2 * DATA_CLIPS, image_size=224, audio_seconds=AUDIO / 16_000,
-                             seed=3)
-    for s in range(2):
+    src = SyntheticAVDataset(size=shards * clips, image_size=224, audio_seconds=AUDIO / 16_000,
+                             seed=seed)
+    for s in range(shards):
         pack_dataset(src, os.path.join(av_dir, f"shard{s}.tpack"), 224, AUDIO,
-                     range(s * DATA_CLIPS, (s + 1) * DATA_CLIPS))
-    captions = SyntheticTVDataset(2 * DATA_CLIPS, 224, seed=4).captions()
-    rng = np.random.default_rng(5)
+                     range(s * clips, (s + 1) * clips))
+    captions = SyntheticTVDataset(shards * clips, 224, seed=seed + 1).captions()
+    rng = np.random.default_rng(seed + 2)
     for i, caption in enumerate(captions):
         part = os.path.join(tv_dir, f"part{i % 2}")
         os.makedirs(part, exist_ok=True)
@@ -2095,38 +2120,6 @@ def _h2d_ms(batch):
     return ms[0], ms[1], sum(t.numel() * t.element_size() for t in host)
 
 
-def _copy_state(state):
-    """What a checkpoint holds of a TrainState, on the host: the model's
-    and each AdamW's state dicts, the bank's update counts, the global
-    step and the seed."""
-    def host(x):
-        if isinstance(x, torch.Tensor):
-            return x.detach().cpu().clone()
-        if isinstance(x, dict):
-            return {k: host(v) for k, v in x.items()}
-        if isinstance(x, list):
-            return [host(v) for v in x]
-        return x
-
-    return {"model": host(state.model.state_dict()),
-            "opts": {g: host(o.state_dict()) for g, o in state.bank.opts.items()},
-            "counts": dict(state.bank.counts), "global_step": state.global_step,
-            "seed": state.seed}
-
-
-def _restore_state(saved, ocfg):
-    """A TrainState on the card from _copy_state's dict (a model built
-    from another seed, then loaded)."""
-    from triad_tpu_torch.train.step import TrainState
-
-    state = _new_state(ocfg, 99)
-    state.model.load_state_dict(saved["model"])
-    for g, opt in state.bank.opts.items():
-        opt.load_state_dict(saved["opts"][g])
-    state.bank.counts = dict(saved["counts"])
-    return TrainState(state.model, state.bank, saved["global_step"], saved["seed"])
-
-
 def _fed_steps(step, state, av_pf, tv_pf, n, first, warmup=0):
     """n joint steps, each fed by one batch of each prefetcher; returns
     each step's losses, its ms (CUDA events, the next() calls included)
@@ -2170,6 +2163,7 @@ def data_phase(resident_ms):
                                                  device_ingest_av, device_ingest_tv)
     from triad_tpu_torch.data.images import apply_av_batch, draw_av_params
     from triad_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from triad_tpu_torch.train.checkpoint import load_payload, state_payload
     from triad_tpu_torch.train.step import StepFactory
 
     out = {"tv_source": "jpeg captions (LocalCaptionDataset.raw_item)"}
@@ -2263,7 +2257,7 @@ def data_phase(resident_ms):
         av_pf, tv_pf = _prefetchers(av, tv)
         kernels.reset_launches()
         _, ms1, blocked1 = _fed_steps(step, state, av_pf, tv_pf, RESUME_AFTER, 0, 2)
-        saved = _copy_state(state)
+        saved = state_payload(state)  # what a checkpoint holds, on the host
         rest, ms2, blocked2 = _fed_steps(step, state, av_pf, tv_pf, 2, RESUME_AFTER)
         launches = dict(kernels.LAUNCHES)
         av_pf.close()
@@ -2291,7 +2285,7 @@ def data_phase(resident_ms):
         del state, before
         torch.cuda.empty_cache()
         epoch, batch = divmod(RESUME_AFTER, len(av))
-        resumed = _restore_state(saved, ocfg)
+        resumed = load_payload(_new_state(ocfg, 99), saved)  # another init, then loaded
         av, tv = _data_loaders(av_dir, tv_dir, tokenizer)
         av_pf, tv_pf = _prefetchers(av, tv, epoch, batch)
         again, _, _ = _fed_steps(step, resumed, av_pf, tv_pf, 2, RESUME_AFTER)
@@ -2318,6 +2312,372 @@ def data_phase(resident_ms):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out, launches
+
+
+TRAINER_VAL_CLIPS = 64  # clips of the validation AV root, images of its caption folder
+TRAINER_STEPS = 3  # steps an epoch (--steps)
+TRAINER_SAVES = [3, 6, 8, 9, 12]  # the epoch ends and save_every_steps 7's mid-epoch "step 8"
+TRAINER_KILL = "Saved checkpoint at step 8"
+TRAINER_PHASES = {0: ("av_focus", 1.0, 0.0), 1: ("tv_warmup", 0.0, 1.0),
+                  2: ("weighted_joint", 0.8, 1.0 - 0.8), 3: ("full_joint", 1.0, 1.0)}
+
+
+def _trainer_config(av_dir, tv_dir, val_av_dir, val_tv_dir):
+    """Phase 17's config: perf_train_model_config() and
+    perf_train_loss_config(), B = 64 for AV and TV, 10 s of audio, 32 text
+    tokens, 4 thread workers, device augmentation; one epoch each of
+    av_focus, tv_warmup, weighted_joint and full_joint; accumulation 3;
+    audio unfrozen at micro step 2, text at 4, the ViT's LoRA at 0; a
+    save every 7 steps (one inside an epoch and an accumulation window:
+    "step 8", cursor (2, 2)) and at each epoch end (3, 6, 9, 12); viz
+    every 5 steps, 2 samples of each kind; retrieval over 64 items;
+    asynchronous saves."""
+    from triad_tpu_torch.config import perf_train_loss_config, perf_train_model_config
+
+    return {
+        "model": dataclasses.asdict(perf_train_model_config()),
+        "loss": dataclasses.asdict(perf_train_loss_config()),
+        "data": {"audio_num_samples": AUDIO, "max_text_tokens": TRAIN_TXT,
+                 "batch_size_av": TRAIN_B, "batch_size_tv": TRAIN_B, "num_workers": 4,
+                 "worker_mode": "thread", "device_augment": True,
+                 "audio_visual_data_root": av_dir, "text_dataset_path": tv_dir,
+                 "audio_visual_val_data_root": val_av_dir, "text_dataset_val_path": val_tv_dir},
+        "train": {"num_epochs": 4, "av_focus_epochs": 1, "tv_warmup_epochs": 1,
+                  "weighted_joint_epochs": 1, "av_weight_start": 0.8, "av_weight_end": 0.5,
+                  "vis_every": 5, "save_every_steps": 7, "validation_frequency": 10 ** 9,
+                  "retrieval_subset_size": TRAINER_VAL_CLIPS, "num_vis_samples_av": 2,
+                  "num_vis_samples_tv": 2, "async_checkpointing": True, "seed": 0,
+                  "optim": {"gradient_accumulation_steps": 3, "unfreeze_audio_step": 2,
+                            "unfreeze_text_step": 4, "unfreeze_vit_step": 0}},
+    }
+
+
+def _cli(module, *args):
+    return [sys.executable, "-m", f"triad_tpu_torch.cli.{module}", *args]
+
+
+def _run_metrics(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _losses_by_step(lines):
+    """The last logged train_loss of each global step."""
+    return {int(m["global_step"]): m["train_loss"] for m in lines if "train_loss" in m}
+
+
+def _last_retrieval(lines):
+    last = [m for m in lines if any(k.startswith("retrieval_") for k in m)][-1]
+    return {k[len("retrieval_"):]: v for k, v in last.items() if k.startswith("retrieval_")}
+
+
+def _checkpoint(run_dir, step):
+    d = os.path.join(run_dir, "checkpoints", "ckpts", str(step))
+    with open(os.path.join(d, "meta.json")) as f:
+        progress = json.load(f)["progress"]
+    return torch.load(os.path.join(d, "state.pt"), map_location="cpu", weights_only=True), progress
+
+
+def _tree_differences(a, b, path=""):
+    """Paths where two checkpoint payloads differ in any bit."""
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return [] if a.dtype == b.dtype and torch.equal(a, b) else [path]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if a.keys() != b.keys():
+            return [f"{path} (keys)"]
+        return [d for k in a for d in _tree_differences(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path} (length)"]
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in
+                _tree_differences(x, y, f"{path}/{i}")]
+    return [] if a == b else [path]
+
+
+def _kill_after_commit(proc, run_dir, out_path):
+    """Read run B's output until it says TRAINER_KILL, wait until that
+    step's checkpoint is committed (its directory renamed into place),
+    then SIGKILL the process. Returns the output and the committed steps
+    at the kill."""
+    import signal
+
+    watchdog = threading.Timer(600, proc.kill)
+    watchdog.start()
+    lines, seen = [], False
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith(TRAINER_KILL):
+                seen = True
+                break
+        committed = os.path.join(run_dir, "checkpoints", "ckpts", "8")
+        deadline = time.monotonic() + 120
+        while seen and not os.path.isdir(committed) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        entries = sorted(os.listdir(os.path.dirname(committed))) if seen else []
+        proc.send_signal(signal.SIGKILL)
+        proc.wait()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
+        f.write("".join(lines))
+    if not seen:
+        fail(f"run B ended (rc {proc.returncode}) without '{TRAINER_KILL}': "
+             f"{''.join(lines[-20:])}")
+    return lines, entries
+
+
+def trainer_phase():
+    """Phase 17: the port's Trainer on the card through its commands.
+    Run A, ``cli.train.main`` in this process (launch counts zeroed just
+    before): the full-width four-phase curriculum from TriadPack shards and
+    a JPEG caption folder written from seeds, validation, retrieval, viz
+    and async checkpoints; run B, the same command in a subprocess with a
+    fresh directory, SIGKILLed once its step-8 save has committed; run C,
+    the same command again, resuming; C's final checkpoint held to A's bit
+    for bit; then ``cli.eval`` of A (the latest and --best), and the eval
+    legs' launch counts. Returns the summary and the launch counts of run
+    A and of the eval legs."""
+    import shutil
+    import tempfile
+
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.cli import train as train_cli
+    from triad_tpu_torch.config import perf_train_model_config
+    from triad_tpu_torch.train.checkpoint import CheckpointManager
+
+    root = tempfile.mkdtemp(prefix="triad_trainer_")
+    proc = None
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        av_dir, tv_dir, _ = _write_data(os.path.join(root, "train"))
+        val_av, val_tv, _ = _write_data(os.path.join(root, "val"), 1, TRAINER_VAL_CLIPS, 13)
+        cfg_path = os.path.join(root, "trainer.json")
+        with open(cfg_path, "w") as f:
+            json.dump(_trainer_config(av_dir, tv_dir, val_av, val_tv), f)
+        print(f"  wrote the training data (2 shards of {DATA_CLIPS} clips, "
+              f"{2 * DATA_CLIPS} captions) and the validation data ({TRAINER_VAL_CLIPS} clips, "
+              f"{TRAINER_VAL_CLIPS} captions) in {time.perf_counter() - t0:.1f} s", flush=True)
+        args = ["--config", cfg_path, "--steps", str(TRAINER_STEPS)]
+        run_a, run_b = os.path.join(root, "run_a"), os.path.join(root, "run_b")
+
+        # -- run A ---------------------------------------------------------
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(args + ["--output-dir", run_a, "--force-new"])
+        out["run_a_s"] = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        _check_launches(launches, JOINT_KERNELS, "trainer")
+        lines_a = _run_metrics(run_a)
+        train_lines = [m for m in lines_a if "train_loss" in m]
+        for m in train_lines:
+            if not np.isfinite(m["train_loss"]):
+                fail(f"run A logged a non-finite train_loss: {m}")
+            want = TRAINER_PHASES[m["epoch"]]
+            if (m["training_phase"], m["av_weight"], m["tv_weight"]) != want:
+                fail(f"epoch {m['epoch']} logged {m['training_phase']} {m['av_weight']} "
+                     f"{m['tv_weight']}, not {want}")
+        if sorted({m["epoch"] for m in train_lines}) != [0, 1, 2, 3]:
+            fail(f"run A logged the epochs {sorted({m['epoch'] for m in train_lines})}")
+        # The audio group's OneCycle spans total_updates - unfreeze_audio_step
+        # = 2 updates (the reference counts the unfreeze step in micro
+        # steps), so its lr falls from 2.5e-6 at its first update (micro
+        # step 2) to 2.5e-10: a weight of 1.0 in a layer that LayerDrop
+        # skipped at micro step 2 cannot move in fp32. So every HuBERT
+        # parameter is held to a nonzero AdamW second moment (it took a
+        # nonzero gradient), and the tensors that moved are counted.
+        start = _initial_model(perf_train_model_config(), 0)
+        audio_state = trainer.bank.opts["audio"].state
+        moved = {"audio": 0, "text": 0}
+        n_audio = 0
+        for (name, p), (_, q) in zip(trainer.model.named_parameters(),
+                                     start.named_parameters()):
+            same = torch.equal(p, q)
+            if name.startswith("audio_backbone"):
+                n_audio += 1
+                moved["audio"] += not same
+                if p not in audio_state or not bool(audio_state[p]["exp_avg_sq"].any()):
+                    fail(f"{name} took no gradient in run A")
+            if name.startswith("text_backbone"):
+                moved["text"] += not same
+                if same:
+                    fail(f"{name} did not move in run A")
+            if name.startswith("visual_backbone") and "lora_" not in name and not same:
+                fail(f"{name} (the frozen ViT base) changed in run A")
+        del start
+        out["moved"] = {"hubert": moved["audio"], "hubert_tensors": n_audio,
+                        "distilbert": moved["text"]}
+        print(f"  every HuBERT parameter tensor took a gradient ({moved['audio']} of {n_audio} "
+              f"moved), every DistilBERT one ({moved['text']}) moved; the ViT base "
+              "bit-unchanged", flush=True)
+        for rel in ("metrics.jsonl", "viz/epoch_1/tv_0.png", "viz/epoch_3/av_0.png",
+                    "viz/epoch_3/tv_0.png"):
+            if not os.path.getsize(os.path.join(run_a, rel)):
+                fail(f"run A did not write {rel}")
+        video = os.path.join(run_a, "viz", "epoch_3", "av_0_attention.mp4")
+        out["video"] = {"written": os.path.exists(video) and os.path.getsize(video) > 0,
+                        "bytes": os.path.getsize(video) if os.path.exists(video) else 0,
+                        "writer": trainer.video_writer}
+        print(f"  viz PNGs written; av_0_attention.mp4 written: {out['video']['written']} "
+              f"({out['video']['bytes']} bytes) by '{trainer.video_writer}'", flush=True)
+        saves = [t["step"] for t in trainer.ckpt.timings]
+        if saves != TRAINER_SAVES or trainer.ckpt.latest_step() != 12:
+            fail(f"run A saved the steps {saves}, latest {trainer.ckpt.latest_step()}")
+        if not os.path.exists(os.path.join(run_a, "checkpoints", "best", "state.pt")):
+            fail("run A kept no best/ checkpoint")
+
+        step_ms = {}
+        for label, seconds in trainer.timer.history:
+            step_ms.setdefault(label, []).append(seconds * 1e3)
+        out["step_ms_by_phase"] = {k: statistics.median(v) for k, v in step_ms.items()}
+        out["steps_timed_by_phase"] = {k: len(v) for k, v in step_ms.items()}
+        out["step_time_ms_logged"] = {m["training_phase"]: m["step_time_ms"]
+                                      for m in train_lines if "step_time_ms" in m}
+        out["hooks_s"] = {k: v for k, v in trainer.timings.items() if v}
+        out["async_saves_s"] = trainer.ckpt.timings
+        print("  ms per step (CUDA events, median) by phase: " + ", ".join(
+            f"{k} {v:.3f} ({out['steps_timed_by_phase'][k]} steps; logged step_time_ms "
+            f"{out['step_time_ms_logged'].get(k, float('nan')):.3f})"
+            for k, v in out["step_ms_by_phase"].items()), flush=True)
+        print("  seconds: " + "; ".join(
+            f"{k} " + ", ".join(f"{x:.3f}" for x in v) for k, v in out["hooks_s"].items()),
+            flush=True)
+        print("  async saves (s, blocking / write): " + ", ".join(
+            f"step {t['step']} {t['block_s']:.3f} / {t['write_s']:.3f}"
+            for t in trainer.ckpt.timings), flush=True)
+        payload_bytes = os.path.getsize(os.path.join(run_a, "checkpoints", "ckpts", "12",
+                                                     "state.pt"))
+        sync = CheckpointManager(os.path.join(root, "sync_ckpt"))
+        t0 = time.perf_counter()
+        sync.save(12, trainer.state, trainer.progress, trainer.config.to_dict())
+        out["sync_save_s"] = time.perf_counter() - t0
+        shutil.rmtree(os.path.join(root, "sync_ckpt"))
+        t0 = time.perf_counter()
+        CheckpointManager(os.path.join(run_a, "checkpoints")).restore(trainer.state)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        out["checkpoint_bytes"] = payload_bytes
+        print(f"  checkpoint of step 12: {payload_bytes} bytes; a synchronous save "
+              f"{out['sync_save_s']:.3f} s, a restore {out['restore_s']:.3f} s; peak device "
+              f"memory {out['peak_bytes'] / 2 ** 30:.3f} GiB (max_memory_allocated); run A "
+              f"{out['run_a_s']:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+
+        # -- run B, killed; run C, resumed ------------------------------------
+        env = dict(os.environ, PYTHONUNBUFFERED="1")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(_cli("train", *args, "--output-dir", run_b, "--force-new"),
+                                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True, env=env)
+        _, entries = _kill_after_commit(proc, run_b, os.path.join(
+            ROOT, "chiprun_out", "trainer_run_b.txt"))
+        proc = None
+        out["run_b_s"] = time.perf_counter() - t0
+        print(f"  run B killed (SIGKILL) after '{TRAINER_KILL}' in {out['run_b_s']:.1f} s; "
+              f"checkpoint entries at the kill: {entries}", flush=True)
+        t0 = time.perf_counter()
+        c = subprocess.run(_cli("train", *args, "--output-dir", run_b), cwd=ROOT,
+                           capture_output=True, text=True, env=env, timeout=600)
+        out["run_c_s"] = time.perf_counter() - t0
+        with open(os.path.join(ROOT, "chiprun_out", "trainer_run_c.txt"), "w") as f:
+            f.write(c.stdout + c.stderr)
+        if c.returncode != 0:
+            fail(f"run C exited {c.returncode}: {c.stderr[-2000:]}")
+        resumed = re.search(r"Resumed from step (\d+) \(epoch (\d+), batch (\d+)\) in ([\d.]+) s",
+                            c.stdout)
+        if not resumed:
+            fail("run C did not resume from a checkpoint")
+        out["resumed"] = {"step": int(resumed.group(1)), "epoch": int(resumed.group(2)),
+                          "batch": int(resumed.group(3)), "restore_s": float(resumed.group(4))}
+        (pa, prog_a), (pc, prog_c) = _checkpoint(run_a, 12), _checkpoint(run_b, 12)
+        differ = _tree_differences(pa, pc)
+        if differ or prog_a != prog_c:
+            fail(f"run C's final checkpoint differs from run A's: {differ[:5]} {prog_a} {prog_c}")
+        got, want = _losses_by_step(_run_metrics(run_b)), _losses_by_step(lines_a)
+        after = {s: v for s, v in got.items() if s >= out["resumed"]["step"]}
+        if not after or any(want.get(s) != v for s, v in after.items()):
+            fail(f"run C's train_loss after the resume {after} differs from run A's {want}")
+        n_tensors = sum(1 for _ in _tensors(pa))
+        out["resume_bit_equal"] = {"tensors": n_tensors, "losses_after_resume": after}
+        print(f"  run C resumed from step {out['resumed']['step']} (epoch "
+              f"{out['resumed']['epoch']}, batch {out['resumed']['batch']}; restore "
+              f"{out['resumed']['restore_s']:.3f} s) and ended in {out['run_c_s']:.1f} s with "
+              f"all {n_tensors} tensors of its step-12 checkpoint (model, AdamW, .grads), the "
+              f"progress and the train_loss of steps {sorted(after)} bit-equal to run A's",
+              flush=True)
+
+        # -- cli.eval: the latest checkpoint and --best, side by side ---------
+        evals, procs = {}, {}
+        t0 = time.perf_counter()
+        for name, extra in (("latest", ()), ("best", ("--best",))):
+            path = os.path.join(root, f"eval_{name}.json")
+            procs[name] = (path, subprocess.Popen(
+                _cli("eval", "--run-dir", run_a, "--out", path, *extra), cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        try:
+            for name, (path, p) in procs.items():
+                _, err = p.communicate(timeout=600)
+                if p.returncode != 0:
+                    fail(f"cli.eval ({name}) exited {p.returncode}: {err[-2000:]}")
+                with open(path) as f:
+                    evals[name] = {"metrics": json.load(f), "s": time.perf_counter() - t0}
+        finally:
+            for _, p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if evals["latest"]["metrics"] != _last_retrieval(lines_a):
+            fail(f"cli.eval's metrics {evals['latest']['metrics']} differ from run A's last "
+                 f"retrieval {_last_retrieval(lines_a)}")
+        out["eval"] = evals
+        print(f"  cli.eval of run A (the two commands side by side, "
+              f"{max(e['s'] for e in evals.values()):.1f} s) equals run A's last retrieval "
+              f"exactly: {evals['latest']['metrics']}; --best: {evals['best']['metrics']}",
+              flush=True)
+
+        # -- the eval legs alone: validation, retrieval, viz ----------------
+        kernels.reset_launches()
+        trainer.validate("full_joint")
+        trainer.eval_1000_way_retrieval()
+        trainer.visualize_samples(3)
+        eval_launches = dict(kernels.LAUNCHES)
+        for name in ("attention_train", "fused_mlp", "frontend_stats", "frontend_conv0",
+                     "frontend_conv"):
+            if eval_launches[name] <= 0:
+                fail(f"kernel {name} was not launched by the trainer's eval legs")
+        if any(eval_launches[n] for n in ("attention_train_bwd", "fused_mlp_bwd",
+                                          "layernorm_bwd", "posconv_dx", "posconv_dw")):
+            fail(f"a backward kernel ran in the eval legs: {eval_launches}")
+        print(f"  the eval legs' launches (validation, retrieval, viz, counts zeroed): "
+              f"{ {k: v for k, v in eval_launches.items() if v} }", flush=True)
+        trainer.ckpt.close()
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    return out, launches, eval_launches
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
 
 
 def _kernel_entry(name, results, launches_by_path):
@@ -2557,11 +2917,17 @@ def main():
     data, fed_launches = data_phase(joint_ms)
     torch.cuda.empty_cache()
 
+    phase(f"17. the Trainer through cli.train: the four-phase curriculum at full width from files "
+          f"on disk, B = {TRAIN_B}, killed mid-epoch and resumed bit for bit; cli.eval")
+    trainer, trainer_launches, trainer_eval_launches = trainer_phase()
+    torch.cuda.empty_cache()
+
     by_path = {"serve": serve_launches, "train_tv": tv_launches, "train_joint": joint_launches,
                "train_default": default_launches, "train_knobs": knobs_launches,
                "retrieval": retrieval_launches, "retrieval_conv_act": conv_act_launches,
                "flash_eval": flash_eval_launches, "train_tv_flash": tv_flash_launches,
-               "long_clips": long_clip_launches, "train_joint_fed": fed_launches}
+               "long_clips": long_clip_launches, "train_joint_fed": fed_launches,
+               "trainer": trainer_launches, "trainer_eval_legs": trainer_eval_launches}
     kernels_json = [_kernel_entry(name, results, by_path) for name in KERNELS]
     # every shape of phase 3, too long for the line the kernels entries take
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -2572,7 +2938,8 @@ def main():
                       "default_peak_bytes": default_peak, "knobs_step_ms": knobs_ms,
                       "knobs_peak_bytes": knobs_peak, "layouts_agree": agree,
                       "retrieval": retrieval, "flash_eval": flash_eval,
-                      "tv_flash_step_ms": tv_flash_ms, "data": data}), flush=True)
+                      "tv_flash_step_ms": tv_flash_ms, "data": data, "trainer": trainer}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

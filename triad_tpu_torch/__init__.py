@@ -17,16 +17,22 @@ Layout (mirrors ``triad_tpu``):
   ops/        kernel wrappers with their plain PyTorch twins, the dropout
               keep mask, similarity and max-mean aggregation, losses
   models/     nn.Module encoders, TriadModel, the Flax <-> torch converter
-  train/      the 4-group optimizer bank and the train steps
+  train/      the 4-group optimizer bank, the train steps, checkpoints
+              (torch files, exact mid-epoch resume) and the Trainer
   serve/      ServingModel and the HTTP server
-  data/       the WordPiece tokenizer, the synthetic datasets, audio / image
-              helpers
+  data/       the host data layer: decode, datasets, TriadPack shards,
+              loaders, the pinned-memory prefetcher, device augmentation
   eval/       the 1000-way cross-modal retrieval
-  cli/        ``python -m triad_tpu_torch.cli.serve``
+  utils/      the metrics logger, the step timer and profiler trace, the
+              NaN guards
+  viz/        the grounding heatmaps and the attention video
+  cli/        ``python -m triad_tpu_torch.cli.{train,eval,serve}``
 
 Ported so far (ROADMAP.md): the serving (eval) path, the three train
-steps of the curriculum ("av", "tv", "joint") and the 1000-way retrieval
-eval; every TPU kernel of the JAX package has its CUDA counterpart.
+steps of the curriculum ("av", "tv", "joint"), the 1000-way retrieval
+eval, the host data layer and the Trainer with its checkpoints, viz and
+the train / eval commands; every TPU kernel of the JAX package has its
+CUDA counterpart.
 """
 
 __version__ = "0.1.0"

@@ -20,8 +20,8 @@ import json
 from typing import Optional
 
 import numpy as np
-import torch
 
+from triad_tpu_torch.cli.common import add_device_arg, resolve_device
 from triad_tpu_torch.config import Config, ModelConfig, perf_eval_model_config
 
 
@@ -55,17 +55,15 @@ def main(argv: Optional[list] = None) -> None:
     src.add_argument("--random-init", action="store_true", help="random weights (seed 0)")
     src.add_argument("--params-npz", help="flat '/'-keyed npz of a JAX param tree")
     p.add_argument("--config", default="perf_eval", help="perf_eval | default | JSON file")
-    p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("--audio-num-samples", type=int, default=160_000)
     p.add_argument("--max-text-tokens", type=int, default=128)
     p.add_argument("--vocab", help="WordPiece vocab.txt for /v1/embed/text with texts")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
+    add_device_arg(p)
     args = p.parse_args(argv)
 
-    device = args.device or "cuda"
-    if device.startswith("cuda") and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --device cpu to serve from the CPU")
+    device = resolve_device(args)
     cfg = load_config(args.config)
     state_dict = None if args.random_init else load_params_npz(args.params_npz, cfg)
     tokenizer = None
