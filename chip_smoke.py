@@ -151,6 +151,33 @@ Phases (any failure exits nonzero before the last line):
      A (latest, and --best) prints run A's last retrieval metrics exactly;
      then the eval legs (validation, retrieval, viz) with counts zeroed:
      the forward kernels only. Run logs in chiprun_out/trainer_run_*.txt.
+ 18. pretrained weights (models/hf_import.py, reference_import.py), the
+     infer and viz commands and the int8 serving mode, at full width, on
+     phase 17's files on disk: tools/hf_layout.py writes HuBERT-base as a
+     2-shard safetensors snapshot with weight_g / weight_v, DistilBERT as
+     a DistilBertForMaskedLM pytorch_model.bin, DINOv2 ViT-B/14-reg as a
+     torch.hub .pth under teacher / backbone. (257 positions) and a
+     reference .pt; each is imported (bytes, host seconds), and imported
+     tensors are held to recomputes from their seeds (a fused qkv, a conv
+     kernel, the positional conv against float64 g v / |v|, the fresh LoRA
+     factors against numpy's draws). cli.train from the three files (B =
+     64, av_focus then full_joint, 2 steps each): the model before its
+     first update bit-equal to the importer's state_dict, finite losses,
+     every trainable group moved, the ViT base not; cli.train from the
+     reference checkpoint (1 step): its start bit-equal to the importer's,
+     its heads, temperature and LoRA factors the file's. cli.infer on the
+     first run's directory (a JPEG, an mp4 written by cv2 and muxed with
+     'sowt' PCM by data/mp4.py, a caption): every pairwise sim matrix,
+     token cosine > 0.99 against the fp32 CPU forward of the same weights;
+     cli.infer --random-init on perf_eval_model_config(), bf16 and --int8:
+     one int8 product for each Dense / LoRALinear forward under --int8 and
+     none in bf16, the int8 embeddings at cosine in (0.995, 1 - 1e-6) to
+     the bf16 ones; _int_mm's
+     int32 sums equal the plain product's (ragged rows), its time against
+     the bf16 product; cli.viz --run-dir with --image / --text and
+     --video: both PNGs, cv2 reads the attention mp4. Launch counts of
+     each path (pretrained_trainer, reference_trainer, infer,
+     infer_random, infer_int8, viz), each zeroed just before its run.
 The port's kernels add in a fixed order (no atomics), so phase 8 trains
 the same weights every run (PERF.md) and phase 9 reads the same each run.
 Phase 3 also holds posconv dW at B = 96 and the activation at 768
@@ -169,8 +196,9 @@ fused (64, 261, 3, 12, 64) qkv tensor, the training attention at
 at conv_1's (64, 31999, 512), the train steps' batch.
 The line before the last is one JSON object with one entry per kernel
 (and the step times, phase 16's numbers under "data" and phase 17's under
-"trainer"): its launches in the paths that run it (phases 4, 6, 8, 10, 11,
-12, 13, 14, 15, 16 and 17, each counted from zero), and its error, times and bound at its main case of
+"trainer", phase 18's under "pretrained"): its launches in the paths that
+run it (phases 4, 6, 8, 10, 11, 12, 13, 14, 15, 16, 17 and 18, each counted
+from zero), and its error, times and bound at its main case of
 phase 3 (the shape the train steps give it, else the first); every shape
 of phase 3 goes to chiprun_out/kernel_cases.json. The last line is
 {"ok": true, "device": {...}}.
@@ -209,8 +237,11 @@ PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 PEAK_FP64 = 67e12
 
 
+T0 = time.perf_counter()  # the script's start: each phase line gives its offset
+
+
 def phase(msg):
-    print(f"== {msg}", flush=True)
+    print(f"== {msg} [{time.perf_counter() - T0:.1f} s]", flush=True)
 
 
 def fail(msg):
@@ -2431,26 +2462,52 @@ def _kill_after_commit(proc, run_dir, out_path):
     return lines, entries
 
 
-def trainer_phase():
+class _StartState:
+    """While active, Trainer.train first keeps a CPU copy of the model's
+    state (``state``) and the seconds since the context opened
+    (``startup_s``): what a ``cli.train.main`` call built before its first
+    step, and how long that took."""
+
+    def __enter__(self):
+        from triad_tpu_torch.train.trainer import Trainer
+
+        self.orig, self.t0, self.state, self.startup_s = Trainer.train, time.perf_counter(), None, None
+        box = self
+
+        def train(trainer):
+            box.startup_s = time.perf_counter() - box.t0
+            box.state = {k: v.detach().to("cpu", copy=True)
+                         for k, v in trainer.model.state_dict().items()}
+            return box.orig(trainer)
+
+        Trainer.train = train
+        return self
+
+    def __exit__(self, *exc):
+        from triad_tpu_torch.train.trainer import Trainer
+
+        Trainer.train = self.orig
+
+
+def trainer_phase(root):
     """Phase 17: the port's Trainer on the card through its commands.
     Run A, ``cli.train.main`` in this process (launch counts zeroed just
     before): the full-width four-phase curriculum from TriadPack shards and
-    a JPEG caption folder written from seeds, validation, retrieval, viz
-    and async checkpoints; run B, the same command in a subprocess with a
-    fresh directory, SIGKILLed once its step-8 save has committed; run C,
-    the same command again, resuming; C's final checkpoint held to A's bit
-    for bit; then ``cli.eval`` of A (the latest and --best), and the eval
-    legs' launch counts. Returns the summary and the launch counts of run
-    A and of the eval legs."""
+    a JPEG caption folder written from seeds under ``root`` (left there,
+    with the config ``root``/trainer.json, for phase 18), validation,
+    retrieval, viz and async checkpoints; run B, the same command in a
+    subprocess with a fresh directory, SIGKILLed once its step-8 save has
+    committed; run C, the same command again, resuming; C's final
+    checkpoint held to A's bit for bit; then ``cli.eval`` of A (the latest
+    and --best), and the eval legs' launch counts. Returns the summary and
+    the launch counts of run A and of the eval legs."""
     import shutil
-    import tempfile
 
     from triad_tpu_torch import kernels
     from triad_tpu_torch.cli import train as train_cli
     from triad_tpu_torch.config import perf_train_model_config
     from triad_tpu_torch.train.checkpoint import CheckpointManager
 
-    root = tempfile.mkdtemp(prefix="triad_trainer_")
     proc = None
     out = {}
     try:
@@ -2471,8 +2528,11 @@ def trainer_phase():
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        trainer = train_cli.main(args + ["--output-dir", run_a, "--force-new"])
+        with _StartState() as start:
+            trainer = train_cli.main(args + ["--output-dir", run_a, "--force-new"])
         out["run_a_s"] = time.perf_counter() - t0
+        out["startup_s"] = start.startup_s
+        del start
         launches = dict(kernels.LAUNCHES)
         out["peak_bytes"] = torch.cuda.max_memory_allocated()
         _check_launches(launches, JOINT_KERNELS, "trainer")
@@ -2568,7 +2628,8 @@ def trainer_phase():
         print(f"  checkpoint of step 12: {payload_bytes} bytes; a synchronous save "
               f"{out['sync_save_s']:.3f} s, a restore {out['restore_s']:.3f} s; peak device "
               f"memory {out['peak_bytes'] / 2 ** 30:.3f} GiB (max_memory_allocated); run A "
-              f"{out['run_a_s']:.1f} s", flush=True)
+              f"{out['run_a_s']:.1f} s, {out['startup_s']:.2f} s of it to its first step (the "
+              f"Trainer's start from a random init)", flush=True)
         torch.cuda.empty_cache()
 
         # -- run B, killed; run C, resumed ------------------------------------
@@ -2665,8 +2726,428 @@ def trainer_phase():
         if proc is not None and proc.poll() is None:
             proc.kill()
             proc.wait()
-        shutil.rmtree(root, ignore_errors=True)
     return out, launches, eval_launches
+
+
+PRETRAINED_SEEDS = {"hubert": 31, "text": 32, "vit": 33, "reference": 34}
+PRETRAINED_STEPS = 2  # steps an epoch of the run from the per-backbone files
+PRETRAINED_SET = [  # over phase 17's config: av_focus, then full_joint; no viz
+    "train.num_epochs=2", "train.av_focus_epochs=1", "train.tv_warmup_epochs=0",
+    "train.weighted_joint_epochs=0", f"train.vis_every={10 ** 9}",
+    f"train.save_every_steps={10 ** 9}", "train.optim.gradient_accumulation_steps=1",
+    "train.optim.unfreeze_audio_step=0", "train.optim.unfreeze_text_step=0",
+    "train.optim.unfreeze_vit_step=0"]
+# Kernels the run directory's model (perf_train_model_config: the training
+# attention's forward, posconv) launches in infer and viz, and those
+# perf_eval_model_config's random init (the eval attention) launches in
+# infer, bf16 and int8 alike
+RUN_DIR_KERNELS = ("attention_train", "fused_mlp", "frontend_stats", "frontend_conv0",
+                   "frontend_conv", "posconv")
+RANDOM_INIT_KERNELS = ("attention_eval", "attention_eval_merged", "fused_mlp", "frontend_stats",
+                       "frontend_conv0", "frontend_conv")
+INT8_SHAPE = (8 * 499, 768, 3072)  # HuBERT's FFN-in product at B = 8, 10 s clips
+
+
+def _cos_rows(a, b):
+    a = np.asarray(a, np.float64).reshape(-1, a.shape[-1])
+    b = np.asarray(b, np.float64).reshape(-1, b.shape[-1])
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def _media(root):
+    """A JPEG (256^2), an mp4 of ten 256^2 frames written by
+    cv2.VideoWriter (mp4v) and muxed by data/mp4.py:mux_mp4 with 10 s of
+    'sowt' PCM audio (a 440 Hz tone and noise), and a caption. The audio
+    is read back through data/audio.py:extract_audio (which returns
+    silence on any failure) and held to what was muxed."""
+    import cv2
+    from PIL import Image
+
+    from triad_tpu_torch.data.audio import extract_audio
+    from triad_tpu_torch.data.mp4 import mux_mp4
+
+    rng = np.random.default_rng(41)
+    jpg = os.path.join(root, "frame.jpg")
+    Image.fromarray(rng.integers(0, 256, (256, 256, 3), np.uint8)).save(jpg, quality=90)
+    silent, mp4 = os.path.join(root, "video_only.mp4"), os.path.join(root, "clip.mp4")
+    writer = cv2.VideoWriter(silent, cv2.VideoWriter_fourcc(*"mp4v"), 1, (256, 256))
+    for _ in range(10):
+        writer.write(rng.integers(0, 256, (256, 256, 3), np.uint8))
+    writer.release()
+    t = np.arange(AUDIO) / 16_000
+    audio = (0.3 * np.sin(2 * np.pi * 440 * t) + 0.05 * rng.standard_normal(AUDIO)).astype(
+        np.float32)
+    mux_mp4(mp4, silent, audio, 16_000, audio_codec="sowt")
+    back = extract_audio(mp4)
+    if back.shape[0] < AUDIO or not np.allclose(back[:AUDIO], np.round(audio * 32767) / 32768,
+                                                atol=2 / 32768):
+        fail(f"the mp4's 'sowt' track did not read back ({back.shape[0]} samples)")
+    return jpg, mp4, "a dog barking in a park"
+
+
+def _weight_checks(cfg, trees):
+    """Imported tensors against recomputes from the seeds: the ViT's fused
+    qkv of block 5 and HuBERT's conv_3 kernel (transposes of the draws),
+    the positional conv's weight against g v / |v| in float64 (relative
+    1e-6), and the fresh LoRA factors against numpy default_rng draws
+    (seed 0 for qkv, 1000 + i for proj; bit-equal)."""
+    from triad_tpu_torch.tools.hf_layout import draw
+
+    h, v = cfg.hubert, cfg.vit
+    sh, sv = PRETRAINED_SEEDS["hubert"], PRETRAINED_SEEDS["vit"]
+    a = "encoder.layer.5.attention.attention."
+    want = np.concatenate([draw(sv, f"{a}{n}.weight", (v.hidden_size, v.hidden_size)).numpy().T
+                           for n in ("query", "key", "value")], axis=1)
+    if not np.array_equal(trees["vit"]["block_5"]["attn"]["qkv"]["kernel"], want):
+        fail("the imported fused qkv of ViT block 5 differs from its draws")
+    want = draw(sh, "feature_extractor.conv_layers.3.conv.weight",
+                (h.conv_dim[3], h.conv_dim[2], h.conv_kernel[3])).numpy().transpose(2, 1, 0)
+    if not np.array_equal(trees["hubert"]["feature_extractor"]["conv_3"]["kernel"], want):
+        fail("the imported HuBERT conv_3 kernel differs from its draw")
+    pc, k = "encoder.pos_conv_embed.conv.parametrizations.weight.", h.num_conv_pos_embeddings
+    g = draw(sh, pc + "original0", (1, 1, k), offset=1.0).double()
+    vv = draw(sh, pc + "original1",
+              (h.hidden_size, h.hidden_size // h.num_conv_pos_embedding_groups, k)).double()
+    w64 = (g * vv / vv.pow(2).sum(dim=(0, 1), keepdim=True).sqrt()).numpy().transpose(2, 1, 0)
+    got = trees["hubert"]["pos_conv_embed"]["conv"]["kernel"]
+    rel = float(np.abs(got - w64).max() / np.abs(w64).max())
+    if not rel < 1e-6:
+        fail(f"the positional conv's weight is {rel:.3g} off g v / |v| in float64")
+    for i in range(v.num_layers):
+        for name, seed in (("qkv", 0), ("proj", 1000 + i)):
+            dense = trees["vit"][f"block_{i}"]["attn"][name]
+            lim = np.sqrt(6.0 / v.hidden_size)
+            a_want = np.random.default_rng(seed).uniform(-lim, lim, (v.hidden_size, v.lora_rank))
+            if not (np.array_equal(dense["lora_a"], a_want.astype(np.float32))
+                    and not dense["lora_b"].any()):
+                fail(f"block {i} {name}: the fresh LoRA factors differ from default_rng({seed})")
+    print(f"  imported tensors held to their seeds: ViT block 5's fused qkv and HuBERT's conv_3 "
+          f"bit-equal to the transposed draws; the positional conv's weight {rel:.3g} (relative) "
+          f"from g v / |v| in float64; the {2 * v.num_layers} fresh LoRA A factors bit-equal to "
+          f"numpy default_rng draws, every B zero", flush=True)
+
+
+def _held(start, want, what):
+    if start.keys() != want.keys():
+        fail(f"{what}: the trainer's parameters are not the importer's: "
+             f"{sorted(start.keys() ^ want.keys())[:5]}")
+    differ = [k for k in want if not torch.equal(start[k], want[k].cpu())]
+    if differ:
+        fail(f"{what}: the model before its first update differs from the importer's "
+             f"state_dict at {differ[:5]}")
+
+
+def pretrained_phase(root):
+    """Phase 18: the Trainer started from pretrained files, the infer and
+    viz commands, and the int8 serving mode, at full width
+    (perf_train_model_config(); perf_eval_model_config() for the
+    random-init infer), on phase 17's files on disk under ``root``.
+    Returns the summary and the launch counts of its six paths."""
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.cli import infer as infer_cli
+    from triad_tpu_torch.cli import train as train_cli
+    from triad_tpu_torch.cli import viz as viz_cli
+    from triad_tpu_torch.config import perf_eval_model_config, perf_train_model_config
+    from triad_tpu_torch.models import hf_import
+    from triad_tpu_torch.models.convert import flax_to_torch
+    from triad_tpu_torch.models.multimodal import TriadModel
+    from triad_tpu_torch.models.reference_import import load_reference_checkpoint
+    from triad_tpu_torch.ops import quant
+    from triad_tpu_torch.tools import hf_layout
+
+    cfg = perf_train_model_config()
+    out, launches = {"files": {}}, {}
+    wdir = os.path.join(root, "weights")
+    os.makedirs(wdir)
+    paths = {"hubert": os.path.join(wdir, "hubert-base-ls960"),
+             "text": os.path.join(wdir, "distilbert-base-uncased"),
+             "vit": os.path.join(wdir, "dinov2_vitb14_reg4_pretrain.pth"),
+             "reference": os.path.join(wdir, "checkpoint_epoch3_step1200.pt")}
+    writers = {
+        "hubert": lambda p: hf_layout.write_snapshot(p, "hubert", cfg.hubert,
+                                                     PRETRAINED_SEEDS["hubert"], fmt="sharded",
+                                                     legacy_weight_norm=True),
+        "text": lambda p: hf_layout.write_snapshot(p, "distilbert", cfg.text,
+                                                   PRETRAINED_SEEDS["text"], fmt="bin", task=True),
+        "vit": lambda p: hf_layout.write_hub_dinov2(p, cfg.vit, PRETRAINED_SEEDS["vit"],
+                                                    wrap="teacher"),
+        "reference": lambda p: hf_layout.write_reference_checkpoint(p, cfg,
+                                                                    PRETRAINED_SEEDS["reference"]),
+    }
+    importers = {"hubert": hf_import.load_hubert_snapshot,
+                 "text": hf_import.load_distilbert_snapshot,
+                 "vit": hf_import.load_dinov2_snapshot, "reference": load_reference_checkpoint}
+    kinds = {"hubert": "HF snapshot, 2 safetensors shards, weight_g / weight_v",
+             "text": "HF snapshot, pytorch_model.bin of DistilBertForMaskedLM",
+             "vit": "torch.hub .pth under teacher / backbone.",
+             "reference": "reference .pt, _orig_mod., peft DINOv2 with LoRA"}
+    trees = {}
+    for name, path in paths.items():
+        t0 = time.perf_counter()
+        nbytes = writers[name](path)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        trees[name] = importers[name](path, cfg)
+        import_s = time.perf_counter() - t0
+        out["files"][name] = {"kind": kinds[name], "bytes": nbytes, "write_s": write_s,
+                              "import_s": import_s}
+        print(f"  {name}: {kinds[name]}: {nbytes} bytes written in {write_s:.3f} s, imported "
+              f"in {import_s:.3f} s (host)", flush=True)
+    _weight_checks(cfg, trees)
+    del trees
+    jpg, mp4, caption = _media(root)
+
+    cfg_path = os.path.join(root, "trainer.json")
+    run_p, run_r = os.path.join(root, "run_pretrained"), os.path.join(root, "run_reference")
+
+    # -- the Trainer from the per-backbone files --------------------------
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with _StartState() as start:
+        trainer = train_cli.main(
+            ["--config", cfg_path, "--steps", str(PRETRAINED_STEPS), "--output-dir", run_p,
+             "--force-new", "--set", *PRETRAINED_SET, f"pretrained.hubert={paths['hubert']}",
+             f"pretrained.text={paths['text']}", f"pretrained.vit={paths['vit']}"])
+    out["pretrained_run_s"] = time.perf_counter() - t0
+    out["pretrained_startup_s"] = start.startup_s
+    launches["pretrained_trainer"] = dict(kernels.LAUNCHES)
+    trainer.ckpt.close()
+    _check_launches(launches["pretrained_trainer"], JOINT_KERNELS, "pretrained trainer")
+    want = hf_import.init_params_from_pretrained(
+        trainer.config.model, torch.Generator(device="cuda").manual_seed(trainer.config.train.seed),
+        hubert_path=paths["hubert"], text_path=paths["text"], vit_path=paths["vit"])
+    _held(start.state, want, "the run from the per-backbone files")
+    del want
+    lines = _run_metrics(run_p)
+    losses = [m for m in lines if "train_loss" in m]
+    phases = sorted({m["training_phase"] for m in losses})
+    if phases != ["av_focus", "full_joint"] or not all(np.isfinite(m["train_loss"])
+                                                       for m in losses):
+        fail(f"the pretrained run logged {[(m['training_phase'], m['train_loss']) for m in losses]}")
+    moved = {}
+    for name, p in trainer.model.named_parameters():
+        group = name.split(".")[0]
+        if group == "visual_backbone":
+            group += "_lora" if "lora_" in name else "_base"
+        elif group not in ("audio_backbone", "text_backbone"):
+            group = "heads_temperature"
+        moved.setdefault(group, [0, 0])
+        moved[group][0] += not torch.equal(p.detach().cpu(), start.state[name])
+        moved[group][1] += 1
+    if moved["visual_backbone_base"][0] or not all(
+            m[0] for g, m in moved.items() if g != "visual_backbone_base"):
+        fail(f"moved tensors by group after the pretrained run: {moved}")
+    out["pretrained_moved"] = moved
+    final = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    tokenizer, model_cfg, data_cfg = trainer.tokenizer, trainer.config.model, trainer.config.data
+    del trainer, start
+    torch.cuda.empty_cache()
+    print(f"  cli.train from the three files ({out['pretrained_run_s']:.1f} s, "
+          f"{out['pretrained_startup_s']:.2f} s to its first step): the model before the first "
+          f"update bit-equal to init_params_from_pretrained's state_dict; {len(losses)} finite "
+          f"losses over {phases}; tensors moved by group: "
+          f"{ {g: f'{m[0]} of {m[1]}' for g, m in moved.items()} }", flush=True)
+
+    # -- the Trainer from the reference checkpoint ----------------------------
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with _StartState() as start:
+        trainer = train_cli.main(
+            ["--config", cfg_path, "--steps", "1", "--output-dir", run_r, "--force-new", "--set",
+             *PRETRAINED_SET, "train.num_epochs=1", "train.av_focus_epochs=0",
+             f"pretrained.reference_checkpoint={paths['reference']}"])
+    out["reference_run_s"] = time.perf_counter() - t0
+    out["reference_startup_s"] = start.startup_s
+    launches["reference_trainer"] = dict(kernels.LAUNCHES)
+    trainer.ckpt.close()
+    _check_launches(launches["reference_trainer"], JOINT_KERNELS, "reference trainer")
+    _held(start.state, flax_to_torch(load_reference_checkpoint(paths["reference"], cfg), cfg),
+          "the run from the reference checkpoint")
+    file = {k[len("_orig_mod."):]: v for k, v in torch.load(
+        paths["reference"], map_location="cpu", weights_only=False)["model_state_dict"].items()}
+    pairs = [("temperature", "temperature")]
+    for m in ("audio", "text", "visual"):
+        for leaf in ("projection1.weight", "projection1.bias", "layer_norm.weight",
+                     "layer_norm.bias", "projection2.weight", "projection2.bias"):
+            pairs.append((f"{m}_projection.{leaf}", f"{m}_embedder.{leaf}"))
+    for i in range(cfg.vit.num_layers):
+        for layer in ("qkv", "proj"):
+            for ours, theirs in (("lora_a", "lora_A"), ("lora_b", "lora_B")):
+                pairs.append((f"visual_backbone.blocks.{i}.attn.{layer}.{ours}",
+                              f"visual_embedder.model.base_model.model.blocks.{i}.attn.{layer}."
+                              f"{theirs}.default.weight"))
+    differ = [o for o, t in pairs if not torch.equal(start.state[o], file[t])]
+    if differ:
+        fail(f"the reference run's start differs from the file's tensors at {differ[:5]}")
+    losses_r = [m["train_loss"] for m in _run_metrics(run_r) if "train_loss" in m]
+    if not losses_r or not all(np.isfinite(losses_r)):
+        fail(f"the reference run logged {losses_r}")
+    del trainer, start, file
+    torch.cuda.empty_cache()
+    print(f"  cli.train from the reference checkpoint ({out['reference_run_s']:.1f} s, "
+          f"{out['reference_startup_s']:.2f} s to its first step): its start bit-equal to "
+          f"load_reference_checkpoint's, its {len(pairs)} head, temperature and LoRA tensors "
+          f"equal to the file's; loss {losses_r}", flush=True)
+
+    # -- cli.infer on the run directory, then the random init ---------------
+    kernels.reset_launches()
+    npz_run = os.path.join(root, "infer_run.npz")
+    t0 = time.perf_counter()
+    summary = infer_cli.main(["--run-dir", run_p, "--image", jpg, "--media", mp4, "--text",
+                              caption, "--out", os.path.join(root, "infer_run.json"),
+                              "--features-npz", npz_run])
+    out["infer_run_dir_s"] = time.perf_counter() - t0
+    launches["infer"] = dict(kernels.LAUNCHES)
+    _check_launches(launches["infer"], RUN_DIR_KERNELS, "infer --run-dir")
+    sims = {"vis_text_sim_matrix", "vis_audio_sim_matrix", "text_audio_sim_matrix"}
+    if not sims <= set(summary):
+        fail(f"cli.infer's summary lacks {sims - set(summary)}")
+    got = dict(np.load(npz_run))
+    from triad_tpu_torch.data.audio import extract_audio, pad_or_trim
+    from triad_tpu_torch.data.images import clean_image, load_image
+
+    ref = TriadModel(dataclasses.replace(model_cfg, compute_dtype="float32"), device="cpu")
+    ref.load_state_dict(final)
+    ref.eval()
+    ids, mask = tokenizer.encode_batch([caption], max_length=data_cfg.max_text_tokens,
+                                       pad_to=data_cfg.max_text_tokens)
+    with torch.inference_mode():
+        want = ref.inference_forward(
+            torch.from_numpy(clean_image(load_image(jpg, data_cfg.image_size))[None]),
+            torch.from_numpy(pad_or_trim(extract_audio(mp4), data_cfg.audio_num_samples)[None]),
+            torch.from_numpy(ids).long(), torch.from_numpy(mask.astype(np.float32)))
+    del ref, final
+    cos_run = {}
+    for key in ("visual_feats", "audio_feats", "text_feats"):
+        c = _cos_rows(got[key], want[key].numpy())
+        cos_run[key] = float(c.min())
+        if not c.min() > 0.99:
+            fail(f"cli.infer's {key} disagree with the fp32 CPU forward: min cosine {c.min()}")
+    out["infer_run_dir_min_cosine"] = cos_run
+    print(f"  cli.infer --run-dir ({out['infer_run_dir_s']:.1f} s): "
+          f"{ {k: v['shape'] for k, v in summary.items()} }; min token cosine against the fp32 "
+          f"CPU forward of the run's weights {cos_run}", flush=True)
+
+    eval_cfg = os.path.join(root, "perf_eval.json")
+    with open(eval_cfg, "w") as f:
+        json.dump({"model": dataclasses.asdict(perf_eval_model_config()),
+                   "data": {"audio_num_samples": AUDIO, "max_text_tokens": TRAIN_TXT}}, f)
+    # Every Dense / LoRALinear forward is one product; under --int8 each
+    # must be one int8_matmul, and the bf16 run must make none.
+    from triad_tpu_torch.models.layers import Dense, LoRALinear
+
+    products = {}
+
+    def count_dense(module, args, output):
+        if isinstance(module, (Dense, LoRALinear)):
+            products["dense"] += 1
+
+    def count_int8(*args):
+        products["int8"] += 1
+        return int8_matmul(*args)
+
+    int8_matmul = quant.int8_matmul
+    hook = torch.nn.modules.module.register_module_forward_hook(count_dense)
+    quant.int8_matmul = count_int8
+    feats, out["infer_random_init_s"], out["int8_products"] = {}, {}, {}
+    try:
+        for mode, path in (("bf16", "infer_random"), ("int8", "infer_int8")):
+            products.update(dense=0, int8=0)
+            npz = os.path.join(root, f"infer_{mode}.npz")
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            infer_cli.main(["--random-init", "--config", eval_cfg, "--image", jpg, "--media", mp4,
+                            "--text", caption, "--features-npz", npz]
+                           + (["--int8"] if mode == "int8" else []))
+            out["infer_random_init_s"][mode] = time.perf_counter() - t0
+            launches[path] = dict(kernels.LAUNCHES)
+            _check_launches(launches[path], RANDOM_INIT_KERNELS, f"infer --random-init ({mode})")
+            out["int8_products"][mode] = dict(products)
+            feats[mode] = dict(np.load(npz))
+    finally:
+        quant.int8_matmul = int8_matmul
+        hook.remove()
+    dense_bf16, dense_q = out["int8_products"]["bf16"], out["int8_products"]["int8"]
+    if (dense_bf16["int8"] or not dense_q["dense"] or dense_q["int8"] != dense_q["dense"]
+            or dense_q["dense"] != dense_bf16["dense"]):
+        fail(f"int8 products against Dense / LoRALinear forwards: {out['int8_products']}")
+    cos_q = {}
+    for key in ("visual_feats", "audio_feats", "text_feats"):
+        a, b = feats["bf16"][key].astype(np.float64).ravel(), feats["int8"][key].astype(
+            np.float64).ravel()
+        cos_q[key] = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+        if not 0.995 < cos_q[key] < 1 - 1e-6:
+            fail(f"the int8 {key} are at cosine {cos_q[key]} to the bf16 ones")
+    out["int8_cosine"] = cos_q
+    print(f"  cli.infer --random-init on perf_eval_model_config(), bf16 and --int8 "
+          f"({out['infer_random_init_s']['bf16']:.1f} s, {out['infer_random_init_s']['int8']:.1f}"
+          f" s): {dense_q['int8']} int8 products under --int8, one for each of its "
+          f"{dense_q['dense']} Dense / LoRALinear forwards, none in the bf16 run; the int8 "
+          f"embeddings' cosine to the bf16 ones {cos_q}", flush=True)
+
+    # -- the int8 product: _int_mm against its plain version, and its time ---
+    g = torch.Generator().manual_seed(43)
+    for m, k, n in ((261, 768, 2304), (17, 512, 768), INT8_SHAPE):
+        a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+        b = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+        if not torch.equal(quant.int8_matmul(a.cuda(), b.cuda()).cpu(),
+                           quant.int8_matmul_plain(a, b)):
+            fail(f"_int_mm's int32 sums differ from the plain product at ({m}, {k}, {n})")
+    m, k, n = INT8_SHAPE
+    a8, b8 = a.cuda(), b.cuda()
+    x16 = randn((m, k), 44)
+    w16 = randn((n, k), 45, 0.02)
+    xf, wf = x16.float(), w16.float()
+    fns = [lambda: quant.int8_matmul(a8, b8), lambda: torch.mm(x16, w16.t()),
+           lambda: quant.int8_dense(x16, wf), lambda: torch.nn.functional.linear(x16, w16),
+           lambda: quant.quantize_weight(wf), lambda: quant.quantize_rows(xf)]
+    sync = time_fns(fns)
+    dev = [device_ms(fn, s_ms) for fn, s_ms in zip(fns, sync)]
+    ops = 2 * m * k * n
+    bound8 = cost(ops, m * k + n * k + 4 * m * n, peak=1979e12)
+    bound16 = cost(ops, 2 * (m * k + n * k + m * n))
+    out["int8_gemm"] = {"shape": [m, k, n], "int_mm_ms": sync[0], "int_mm_device_ms": dev[0],
+                        "bf16_mm_ms": sync[1], "bf16_mm_device_ms": dev[1],
+                        "int8_dense_ms": sync[2], "int8_dense_device_ms": dev[2],
+                        "bf16_linear_ms": sync[3], "bf16_linear_device_ms": dev[3],
+                        "quantize_weight_device_ms": dev[4], "quantize_rows_device_ms": dev[5],
+                        "int_mm_bound_ms": bound8[0], "int_mm_bound_by": bound8[1],
+                        "bf16_bound_ms": bound16[0], "bf16_bound_by": bound16[1]}
+    del a8, b8, x16, w16, xf, wf
+    print(f"  _int_mm equals the plain int32 product at (261, 768, 2304), (17, 512, 768) and "
+          f"{INT8_SHAPE}; at {INT8_SHAPE} (sync / device ms): _int_mm {sync[0]:.4f} / "
+          f"{dev[0]:.4f} (bound {bound8[0]:.4f}, {bound8[1]}, int8 peak) against the bf16 "
+          f"product {sync[1]:.4f} / {dev[1]:.4f} (bound {bound16[0]:.4f}); the whole int8_dense "
+          f"(quantize x and W, _int_mm, scale) {sync[2]:.4f} / {dev[2]:.4f} against bf16 "
+          f"F.linear {sync[3]:.4f} / {dev[3]:.4f}; of it, device ms: quantize_weight (fp32 W) "
+          f"{dev[4]:.4f}, quantize_rows (fp32 x) {dev[5]:.4f}", flush=True)
+
+    # -- cli.viz on the run directory ----------------------------------------
+    import cv2
+
+    kernels.reset_launches()
+    vdir = os.path.join(root, "viz")
+    t0 = time.perf_counter()
+    viz_cli.main(["--run-dir", run_p, "--image", jpg, "--text", caption, "--video", mp4,
+                  "--out-dir", vdir])
+    out["viz_s"] = time.perf_counter() - t0
+    launches["viz"] = dict(kernels.LAUNCHES)
+    _check_launches(launches["viz"], RUN_DIR_KERNELS, "viz")
+    for name in ("audio_attention.png", "text_attention.png"):
+        if not os.path.getsize(os.path.join(vdir, name)):
+            fail(f"cli.viz wrote an empty {name}")
+    cap = cv2.VideoCapture(os.path.join(vdir, "audio_attention.mp4"))
+    frames = 0
+    while frames < 1000 and cap.read()[0]:
+        frames += 1
+    cap.release()
+    if not frames:
+        fail("cv2 reads no frame of cli.viz's audio_attention.mp4")
+    out["viz_video_frames"] = frames
+    print(f"  cli.viz --run-dir with --image / --text and --video ({out['viz_s']:.1f} s): both "
+          f"PNGs written, cv2 reads {frames} frames of audio_attention.mp4", flush=True)
+    return out, launches
 
 
 def _tensors(tree):
@@ -2917,18 +3398,33 @@ def main():
     data, fed_launches = data_phase(joint_ms)
     torch.cuda.empty_cache()
 
-    phase(f"17. the Trainer through cli.train: the four-phase curriculum at full width from files "
-          f"on disk, B = {TRAIN_B}, killed mid-epoch and resumed bit for bit; cli.eval")
-    trainer, trainer_launches, trainer_eval_launches = trainer_phase()
-    torch.cuda.empty_cache()
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="triad_trainer_")
+    try:
+        phase(f"17. the Trainer through cli.train: the four-phase curriculum at full width from "
+              f"files on disk, B = {TRAIN_B}, killed mid-epoch and resumed bit for bit; cli.eval")
+        trainer, trainer_launches, trainer_eval_launches = trainer_phase(root)
+        torch.cuda.empty_cache()
+
+        phase(f"18. the Trainer from pretrained files (HF snapshots, a torch.hub DINOv2 file, a "
+              f"reference checkpoint) at full width, B = {TRAIN_B}; cli.infer (bf16 and --int8) "
+              f"and cli.viz")
+        pretrained, pretrained_launches = pretrained_phase(root)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     by_path = {"serve": serve_launches, "train_tv": tv_launches, "train_joint": joint_launches,
                "train_default": default_launches, "train_knobs": knobs_launches,
                "retrieval": retrieval_launches, "retrieval_conv_act": conv_act_launches,
                "flash_eval": flash_eval_launches, "train_tv_flash": tv_flash_launches,
                "long_clips": long_clip_launches, "train_joint_fed": fed_launches,
-               "trainer": trainer_launches, "trainer_eval_legs": trainer_eval_launches}
+               "trainer": trainer_launches, "trainer_eval_legs": trainer_eval_launches,
+               **pretrained_launches}
     kernels_json = [_kernel_entry(name, results, by_path) for name in KERNELS]
+    phase("done")
     # every shape of phase 3, too long for the line the kernels entries take
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "kernel_cases.json"), "w") as f:
@@ -2938,7 +3434,8 @@ def main():
                       "default_peak_bytes": default_peak, "knobs_step_ms": knobs_ms,
                       "knobs_peak_bytes": knobs_peak, "layouts_agree": agree,
                       "retrieval": retrieval, "flash_eval": flash_eval,
-                      "tv_flash_step_ms": tv_flash_ms, "data": data, "trainer": trainer}),
+                      "tv_flash_step_ms": tv_flash_ms, "data": data, "trainer": trainer,
+                      "pretrained": pretrained}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

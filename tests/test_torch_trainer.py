@@ -2,7 +2,10 @@
 size (hidden 32, 2 layers per encoder, 28 px images, 1600 audio samples,
 B = 2): the curriculum against the JAX Trainer's, a short run's
 artifacts, an exact mid-epoch resume, the routes that raise, and one
-full_joint epoch against the JAX Trainer on the same weights and data.
+full_joint epoch against the JAX Trainer on the same weights and data;
+the pretrained start: from per-backbone files, and from one reference
+checkpoint beside the JAX Trainer (bit-equal start, first epoch's losses
+at the tolerance below).
 
 Tolerances of the JAX comparison (fp32 on both sides, every dropout rate
 0, the JAX Pallas kernels as the JAX Trainer runs them on the CPU, the
@@ -159,7 +162,7 @@ def test_mid_epoch_resume_is_bit_equal(tmp_path):
     assert after and all(_train_losses(tmp_path / "a")[s] == v for s, v in after.items())
 
 
-@pytest.mark.parametrize("route", ["mesh", "multi_process", "pretrained"])
+@pytest.mark.parametrize("route", ["mesh", "multi_process"])
 def test_not_ported_routes_raise(tmp_path, monkeypatch, route):
     from triad_tpu_torch.train.trainer import Trainer
 
@@ -167,10 +170,6 @@ def test_not_ported_routes_raise(tmp_path, monkeypatch, route):
     if route == "mesh":
         cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, num_devices=2))
         names = "triad_tpu/parallel"
-    elif route == "pretrained":
-        cfg = dataclasses.replace(cfg, pretrained=dataclasses.replace(
-            cfg.pretrained, hubert="/models/hubert"))
-        names = "hf_import.py:init_params_from_pretrained"
     else:
         monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
         monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
@@ -274,3 +273,79 @@ def test_matches_jax_trainer(tmp_path):
     for k, v in ref_final.items():
         np.testing.assert_allclose(final[k], v, rtol=0, atol=2 * 2 * LR_MAX + 1e-6,
                                    err_msg=str(k))
+
+
+def _pretrained_files(tmp_path, cfg):
+    """Per-backbone files written from seeds in their published layouts:
+    HuBERT as a 2-shard safetensors snapshot with the legacy weight-norm
+    names, DistilBERT as a task model's pytorch_model.bin, DINOv2 as a
+    torch.hub file under teacher / backbone."""
+    from triad_tpu_torch.tools import hf_layout
+
+    paths = {"hubert": str(tmp_path / "hubert"), "text": str(tmp_path / "distilbert"),
+             "vit": str(tmp_path / "dinov2_vitb14_reg4_pretrain.pth")}
+    hf_layout.write_snapshot(paths["hubert"], "hubert", cfg.hubert, 11, fmt="sharded",
+                             legacy_weight_norm=True)
+    hf_layout.write_snapshot(paths["text"], "distilbert", cfg.text, 12, fmt="bin", task=True)
+    hf_layout.write_hub_dinov2(paths["vit"], cfg.vit, 13, wrap="teacher")
+    return paths
+
+
+def test_trainer_from_snapshots_carries_the_backbones(tmp_path, capsys):
+    """A Trainer whose config names the three files starts from the
+    importer's state_dict exactly: the backbones as imported, the heads
+    and temperature the seeded fresh init; it logs what it loaded."""
+    from triad_tpu_torch.models.hf_import import init_params_from_pretrained
+    from triad_tpu_torch.train.trainer import Trainer
+
+    cfg = port_config(tiny_config(tmp_path))
+    paths = _pretrained_files(tmp_path, cfg.model)
+    cfg = dataclasses.replace(cfg, pretrained=dataclasses.replace(cfg.pretrained, **paths))
+    trainer = Trainer(cfg, force_new_training=True, device="cpu")
+    assert "Loaded pretrained weights: hubert=" in capsys.readouterr().out
+    want = init_params_from_pretrained(cfg.model, torch.Generator().manual_seed(cfg.train.seed),
+                                       hubert_path=paths["hubert"], text_path=paths["text"],
+                                       vit_path=paths["vit"])
+    got = trainer.model.state_dict()
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+    assert not trainer.model.visual_backbone.blocks[0].attn.qkv.weight.requires_grad
+    trainer.train()
+    assert all(np.isfinite(v) for v in _train_losses(cfg.train.output_dir).values())
+
+
+def test_reference_checkpoint_start_matches_jax_trainer(tmp_path):
+    """The port's and the JAX Trainer built from one reference checkpoint
+    (every parameter in it) start bit-equal, and their first epoch's
+    logged losses agree at rtol 1e-4, atol 1e-5 (as test_matches_jax_trainer)."""
+    import jax
+
+    from triad_tpu.train.trainer import Trainer as JaxTrainer
+    from triad_tpu_torch.models.convert import _flatten, torch_to_flax
+    from triad_tpu_torch.tools.hf_layout import write_reference_checkpoint
+    from triad_tpu_torch.train.trainer import Trainer
+
+    jcfg = tiny_config(tmp_path)
+    jcfg = dataclasses.replace(jcfg, model=_parity_model_config(), train=dataclasses.replace(
+        jcfg.train, steps_per_epoch=2, output_dir=str(tmp_path / "jax")))
+    ckpt = str(tmp_path / "checkpoint_epoch3_step1200.pt")
+    write_reference_checkpoint(ckpt, port_config(jcfg).model, seed=21)
+    jcfg = dataclasses.replace(jcfg, pretrained=dataclasses.replace(
+        jcfg.pretrained, reference_checkpoint=ckpt))
+    pcfg = port_config(jcfg, output_dir=str(tmp_path / "port"))
+    port = Trainer(pcfg, force_new_training=True, device="cpu")
+    ref = JaxTrainer(jcfg, force_new_training=True)
+    start = dict(_flatten(torch_to_flax(port.model.state_dict())))
+    ref_start = dict(_flatten(jax.tree.map(np.asarray, ref.state.params)))
+    assert start.keys() == ref_start.keys()
+    for k, v in ref_start.items():
+        assert np.array_equal(start[k], v), k
+    port.train()
+    ref.train()
+    got, want = _metrics(tmp_path / "port"), _metrics(tmp_path / "jax")
+    for key in ("train_loss", "val_train_loss"):
+        g = [m[key] for m in got if key in m]
+        w = [m[key] for m in want if key in m]
+        assert len(g) == len(w) > 0, key
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5, err_msg=key)

@@ -62,6 +62,14 @@ def _to_flax_layout(leaf: str, a: np.ndarray) -> np.ndarray:
 def flax_to_torch(params: Any, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """Flax param tree (nested dicts of arrays) -> TriadModel state_dict
     (fp32 CPU tensors), checked against the model ``cfg`` describes."""
+    out = tree_to_state(params)
+    _check_same(TriadModel(cfg, device="meta").state_dict(), out)
+    return out
+
+
+def tree_to_state(params: Any) -> Dict[str, torch.Tensor]:
+    """A Flax param tree, or a part of one under its top-level keys, ->
+    state_dict entries (fp32 CPU tensors), unchecked."""
     out = {}
     for path, value in _flatten(params):
         parts = []
@@ -72,7 +80,6 @@ def flax_to_torch(params: Any, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
         parts.append({"kernel": "weight", "scale": "weight"}.get(leaf, leaf))
         a = _to_torch_layout(leaf, np.asarray(value, dtype=np.float32))
         out[".".join(parts)] = torch.from_numpy(a.copy(order="C"))
-    _check_same(TriadModel(cfg, device="meta").state_dict(), out)
     return out
 
 

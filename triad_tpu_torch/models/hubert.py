@@ -59,6 +59,7 @@ from triad_tpu_torch.models.layers import (
     mlp_forward,
     not_ported,
 )
+from triad_tpu_torch.models.quantize import int8_active
 from triad_tpu_torch.ops.attention import HEAD_DIM
 from triad_tpu_torch.ops.dropout import HostSeeds
 from triad_tpu_torch.ops.frontend import frontend_vjp
@@ -213,6 +214,15 @@ class HubertSelfAttention(nn.Module):
         train = generator is not None
         rate = c.attention_dropout if train else 0.0
         if impl in MERGED_IMPLS:
+            if int8_active():
+                # The merged qkv product below takes raw weights: the int8
+                # mode would silently run the layer's largest products in
+                # float. Raise instead (hubert.py:576-587).
+                raise ValueError(
+                    "hubert attention_impl=packed_merged bypasses the "
+                    "int8 Dense interception (raw qkv matmul); use the "
+                    "xla impls for int8 serving (models/quantize.py)"
+                )
             # One (C, 3C) product (hubert.py:596-619); gradients reach
             # q_proj, k_proj and v_proj through the concatenation.
             w = torch.cat([self.q_proj.weight, self.k_proj.weight, self.v_proj.weight])

@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from triad_tpu_torch.models.quantize import int8_active
 from triad_tpu_torch.ops.attention import (
     attention_eval,
     attention_eval_merged,
@@ -25,6 +26,7 @@ from triad_tpu_torch.ops.attention import (
     attention_train_strided,
     masked_attention,
 )
+from triad_tpu_torch.ops import quant
 from triad_tpu_torch.ops.flash_attention import flash_attention
 from triad_tpu_torch.ops.mlp import FusedMlp, gelu
 
@@ -40,7 +42,9 @@ def not_ported(option: str, reference: str):
 
 
 class Dense(nn.Linear):
-    """nn.Dense: y = x W^T + b, computed in ``dtype`` (params cast)."""
+    """nn.Dense: y = x W^T + b, computed in ``dtype`` (params cast); in
+    the int8 serving mode (``models/quantize.py``) the int8 product, cast
+    to the input's dtype."""
 
     def __init__(self, in_features, out_features, bias=True, dtype=torch.float32,
                  param_dtype=torch.float32, device=None):
@@ -49,6 +53,8 @@ class Dense(nn.Linear):
         self.compute_dtype = dtype
 
     def forward(self, x):
+        if int8_active():
+            return quant.int8_dense(x, self.weight, self.bias).to(x.dtype)
         d = self.compute_dtype
         b = None if self.bias is None else self.bias.to(d)
         return F.linear(x.to(d), self.weight.to(d), b)
@@ -75,7 +81,9 @@ class LoRALinear(nn.Module):
 
     "folded" (layers.py:497-500): W + s * B A is formed in the param
     dtype, cast to ``dtype``, one product. "separate": x W^T + s (x A^T)
-    B^T in ``dtype``."""
+    B^T in ``dtype``. In the int8 serving mode either form runs the int8
+    product of W + s B A, folded in fp32, cast to the input's dtype
+    (quantize.py:56-66 of the JAX package)."""
 
     def __init__(self, in_features, out_features, rank=0, alpha=16.0, bias=True,
                  dtype=torch.float32, param_dtype=torch.float32,
@@ -94,6 +102,12 @@ class LoRALinear(nn.Module):
         self.lora_compute = lora_compute
 
     def forward(self, x):
+        if int8_active():
+            w = self.weight.to(torch.float32)
+            if self.rank > 0:
+                w = w + (self.alpha / self.rank) * (self.lora_b.to(torch.float32)
+                                                    @ self.lora_a.to(torch.float32))
+            return quant.int8_dense(x, w, self.bias).to(x.dtype)
         d = self.compute_dtype
         x = x.to(d)
         if self.rank > 0 and self.lora_compute == "folded":

@@ -23,8 +23,10 @@ departures from the JAX Trainer, both for exact resume across processes:
 the segment hop at an epoch's start draws from ``random.Random`` keyed on
 (seed, epoch), not from the process's global ``random``; and the
 checkpoint holds the accumulated gradients (``train/checkpoint.py``).
-The multi-device mesh, multi-process runs and pretrained weights raise
-``not_ported``, naming the JAX route.
+The multi-device mesh and multi-process runs raise ``not_ported``,
+naming the JAX route. ``config.pretrained`` starts the model from HF
+snapshots, a torch.hub DINOv2 file or a reference checkpoint
+(``models/hf_import.py:init_model_from_pretrained``).
 """
 
 from __future__ import annotations
@@ -106,11 +108,6 @@ def _check_routes(config: Config) -> None:
             f"a multi-process run (torch.distributed world size {dist.get_world_size()})",
             "parallel/distributed.py:process_shard, the per-process row-slices of each "
             "global batch (train/trainer.py:182, :470)")
-    if config.pretrained.any():
-        raise not_ported(
-            "config.pretrained (pretrained hubert / text / vit weights or a reference "
-            "checkpoint)",
-            "models/hf_import.py:init_params_from_pretrained (train/trainer.py:302-327)")
 
 
 class Trainer:
@@ -233,10 +230,32 @@ class Trainer:
         )
 
         # -- model / optimizer / steps ----------------------------------
-        self.model = init_triad_model(
-            config.model, torch.Generator(device=self.device).manual_seed(tc.seed),
-            device=self.device,
-        )
+        generator = torch.Generator(device=self.device).manual_seed(tc.seed)
+        if config.pretrained.any():
+            # Pretrained backbones from on-disk snapshots (the
+            # reference's startup fetches, model.py:29-30, 79-80, 218)
+            # or a full trained reference checkpoint; a checkpoint of this
+            # run, if any, is restored over them below.
+            from triad_tpu_torch.models.hf_import import init_model_from_pretrained
+
+            pre = config.pretrained
+            self.model = init_model_from_pretrained(
+                config.model, generator, self.device, hubert_path=pre.hubert,
+                text_path=pre.text, vit_path=pre.vit,
+                reference_checkpoint=pre.reference_checkpoint,
+            )
+            self.metrics.info(
+                "Loaded pretrained weights: "
+                + ", ".join(
+                    f"{k}={v}" for k, v in (
+                        ("hubert", pre.hubert), ("text", pre.text),
+                        ("vit", pre.vit),
+                        ("reference", pre.reference_checkpoint),
+                    ) if v
+                )
+            )
+        else:
+            self.model = init_triad_model(config.model, generator, device=self.device)
         self.steps_per_epoch = tc.steps_per_epoch or max(
             len(self.av_loader), len(self.tv_loader)
         )
