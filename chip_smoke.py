@@ -7,9 +7,10 @@ text-visual, joint and audio-visual steps of perf_train_model_config(),
 the joint step of configs/default.yaml and the joint step of the
 mqkv + vitmq + loss=pallas set for a few steps each, runs the
 1000-way retrieval eval on the head-pair attention and the fused frontend,
-feeds the joint step from files on disk through the port's data layer, and
+feeds the joint step from files on disk through the port's data layer,
 trains the whole curriculum through the Trainer's train / eval commands,
-killed mid-epoch and resumed bit for bit.
+killed mid-epoch and resumed bit for bit, and exports the serving bundle
+and serves it.
 
     python3 chip_smoke.py
 
@@ -178,6 +179,29 @@ Phases (any failure exits nonzero before the last line):
      --video: both PNGs, cv2 reads the attention mp4. Launch counts of
      each path (pretrained_trainer, reference_trainer, infer,
      infer_random, infer_int8, viz), each zeroed just before its run.
+ 19. the serving export (serve/export.py on torch.export) at full width,
+     configs/default.yaml's model (ModelConfig(), random weights from seed
+     0): cli.export --random-init for cpu and cuda (seconds by platform,
+     the bundle's bytes); cli.serve --bundle in a new process whose import
+     system refuses the port's models/ and kernels, ready seconds, /healthz,
+     embed audio (10 s), image (224^2) and text (128 token ids) at B = 1, 3
+     and 8 and /v1/score av and tv, held against the bundle's CPU programs
+     (B = 1; fp32, least token cosine 0.999) and the live ServingModel of
+     the same weights (every B; least token cosine 0.9995 audio, 0.99999
+     visual and text; its fused MLP forward launched 12 times an
+     encode_audio, nothing else), the scores against the live pair_scores;
+     each cuda program's calls all aten operators (or the batch's size
+     arithmetic) and the bundle's calls launching no kernel; ms per embed
+     call at B = 8, bundle against live (CUDA events, device time, the
+     profiler's kernel sum in chiprun_out/export_profile.txt); a 2-step
+     cli.train run of configs/default.yaml (full_joint, B = 22) on phase 17's
+     files exported with --run-dir, held to its restored model; cli.export
+     --run-dir of phase 17's run (explicit kernel knobs) exits non-zero with
+     resolve_xla_impls's message; cli.export --int8 --platforms cuda: one
+     aten._int_mm per Dense / LoRALinear forward in each program, the
+     embeddings at cosine in (0.995, 1 - 1e-6) to the bf16 bundle's. The
+     int8 and refused exports and the server run in processes of their own
+     beside the trained run's leg; the timings at B = 8 run alone.
 The port's kernels add in a fixed order (no atomics), so phase 8 trains
 the same weights every run (PERF.md) and phase 9 reads the same each run.
 Phase 3 also holds posconv dW at B = 96 and the activation at 768
@@ -196,9 +220,10 @@ fused (64, 261, 3, 12, 64) qkv tensor, the training attention at
 at conv_1's (64, 31999, 512), the train steps' batch.
 The line before the last is one JSON object with one entry per kernel
 (and the step times, phase 16's numbers under "data" and phase 17's under
-"trainer", phase 18's under "pretrained"): its launches in the paths that
-run it (phases 4, 6, 8, 10, 11, 12, 13, 14, 15, 16, 17 and 18, each counted
-from zero), and its error, times and bound at its main case of
+"trainer", phase 18's under "pretrained", phase 19's under "export"): its
+launches in the paths that run it (phases 4, 6, 8, 10, 11, 12, 13, 14, 15,
+16, 17, 18 and 19, each counted from zero), and its error, times and bound
+at its main case of
 phase 3 (the shape the train steps give it, else the first); every shape
 of phase 3 goes to chiprun_out/kernel_cases.json. The last line is
 {"ok": true, "device": {...}}.
@@ -3150,6 +3175,461 @@ def pretrained_phase(root):
     return out, launches
 
 
+EXPORT_B = (1, 3, 8)  # request batches served from the bundle
+EXPORT_TXT = 128  # configs/default.yaml's max_text_tokens: the bundle's text length
+EXPORT_STEPS = 2  # steps of the default-yaml run that leg 3 exports (its depth cut)
+# Least token cosine of the bundle's answers, by modality. To the live
+# model or a run's restored model on the card (the same bf16 weights: the
+# visual and text programs run the live model's ops, the audio one the
+# plain MLP where the live model runs the fused MLP kernel; on an H100
+# 80GB HBM3 1.0, 1.0 and 0.99994):
+EXPORT_SAME_PRECISION = {"audio": 0.9995, "visual": 0.99999, "text": 0.99999}
+# To the bundle's fp32 CPU programs (bf16 against fp32; 0.99993 to 0.99995
+# there):
+EXPORT_CPU_FP32 = {"audio": 0.999, "visual": 0.999, "text": 0.999}
+EXPORT_SET = [  # over configs/default.yaml: one full_joint epoch, every group unfrozen
+    "train.num_epochs=1", "train.av_focus_epochs=0", "train.tv_warmup_epochs=0",
+    "train.weighted_joint_epochs=0", f"train.vis_every={10 ** 9}",
+    f"train.save_every_steps={10 ** 9}", f"train.validation_frequency={10 ** 9}",
+    f"train.retrieval_subset_size={TRAINER_VAL_CLIPS}", "train.optim.gradient_accumulation_steps=1",
+    "train.optim.unfreeze_audio_step=0", "train.optim.unfreeze_text_step=0",
+    "train.optim.unfreeze_vit_step=0", "data.num_workers=4", 'data.worker_mode="thread"',
+    "data.device_augment=true"]
+# The server's process: its import system refuses the port's model code and
+# kernels (what it serves comes from the bundle's programs alone); SIGTERM
+# prints the port's modules it holds and ends it.
+SERVE_BUNDLE = """
+import signal, sys
+BLOCKED = ('triad_tpu_torch.models', 'triad_tpu_torch.kernels')
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith(BLOCKED):
+            raise ImportError('refused: ' + name)
+sys.meta_path.insert(0, Refuse())
+def stop(*_):
+    print('MODULES', sorted(m for m in sys.modules if m.startswith('triad_tpu_torch')), flush=True)
+    sys.exit(0)
+signal.signal(signal.SIGTERM, stop)
+from triad_tpu_torch.cli.serve import main
+main(['--bundle', sys.argv[1], '--port', '0'])
+"""
+
+
+def _export_cli(*args):
+    """cli.export in this process: (bundle path, seconds, seconds per
+    platform as export_bundle prints them)."""
+    import contextlib
+
+    from triad_tpu_torch.cli import export as export_cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        path = export_cli.main(list(args))
+    seconds = time.perf_counter() - t0
+    text = buf.getvalue()
+    per_platform = {m.group(1): float(m.group(2)) for m in
+                    re.finditer(r"exported the (\w+) programs \([^)]*\) in ([\d.]+) s", text)}
+    return str(path), seconds, per_platform
+
+
+def _bundle_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _export_requests(seed):
+    """Requests at each of EXPORT_B: 10 s clips, 224^2 images and
+    EXPORT_TXT token ids with a mask (the first caption padded after 40)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for b in EXPORT_B:
+        mask = np.ones((b, EXPORT_TXT), np.float32)
+        mask[0, 40:] = 0.0
+        out[b] = ((rng.standard_normal((b, AUDIO)) * 0.1).astype(np.float32),
+                  rng.standard_normal((b, 224, 224, 3)).astype(np.float32),
+                  rng.integers(1, 30_000, size=(b, EXPORT_TXT)).astype(np.int32), mask)
+    return out
+
+
+def _embeds(serving, audio, images, ids, mask):
+    return {"audio": serving.embed_audio(audio), "visual": serving.embed_visual(images),
+            "text": serving.embed_text_ids(ids, mask)}
+
+
+def _min_cosines(got, want, what, bounds):
+    """Least token cosines of two dicts of embeddings, each held to its
+    modality's bound in ``bounds``."""
+    out = {}
+    for key in got:
+        c = float(_cos_rows(got[key], want[key]).min())
+        out[key] = c
+        if not c >= bounds[key]:
+            fail(f"{what}: {key} tokens at min cosine {c}, under {bounds[key]}")
+    return out
+
+
+def _graph_ops(graph):
+    """Every call of an exported program's graph, by target: aten
+    operators by name, the symbolic batch's size arithmetic (Python's
+    operator functions on sizes) as 'size: ...', anything else (a call
+    into other Python code) as 'other: ...'."""
+    import operator
+    from collections import Counter
+
+    ops = Counter()
+    for node in graph.nodes:
+        if node.op != "call_function" or node.target is operator.getitem:
+            continue
+        t = node.target
+        if isinstance(t, torch._ops.OpOverload) and t.namespace == "aten":
+            ops[str(t)] += 1
+        elif getattr(t, "__module__", None) == "_operator":
+            ops[f"size: {t.__name__}"] += 1
+        else:
+            ops[f"other: {t}"] += 1
+    return ops
+
+
+class _BundleServer:
+    """cli.serve --bundle in a new process (SERVE_BUNDLE) on an ephemeral
+    port, started at construction; a thread notes when its first line
+    ("serving on ...") comes. Its stderr goes to
+    chiprun_out/serve_bundle_stderr.txt."""
+
+    def __init__(self, path):
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        self._err = open(os.path.join(ROOT, "chiprun_out", "serve_bundle_stderr.txt"), "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-c", SERVE_BUNDLE, path], cwd=ROOT,
+                                     stdout=subprocess.PIPE, stderr=self._err, text=True)
+        self.line, self.ready_s, self.modules, self._stopped = "", None, None, False
+        self._reader = threading.Thread(target=self._first_line, daemon=True)
+        self._reader.start()
+
+    def _first_line(self):
+        self.line = self.proc.stdout.readline()
+        self.ready_s = time.perf_counter() - self.t0
+
+    def answers(self, requests):
+        """/healthz, the embed routes at each batch of ``requests``, and
+        /v1/score av and tv at the largest; then the server is stopped.
+        Returns (answers, seconds to its first line, its port modules)."""
+        self._reader.join(timeout=600)
+        port = re.search(r"serving on 127\.0\.0\.1:(\d+) \(cuda\)", self.line)
+        if not port:
+            self.stop()
+            fail(f"cli.serve --bundle did not start: {self.line!r} (stderr in "
+                 f"chiprun_out/serve_bundle_stderr.txt)")
+        base = f"http://127.0.0.1:{port.group(1)}"
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if health.get("status") != "ok" or health.get("format") != "triad_tpu_torch.serve/1":
+            fail(f"/healthz of the bundle: {health}")
+        answers = {}
+        for b, (audio, images, ids, mask) in requests.items():
+            answers[b] = {
+                "audio": check(f"bundle B={b} audio", _post(
+                    base + "/v1/embed/audio", _npy(audio), "application/x-npy"), (b, 499, 512)),
+                "visual": check(f"bundle B={b} image", _post(
+                    base + "/v1/embed/image", _npy(images), "application/x-npy"), (b, 256, 512)),
+                "text": check(f"bundle B={b} text (ids)", _post(
+                    base + "/v1/embed/text", json.dumps({"ids": ids.tolist(),
+                                                         "mask": mask.tolist()}).encode(),
+                    "application/json")["tokens"], (b, EXPORT_TXT, 512)),
+            }
+        b = max(requests)
+        got = answers[b]
+        for direction, (qt, qm) in (("av", (got["audio"], np.ones((b, 499), np.float32))),
+                                    ("tv", (got["text"], requests[b][3]))):
+            body = {"query": {"tokens": qt.tolist(), "mask": qm.tolist()},
+                    "key": {"tokens": got["visual"].tolist(), "mask": np.ones((b, 256)).tolist()},
+                    "direction": direction}
+            answers[f"score_{direction}"] = check(f"bundle score ({direction})", _post(
+                base + "/v1/score", json.dumps(body).encode(), "application/json")["scores"],
+                (b, b))
+        modules = self.stop()
+        if modules is None:
+            fail(f"the bundle's server did not report its modules (rc {self.proc.returncode})")
+        if any(m.startswith(("triad_tpu_torch.models", "triad_tpu_torch.kernels"))
+               for m in modules):
+            fail(f"the bundle's server imported model code or kernels: {modules}")
+        return answers, self.ready_s, modules
+
+    def stop(self):
+        """SIGTERM: the process prints the port's modules it holds and
+        ends (killed if it has not within 120 s). Returns them."""
+        if self._stopped:
+            return self.modules
+        self._stopped = True
+        self._reader.join(timeout=600)
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        try:
+            rest, _ = self.proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rest, _ = self.proc.communicate()
+        self._err.close()
+        found = re.search(r"MODULES (\[.*\])", rest or "")
+        self.modules = json.loads(found.group(1).replace("'", '"')) if found else None
+        return self.modules
+
+
+def export_phase(root):
+    """Phase 19: the serving export at full width (configs/default.yaml's
+    model, ModelConfig()). Leg 1, cli.export --random-init for cpu and
+    cuda, alone (its seconds by platform). Then, while three commands run
+    beside it in processes of their own (cli.serve --bundle of leg 1's
+    bundle, leg 5's cli.export --int8 --platforms cuda, and leg 4's
+    cli.export --run-dir of phase 17's run, which must be refused), this
+    process runs leg 3 (a 2-step cli.train of the default yaml on phase
+    17's files, exported with --run-dir --platforms cuda, held to its
+    restored model) and loads the bundle and the live ServingModel of the
+    same weights. Leg 2 then posts B = 1, 3, 8 and /v1/score both ways to
+    the server, holds the answers to the bundle's CPU programs and to the
+    live model (whose fused MLP launches are counted; the bundle's calls
+    launch none), and, with nothing else running, times each embed call
+    at B = 8, bundle against live. Returns the summary and the launch
+    counts of the live comparison and of the bundle's calls."""
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.cli import train as train_cli
+    from triad_tpu_torch.config import ModelConfig
+    from triad_tpu_torch.models.layers import Dense, LoRALinear
+    from triad_tpu_torch.models.multimodal import TriadModel
+    from triad_tpu_torch.serve.export import ENDPOINTS, ServingBundle
+    from triad_tpu_torch.serve.model import ServingModel
+
+    out, launches = {}, {}
+    yaml_cfg = os.path.join(ROOT, "configs", "default.yaml")
+    requests = _export_requests(51)
+    bundle_dir, int8_dir = os.path.join(root, "bundle"), os.path.join(root, "bundle_int8")
+    run, run_bundle = os.path.join(root, "run_export"), os.path.join(root, "bundle_run")
+
+    # -- leg 1: export from random weights, cpu and cuda, alone -------------
+    _, out["export_s"], out["export_s_by_platform"] = _export_cli(
+        "--random-init", "--config", yaml_cfg, "--platforms", "cpu,cuda", "--out", bundle_dir)
+    out["bundle_bytes"] = _bundle_bytes(bundle_dir)
+    print(f"  cli.export --random-init --config configs/default.yaml --platforms cpu,cuda: "
+          f"{out['export_s']:.1f} s ({out['export_s_by_platform']} by platform), "
+          f"{out['bundle_bytes']} bytes", flush=True)
+
+    # -- the three commands beside this process ------------------------------
+    server, procs = None, {}
+    try:
+        server = _BundleServer(bundle_dir)
+        procs["int8"] = subprocess.Popen(
+            _cli("export", "--random-init", "--config", yaml_cfg, "--int8", "--platforms",
+                 "cuda", "--out", int8_dir), cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        procs["refused"] = subprocess.Popen(
+            _cli("export", "--run-dir", os.path.join(root, "run_a"), "--out",
+                 os.path.join(root, "refused")), cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+        # -- leg 3: a trained run of configs/default.yaml, exported ---------
+        with open(os.path.join(root, "trainer.json")) as f:
+            data = json.load(f)["data"]
+        paths = [f"data.{k}={json.dumps(data[k])}" for k in (
+            "audio_visual_data_root", "text_dataset_path", "audio_visual_val_data_root",
+            "text_dataset_val_path")]
+        t1 = time.perf_counter()
+        trainer = train_cli.main(["--config", yaml_cfg, "--steps", str(EXPORT_STEPS),
+                                  "--output-dir", run, "--force-new", "--set", *EXPORT_SET,
+                                  *paths])
+        out["train_s"] = time.perf_counter() - t1
+        step = trainer.ckpt.latest_step()
+        trainer.ckpt.close()
+        del trainer
+        torch.cuda.empty_cache()
+        _, out["run_export_s"], _ = _export_cli("--run-dir", run, "--platforms", "cuda",
+                                                "--out", run_bundle)
+        state, _ = _checkpoint(run, step)
+        restored = ServingModel(ModelConfig(), state["model"], "cuda", AUDIO, EXPORT_TXT)
+        del state
+        got = _embeds(ServingBundle(run_bundle, "cuda"), *requests[3])
+        out["run_vs_restored_min_cosine"] = _min_cosines(
+            got, _embeds(restored, *requests[3]), "the run's bundle vs its restored model",
+            EXPORT_SAME_PRECISION)
+        del restored
+        torch.cuda.empty_cache()
+        print(f"  cli.train of configs/default.yaml ({EXPORT_STEPS} steps of full_joint at B = "
+              f"{DEFAULT_B}, {out['train_s']:.1f} s) then cli.export --run-dir --platforms cuda "
+              f"({out['run_export_s']:.1f} s, step {step}): at B = 3 min token cosine "
+              f"{out['run_vs_restored_min_cosine']} to the restored model", flush=True)
+
+        # -- the bundle in this process, its CPU programs, the live model ----
+        t1 = time.perf_counter()
+        card = ServingBundle(bundle_dir, "cuda")
+        out["load_cuda_s"] = time.perf_counter() - t1
+        ops = {name: _graph_ops(card._fns[name].graph) for name in ENDPOINTS}
+        if any(k.startswith(("other", "aten._int_mm")) for c in ops.values() for k in c):
+            fail(f"the bundle's cuda programs call outside aten, or int8: {ops}")
+        t1 = time.perf_counter()
+        cpu = ServingBundle(bundle_dir, "cpu")
+        out["load_cpu_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        on_cpu = _embeds(cpu, *requests[1])
+        out["cpu_program_b1_s"] = time.perf_counter() - t1
+        del cpu
+        live = ServingModel(ModelConfig(), None, "cuda", AUDIO, EXPORT_TXT)
+        kernels.reset_launches()
+        want = {b: _embeds(live, *r) for b, r in requests.items()}
+        launches["export_live"] = dict(kernels.LAUNCHES)
+        print(f"  this process loaded the bundle's cuda programs in {out['load_cuda_s']:.1f} s "
+              f"({sum(sum(c.values()) for c in ops.values())} calls, every one an aten "
+              f"operator or the batch's size arithmetic) and its cpu programs in "
+              f"{out['load_cpu_s']:.1f} s, both while the commands beside it ran", flush=True)
+
+        # -- leg 2: the served answers ----------------------------------------
+        answers, out["serve_ready_s"], modules = server.answers(requests)
+        print(f"  cli.serve --bundle was ready {out['serve_ready_s']:.1f} s after its start (a "
+              f"new process: python, torch, the card, the programs; beside leg 3); it held "
+              f"{len(modules)} modules of the port, none of models/ or kernels", flush=True)
+
+        # -- leg 4 and leg 5: the commands' results ----------------------------
+        done = {name: proc.communicate(timeout=600) for name, proc in procs.items()}
+        rc = {name: proc.returncode for name, proc in procs.items()}
+        msg = ("mesh.tp > 1 requires XLA impls; vit.attention_impl='fused_packed' is a pallas "
+               "path (allowed: ['xla'] or 'auto')")
+        if rc["refused"] == 0 or f"ValueError: {msg}" not in done["refused"][1]:
+            fail(f"cli.export of phase 17's run: rc {rc['refused']}, {done['refused'][1][-1500:]}")
+        if os.path.exists(os.path.join(root, "refused")):
+            fail("the refused export wrote a bundle")
+        out["refused"] = msg
+        print(f"  cli.export --run-dir of phase 17's run (perf_train_model_config) exited "
+              f"{rc['refused']}: {msg}", flush=True)
+        if rc["int8"] != 0:
+            fail(f"cli.export --int8 exited {rc['int8']}: {done['int8'][1][-2000:]}")
+        found = re.search(r"exported the cuda programs \([^)]*\) in ([\d.]+) s", done["int8"][0])
+        out["int8_export_s_beside"] = float(found.group(1)) if found else None
+    finally:
+        if server is not None:
+            server.stop()
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    # -- the answers against the CPU programs and the live model -------------
+    out["vs_cpu_program_min_cosine"] = _min_cosines(answers[1], on_cpu,
+                                                    "bundle vs its CPU programs", EXPORT_CPU_FP32)
+    n_layers = live.cfg.hubert.num_layers
+    others = {k: v for k, v in launches["export_live"].items() if v and k != "fused_mlp"}
+    if launches["export_live"]["fused_mlp"] != n_layers * len(requests) or others:
+        fail(f"the live ServingModel's launches: {launches['export_live']}, not "
+             f"{n_layers} fused_mlp a clip batch")
+    out["vs_live_min_cosine"] = {b: _min_cosines(answers[b], want[b], f"bundle vs live at B={b}",
+                                                 EXPORT_SAME_PRECISION) for b in requests}
+    b = max(requests)
+    for direction, (qt, qm) in (("av", (answers[b]["audio"], np.ones((b, 499), np.float32))),
+                                ("tv", (answers[b]["text"], requests[b][3]))):
+        kt = answers[b]["visual"]
+        if direction == "av":
+            qt, kt = (x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12)
+                      for x in (qt, kt))
+        ref = live.pair_scores(qt, qm, kt, np.ones((b, 256), np.float32))
+        err = float(np.abs(answers[f"score_{direction}"] - ref).max())
+        if not err <= 1e-5 * max(float(np.abs(ref).max()), 1.0):
+            fail(f"/v1/score ({direction}) of the bundle is {err} off the live pair_scores")
+    print(f"  answers vs the bundle's CPU programs at B = 1 ({out['cpu_program_b1_s']:.1f} s on "
+          f"the host): min token cosine {out['vs_cpu_program_min_cosine']}; vs the live "
+          f"ServingModel of the same weights on the card: {out['vs_live_min_cosine']}; the live "
+          f"model launched fused_mlp {launches['export_live']['fused_mlp']} times "
+          f"({n_layers} an encode_audio), nothing else; /v1/score av and tv equal the live "
+          f"pair_scores on the served tokens", flush=True)
+
+    # -- leg 5: the int8 bundle ----------------------------------------------
+    meta = TriadModel(ModelConfig(), device="meta")
+
+    def n_dense(*mods):
+        return sum(isinstance(m, (Dense, LoRALinear)) for mod in mods for m in mod.modules())
+
+    want_mm = {"embed_audio": n_dense(meta.audio_backbone, meta.audio_projection),
+               "embed_visual": n_dense(meta.visual_backbone, meta.visual_projection),
+               "embed_text": n_dense(meta.text_backbone, meta.text_projection), "pair_scores": 0}
+    del meta
+    q8_bundle = ServingBundle(int8_dir, "cuda")
+    ops8 = {name: _graph_ops(q8_bundle._fns[name].graph) for name in ENDPOINTS}
+    if any(k.startswith("other") for c in ops8.values() for k in c):
+        fail(f"the int8 programs call outside aten: {ops8}")
+    got_mm = {name: c.get("aten._int_mm.default", 0) for name, c in ops8.items()}
+    if got_mm != want_mm:
+        fail(f"aten._int_mm calls by program {got_mm}, Dense / LoRALinear forwards {want_mm}")
+    q8 = _embeds(q8_bundle, *requests[b])
+    del q8_bundle
+    out["int8_cosine"] = {}
+    for key in q8:
+        u, v = answers[b][key].astype(np.float64).ravel(), q8[key].astype(np.float64).ravel()
+        out["int8_cosine"][key] = c = float(u @ v / (np.linalg.norm(u) * np.linalg.norm(v)))
+        if not 0.995 < c < 1 - 1e-6:
+            fail(f"the int8 bundle's {key} are at cosine {c} to the bf16 bundle's")
+    out["int8_mm_by_program"] = got_mm
+    print(f"  cli.export --int8 --platforms cuda (its cuda programs in "
+          f"{out['int8_export_s_beside']} s, beside leg 3): aten._int_mm {got_mm}, one for each "
+          f"Dense / LoRALinear forward; embeddings at B = {b} at cosine {out['int8_cosine']} to "
+          f"the bf16 bundle's", flush=True)
+
+    # -- each embed call at B = 8, the bundle's program vs the live model -----
+    x = {k: torch.from_numpy(v).to("cuda") for k, v in zip(("audio", "images", "ids", "mask"),
+                                                           requests[b])}
+    calls = {"embed_audio": ((lambda: card._fns["embed_audio"](x["audio"])),
+                             (lambda: live.model.encode_audio(x["audio"]))),
+             "embed_visual": ((lambda: card._fns["embed_visual"](x["images"])),
+                              (lambda: live.model.encode_visual(x["images"]))),
+             "embed_text": ((lambda: card._fns["embed_text"](x["ids"], x["mask"])),
+                            (lambda: live.model.encode_text(x["ids"].long(), x["mask"])))}
+    out["ms_b8"] = _bundle_vs_live_ms(calls, b)
+    kernels.reset_launches()
+    _embeds(card, *requests[b])
+    launches["bundle"] = dict(kernels.LAUNCHES)
+    if any(launches["bundle"].values()):
+        fail(f"the bundle launched kernels: {launches['bundle']}")
+    print(f"  ms per call at B = {b}, bundle / live (CUDA events from an idle card; device time "
+          f"with the card held; the profiler's kernel sum, in chiprun_out/export_profile.txt): "
+          + "; ".join(f"{k} {v['bundle_sync']:.3f} / {v['live_sync']:.3f}, device "
+                      f"{v['bundle']:.3f} / {v['live']:.3f}, kernels {v['bundle_kernel_ms']:.3f} "
+                      f"/ {v['live_kernel_ms']:.3f} ({v['bundle_launches']} / "
+                      f"{v['live_launches']} launches)" for k, v in out["ms_b8"].items())
+          + "; the bundle's calls launched no kernel of the port", flush=True)
+    del x, calls, card, live
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _bundle_vs_live_ms(calls, b):
+    """Per call at batch ``b``: CUDA events from an idle card (in turns,
+    bundle, live, live, bundle), device time with the card held
+    (device_ms), and one call under torch.profiler: the kernels' device
+    time and launches (chiprun_out/export_profile.txt)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out, lines = {}, []
+    with torch.inference_mode():
+        for name, (bundle_fn, live_fn) in calls.items():
+            sync = time_fns([bundle_fn, live_fn, live_fn, bundle_fn], reps=5, warmup=1)
+            v = out[name] = {"bundle_sync": (sync[0] + sync[3]) / 2,
+                             "live_sync": (sync[1] + sync[2]) / 2}
+            v["bundle"] = device_ms(bundle_fn, v["bundle_sync"])
+            v["live"] = device_ms(live_fn, v["live_sync"])
+            for label, fn in (("bundle", bundle_fn), ("live", live_fn)):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                rows = sorted((e for e in prof.key_averages()
+                               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                              key=lambda e: -e.self_device_time_total)
+                v[f"{label}_kernel_ms"] = sum(e.self_device_time_total for e in rows) / 1e3
+                v[f"{label}_launches"] = sum(e.count for e in rows)
+                lines.append(f"{name} at B = {b}, {label}: {v[f'{label}_kernel_ms']:.3f} ms of "
+                             f"kernels in {v[f'{label}_launches']} launches")
+                lines += [f"{e.self_device_time_total / 1e3:10.4f} ms {e.count:6d}x  {e.key[:110]}"
+                          for e in rows[:20]]
+    with open(os.path.join(ROOT, "chiprun_out", "export_profile.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, torch.Tensor):
         yield tree
@@ -3413,6 +3893,13 @@ def main():
               f"and cli.viz")
         pretrained, pretrained_launches = pretrained_phase(root)
         torch.cuda.empty_cache()
+
+        phase("19. the serving export at full width (configs/default.yaml's model): cli.export "
+              "--random-init for cpu and cuda; cli.serve --bundle at B = 1, 3, 8 against the "
+              "bundle's CPU programs and the live model; --run-dir of a 2-step default-yaml run; "
+              "phase 17's run refused; --int8")
+        export, export_launches = export_phase(root)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3422,7 +3909,7 @@ def main():
                "flash_eval": flash_eval_launches, "train_tv_flash": tv_flash_launches,
                "long_clips": long_clip_launches, "train_joint_fed": fed_launches,
                "trainer": trainer_launches, "trainer_eval_legs": trainer_eval_launches,
-               **pretrained_launches}
+               **pretrained_launches, **export_launches}
     kernels_json = [_kernel_entry(name, results, by_path) for name in KERNELS]
     phase("done")
     # every shape of phase 3, too long for the line the kernels entries take
@@ -3435,7 +3922,7 @@ def main():
                       "knobs_peak_bytes": knobs_peak, "layouts_agree": agree,
                       "retrieval": retrieval, "flash_eval": flash_eval,
                       "tv_flash_step_ms": tv_flash_ms, "data": data, "trainer": trainer,
-                      "pretrained": pretrained}),
+                      "pretrained": pretrained, "export": export}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -162,12 +162,15 @@ _PORTED_TRAINING_IMPLS = {
 
 
 # Eval-only kernels (the head-pair eval attention, the fused frontend conv
-# and the frontend activation): they run at eval.
+# and the frontend activation) and the XLA frontends ("phase", "matmul"):
+# they run at eval.
 _PORTED_EVAL_IMPLS = {
     ("vit", "attention_impl", "packed_merged_pair"),
     ("hubert", "attention_impl", "packed_pair"),
     ("hubert", "frontend_impl", "pallas"),
     ("hubert", "frontend_impl", "conv_act"),
+    ("hubert", "frontend_impl", "phase"),
+    ("hubert", "frontend_impl", "matmul"),
 }
 
 
@@ -332,8 +335,8 @@ class TestRefusals:
         now has (HuBERT's fused and fused_packed attention, the posconv and
         fused LayerNorm kernels; the ViT's fused and fused_packed_merged
         attention) run in training mode instead, and the eval options it
-        now has (the head-pair attention, the "pallas" and "conv_act"
-        frontends) run at eval."""
+        now has (the head-pair attention, the "pallas", "conv_act", "phase"
+        and "matmul" frontends) run at eval."""
         from triad_tpu_torch.models.multimodal import TriadModel
 
         cfg = small_model_config()

@@ -5,7 +5,8 @@ encoders' Dense products (HuBERT's feature projection, attention and
 FFN; DistilBERT's; the ViT's fused qkv; the projection heads), and at K
 and N that need padding: exact. ``int8_dense`` on the card equals its CPU
 run bit for bit (the same roundings in fp32, exact int32 sums), and never
-falls back to the plain product on a CUDA tensor.
+falls back to the plain product on a CUDA tensor. An int8 product traced
+by ``torch.export`` with a symbolic batch holds at batches 1 and 3.
 
 Needs an NVIDIA GPU; skips elsewhere. On a machine with the card and no
 JAX (tests/conftest.py imports JAX, hence --noconftest):
@@ -68,3 +69,30 @@ def test_int8_dense_card_equals_cpu(dev, m):
     got = quant.int8_dense(x.to(dev), w.to(dev), b.to(dev))
     assert got.dtype == torch.float32
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("seq,k,n", [(16, 64, 64), (9, 100, 36), (128, 768, 768)])
+def test_exported_int8_matmul_holds_at_every_batch(dev, seq, k, n):
+    """An int8 product traced by torch.export with a symbolic batch (as
+    serve/export.py traces it, at 2) runs at batches 1 and 3, where M =
+    batch x seq may be 16 or fewer rows, and equals the plain product."""
+    from torch.export import Dim, export
+
+    from triad_tpu_torch.ops import quant
+
+    class Product(torch.nn.Module):
+        def __init__(self, w):
+            super().__init__()
+            self.register_buffer("w", w)
+
+        def forward(self, x):
+            return quant.int8_matmul(x.reshape(-1, x.shape[-1]), self.w).reshape(
+                x.shape[0], seq, -1)
+
+    _, w = _operands(1, k, n, seq + k)
+    prog = export(Product(w.to(dev)), (_operands(2 * seq, k, n, 1)[0].reshape(2, seq, k).to(dev),),
+                  dynamic_shapes=({0: Dim("b", min=1)},)).module()
+    for b in (1, 3):
+        a = _operands(b * seq, k, n, b)[0]
+        got = prog(a.reshape(b, seq, k).to(dev))
+        assert torch.equal(got.cpu().reshape(b * seq, n), quant.int8_matmul_plain(a, w))

@@ -19,20 +19,23 @@ Layout (mirrors ``triad_tpu``):
   models/     nn.Module encoders, TriadModel, the Flax <-> torch converter
   train/      the 4-group optimizer bank, the train steps, checkpoints
               (torch files, exact mid-epoch resume) and the Trainer
-  serve/      ServingModel and the HTTP server
+  serve/      the export to a bundle of torch.export programs, the bundle
+              and a live model behind one serving surface, the HTTP server
+  parallel/   resolve_xla_impls (the rest of parallel/ is still to port)
   data/       the host data layer: decode, datasets, TriadPack shards,
               loaders, the pinned-memory prefetcher, device augmentation
   eval/       the 1000-way cross-modal retrieval
   utils/      the metrics logger, the step timer and profiler trace, the
               NaN guards
   viz/        the grounding heatmaps and the attention video
-  cli/        ``python -m triad_tpu_torch.cli.{train,eval,serve}``
+  cli/        ``python -m triad_tpu_torch.cli.{train,eval,infer,viz,export,serve}``
 
 Ported so far (ROADMAP.md): the serving (eval) path, the three train
 steps of the curriculum ("av", "tv", "joint"), the 1000-way retrieval
 eval, the host data layer and the Trainer with its checkpoints, viz and
-the train / eval commands; every TPU kernel of the JAX package has its
-CUDA counterpart.
+the train / eval commands, the pretrained-weight importers, the int8
+serving mode, and the serving export with its bundle server; every TPU
+kernel of the JAX package has its CUDA counterpart.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,14 @@
-"""Serve the port's TriadModel over HTTP (endpoint contract:
-``triad_tpu/serve/server.py``).
+"""Serve an exported bundle, or the port's live TriadModel, over HTTP
+(endpoint contract: ``triad_tpu/serve/server.py``).
 
+  python -m triad_tpu_torch.cli.serve --bundle ./bundle --port 8080
   python -m triad_tpu_torch.cli.serve --random-init --port 8080
   python -m triad_tpu_torch.cli.serve --params-npz params.npz --config cfg.json
+
+``--bundle`` serves the programs ``cli.export`` wrote (no model code is
+imported; the bundle carries its shapes and vocab, so ``--config``,
+``--audio-num-samples``, ``--max-text-tokens`` and ``--vocab`` do not
+apply).
 
 ``--params-npz`` takes a flat npz of a JAX param tree whose keys are the
 tree paths joined with "/" (e.g. ``audio_backbone/layer_0/.../kernel``);
@@ -52,6 +58,7 @@ def load_params_npz(path: str, cfg: ModelConfig):
 def main(argv: Optional[list] = None) -> None:
     p = argparse.ArgumentParser(description="serve the PyTorch port's TriadModel")
     src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--bundle", help="export_bundle dir (cli.export)")
     src.add_argument("--random-init", action="store_true", help="random weights (seed 0)")
     src.add_argument("--params-npz", help="flat '/'-keyed npz of a JAX param tree")
     p.add_argument("--config", default="perf_eval", help="perf_eval | default | JSON file")
@@ -64,23 +71,28 @@ def main(argv: Optional[list] = None) -> None:
     args = p.parse_args(argv)
 
     device = resolve_device(args)
-    cfg = load_config(args.config)
-    state_dict = None if args.random_init else load_params_npz(args.params_npz, cfg)
-    tokenizer = None
-    if args.vocab:
-        from triad_tpu_torch.data.tokenizer import WordPieceTokenizer
+    if args.bundle:
+        from triad_tpu_torch.serve.export import ServingBundle
 
-        tokenizer = WordPieceTokenizer.from_vocab_file(args.vocab)
+        serving = ServingBundle(args.bundle, device)
+    else:
+        cfg = load_config(args.config)
+        state_dict = None if args.random_init else load_params_npz(args.params_npz, cfg)
+        tokenizer = None
+        if args.vocab:
+            from triad_tpu_torch.data.tokenizer import WordPieceTokenizer
 
-    from triad_tpu_torch.serve.model import ServingModel
+            tokenizer = WordPieceTokenizer.from_vocab_file(args.vocab)
+
+        from triad_tpu_torch.serve.model import ServingModel
+
+        serving = ServingModel(cfg, state_dict, device, args.audio_num_samples,
+                               args.max_text_tokens, tokenizer)
     from triad_tpu_torch.serve.server import make_server
 
-    model = ServingModel(cfg, state_dict, device, args.audio_num_samples,
-                         args.max_text_tokens, tokenizer)
-    srv = make_server(model, args.host, args.port)
-    print(f"serving on {args.host}:{srv.server_address[1]} ({model.meta['device_name']})")
+    srv = make_server(serving, args.host, args.port)
+    print(f"serving on {args.host}:{srv.server_address[1]} ({device})", flush=True)
     srv.serve_forever()
-
 
 if __name__ == "__main__":
     main()

@@ -14,7 +14,12 @@ conv after conv_0 with its input's norm / GELU fused in
 (``ops/frontend_conv.py:fused_frontend_conv``) and ``"conv_act"`` plain
 convs with each norm / GELU as a pass of its own
 (``frontend_activation``); conv_0 and its GroupNorm stats stay plain in
-both, as in the JAX package. ``posconv_impl="pallas"`` runs the
+both, as in the JAX package. ``"matmul"``, ``"block_matmul"`` and
+``"phase"`` are the JAX package's XLA lowerings (im2col products, block
+products, an even/odd phase split) of the same VALID convs on the same
+``conv_i`` parameters, so they run the ``"conv"`` route; ``"phase"``
+first cuts the waveform to a multiple of 10 samples, as its phase split
+does, and refuses a conv bias. ``posconv_impl="pallas"`` runs the
 positional conv kernels (``ops/posconv.py``). Attention: ``"packed"`` the
 packed eval kernel, ``"packed_pair"`` its head-pair variant; ``"fused"``
 (strided) and ``"fused_packed"`` the training kernels with in-kernel
@@ -57,7 +62,6 @@ from triad_tpu_torch.models.layers import (
     dropout,
     merged_attention,
     mlp_forward,
-    not_ported,
 )
 from triad_tpu_torch.models.quantize import int8_active
 from triad_tpu_torch.ops.attention import HEAD_DIM
@@ -98,10 +102,10 @@ class ConvFeatureEncoder(nn.Module):
     def __init__(self, cfg: HubertConfig, dtype, param_dtype, device=None):
         super().__init__()
         c = cfg
-        if c.frontend_impl not in ("conv", "monolithic", "pallas", "conv_act"):
-            raise not_ported(f"frontend_impl {c.frontend_impl!r}",
-                             "an XLA lowering of the conv frontend (models/hubert.py)")
-        if c.frontend_impl in ("monolithic", "pallas") and c.conv_bias:
+        if c.frontend_impl not in ("conv", "monolithic", "pallas", "conv_act", "matmul",
+                                   "block_matmul", "phase"):
+            raise ValueError(f"unknown frontend_impl {c.frontend_impl!r}")
+        if c.frontend_impl in ("monolithic", "pallas", "phase") and c.conv_bias:
             raise ValueError(f"{c.frontend_impl} frontend: no conv bias")
         if c.frontend_impl == "pallas" and any(
                 s != 2 or k not in (2, 3) for k, s in zip(c.conv_kernel[1:], c.conv_stride[1:])):
@@ -118,6 +122,8 @@ class ConvFeatureEncoder(nn.Module):
 
     def forward(self, audio):
         c, d = self.cfg, self.dtype
+        if c.frontend_impl == "phase":
+            audio = audio[:, :audio.shape[1] - audio.shape[1] % 10]
         if c.frontend_impl == "monolithic":
             return frontend_vjp(
                 audio, self.convs[0].weight, self.group_norm.weight, self.group_norm.bias,

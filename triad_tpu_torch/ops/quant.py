@@ -59,12 +59,17 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 @ (N, K)^T int8 -> (M, N) int32: ``torch._int_mm`` on
     CUDA tensors (B handed over column-major), the plain version on CPU
     tensors. On the card the operands are padded with zeros to more than
-    16 rows and to K and N multiples of 8; it never falls back."""
+    16 rows and to K and N multiples of 8; it never falls back. Under
+    ``torch.export`` (``serve/export.py``) M is symbolic and the trace
+    takes the batch to be 2 or more, so a pad decided from M would be
+    missing at a batch of 1: a traced call pads A by 17 rows whatever M
+    is, and the program holds for every batch."""
     if a.device.type != "cuda":
         return int8_matmul_plain(a, b)
     m, k = a.shape
     n = b.shape[0]
-    pk, pn, pm = -k % 8, -n % 8, max(17 - m, 0)
+    pk, pn = -k % 8, -n % 8
+    pm = 17 if isinstance(m, torch.SymInt) else max(17 - m, 0)
     a = F.pad(a, (0, pk, 0, pm)) if pk or pm else a
     b = F.pad(b, (0, pk, 0, pn)) if pk or pn else b
     out = torch._int_mm(a.contiguous(), b.contiguous().T)

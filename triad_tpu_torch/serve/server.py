@@ -1,9 +1,12 @@
-"""HTTP serving of a live ServingModel (stdlib ``http.server``).
+"""HTTP serving of an exported bundle or a live model (stdlib
+``http.server``).
 
 The routes and their JSON contract are those of
 ``triad_tpu/serve/server.py``; this is the port's own handler, bound to a
-:class:`ServingModel`. POST bodies and responses are JSON with arrays as
-nested lists; the single-array endpoints also take and answer
+``ServingBundle`` (``serve/export.py``: the exported programs, no model
+code) or a live ``ServingModel`` (``serve/model.py``), which have the
+same methods. POST bodies and responses are JSON with arrays as nested
+lists; the single-array endpoints also take and answer
 ``Content-Type: application/x-npy``.
 
   GET  /healthz               model metadata
@@ -31,8 +34,6 @@ from typing import Tuple
 
 import numpy as np
 
-from triad_tpu_torch.serve.model import ServingModel
-
 
 def _l2(x: np.ndarray, eps: float = 1e-12) -> np.ndarray:
     n = np.linalg.norm(x, axis=-1, keepdims=True)
@@ -40,7 +41,7 @@ def _l2(x: np.ndarray, eps: float = 1e-12) -> np.ndarray:
 
 
 class _Handler(BaseHTTPRequestHandler):
-    bundle: ServingModel  # set by make_server
+    bundle: object  # a ServingBundle or a ServingModel, set by make_server
     # One model call at a time: keeps device memory bounded.
     lock: threading.Lock
 
@@ -125,11 +126,11 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_json({"error": f"{type(e).__name__}: {e}"}, 400)
 
 
-def make_server(serving_model: ServingModel, host: str = "127.0.0.1",
-                port: int = 8080) -> ThreadingHTTPServer:
-    """Build (not start) the HTTP server; .serve_forever() to run."""
+def make_server(serving, host: str = "127.0.0.1", port: int = 8080) -> ThreadingHTTPServer:
+    """Build (not start) the HTTP server over ``serving``, a ServingBundle
+    or a ServingModel; .serve_forever() to run."""
     handler = type(
         "TorchHandler", (_Handler,),
-        {"bundle": serving_model, "lock": threading.Lock()},
+        {"bundle": serving, "lock": threading.Lock()},
     )
     return ThreadingHTTPServer((host, port), handler)
