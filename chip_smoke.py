@@ -9,8 +9,9 @@ mqkv + vitmq + loss=pallas set for a few steps each, runs the
 1000-way retrieval eval on the head-pair attention and the fused frontend,
 feeds the joint step from files on disk through the port's data layer,
 trains the whole curriculum through the Trainer's train / eval commands,
-killed mid-epoch and resumed bit for bit, and exports the serving bundle
-and serves it.
+killed mid-epoch and resumed bit for bit, exports the serving bundle
+and serves it, and trains data-parallel (NCCL at world size 1, two gloo
+ranks of cli.train against one process).
 
     python3 chip_smoke.py
 
@@ -86,7 +87,7 @@ Phases (any failure exits nonzero before the last line):
  12. the 1000-way retrieval eval (eval_1000_way_retrieval) of
      perf_eval_model_config() with the head-pair attention in all three
      encoders and HuBERT's "pallas" frontend, random weights from a seed:
-     1000 AV items (4-10 s clips padded to 10 s) and 1000 TV items
+     400 AV items (4-10 s clips padded to 10 s) and 400 TV items
      (captions up to 128 tokens) embedded at batch 8 and scored in four
      directions, every kernel of the path launched (counts zeroed just
      before it) and the single-head eval attention and the monolithic
@@ -202,6 +203,29 @@ Phases (any failure exits nonzero before the last line):
      embeddings at cosine in (0.995, 1 - 1e-6) to the bf16 bundle's. The
      int8 and refused exports and the server run in processes of their own
      beside the trained run's leg; the timings at B = 8 run alone.
+ 20. data parallelism (triad_tpu_torch/parallel/): 20d the three dropout
+     kernels for the rows b0 = 32 .. 39 of a global batch, against their
+     twins at b0 (2 bf16 ulps), the keep masks bit for bit, and the cost
+     of a plain draw keyed on global rows; 20a initialize_from_env with
+     NCCL at world size 1 in this process, phase 8's joint step through
+     StepFactory(mesh=...) held to the one-process step (losses 1e-5
+     relative, update cosine 0.9999, no parameter further than one Adam
+     step of 2 lr + 1e-6), every joint kernel launched (counts zeroed
+     before it);
+     20b cli.train as two gloo ranks on the card (torchrun --standalone,
+     TRIAD_DIST_BACKEND=gloo: NCCL refuses two ranks on one device),
+     mesh.num_devices=2 with ZeRO-1, phase 17's files, full_joint, B = 64
+     (32 a rank), accumulation 2, 2 epochs of 2 steps, against the same
+     config in one process: per-step losses within 5e-3 relative and the
+     final parameters' updates at cosine 0.99 (cuBLAS picks its algorithm
+     by M: bf16 products of 32 and 64 rows round apart), each rank's AdamW
+     moment bytes against the one process's (at most 0.6); the world-2
+     step-2 checkpoint resumed in one process for steps 3-4, held to the
+     world-2 run; 20c phase 8's joint step at world 2 (two gloo ranks of
+     this script, --dp-ring-rank, under torchrun) from one start with the
+     ring negatives and with the gathered ones (the losses equal within
+     1e-6, the update at cosine 0.99: each ring step's bf16 feature
+     cotangents are summed in bf16). The phase's seconds are printed.
 The port's kernels add in a fixed order (no atomics), so phase 8 trains
 the same weights every run (PERF.md) and phase 9 reads the same each run.
 Phase 3 also holds posconv dW at B = 96 and the activation at 768
@@ -220,9 +244,10 @@ fused (64, 261, 3, 12, 64) qkv tensor, the training attention at
 at conv_1's (64, 31999, 512), the train steps' batch.
 The line before the last is one JSON object with one entry per kernel
 (and the step times, phase 16's numbers under "data" and phase 17's under
-"trainer", phase 18's under "pretrained", phase 19's under "export"): its
+"trainer", phase 18's under "pretrained", phase 19's under "export", phase
+20's under "dp"): its
 launches in the paths that run it (phases 4, 6, 8, 10, 11, 12, 13, 14, 15,
-16, 17, 18 and 19, each counted from zero), and its error, times and bound
+16, 17, 18, 19 and 20, each counted from zero), and its error, times and bound
 at its main case of
 phase 3 (the shape the train steps give it, else the first); every shape
 of phase 3 goes to chiprun_out/kernel_cases.json. The last line is
@@ -251,7 +276,10 @@ B = 8  # batch of the kernel comparisons
 TXT = 24  # text tokens in the served request
 TRAIN_B, TRAIN_TXT, REF_B = 64, 32, 4  # train batch, its text tokens, reference batch
 DEFAULT_B = 22  # configs/default.yaml's batch_size_av and batch_size_tv
-RETRIEVAL_N = 1000  # the retrieval eval's subset (TrainConfig.retrieval_subset_size)
+# The retrieval eval's subset: TrainConfig.retrieval_subset_size is 1000;
+# cut to 400 for the script's time (PERF.md), which cuts the embedding
+# 2.5x and the scoring 6x.
+RETRIEVAL_N = 400
 AUDIO = 160_000  # 10 s of 16 kHz audio
 P_DROP = 0.1  # HuBERT's attention, activation and hidden dropout
 BF16_ULP = 2.0 ** -7
@@ -3630,6 +3658,409 @@ def _bundle_vs_live_ms(calls, b):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: data-parallel training
+# ---------------------------------------------------------------------------
+
+DP_STEPS, DP_EPOCHS = 2, 2  # steps an epoch and epochs: every step logged, saves at 2 and 4
+DP_B0 = 32  # 20d: the kernels for the rows of rank 1 of a world-2 batch of 64
+# Per-step losses (relative) and the cosine of the parameters' updates.
+# World 1 against one process: the same products, the distributed
+# logsumexp's order. World 2 against one process: bf16 products of 32 and
+# 64 rows (cuBLAS picks its algorithm by M) round apart. Ring against
+# gather from one start: the same loss values (held at 1e-6); the update
+# differs at bf16 rounding, as each ring step's feature cotangents come
+# back in bf16 and are summed in bf16 (the gather's chunks sum in fp32 and
+# round once).
+DP_LOSS_REL = {"nccl_world1": 1e-5, "world2": 5e-3, "ring": 1e-6}
+DP_UPDATE_COS = {"nccl_world1": 0.9999, "world2": 0.99, "ring": 0.99}
+
+
+def _dp_config(root):
+    """Phase 20's config: phase 17's (perf_train_model_config(), B = 64 from
+    the same TriadPack shards and caption folder) in full_joint for 2
+    epochs of 2 steps, accumulation 2 (an update at steps 2 and 4, saved
+    at each epoch end), every group unfrozen, no validation set, no viz."""
+    with open(os.path.join(root, "trainer.json")) as f:
+        cfg = json.load(f)
+    cfg["data"].update(audio_visual_val_data_root=None, text_dataset_val_path=None)
+    cfg["train"].update(num_epochs=DP_EPOCHS, av_focus_epochs=0, tv_warmup_epochs=0,
+                        weighted_joint_epochs=0, vis_every=10 ** 9, save_every_steps=10 ** 9)
+    cfg["train"]["optim"].update(gradient_accumulation_steps=2, unfreeze_audio_step=0,
+                                 unfreeze_text_step=0, unfreeze_vit_step=0)
+    path = os.path.join(root, "dp.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _world2(cfg_path, run_dir, *extra):
+    """cli.train as two processes on the one card (torchrun, gloo): returns
+    each rank's AdamW moment bytes. Any rank that fails fails the phase."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TRIAD_")}
+    env["TRIAD_DIST_BACKEND"] = "gloo"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "2", "-m", "triad_tpu_torch.cli.train", "--config", cfg_path, "--steps",
+           str(DP_STEPS), "--output-dir", run_dir, "--force-new", "--set",
+           "mesh.num_devices=2", *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    log = os.path.join(ROOT, "chiprun_out", f"dp_{os.path.basename(run_dir)}.txt")
+    with open(log, "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"the world-2 run {run_dir} exited {proc.returncode}: "
+             f"{(proc.stdout + proc.stderr)[-3000:]}")
+    moments = {int(m.group(1)): int(m.group(2)) for m in
+               re.finditer(r"rank (\d+): AdamW moments (\d+) bytes", proc.stdout)}
+    if sorted(moments) != [0, 1]:
+        fail(f"the world-2 run {run_dir} did not report both ranks' moments")
+    print(f"  world-2 run {os.path.basename(run_dir)} {' '.join(extra)}: "
+          f"{time.perf_counter() - t0:.1f} s, log {os.path.relpath(log, ROOT)}", flush=True)
+    return moments
+
+
+def _dp_hold(what, key, got_losses, want_losses, got, want, init, lr_max, updates):
+    """Per-step losses within DP_LOSS_REL[key] relative; the parameters
+    after the run: their updates (from ``init``) at cosine >= DP_UPDATE_COS[key],
+    and no element further apart than ``updates`` Adam steps of 2 lr_max
+    (an Adam step moves an element by at most lr; two runs may step a
+    gradient that is 0 up to rounding either way) plus 1e-6 (fp32
+    rounding of the parameters)."""
+    if sorted(got_losses) != sorted(want_losses) or not want_losses:
+        fail(f"{what}: logged steps {sorted(got_losses)} vs {sorted(want_losses)}")
+    worst = max(abs(got_losses[s] - want_losses[s]) / abs(want_losses[s]) for s in want_losses)
+    dot = n1 = n2 = 0.0
+    far = 0.0
+    for name in init:
+        a, b = got[name].double(), want[name].double()
+        u1, u2 = a - init[name].double(), b - init[name].double()
+        dot += float((u1 * u2).sum())
+        n1 += float((u1 * u1).sum())
+        n2 += float((u2 * u2).sum())
+        far = max(far, float((a - b).abs().max()))
+    cos = dot / max((n1 * n2) ** 0.5, 1e-300)
+    bound = updates * 2 * lr_max + 1e-6
+    print(f"  {what}: losses " + ", ".join(f"{got_losses[s]:.6f}/{want_losses[s]:.6f}"
+                                           for s in sorted(want_losses))
+          + f" (worst {worst:.3g} relative, tol {DP_LOSS_REL[key]:g}); update cosine "
+          f"{cos:.6f} (tol {DP_UPDATE_COS[key]}), |update| {n1 ** 0.5:.6g} vs {n2 ** 0.5:.6g}, "
+          f"largest parameter difference {far:.3g} (bound {bound:.3g})", flush=True)
+    if worst > DP_LOSS_REL[key] or cos < DP_UPDATE_COS[key] or far > bound:
+        fail(f"{what} disagrees")
+    return {"worst_loss_rel": worst, "update_cos": cos, "max_param_diff": far}
+
+
+def _lr_max(lines):
+    return max(v for m in lines for k, v in m.items() if k.startswith("lr_"))
+
+
+def _logged_step_ms(lines):
+    """The Trainer's step_time_ms as logged (CUDA events between steps'
+    ends; the first step of an epoch is not timed)."""
+    return [round(m["step_time_ms"], 3) for m in lines if "step_time_ms" in m]
+
+
+class _NoSaves:
+    """While active, Trainer.save_checkpoint writes nothing (it records the
+    step in ``steps``): phase 20's in-process runs are compared in memory,
+    so their checkpoints would only add disk writes (PERF.md section 7)."""
+
+    def __enter__(self):
+        from triad_tpu_torch.train.trainer import Trainer
+
+        self.orig, self.steps = Trainer.save_checkpoint, []
+        box = self
+
+        def save(trainer, is_best=False):
+            box.steps.append(trainer.progress.global_step)
+
+        Trainer.save_checkpoint = save
+        return self
+
+    def __exit__(self, *exc):
+        from triad_tpu_torch.train.trainer import Trainer
+
+        Trainer.save_checkpoint = self.orig
+
+
+def _params(trainer):
+    return {n: p.detach().to("cpu", copy=True) for n, p in trainer.model.named_parameters()}
+
+
+def dropout_offset_cases():
+    """20d: the three dropout kernels at their phase 3 shapes (8, 499, 768),
+    p = 0.1, for the global rows b0 = 32 .. 39: outputs against the twins
+    at b0 (2 bf16 ulps), the keep masks bit for bit (the attention's read
+    off q = k = 0 and V = I at N = 64, where the output is the dropped
+    P), and other masks than at b0 = 0."""
+    from triad_tpu_torch.ops import attention as A
+    from triad_tpu_torch.ops import layernorm as L
+    from triad_tpu_torch.ops import mlp as M
+
+    b, n, p, tol = B, 499, P_DROP, 2 * BF16_ULP
+
+    def held(name, got, ref):
+        err, mx = max_err(got, ref)
+        print(f"  {name} at b0 = {DP_B0}: err {err:.4g} (tol {tol * mx:.4g})", flush=True)
+        if err > tol * mx:
+            fail(f"{name} at b0 = {DP_B0} disagrees with its twin")
+
+    def masks(name, kept, keep, keep0):
+        same, other = torch.equal(kept, keep), not torch.equal(keep, keep0)
+        print(f"  {name} keep mask at b0 = {DP_B0}: bit-equal {same}, differs from b0 = 0 "
+              f"{other}", flush=True)
+        if not (same and other):
+            fail(f"{name}: the keep mask at b0 = {DP_B0} is not the twin's")
+
+    q, k, v, do = (randn((b, n, 768), s) for s in (81, 82, 83, 84))
+    keys = torch.ones((b, n), device="cuda")
+    out, saved = A.attention_train_fwd(q, k, v, keys, 0.125, 1234, p, DP_B0)
+    held("attention_train", out, A.attention_train_plain(q, k, v, keys, 0.125, 1234, p, DP_B0))
+    held("attention_train_bwd", A.attention_train_bwd(q, k, v, keys, do, 0.125, 1234, p, saved,
+                                                      DP_B0),
+         A.attention_train_bwd_plain(q, k, v, keys, do, 0.125, 1234, p, DP_B0))
+    zeros = torch.zeros((b, 64, 768), device="cuda", dtype=torch.bfloat16)
+    eye = torch.eye(64, device="cuda", dtype=torch.bfloat16).repeat(b, 1, 12)
+    d, _ = A.attention_train_fwd(zeros, zeros, eye, torch.ones((b, 64), device="cuda"), 0.125,
+                                 1234, p, DP_B0)
+    masks("attention_train", d.reshape(b, 64, 12, 64).permute(0, 2, 1, 3) != 0,
+          A.attention_keep(b, 12, 64, 64, 1234, p, "cuda", DP_B0),
+          A.attention_keep(b, 12, 64, 64, 1234, p, "cuda"))
+
+    w1, b1 = randn((3072, 768), 87, 768 ** -0.5), randn((3072,), 88, 0.1)
+    w2, b2 = randn((768, 3072), 89, 3072 ** -0.5), randn((768,), 90, 0.1)
+    x, dy = randn((b, n, 768), 85), randn((b, n, 768), 86)
+    held("fused_mlp", M.fused_mlp(x, w1, b1, w2, b2, "tanh", 77, p, DP_B0),
+         M.fused_mlp_plain(x, w1, b1, w2, b2, "tanh", 77, p, DP_B0))
+    got = M.fused_mlp_bwd(x, w1, b1, w2, dy, "tanh", 77, p, DP_B0)
+    ref = M.fused_mlp_bwd_plain(x, w1, b1, w2, dy, "tanh", 77, p, DP_B0)
+    held("fused_mlp_bwd", got, ref)
+    masks("fused_mlp (the dropped GELU's zeros)", got[2] != 0, ref[2] != 0,
+          M.fused_mlp_bwd_plain(x, w1, b1, w2, dy, "tanh", 77, p)[2] != 0)
+
+    gamma = randn((768,), 31, 0.2, torch.float32) + 1.0
+    beta = randn((768,), 32, 0.1, torch.float32)
+    x, hh, dy = (randn((b, n, 768), s) for s in (33, 34, 35))
+    held("layernorm", L.dropout_add_ln(x, hh, gamma, beta, 1e-5, 99, p, DP_B0),
+         L.dropout_add_ln_plain(x, hh, gamma, beta, 1e-5, 99, p, DP_B0))
+    got = L.dropout_add_ln_bwd(x, hh, gamma, dy, 1e-5, 99, p, DP_B0)
+    ref = L.dropout_add_ln_bwd_plain(x, hh, gamma, dy, 1e-5, 99, p, DP_B0)
+    held("layernorm_bwd", got[:2], ref[:2])
+    masks("layernorm (dh's zeros)", got[1] != 0, ref[1] != 0,
+          L.dropout_add_ln_bwd_plain(x, hh, gamma, dy, 1e-5, 99, p)[1] != 0)
+
+    # The plain draws' cost at world 2: a rank draws the global batch's
+    # (64, 499, 768) uniforms where one process's rank-sized share would be
+    # (32, 499, 768) (HuBERT's feature-projection and hidden dropouts).
+    from triad_tpu_torch.ops.dropout import ShardGenerator, global_rand
+
+    gen = ShardGenerator("cuda", (1, 2)).manual_seed(0)
+    plain = torch.Generator(device="cuda").manual_seed(0)
+    shape = (TRAIN_B // 2, 499, 768)
+    ms_global, ms_local = time_fns([lambda: global_rand(shape, gen, "cuda"),
+                                    lambda: torch.rand(shape, generator=plain, device="cuda")])
+    print(f"  a rank's plain dropout draw at (32, 499, 768), keyed on global rows: "
+          f"{ms_global:.4f} ms against {ms_local:.4f} ms for its own rows alone", flush=True)
+    return {"global_draw_ms": ms_global, "local_draw_ms": ms_local}
+
+
+def _joint_once(mesh, negatives="all_gather"):
+    """Phase 8's joint step once (its seeded start, batches and seeds, every
+    group unfrozen, accumulation 1), through StepFactory(mesh=mesh) (this
+    rank's rows of the batch): (metrics, parameters after the update on
+    the host, parameters before it)."""
+    from triad_tpu_torch.config import OptimConfig, perf_train_loss_config
+    from triad_tpu_torch.train.step import StepFactory
+
+    ocfg = OptimConfig(gradient_accumulation_steps=1, unfreeze_audio_step=0,
+                       unfreeze_text_step=0, unfreeze_vit_step=0)
+    state = _new_state(ocfg, 1)
+    rows = slice(None)
+    if mesh is not None:
+        from triad_tpu_torch.train.optim import OptimizerBank
+
+        state.bank = OptimizerBank(ocfg, state.model, total_updates=1000, mesh=mesh, zero1=True)
+        per = TRAIN_B // mesh.size
+        rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    loss_cfg = dataclasses.replace(perf_train_loss_config(), negatives=negatives)
+    step = StepFactory(loss_cfg, ocfg, mesh=mesh).make_step("joint")
+    av = {k: v[rows].cuda() for k, v in _av_batch(TRAIN_B, 5).items()}
+    tv = {k: v[rows].cuda() for k, v in _train_batch(TRAIN_B, 6).items()}
+    init = {n: p.detach().to("cpu", copy=True) for n, p in state.model.named_parameters()}
+    _, m = step(state, av, tv, 0.5, 0.5)
+    params = {n: p.detach().to("cpu", copy=True) for n, p in state.model.named_parameters()}
+    metrics = {k: float(v) for k, v in m.items()}
+    del state, step
+    torch.cuda.empty_cache()
+    return metrics, params, init
+
+
+def dp_ring_rank():
+    """20c's ranks (``chip_smoke.py --dp-ring-rank`` under torchrun, gloo):
+    phase 8's joint step on this rank's rows from its seeded start, once
+    with the gathered negatives and once with the ring; rank 0 holds the
+    two (_dp_hold "ring") and prints the result as a line "DP_RING {...}"."""
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.parallel.distributed import initialize_from_env
+    from triad_tpu_torch.parallel.dp import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_from_env("cuda")
+    kernels.library()
+    mesh = make_mesh()
+    gather_m, gather_p, init = _joint_once(mesh)
+    ring_m, ring_p, _ = _joint_once(mesh, "ring")
+    if mesh.rank == 0:
+        keys = ("loss_av", "loss_tv", "train_loss")
+        lr_max = max(v for k, v in gather_m.items() if k.startswith("lr_"))
+        held = _dp_hold("ring vs all_gather at world 2, one step", "ring",
+                        {k: ring_m[k] for k in keys}, {k: gather_m[k] for k in keys}, ring_p,
+                        gather_p, init, lr_max, 1)
+        print("DP_RING " + json.dumps(held), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def dp_phase(root):
+    """Phase 20: data parallelism. 20d the dropout kernels at b0 > 0; 20a
+    NCCL at world size 1 in this process (phase 8's joint step through
+    StepFactory(mesh=...), held to the one-process step, every joint
+    kernel launched); 20b cli.train as two gloo processes on the card
+    (torchrun, mesh.num_devices=2, ZeRO-1) on phase 17's files, held per
+    step and in its final parameters to the same config in one process;
+    the world-2 step-2 checkpoint resumed in one process for steps 3-4;
+    each rank's moment bytes; 20c the ring negatives at world 2 against
+    20b's world-2 run. Returns the summary and 20a's launch counts."""
+    import shutil
+
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.cli import train as train_cli
+    from triad_tpu_torch.parallel.distributed import initialize_from_env
+    from triad_tpu_torch.parallel.dp import make_mesh
+
+    t_phase = time.perf_counter()
+    out = {}
+    phase("20d. the dropout kernels for the rows of rank 1 (b0 = 32)")
+    out["draws"] = dropout_offset_cases()
+
+    phase("20a. NCCL at world size 1: phase 8's joint step through StepFactory(mesh=...)")
+    want_m, want_p, init = _joint_once(None)
+    saved_env = {k: os.environ.get(k) for k in ("TRIAD_COORDINATOR", "TRIAD_NUM_PROCESSES",
+                                                "TRIAD_PROCESS_ID", "TRIAD_DIST_BACKEND")}
+    os.environ.update(TRIAD_COORDINATOR=f"127.0.0.1:{_free_port()}", TRIAD_NUM_PROCESSES="1",
+                      TRIAD_PROCESS_ID="0", TRIAD_DIST_BACKEND="nccl")
+    try:
+        rank, world = initialize_from_env("cuda")
+        backend = torch.distributed.get_backend()
+        print(f"  initialize_from_env: rank {rank} of {world}, backend {backend}", flush=True)
+        if (rank, world, backend) != (0, 1, "nccl"):
+            fail("initialize_from_env did not bring up NCCL at world size 1")
+        kernels.reset_launches()
+        got_m, got_p, _ = _joint_once(make_mesh(1))
+        launches = dict(kernels.LAUNCHES)
+        torch.distributed.destroy_process_group()
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    _check_launches(launches, JOINT_KERNELS, "world-1 NCCL joint")
+    loss_keys = ("loss_av", "loss_tv", "train_loss")
+    lr_max = max(v for k, v in want_m.items() if k.startswith("lr_"))
+    out["nccl_world1"] = _dp_hold(
+        "world 1 (NCCL) vs one process", "nccl_world1",
+        {k: got_m[k] for k in loss_keys}, {k: want_m[k] for k in loss_keys}, got_p, want_p,
+        init, lr_max, 1)
+    del got_p, want_p, init
+    torch.cuda.empty_cache()
+
+    phase(f"20b. cli.train as two gloo ranks on the card (torchrun, mesh.num_devices=2, ZeRO-1) "
+          f"against one process: B = {TRAIN_B} ({TRAIN_B // 2} a rank), accumulation 2, "
+          f"{DP_EPOCHS * DP_STEPS} steps, saves at 2 and 4; the step-2 save resumed in one "
+          "process")
+    cfg_path = _dp_config(root)
+    run2, run1, run_r = (os.path.join(root, n) for n in ("dp_world2", "dp_one", "dp_resumed"))
+    moments = _world2(cfg_path, run2)
+    args = ["--config", cfg_path, "--steps", str(DP_STEPS)]
+    t0 = time.perf_counter()
+    with _StartState() as start, _NoSaves():
+        one = train_cli.main(args + ["--output-dir", run1, "--force-new"])
+    out["one_process_s"] = time.perf_counter() - t0
+    final1 = _params(one)
+    init = {k: v for k, v in start.state.items() if k in final1}
+    one_bytes = one.bank.moment_bytes()
+    del one, start
+    torch.cuda.empty_cache()
+    lines2, lines1 = _run_metrics(run2), _run_metrics(run1)
+    lr_max = _lr_max(lines1)
+    final2 = _checkpoint(run2, 2 * DP_STEPS)[0]["model"]
+    out["world2"] = _dp_hold("world 2 (gloo) vs one process", "world2", _losses_by_step(lines2),
+                             _losses_by_step(lines1), final2, final1, init, lr_max, 2)
+    print(f"  AdamW moments: rank 0 {moments[0]} bytes, rank 1 {moments[1]} bytes, one process "
+          f"{one_bytes} bytes ({moments[0] / one_bytes:.3f}, {moments[1] / one_bytes:.3f} of "
+          "it)", flush=True)
+    if max(moments.values()) > 0.6 * one_bytes:
+        fail("ZeRO-1: a rank holds more than 0.6 of the one-process moments")
+    out["moment_bytes"] = {"rank0": moments[0], "rank1": moments[1], "one_process": one_bytes}
+    out["step_ms"] = {"world2_rank0": _logged_step_ms(lines2), "one_process": _logged_step_ms(lines1)}
+    print(f"  ms per step (the Trainer's, logged): world 2 rank 0 {out['step_ms']['world2_rank0']}, "
+          f"one process {out['step_ms']['one_process']}", flush=True)
+
+    # the world-2 run's directory up to its step-2 save, by hard links
+    shutil.copytree(run2, run_r, copy_function=os.link)
+    shutil.rmtree(os.path.join(run_r, "checkpoints", "ckpts", str(2 * DP_STEPS)))
+    os.remove(os.path.join(run_r, "metrics.jsonl"))  # appended to: a copy of its own
+    shutil.copy(os.path.join(run2, "metrics.jsonl"), run_r)
+    t0 = time.perf_counter()
+    with _NoSaves():
+        resumed = train_cli.main(args + ["--output-dir", run_r])
+    out["resume_s"] = time.perf_counter() - t0
+    if resumed.timings["restore"] == []:
+        fail("the one-process run did not resume the world-2 checkpoint")
+    final_r = _params(resumed)
+    del resumed
+    torch.cuda.empty_cache()
+    lines_r = _run_metrics(run_r)
+    after = {s: v for s, v in _losses_by_step(lines_r).items() if s >= DP_STEPS}
+    out["resumed"] = _dp_hold(
+        "the world-2 step-2 checkpoint resumed in one process, steps 3-4, vs world 2", "world2",
+        after, {s: v for s, v in _losses_by_step(lines2).items() if s >= DP_STEPS},
+        final_r, final2, init, lr_max, 1)
+
+    phase("20c. the ring negatives at world 2 against the all-gathered ones: phase 8's joint "
+          f"step, B = {TRAIN_B} ({TRAIN_B // 2} a rank), from one start")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TRIAD_")}
+    env["TRIAD_DIST_BACKEND"] = "gloo"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", "2", os.path.join(ROOT, "chip_smoke.py"),
+                           "--dp-ring-rank"], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    with open(os.path.join(ROOT, "chiprun_out", "dp_ring.txt"), "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    print("\n".join(line for line in proc.stdout.splitlines() if line.startswith("  ring")),
+          flush=True)
+    held = [line for line in proc.stdout.splitlines() if line.startswith("DP_RING ")]
+    if proc.returncode != 0 or not held:
+        fail(f"the ring ranks exited {proc.returncode}: {(proc.stdout + proc.stderr)[-3000:]}")
+    out["ring"] = json.loads(held[0][len("DP_RING "):])
+    out["ring_s"] = time.perf_counter() - t0
+    print(f"  the ring's two ranks: {out['ring_s']:.1f} s", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 20: {out['phase_s']:.1f} s", flush=True)
+    return out, {"dp_nccl_world1": launches}
+
+
 def _tensors(tree):
     if isinstance(tree, torch.Tensor):
         yield tree
@@ -3720,6 +4151,10 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
+    if sys.argv[1:] == ["--dp-ring-rank"]:  # a rank of phase 20c, started by the script
+        sys.path.insert(0, ROOT)
+        dp_ring_rank()
+        return
     sys.path.insert(0, ROOT)
     from triad_tpu_torch import kernels
     from triad_tpu_torch.cli.serve import load_config
@@ -3900,6 +4335,12 @@ def main():
               "phase 17's run refused; --int8")
         export, export_launches = export_phase(root)
         torch.cuda.empty_cache()
+
+        phase("20. data-parallel training: NCCL at world size 1, two gloo ranks of cli.train on "
+              "the card against one process, a world-size-crossing resume, the ring, the "
+              "dropout kernels at b0 > 0")
+        dp, dp_launches = dp_phase(root)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3909,7 +4350,7 @@ def main():
                "flash_eval": flash_eval_launches, "train_tv_flash": tv_flash_launches,
                "long_clips": long_clip_launches, "train_joint_fed": fed_launches,
                "trainer": trainer_launches, "trainer_eval_legs": trainer_eval_launches,
-               **pretrained_launches, **export_launches}
+               **pretrained_launches, **export_launches, **dp_launches}
     kernels_json = [_kernel_entry(name, results, by_path) for name in KERNELS]
     phase("done")
     # every shape of phase 3, too long for the line the kernels entries take
@@ -3922,7 +4363,7 @@ def main():
                       "knobs_peak_bytes": knobs_peak, "layouts_agree": agree,
                       "retrieval": retrieval, "flash_eval": flash_eval,
                       "tv_flash_step_ms": tv_flash_ms, "data": data, "trainer": trainer,
-                      "pretrained": pretrained, "export": export}),
+                      "pretrained": pretrained, "export": export, "dp": dp}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

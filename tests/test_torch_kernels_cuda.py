@@ -461,6 +461,82 @@ class TestLayerNorm:
             assert err <= tol * mx, (name, err, mx)
 
 
+class TestDropoutAtBatchOffset:
+    """The three dropout kernels for batch rows b0 = 32 .. 39 of a global
+    batch (a data-parallel rank's rows): outputs against the twins at the
+    same b0 (2 bf16 ulps, as above), the keep masks bit for bit, and
+    another mask than at b0 = 0."""
+
+    TOL = 2 * 2.0 ** -7
+    B0 = 32
+
+    def test_attention(self, dev):
+        from triad_tpu_torch.ops import attention as A
+
+        b, n = 8, 499
+        q, k, v, do = (_randn((b, n, 768), dev, s) for s in (81, 82, 83, 84))
+        keys = torch.ones((b, n), device=dev)
+        got, saved = A.attention_train_fwd(q, k, v, keys, 0.125, 1234, 0.1, self.B0)
+        err, mx = _max_err(got, A.attention_train_plain(q, k, v, keys, 0.125, 1234, 0.1,
+                                                        self.B0))
+        assert err <= self.TOL * mx, ("fwd", err, mx)
+        grads = A.attention_train_bwd(q, k, v, keys, do, 0.125, 1234, 0.1, saved, self.B0)
+        refs = A.attention_train_bwd_plain(q, k, v, keys, do, 0.125, 1234, 0.1, self.B0)
+        for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            err, mx = _max_err(g, r)
+            assert err <= self.TOL * mx, (name, err, mx)
+        # the mask itself: q = k = 0 gives P = 1 / 64, and V_h = I makes
+        # each head's output the dropped D = P keep / (1 - p).
+        zeros = torch.zeros((b, 64, 768), device=dev, dtype=torch.bfloat16)
+        eye = torch.eye(64, device=dev, dtype=torch.bfloat16).repeat(b, 1, 12)
+        d, _ = A.attention_train_fwd(zeros, zeros, eye, torch.ones((b, 64), device=dev), 0.125,
+                                     1234, 0.1, self.B0)
+        kept = d.reshape(b, 64, 12, 64).permute(0, 2, 1, 3) != 0
+        keep = A.attention_keep(b, 12, 64, 64, 1234, 0.1, dev, self.B0)
+        assert torch.equal(kept, keep)
+        assert not torch.equal(keep, A.attention_keep(b, 12, 64, 64, 1234, 0.1, dev))
+
+    def test_mlp(self, dev):
+        from triad_tpu_torch.ops import mlp as M
+
+        x, dy = _randn((8, 499, 768), dev, 85), _randn((8, 499, 768), dev, 86)
+        w1 = _randn((3072, 768), dev, 87, 768 ** -0.5)
+        b1 = _randn((3072,), dev, 88, 0.1)
+        w2 = _randn((768, 3072), dev, 89, 3072 ** -0.5)
+        b2 = _randn((768,), dev, 90, 0.1)
+        got = M.fused_mlp(x, w1, b1, w2, b2, "tanh", 77, 0.1, self.B0)
+        err, mx = _max_err(got, M.fused_mlp_plain(x, w1, b1, w2, b2, "tanh", 77, 0.1, self.B0))
+        assert err <= self.TOL * mx, ("y", err, mx)
+        got = M.fused_mlp_bwd(x, w1, b1, w2, dy, "tanh", 77, 0.1, self.B0)
+        refs = M.fused_mlp_bwd_plain(x, w1, b1, w2, dy, "tanh", 77, 0.1, self.B0)
+        for name, g, r in zip(("dx", "dh", "g"), got, refs):
+            err, mx = _max_err(g, r)
+            assert err <= self.TOL * mx, (name, err, mx)
+        keep = M.mlp_keep(8 * 499, 3072, 77, 0.1, dev, self.B0 * 499).reshape(8, 499, 3072)
+        assert torch.equal(got[2] != 0, keep & (refs[2] != 0))  # g: the dropped GELU
+        assert not torch.equal(keep, M.mlp_keep(8 * 499, 3072, 77, 0.1, dev).reshape(keep.shape))
+
+    def test_layernorm(self, dev):
+        from triad_tpu_torch.ops import layernorm as L
+
+        x, h, dy = (_randn((8, 499, 768), dev, s) for s in (91, 92, 93))
+        scale = _randn((768,), dev, 94, 0.2, torch.float32) + 1.0
+        bias = _randn((768,), dev, 95, 0.1, torch.float32)
+        got = L.dropout_add_ln(x, h, scale, bias, 1e-5, 99, 0.1, self.B0)
+        err, mx = _max_err(got, L.dropout_add_ln_plain(x, h, scale, bias, 1e-5, 99, 0.1,
+                                                       self.B0))
+        assert err <= self.TOL * mx, ("y", err, mx)
+        got = L.dropout_add_ln_bwd(x, h, scale, dy, 1e-5, 99, 0.1, self.B0)
+        refs = L.dropout_add_ln_bwd_plain(x, h, scale, dy, 1e-5, 99, 0.1, self.B0)
+        for name, g, r, tol in zip(("dx", "dh", "dscale", "dbias"), got, refs,
+                                   (self.TOL, self.TOL, 1e-4, 1e-4)):
+            err, mx = _max_err(g, r)
+            assert err <= tol * mx, (name, err, mx)
+        keep = L.ln_keep(8 * 499, 768, 99, 0.1, dev, self.B0 * 499).reshape(x.shape)
+        assert torch.equal(got[1] != 0, keep & (refs[1] != 0))  # dh: the dropped ds
+        assert not torch.equal(keep, L.ln_keep(8 * 499, 768, 99, 0.1, dev).reshape(x.shape))
+
+
 class TestPosConv:
     # Forward and dX: exact bf16 products summed in fp32 (6144 terms per
     # output) in another order, one rounding to bf16: 2 bf16 ulps of max.

@@ -162,18 +162,18 @@ def test_mid_epoch_resume_is_bit_equal(tmp_path):
     assert after and all(_train_losses(tmp_path / "a")[s] == v for s, v in after.items())
 
 
-@pytest.mark.parametrize("route", ["mesh", "multi_process"])
-def test_not_ported_routes_raise(tmp_path, monkeypatch, route):
+@pytest.mark.parametrize("route", ["tp", "fsdp"])
+def test_not_ported_routes_raise(tmp_path, route):
     from triad_tpu_torch.train.trainer import Trainer
 
     cfg = port_config(tiny_config(tmp_path))
-    if route == "mesh":
-        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, num_devices=2))
-        names = "triad_tpu/parallel"
+    if route == "tp":
+        mesh = dataclasses.replace(cfg.mesh, num_devices=2, tp=2)
+        names = "parallel/tp.py"
     else:
-        monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-        monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-        names = "parallel/distributed.py:process_shard"
+        mesh = dataclasses.replace(cfg.mesh, num_devices=2, fsdp=True)
+        names = "parallel/fsdp.py"
+    cfg = dataclasses.replace(cfg, mesh=mesh)
     with pytest.raises(NotImplementedError, match="not ported") as err:
         Trainer(cfg, force_new_training=True, device="cpu")
     assert names in str(err.value) and "JAX package" in str(err.value)

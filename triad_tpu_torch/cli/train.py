@@ -10,6 +10,18 @@ Trains on the card unless ``--device cpu`` is given. A run resumes from
 the latest checkpoint in its output directory unless ``--force-new``.
 ``--synthetic`` clears the config's data paths, so the synthetic
 datasets are used whatever the config file names.
+
+Data-parallel: one process per device, with ``mesh.num_devices`` set to
+their number, launched by torchrun or by the JAX package's variables:
+
+  python -m torch.distributed.run --nproc_per_node 2 -m triad_tpu_torch.cli.train \
+      --config cfg.json --set mesh.num_devices=2
+  TRIAD_COORDINATOR=host:port TRIAD_NUM_PROCESSES=2 TRIAD_PROCESS_ID=<i> \
+      python -m triad_tpu_torch.cli.train --config cfg.json --set mesh.num_devices=2
+
+``TRIAD_DIST_BACKEND`` names the backend (default nccl on the card, gloo
+with ``--device cpu``). Every process writes to one output directory,
+through rank 0 (``parallel/distributed.py``).
 """
 
 from __future__ import annotations
@@ -97,12 +109,19 @@ def main(argv=None):
     args = parser.parse_args(argv)
     device = resolve_device(args)
     config = build_config(args)
+    from triad_tpu_torch.parallel.distributed import initialize_from_env, process_device
     from triad_tpu_torch.train.trainer import Trainer
 
-    trainer = Trainer(config, force_new_training=args.force_new, device=device)
+    initialize_from_env(device)
+    trainer = Trainer(config, force_new_training=args.force_new,
+                      device=process_device(device))
     trainer.train()
     return trainer
 
 
 if __name__ == "__main__":
     main()
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()

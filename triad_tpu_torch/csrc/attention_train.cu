@@ -47,8 +47,10 @@
 // past N is stored.
 //
 // Dropout (p > 0, pallas_attention.py:15-21): the keep bit of (query i,
-// key j) in head (b, h) is word j % 4 of triad::keep4 under key (seed, b *
-// H + h) at row i, column j / 4, so the forward and the backward, which
+// key j) in head (b, h) is word j % 4 of triad::keep4 under key (seed,
+// (b0 + b) * H + h) at row i, column j / 4 (b0: the global index of the
+// first batch row, passed as offset = b0 * H), so the forward and the
+// backward, which
 // tile the (N, N) matrix differently, use the same mask, and so do the
 // three layouts: strided, packed and merged agree bit for bit on the same
 // inputs and seed (the TPU kernels cannot promise that,
@@ -240,7 +242,7 @@ attention_train_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const bf16* vb = v + at(vw.v, b, hh);
   const float* mb = mask + (long long)b * n;
   const int tiles = (n + TILE - 1) / TILE;
-  const uint32_t stream = (uint32_t)(b * H + hh);
+  const uint32_t stream = dp.offset + (uint32_t)(b * H + hh);
   const int r0 = q0 + warp * 16;
 
   auto fetch = [&](int step, int buf) {
@@ -348,7 +350,7 @@ attention_train_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const bf16* vb = v + at(vw.v, b, hh);
   const float* mb = mask + (long long)b * n;
   const int tiles = (n + TILE - 1) / TILE;
-  const uint32_t stream = (uint32_t)(b * H + hh);
+  const uint32_t stream = dp.offset + (uint32_t)(b * H + hh);
   const int r0 = q0 + warp * 16, r = r0 + frag_row(lane, 0);
   const long long plane = (long long)gridDim.z * H * n, bh = ((long long)b * H + hh) * n;
   // the keep-bit word this lane draws (pass 1) and reads back (pass 2)
@@ -589,12 +591,14 @@ Views views_of(const long long* strides, int count) {
 // 16-byte aligned); mask: (B, N) contiguous fp32 key mask (1 = attend);
 // stats: (2, B, H, N) fp32 out, the row max m and sum l of the softmax;
 // dropout: keep iff bits >= thresh, kept values times keep_scale, none
-// when active == 0. Any n >= 1. Returns a cudaError_t.
+// when active == 0, streams shifted by offset = b0 * h. Any n >= 1.
+// Returns a cudaError_t.
 extern "C" int triad_attention_train_fwd(const void* q, const void* k, const void* v,
                                          const void* mask, void* out, void* stats,
                                          const long long* strides, int b, int h, int n,
                                          float sm_scale, unsigned seed, unsigned thresh,
-                                         float keep_scale, int active, void* stream) {
+                                         float keep_scale, int active, unsigned offset,
+                                         void* stream) {
   if (b <= 0 || h <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(attention_train_fwd_kernel, FWD_SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -602,7 +606,7 @@ extern "C" int triad_attention_train_fwd(const void* q, const void* k, const voi
                                (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (bf16*)out,
       (float*)stats, views_of(strides, 4), h, n, sm_scale,
-      triad::Dropout{seed, thresh, keep_scale, active});
+      triad::Dropout{seed, thresh, keep_scale, active, offset});
   return (int)cudaGetLastError();
 }
 
@@ -619,10 +623,11 @@ extern "C" int triad_attention_train_bwd(const void* q, const void* k, const voi
                                          void* di, void* kbits, void* dq, void* dk, void* dv,
                                          const long long* strides, int b, int h, int n,
                                          float sm_scale, unsigned seed, unsigned thresh,
-                                         float keep_scale, int active, void* stream) {
+                                         float keep_scale, int active, unsigned offset,
+                                         void* stream) {
   if (b <= 0 || h <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const triad::Dropout dp{seed, thresh, keep_scale, active};
+  const triad::Dropout dp{seed, thresh, keep_scale, active, offset};
   const Views vw = views_of(strides, 7);
   cudaError_t err = allow_smem(attention_train_dq_kernel, DQ_SMEM);
   if (err == cudaSuccess) err = allow_smem(attention_train_dkv_kernel, DKV_SMEM);

@@ -102,11 +102,15 @@ __device__ __forceinline__ uint32_t keep_word(const Keep4& kb, int col) {
 
 // The dropout parameters a kernel takes: keep iff bits >= thresh
 // (floor(p * 2^32), the JAX rule), kept values times scale = 1 / (1 - p).
-// p = 0 is active == 0: nothing is drawn.
+// p = 0 is active == 0: nothing is drawn. offset shifts the coordinate
+// that names a batch row to its place in the global batch: b0 * H for the
+// attention's stream, b0 * N for the MLP's and LayerNorm's row (b0 = the
+// global index of this process's first batch row; 0 in one process).
 struct Dropout {
   uint32_t seed, thresh;
   float scale;
   int active;
+  uint32_t offset;
 };
 
 // Asynchronous 16-byte copy global -> shared (cp.async, sm_80+), zero-

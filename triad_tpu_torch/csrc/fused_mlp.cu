@@ -67,7 +67,8 @@
 // 3072 on that card) and every operand is K-major.
 //
 // Activation dropout: the keep bit of (row, hidden unit c) is
-// triad::keep4(seed, 0, row, c / 4) word c % 4, a kept value times
+// triad::keep4(seed, 0, offset + row, c / 4) word c % 4 (offset = b0 * N,
+// b0 the global index of the first batch row), a kept value times
 // 1 / (1 - p) in fp32, whatever the tiling. A thread's accumulator holds
 // column pairs (c, c + 1) at rows r and r + 8; lanes 2i and 2i + 1 hold the
 // two halves of one group of four columns. The even lane draws the group
@@ -155,7 +156,7 @@ __device__ __forceinline__ void keep_words(const triad::Dropout& dp, int row, in
                                            uint32_t (&w)[4]) {
   const bool odd = lane & 1;
   const triad::Keep4 kb =
-      triad::keep4(dp.seed, 0u, (uint32_t)(row + (odd ? 8 : 0)), (uint32_t)c >> 2);
+      triad::keep4(dp.seed, 0u, dp.offset + (uint32_t)(row + (odd ? 8 : 0)), (uint32_t)c >> 2);
   const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? kb.w[0] : kb.w[2], 1);
   const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? kb.w[1] : kb.w[3], 1);
   w[0] = odd ? r0 : kb.w[0];
@@ -475,10 +476,11 @@ bool bad_shape(int m, int a, int b, int c) {
 extern "C" int triad_fused_mlp(const void* x, const void* w1, const void* b1, const void* w2,
                                const void* b2, void* y, void* g, int m, int din, int dh,
                                int dout, int tanh_form, unsigned seed, unsigned thresh,
-                               float keep_scale, int active, void* stream) {
+                               float keep_scale, int active, unsigned offset,
+                                   void* stream) {
   if (bad_shape(m, din, dh, dout)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const triad::Dropout dp{seed, thresh, keep_scale, active};
+  const triad::Dropout dp{seed, thresh, keep_scale, active, offset};
   const Params p1{(const bf16*)b1, m, dh, 0, 0, 0, 0, tanh_form, dp};
   const int err = run<EPI_GELU>(Operands{x, w1, nullptr, nullptr, din, 0, g, nullptr}, p1, s);
   if (err != 0) return err;
@@ -495,10 +497,11 @@ extern "C" int triad_fused_mlp_bwd(const void* x, const void* w1, const void* w1
                                    const void* b1, const void* w2t, const void* dy, void* dx,
                                    void* dh_out, void* g_out, int m, int din, int dh, int dout,
                                    int tanh_form, unsigned seed, unsigned thresh,
-                                   float keep_scale, int active, void* stream) {
+                                   float keep_scale, int active, unsigned offset,
+                                   void* stream) {
   if (bad_shape(m, din, dh, dout)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const triad::Dropout dp{seed, thresh, keep_scale, active};
+  const triad::Dropout dp{seed, thresh, keep_scale, active, offset};
   const Params p1{(const bf16*)b1, m, dh, 0, 0, 0, 0, tanh_form, dp};
   const int err =
       run<EPI_DGELU>(Operands{x, w1, dy, w2t, din, dout, dh_out, g_out}, p1, s);

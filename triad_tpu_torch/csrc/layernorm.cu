@@ -7,7 +7,8 @@
 // (T, C) per grid step and draws its keep bits from the core PRNG; here
 // one warp owns one token row of C = 128 * NV channels, held in
 // registers (lane l holds channels 4l + 128v .. 4l + 128v + 3), and the
-// keep bit of (row b * N + t, channel c) is triad::keep4 under key
+// keep bit of (row (b0 + b) * N + t, channel c; offset = b0 * N, b0 the
+// global index of the first batch row) is triad::keep4 under key
 // (seed, 0), so the backward replays the forward's mask. mean and var
 // (two-pass, over the fp32 sum s) reduce by warp shuffles.
 //
@@ -66,7 +67,7 @@ __device__ inline void row_sum_input(const bf16* xr, const bf16* hr, long long r
     load4(xr + c, xv);
     load4(hr + c, hv);
     triad::Keep4 kb;
-    if (dp.active) kb = triad::keep4(dp.seed, 0u, (uint32_t)row, (uint32_t)c >> 2);
+    if (dp.active) kb = triad::keep4(dp.seed, 0u, dp.offset + (uint32_t)row, (uint32_t)c >> 2);
     for (int u = 0; u < 4; ++u) {
       keep[v][u] = !dp.active || kb.w[u] >= dp.thresh;
       const float h = dp.active ? (keep[v][u] ? hv[u] * dp.scale : 0.0f) : hv[u];
@@ -185,9 +186,10 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ h,
 extern "C" int triad_layernorm_fwd(const void* x, const void* h, const void* scale,
                                    const void* bias, void* y, int rows, int c, float eps,
                                    unsigned seed, unsigned thresh, float keep_scale, int active,
+                                   unsigned offset,
                                    void* stream) {
   if (rows <= 0) return (int)cudaErrorInvalidValue;
-  const triad::Dropout dp{seed, thresh, keep_scale, active};
+  const triad::Dropout dp{seed, thresh, keep_scale, active, offset};
   const int blocks = (rows + WARPS - 1) / WARPS;
   switch (c) {
     case 768:
@@ -213,9 +215,10 @@ extern "C" int triad_layernorm_bwd(const void* x, const void* h, const void* sca
                                    const void* dy, void* dx, void* dh, void* dscale_part,
                                    void* dbias_part, int rows, int c, int blocks, float eps,
                                    unsigned seed, unsigned thresh, float keep_scale, int active,
+                                   unsigned offset,
                                    void* stream) {
   if (rows <= 0 || blocks != triad_layernorm_bwd_blocks(rows)) return (int)cudaErrorInvalidValue;
-  const triad::Dropout dp{seed, thresh, keep_scale, active};
+  const triad::Dropout dp{seed, thresh, keep_scale, active, offset};
   switch (c) {
     case 768:
       layernorm_bwd_kernel<6><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(

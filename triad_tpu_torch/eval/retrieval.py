@@ -31,18 +31,27 @@ import numpy as np
 import torch
 
 from triad_tpu_torch.data.audio import pad_or_trim
+from triad_tpu_torch.parallel import collectives as C
 
 
 def select_subset_indices(dataset_size: int, subset_file: str,
                           subset_size: int = 1000) -> List[int]:
-    """Load-or-create the persisted subset (reference retrieval.py:9-30),
-    for a single process: the multi-process broadcast of the JAX package
-    waits for the port's parallel slice."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "select_subset_indices across processes (the JAX package broadcasts process "
-            "0's subset) is not ported to triad_tpu_torch (see ROADMAP.md)")
+    """Load-or-create the persisted subset (reference retrieval.py:9-30).
+
+    Multi-process: rank 0 loads or creates it and broadcasts it to every
+    rank (each must embed the same subset; the ranks need not share a
+    file system, and a concurrent create and read of the JSON would
+    race)."""
+    if C.world() > 1:
+        # Fixed-size wire format: slot 0 the true length, then the subset
+        # zero-padded.
+        buf = torch.zeros(subset_size + 1, dtype=torch.int64, device=C.collective_device())
+        if C.rank() == 0:
+            subset = _load_or_create_subset(dataset_size, subset_file, subset_size)[:subset_size]
+            buf[0] = len(subset)
+            buf[1:1 + len(subset)] = torch.tensor(subset, dtype=torch.int64)
+        buf = C.broadcast_(buf, 0).cpu()
+        return [int(i) for i in buf[1:1 + int(buf[0])]]
     return _load_or_create_subset(dataset_size, subset_file, subset_size)
 
 

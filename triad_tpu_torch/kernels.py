@@ -78,7 +78,7 @@ LAUNCHES: Dict[str, int] = {
 
 _VP, _I, _LL, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_uint
 _LLP = ctypes.POINTER(ctypes.c_longlong)  # a host array of strides
-_DROP = [_U, _U, _F, _I]  # seed, threshold, keep scale, active (dropout_args)
+_DROP = [_U, _U, _F, _I, _U]  # seed, threshold, keep scale, active, offset (dropout_args)
 _SIGNATURES = {
     "triad_attention_eval": [_VP] * 5 + [_I] * 6 + [_LL] * 9 + [_F, _VP],
     "triad_attention_train_fwd": [_VP] * 6 + [_LLP] + [_I] * 3 + [_F] + _DROP + [_VP],
@@ -107,12 +107,16 @@ _lib = None
 build_log = ""
 
 
-def dropout_args(seed: int, p: float):
+def dropout_args(seed: int, p: float, offset: int = 0):
     """The C arguments of a dropout kernel: (seed, threshold, 1 / (1 - p),
-    active), with the keep rule of ops/dropout.py."""
+    active, offset), with the keep rule of ops/dropout.py; ``offset`` shifts
+    the stream (attention: b0 * H) or row (MLP, LayerNorm: b0 * N) of the
+    draws to the batch rows' global place."""
     if p <= 0.0:
-        return 0, 0, 1.0, 0
-    return int(seed) & 0xFFFFFFFF, threshold(p), keep_scale(p), 1
+        return 0, 0, 1.0, 0, 0
+    if not 0 <= offset < 2 ** 32:
+        raise ValueError(f"dropout offset {offset} does not fit in 32 bits")
+    return int(seed) & 0xFFFFFFFF, threshold(p), keep_scale(p), 1, int(offset)
 
 
 def reset_launches() -> None:

@@ -49,7 +49,8 @@ class DistilBertAttention(nn.Module):
                                  "pass seeds (ops.dropout.HostSeeds)")
             out = dot_product_attention(q, k, v, mask, self.dtype, impl="fused",
                                         dropout_rate=rate,
-                                        dropout_seed=seeds.seed() if rate > 0.0 else 0)
+                                        dropout_seed=seeds.seed() if rate > 0.0 else 0,
+                                        dropout_b0=seeds.b0(b) if rate > 0.0 else 0)
             return self.out_lin(out.reshape(b, n, c.hidden_size))
         probs_dropout = None
         if generator is not None and c.attention_dropout > 0:

@@ -65,7 +65,7 @@ from triad_tpu_torch.models.layers import (
 )
 from triad_tpu_torch.models.quantize import int8_active
 from triad_tpu_torch.ops.attention import HEAD_DIM
-from triad_tpu_torch.ops.dropout import HostSeeds
+from triad_tpu_torch.ops.dropout import HostSeeds, global_rand, global_randint
 from triad_tpu_torch.ops.frontend import frontend_vjp
 from triad_tpu_torch.ops.frontend_conv import (
     frontend_activation,
@@ -236,7 +236,8 @@ class HubertSelfAttention(nn.Module):
             qkv = F.linear(x.to(d), w.to(d), bias.to(d))
             seed = seeds.seed() if rate > 0.0 else 0
             return self.out_proj(merged_attention(qkv, d, train, rate, seed,
-                                                  pair=impl == "packed_merged_pair"))
+                                                  pair=impl == "packed_merged_pair",
+                                                  dropout_b0=seeds.b0(b) if rate > 0.0 else 0))
         on_cuda = x.device.type == "cuda"
         if impl == "auto" or (impl in ("packed", "packed_pair") and rate > 0.0):
             impl = "fused" if rate > 0.0 and on_cuda else "xla"
@@ -246,7 +247,8 @@ class HubertSelfAttention(nn.Module):
         if impl in ("fused", "fused_packed", "fused_packed_merged"):
             seed = seeds.seed() if rate > 0.0 else 0
             out = dot_product_attention(q, k, v, None, d, impl=impl, dropout_rate=rate,
-                                        dropout_seed=seed)
+                                        dropout_seed=seed,
+                                        dropout_b0=seeds.b0(b) if rate > 0.0 else 0)
         else:
             probs_dropout = None
             if rate > 0.0:
@@ -287,7 +289,8 @@ class HubertEncoderLayer(nn.Module):
         if impl == "fused":
             seed = seeds.seed() if rate > 0.0 else 0
             return fused_dropout_add_ln(x.to(self.dtype), h.to(self.dtype), ln.weight, ln.bias,
-                                        seed, rate, c.layer_norm_eps)
+                                        seed, rate, c.layer_norm_eps,
+                                        seeds.b0(x.shape[0]) if rate > 0.0 else 0)
         return ln(x + dropout(h, rate, generator))
 
     def forward(self, x, generator: Optional[torch.Generator] = None,
@@ -299,9 +302,10 @@ class HubertEncoderLayer(nn.Module):
         impl = c.mlp_impl
         if impl == "auto":
             impl = "fused" if x.device.type == "cuda" else "xla"
-        seed = seeds.seed() if impl == "fused" and rate > 0.0 else 0
+        live = impl == "fused" and rate > 0.0
+        seed = seeds.seed() if live else 0
         h = mlp_forward(x, self.intermediate_dense, self.output_dense, impl, c.mlp_gelu, rate,
-                        seed, generator)
+                        seed, generator, seeds.b0(x.shape[0]) if live else 0)
         return self._residual_ln(self.final_layer_norm, x, h, generator, seeds)
 
 
@@ -317,10 +321,9 @@ def spec_augment_time_mask(x: torch.Tensor, masked_embed: torch.Tensor,
     mean_spans = mask_prob * t / length
     max_spans = max(min_masks, int(np.ceil(mean_spans)) + 1)
     dev = x.device
-    eps = torch.rand((b,), generator=generator, device=dev)
+    eps = global_rand((b,), generator, dev)
     num_spans = torch.clamp(torch.floor(mean_spans + eps).to(torch.int64), min=min_masks)
-    starts = torch.randint(0, max(1, t - length + 1), (b, max_spans), generator=generator,
-                           device=dev)
+    starts = global_randint(max(1, t - length + 1), (b, max_spans), generator, dev)
     active = torch.arange(max_spans, device=dev)[None, :] < num_spans[:, None]
     pos = torch.arange(t, device=dev)[None, None, :]
     in_span = (pos >= starts[..., None]) & (pos < starts[..., None] + length)

@@ -27,6 +27,7 @@ from triad_tpu_torch.ops.attention import (
     masked_attention,
 )
 from triad_tpu_torch.ops import quant
+from triad_tpu_torch.ops.dropout import global_rand
 from triad_tpu_torch.ops.flash_attention import flash_attention
 from triad_tpu_torch.ops.mlp import FusedMlp, gelu
 
@@ -126,31 +127,35 @@ class LoRALinear(nn.Module):
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
     """nn.Dropout as Flax applies it: keep with probability 1 - rate, kept
     values divided by 1 - rate. ``generator`` None means deterministic
-    (eval): x is returned as it is."""
+    (eval): x is returned as it is. x is batch-major: a data-parallel
+    rank's ``ShardGenerator`` draws at the global batch's shape and keeps
+    its rows (ops/dropout.py:global_rand)."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = global_rand(x.shape, generator, x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def patch_dropout_mask(generator: torch.Generator, shape, drop_rate: float,
                        device=None) -> torch.Tensor:
     """Bernoulli(1 - drop_rate) keep mask for token dropout
-    (layers.py:639-651): dropped tokens are zeroed, not removed."""
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - drop_rate
+    (layers.py:639-651): dropped tokens are zeroed, not removed. shape
+    (B, N), drawn for global rows as ``dropout`` draws."""
+    return global_rand(shape, generator, device) < 1.0 - drop_rate
 
 
 def mlp_forward(x, fc1: Dense, fc2: Dense, impl: str, gelu_form: str, rate: float = 0.0,
-                seed: int = 0, generator: Optional[torch.Generator] = None):
+                seed: int = 0, generator: Optional[torch.Generator] = None, b0: int = 0):
     """fc2(dropout(gelu(fc1(x)))). impl "fused" runs ops.mlp.FusedMlp (the
     CUDA kernels on the card, forward and backward) with ``gelu_form`` and
-    the in-kernel activation dropout at ``rate`` from the int32 ``seed``;
+    the in-kernel activation dropout at ``rate`` from the int32 ``seed``
+    (x's rows at global batch rows b0 ..);
     "xla" runs the two Dense layers around an exact GELU and a plain
     dropout from ``generator``, as the JAX package's unfused path does."""
     if impl == "fused":
         d = fc1.compute_dtype
         return FusedMlp.apply(x.to(d), fc1.weight.to(d), fc1.bias.to(d), fc2.weight.to(d),
-                              fc2.bias.to(d), gelu_form, seed, rate)
+                              fc2.bias.to(d), gelu_form, seed, rate, b0)
     return fc2(dropout(gelu(fc1(x), "erf"), rate, generator))
 
 
@@ -189,7 +194,8 @@ class ProjectionHead(nn.Module):
 
 def dot_product_attention(q, k, v, mask: Optional[torch.Tensor], dtype,
                           scores_dtype=torch.float32, impl: str = "xla",
-                          probs_dropout=None, dropout_rate: float = 0.0, dropout_seed: int = 0):
+                          probs_dropout=None, dropout_rate: float = 0.0, dropout_seed: int = 0,
+                          dropout_b0: int = 0):
     """Attention dispatch of layers.py:99-211 and 385-450.
 
     q, k, v: (B, N, H, Dh); mask: optional (B, 1, 1, Nk) bool. impl
@@ -201,7 +207,8 @@ def dot_product_attention(q, k, v, mask: Optional[torch.Tensor], dtype,
     (fused_attention_packed): the training kernels (differentiable, ragged
     N, so ``attention_pad`` stays ignored)
     with their in-kernel dropout at ``dropout_rate`` from the int32
-    ``dropout_seed``. "flash", "packed" and "packed_pair" given a live
+    ``dropout_seed`` (``dropout_b0``: the global index of the first batch
+    row). "flash", "packed" and "packed_pair" given a live
     ``probs_dropout`` run the plain masked softmax with it, as the JAX
     dispatch does (those kernels have no dropout); "fused" and
     "fused_packed" given one raise. The merged impls take one qkv tensor:
@@ -219,13 +226,13 @@ def dot_product_attention(q, k, v, mask: Optional[torch.Tensor], dtype,
     if impl == "fused":
         out = attention_train_strided(
             *(x.to(dtype).transpose(1, 2) for x in (q, k, v)), key_mask, dropout_seed,
-            dropout_rate, 1.0 / d ** 0.5,
+            dropout_rate, 1.0 / d ** 0.5, b0=dropout_b0,
         )
         return out.transpose(1, 2)
     if impl == "fused_packed":
         out = attention_train(
             *(x.reshape(b, n, h * d).to(dtype) for x in (q, k, v)), key_mask, dropout_seed,
-            dropout_rate, 1.0 / d ** 0.5,
+            dropout_rate, 1.0 / d ** 0.5, b0=dropout_b0,
         )
         return out.reshape(b, n, h, d)
     if impl in ("packed", "packed_pair"):
@@ -245,7 +252,7 @@ MERGED_IMPLS = ("packed_merged", "fused_packed_merged", "packed_merged_pair")  #
 
 
 def merged_attention(qkv, dtype, train: bool, dropout_rate: float = 0.0,
-                     dropout_seed: int = 0, pair: bool = False):
+                     dropout_seed: int = 0, pair: bool = False, dropout_b0: int = 0):
     """merged_packed_dot_product_attention (layers.py:286-382) with ragged N
     and no key mask: qkv (B, N, 3*H*64) -> (B, N, H*64). ``train``: the
     differentiable merged training kernel with its in-kernel dropout (the
@@ -254,7 +261,7 @@ def merged_attention(qkv, dtype, train: bool, dropout_rate: float = 0.0,
     ``pair``."""
     qkv = qkv.to(dtype)
     if train:
-        return attention_train_merged(qkv, None, dropout_seed, dropout_rate)
+        return attention_train_merged(qkv, None, dropout_seed, dropout_rate, b0=dropout_b0)
     if pair:
         return attention_eval_merged_pair(qkv)
     return attention_eval_merged(qkv)

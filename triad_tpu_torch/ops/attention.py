@@ -20,8 +20,9 @@ plain version (``*_plain``, ``heads_train_*plain``). There is no fallback from o
 the other: a CUDA tensor the kernel does not take raises. Neither kernel
 caps the number of keys: any N >= 1 runs on the card, as on the CPU. The
 training attention's dropout keep mask is ``ops/dropout.py``'s, keyed by
-(seed, b * H + h) at (query, key), in the kernels and the plain versions
-alike.
+(seed, (b0 + b) * H + h) at (query, key), in the kernels and the plain
+versions alike (b0: the global index of the first batch row, 0 in one
+process).
 """
 
 from __future__ import annotations
@@ -304,12 +305,12 @@ def train_row_stats_plain(q, k, mask, sm_scale: float) -> torch.Tensor:
     return torch.stack([m, torch.exp(s - m[..., None]).sum(dim=-1)])
 
 
-def _train_bwd_terms(q, k, v, mask, do, sm_scale, seed, p_drop):
+def _train_bwd_terms(q, k, v, mask, do, sm_scale, seed, p_drop, b0=0):
     """_head_bwd's fp32 P, keep mask and dP = (dO V^T) * keep / (1 - p)
     per head, on (B, H, N, 64) views."""
     b, h, nq, _ = q.shape
     p = _train_probs(q, k, mask, sm_scale)
-    keep = attention_keep(b, h, nq, k.shape[2], seed, p_drop, q.device)
+    keep = attention_keep(b, h, nq, k.shape[2], seed, p_drop, q.device, b0)
     dp = dropout.apply_keep(do.to(torch.float32) @ v.to(torch.float32).transpose(-1, -2), keep,
                             p_drop)
     return p, keep, dp
@@ -323,43 +324,45 @@ def _rowsum_dp_p(dp, p):
 
 
 def train_di_plain(q, k, v, mask, do, sm_scale: float, seed: int = 0,
-                   p_drop: float = 0.0) -> torch.Tensor:
+                   p_drop: float = 0.0, b0: int = 0) -> torch.Tensor:
     """The (B, H, N) fp32 di = rowsum(dP * P) of _head_bwd (:208) that the
     training dQ kernel writes for its dK/dV kernel, on (B, H, N, 64)
     views."""
-    p, _, dp = _train_bwd_terms(q, k, v, mask, do, sm_scale, seed, p_drop)
+    p, _, dp = _train_bwd_terms(q, k, v, mask, do, sm_scale, seed, p_drop, b0)
     return _rowsum_dp_p(dp, p)
 
 
-def attention_keep(b: int, h: int, nq: int, nk: int, seed: int, p_drop: float, device):
+def attention_keep(b: int, h: int, nq: int, nk: int, seed: int, p_drop: float, device,
+                   b0: int = 0):
     """The (B, H, Nq, Nk) keep mask of the training attention (stream
-    b * H + h, row = query, col = key)."""
-    keep = dropout.keep_mask(seed, list(range(b * h)), nq, nk, p_drop, device)
+    (b0 + b) * H + h, row = query, col = key; b0 the global index of the
+    first batch row)."""
+    keep = dropout.keep_mask(seed, list(range(b0 * h, (b0 + b) * h)), nq, nk, p_drop, device)
     return keep.reshape(b, h, nq, nk)
 
 
 def heads_train_plain(q, k, v, mask, sm_scale: float, seed: int = 0,
-                      p_drop: float = 0.0) -> torch.Tensor:
+                      p_drop: float = 0.0, b0: int = 0) -> torch.Tensor:
     """_head_fwd for every head: q (B, H, Nq, 64), k/v (B, H, Nk, 64) of any
     strides, mask (B, Nk) fp32 -> (B, H, Nq, 64) fp32. fp32 scores and
     softmax, P normalised in fp32, D = P * keep / (1 - p) in fp32 and then
     rounded to v's dtype before D.V (fp32 accumulation)."""
     b, h, nq, _ = q.shape
     p = _train_probs(q, k, mask, sm_scale)
-    p = dropout.apply_keep(p, attention_keep(b, h, nq, k.shape[2], seed, p_drop, q.device),
+    p = dropout.apply_keep(p, attention_keep(b, h, nq, k.shape[2], seed, p_drop, q.device, b0),
                            p_drop)
     return p.to(v.dtype).to(torch.float32) @ v.to(torch.float32)
 
 
 def heads_train_bwd_plain(q, k, v, mask, do, sm_scale: float, seed: int = 0,
-                          p_drop: float = 0.0):
+                          p_drop: float = 0.0, b0: int = 0):
     """_head_bwd for every head, written out in fp32 (not autograd), on
     (B, H, N, 64) views: dD = dO V^T, dP = dD * keep / (1 - p), D = P *
     keep / (1 - p), dV = D^T dO, di = rowsum(dP * P) (summed in fp64, as
     the kernel sums it), dS = P (dP - di), dQ = dS K s, dK = dS^T Q s.
     Returns fp32 (dq, dk, dv)."""
     f32 = torch.float32
-    p, keep, dp = _train_bwd_terms(q, k, v, mask, do, sm_scale, seed, p_drop)
+    p, keep, dp = _train_bwd_terms(q, k, v, mask, do, sm_scale, seed, p_drop, b0)
     dv = dropout.apply_keep(p, keep, p_drop).transpose(-1, -2) @ do.to(f32)
     ds = p * (dp - _rowsum_dp_p(dp, p)[..., None])
     dq = ds @ k.to(f32) * sm_scale
@@ -368,35 +371,36 @@ def heads_train_bwd_plain(q, k, v, mask, do, sm_scale: float, seed: int = 0,
 
 
 def attention_train_plain(q, k, v, mask, sm_scale: float, seed: int = 0,
-                          p_drop: float = 0.0) -> torch.Tensor:
+                          p_drop: float = 0.0, b0: int = 0) -> torch.Tensor:
     """The packed layout: q (B, Nq, H*64), k/v (B, Nk, H*64), mask (B, Nk)
     fp32 -> (B, Nq, H*64) in q's dtype (heads_train_plain)."""
     h = q.shape[-1] // HEAD_DIM
     o = heads_train_plain(_heads(q, h), _heads(k, h), _heads(v, h), mask, sm_scale, seed,
-                          p_drop)
+                          p_drop, b0)
     return _packed(o).to(q.dtype)
 
 
 def attention_train_bwd_plain(q, k, v, mask, do, sm_scale: float, seed: int = 0,
-                              p_drop: float = 0.0):
+                              p_drop: float = 0.0, b0: int = 0):
     """(dq, dk, dv) of the packed layout in the dtypes of q, k, v."""
     h = q.shape[-1] // HEAD_DIM
     grads = heads_train_bwd_plain(*(_heads(x, h) for x in (q, k, v)), mask, _heads(do, h),
-                                  sm_scale, seed, p_drop)
+                                  sm_scale, seed, p_drop, b0)
     return tuple(_packed(g).to(x.dtype) for g, x in zip(grads, (q, k, v)))
 
 
 def attention_train_merged_plain(qkv, mask, sm_scale: float, seed: int = 0,
-                                 p_drop: float = 0.0) -> torch.Tensor:
+                                 p_drop: float = 0.0, b0: int = 0) -> torch.Tensor:
     """The merged layout (fused_attention_packed_merged): qkv (B, N, 3C)
     with q|k|v at column offsets 0, C, 2C -> (B, N, C) in qkv's dtype."""
-    return attention_train_plain(*qkv.chunk(3, dim=-1), mask, sm_scale, seed, p_drop)
+    return attention_train_plain(*qkv.chunk(3, dim=-1), mask, sm_scale, seed, p_drop, b0)
 
 
 def attention_train_merged_bwd_plain(qkv, mask, do, sm_scale: float, seed: int = 0,
-                                     p_drop: float = 0.0) -> torch.Tensor:
+                                     p_drop: float = 0.0, b0: int = 0) -> torch.Tensor:
     """The one merged d(qkv) (B, N, 3C) in qkv's dtype."""
-    grads = attention_train_bwd_plain(*qkv.chunk(3, dim=-1), mask, do, sm_scale, seed, p_drop)
+    grads = attention_train_bwd_plain(*qkv.chunk(3, dim=-1), mask, do, sm_scale, seed, p_drop,
+                                      b0)
     return torch.cat(grads, dim=-1)
 
 
@@ -430,7 +434,7 @@ def _train_launch_args(name, q, k, v, mask):
     return _key_mask(mask, q.shape[0], q.shape[2], q.device)
 
 
-def _train_fwd_kernel(name, q, k, v, out, mask, sm_scale, seed, p_drop):
+def _train_fwd_kernel(name, q, k, v, out, mask, sm_scale, seed, p_drop, b0=0):
     """csrc/attention_train.cu forward on (B, H, N, 64) views; out written
     through its own view. Returns what the backward kernels take: the
     (2, B, H, N) fp32 row stats (m, l)."""
@@ -439,13 +443,14 @@ def _train_fwd_kernel(name, q, k, v, out, mask, sm_scale, seed, p_drop):
     stats = torch.empty((2, b, h, n), dtype=torch.float32, device=q.device)
     kernels.call("attention_train_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  mask.data_ptr(), out.data_ptr(), stats.data_ptr(), _strides(q, k, v, out), b,
-                 h, n, float(sm_scale), *kernels.dropout_args(seed, p_drop),
+                 h, n, float(sm_scale), *kernels.dropout_args(seed, p_drop, b0 * h),
                  kernels.stream_ptr(out))
     kernels.LAUNCHES[name] += 1
     return stats
 
 
-def _train_bwd_kernel(name, q, k, v, do, dq, dk, dv, mask, saved, sm_scale, seed, p_drop):
+def _train_bwd_kernel(name, q, k, v, do, dq, dk, dv, mask, saved, sm_scale, seed, p_drop,
+                      b0=0):
     """The two backward kernels (dQ with di = rowsum(dP * P), then dK/dV) on
     (B, H, N, 64) views, from the row stats the forward saved, with a (B,
     H, N) fp32 di scratch and, with dropout, the keep bits' scratch (B H N
@@ -467,7 +472,7 @@ def _train_bwd_kernel(name, q, k, v, do, dq, dk, dv, mask, saved, sm_scale, seed
                  mask.data_ptr(), do.data_ptr(), stats.data_ptr(), di.data_ptr(),
                  None if kbits is None else kbits.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), _strides(q, k, v, do, dq, dk, dv), b, h, n, float(sm_scale),
-                 *kernels.dropout_args(seed, p_drop), kernels.stream_ptr(dq))
+                 *kernels.dropout_args(seed, p_drop, b0 * h), kernels.stream_ptr(dq))
     kernels.LAUNCHES[name] += 1
 
 
@@ -478,7 +483,8 @@ def _heads_major(x: torch.Tensor) -> torch.Tensor:
 
 
 def attention_train_strided_fwd(q, k, v, mask, sm_scale: float, seed: int = 0,
-                                p_drop: float = 0.0, count: str = "attention_train_strided"):
+                                p_drop: float = 0.0, count: str = "attention_train_strided",
+                                b0: int = 0):
     """(out, saved): the forward on (B, H, N, 64) views of any strides the
     kernels can address (fused_attention's (B, H, T, D) tensors, or the
     heads of packed (B, N, H*64) projections: no copy). A CPU tensor runs
@@ -488,77 +494,81 @@ def attention_train_strided_fwd(q, k, v, mask, sm_scale: float, seed: int = 0,
     H, N, 64) view of (B, N, H, 64) memory, the packed layout, which
     _packed reshapes with no copy."""
     if q.device.type == "cpu":
-        return heads_train_plain(q, k, v, mask, sm_scale, seed, p_drop).to(q.dtype), None
+        return heads_train_plain(q, k, v, mask, sm_scale, seed, p_drop, b0).to(q.dtype), None
     q, k, v = (_addressable(x) for x in (q, k, v))
     out = _heads_major(q)
-    return out, _train_fwd_kernel(count, q, k, v, out, mask, sm_scale, seed, p_drop)
+    return out, _train_fwd_kernel(count, q, k, v, out, mask, sm_scale, seed, p_drop, b0)
 
 
 def attention_train_strided_bwd(q, k, v, mask, do, sm_scale: float, seed: int = 0,
                                 p_drop: float = 0.0, count: str = "attention_train_strided_bwd",
-                                saved=None):
+                                saved=None, b0: int = 0):
     """(dq, dk, dv) of attention_train_strided_fwd in the dtypes of q, k, v
     (on the card in the forward output's layout); seed and p_drop are the
     forward's, and so is ``saved``, which the kernels need (a CPU tensor
     runs heads_train_bwd_plain, which recomputes everything)."""
     if q.device.type == "cpu":
-        grads = heads_train_bwd_plain(q, k, v, mask, do, sm_scale, seed, p_drop)
+        grads = heads_train_bwd_plain(q, k, v, mask, do, sm_scale, seed, p_drop, b0)
         return tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
     q, k, v, do = (_addressable(x) for x in (q, k, v, do))
     grads = [_heads_major(x) for x in (q, k, v)]
-    _train_bwd_kernel(count, q, k, v, do, *grads, mask, saved, sm_scale, seed, p_drop)
+    _train_bwd_kernel(count, q, k, v, do, *grads, mask, saved, sm_scale, seed, p_drop, b0)
     return tuple(grads)
 
 
-def attention_train_fwd(q, k, v, mask, sm_scale: float, seed: int = 0, p_drop: float = 0.0):
+def attention_train_fwd(q, k, v, mask, sm_scale: float, seed: int = 0, p_drop: float = 0.0,
+                        b0: int = 0):
     """Packed forward (fused_attention_packed): q (B, Nq, H*64), k/v (B, Nk,
     H*64) -> (out (B, Nq, H*64), saved), through the heads' views. mask:
     (B, Nk) key mask (1 = attend); seed, p_drop: the attention dropout;
-    saved: as attention_train_strided_fwd."""
+    saved: as attention_train_strided_fwd; b0: the global index of the
+    first batch row (the dropout streams)."""
     h = q.shape[-1] // HEAD_DIM
     out, saved = attention_train_strided_fwd(*(_heads(x, h) for x in (q, k, v)), mask, sm_scale,
-                                             seed, p_drop, "attention_train")
+                                             seed, p_drop, "attention_train", b0)
     return _packed(out), saved
 
 
 def attention_train_bwd(q, k, v, mask, do, sm_scale: float, seed: int = 0,
-                        p_drop: float = 0.0, saved=None):
+                        p_drop: float = 0.0, saved=None, b0: int = 0):
     """(dq, dk, dv) of the packed layout; seed, p_drop and (on the card)
     ``saved`` are the forward's."""
     h = q.shape[-1] // HEAD_DIM
     grads = attention_train_strided_bwd(*(_heads(x, h) for x in (q, k, v)), mask, _heads(do, h),
-                                        sm_scale, seed, p_drop, "attention_train_bwd", saved)
+                                        sm_scale, seed, p_drop, "attention_train_bwd", saved,
+                                        b0)
     return tuple(_packed(g) for g in grads)
 
 
-def attention_train_merged_fwd(qkv, mask, sm_scale: float, seed: int = 0, p_drop: float = 0.0):
+def attention_train_merged_fwd(qkv, mask, sm_scale: float, seed: int = 0, p_drop: float = 0.0,
+                               b0: int = 0):
     """Merged forward (fused_attention_packed_merged): q, k, v read at
     column offsets 0, C, 2C of one (B, N, 3C) tensor -> (out (B, N, C),
     saved); saved: as attention_train_strided_fwd."""
     if qkv.device.type == "cpu":
-        return attention_train_merged_plain(qkv, mask, sm_scale, seed, p_drop), None
+        return attention_train_merged_plain(qkv, mask, sm_scale, seed, p_drop, b0), None
     qkv = _addressable(qkv)
     b, n, c3 = qkv.shape
     h = c3 // 3 // HEAD_DIM
     out = torch.empty((b, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     return out, _train_fwd_kernel("attention_train_merged",
                                   *(_heads(x, h) for x in (*qkv.chunk(3, dim=-1), out)), mask,
-                                  sm_scale, seed, p_drop)
+                                  sm_scale, seed, p_drop, b0)
 
 
 def attention_train_merged_bwd(qkv, mask, do, sm_scale: float, seed: int = 0,
-                               p_drop: float = 0.0, saved=None) -> torch.Tensor:
+                               p_drop: float = 0.0, saved=None, b0: int = 0) -> torch.Tensor:
     """The one merged d(qkv) (B, N, 3C): the backward kernels write dq, dk
     and dv at column offsets 0, C and 2C of it, from what the forward
     saved."""
     if qkv.device.type == "cpu":
-        return attention_train_merged_bwd_plain(qkv, mask, do, sm_scale, seed, p_drop)
+        return attention_train_merged_bwd_plain(qkv, mask, do, sm_scale, seed, p_drop, b0)
     qkv, do = _addressable(qkv), _addressable(do)
     dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
     h = qkv.shape[-1] // 3 // HEAD_DIM
     views = (*qkv.chunk(3, dim=-1), do, *dqkv.chunk(3, dim=-1))
     _train_bwd_kernel("attention_train_merged_bwd", *(_heads(x, h) for x in views), mask, saved,
-                      sm_scale, seed, p_drop)
+                      sm_scale, seed, p_drop, b0)
     return dqkv
 
 
@@ -567,42 +577,44 @@ class AttentionTrain(torch.autograd.Function):
     the inputs, the mask and the forward's row stats (m, l), forms di =
     rowsum(dP * P) itself, and replays the dropout mask from the seed (no
     probabilities or masks are saved; on the CPU nothing but the inputs).
-    apply(q, k, v, mask, sm_scale, seed, p_drop, count): the kernels count
-    under ``count`` and ``count + "_bwd"``."""
+    apply(q, k, v, mask, sm_scale, seed, p_drop, count, b0): the kernels
+    count under ``count`` and ``count + "_bwd"``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, sm_scale, seed, p_drop, count):
-        ctx.args = (sm_scale, seed, p_drop, count)
-        out, saved = attention_train_strided_fwd(q, k, v, mask, sm_scale, seed, p_drop, count)
+    def forward(ctx, q, k, v, mask, sm_scale, seed, p_drop, count, b0=0):
+        ctx.args = (sm_scale, seed, p_drop, count, b0)
+        out, saved = attention_train_strided_fwd(q, k, v, mask, sm_scale, seed, p_drop, count,
+                                                 b0)
         ctx.save_for_backward(q, k, v, mask, saved)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, mask, saved = ctx.saved_tensors
-        sm_scale, seed, p_drop, count = ctx.args
+        sm_scale, seed, p_drop, count, b0 = ctx.args
         grads = attention_train_strided_bwd(q, k, v, mask, do, sm_scale, seed, p_drop,
-                                            f"{count}_bwd", saved)
-        return (*grads, None, None, None, None, None)
+                                            f"{count}_bwd", saved, b0)
+        return (*grads, None, None, None, None, None, None)
 
 
 class AttentionTrainMerged(torch.autograd.Function):
     """The merged layout's VJP, whose one cotangent is the (B, N, 3C)
     d(qkv) the backward kernels fill from what the forward saved.
-    apply(qkv, mask, sm_scale, seed, p_drop)."""
+    apply(qkv, mask, sm_scale, seed, p_drop, b0)."""
 
     @staticmethod
-    def forward(ctx, qkv, mask, sm_scale, seed, p_drop):
+    def forward(ctx, qkv, mask, sm_scale, seed, p_drop, b0=0):
         ctx.args = (sm_scale, seed, p_drop)
-        out, saved = attention_train_merged_fwd(qkv, mask, sm_scale, seed, p_drop)
+        ctx.b0 = b0
+        out, saved = attention_train_merged_fwd(qkv, mask, sm_scale, seed, p_drop, b0)
         ctx.save_for_backward(qkv, mask, saved)
         return out
 
     @staticmethod
     def backward(ctx, do):
         qkv, mask, saved = ctx.saved_tensors
-        return (attention_train_merged_bwd(qkv, mask, do, *ctx.args, saved), None, None, None,
-                None)
+        return (attention_train_merged_bwd(qkv, mask, do, *ctx.args, saved, ctx.b0), None, None,
+                None, None, None)
 
 
 def _scale(sm_scale: Optional[float]) -> float:
@@ -611,19 +623,20 @@ def _scale(sm_scale: Optional[float]) -> float:
 
 def attention_train_strided(q, k, v, mask=None, seed: int = 0, p_drop: float = 0.0,
                             sm_scale: Optional[float] = None,
-                            count: str = "attention_train_strided") -> torch.Tensor:
+                            count: str = "attention_train_strided", b0: int = 0) -> torch.Tensor:
     """Differentiable training attention (fused_attention with ragged T) on
     (B, H, T, 64) views of any strides, mask (B, T) key mask (1 = attend)
     -> (B, H, T, 64), with attention dropout at rate ``p_drop`` drawn from
-    the int32 ``seed``; the kernels count under ``count``."""
+    the int32 ``seed`` for global batch rows b0 .. b0 + B - 1; the kernels
+    count under ``count``."""
     if q.shape[-1] != HEAD_DIM:
         raise ValueError(f"the training kernels take heads of {HEAD_DIM}, got {q.shape[-1]}")
     return AttentionTrain.apply(q, k, v, _key_mask(mask, q.shape[0], k.shape[2], q.device),
-                                _scale(sm_scale), int(seed), float(p_drop), count)
+                                _scale(sm_scale), int(seed), float(p_drop), count, int(b0))
 
 
 def attention_train(q, k, v, mask=None, seed: int = 0, p_drop: float = 0.0,
-                    sm_scale: Optional[float] = None) -> torch.Tensor:
+                    sm_scale: Optional[float] = None, b0: int = 0) -> torch.Tensor:
     """Differentiable packed training attention (fused_attention_packed
     with ragged N): q (B, Nq, H*64), k/v (B, Nk, H*64), mask (B, Nk) ->
     (B, Nq, H*64): attention_train_strided on the heads' views."""
@@ -632,11 +645,11 @@ def attention_train(q, k, v, mask=None, seed: int = 0, p_drop: float = 0.0,
         raise ValueError(f"packed width {hd} not a multiple of {HEAD_DIM}")
     h = hd // HEAD_DIM
     return _packed(attention_train_strided(*(_heads(x, h) for x in (q, k, v)), mask, seed, p_drop,
-                                           sm_scale, "attention_train"))
+                                           sm_scale, "attention_train", b0))
 
 
 def attention_train_merged(qkv, mask=None, seed: int = 0, p_drop: float = 0.0,
-                           sm_scale: Optional[float] = None) -> torch.Tensor:
+                           sm_scale: Optional[float] = None, b0: int = 0) -> torch.Tensor:
     """Differentiable merged-qkv training attention
     (fused_attention_packed_merged with ragged N): qkv (B, N, 3*H*64) ->
     (B, N, H*64), with one d(qkv) cotangent."""
@@ -644,4 +657,4 @@ def attention_train_merged(qkv, mask=None, seed: int = 0, p_drop: float = 0.0,
     if hd3 % (3 * HEAD_DIM):
         raise ValueError(f"bad merged width {hd3} (not 3*H*{HEAD_DIM})")
     return AttentionTrainMerged.apply(qkv, _key_mask(mask, b, n, qkv.device), _scale(sm_scale),
-                                      int(seed), float(p_drop))
+                                      int(seed), float(p_drop), int(b0))

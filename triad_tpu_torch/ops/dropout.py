@@ -15,9 +15,13 @@ so a backward kernel that tiles differently from its forward replays the
 same mask, and the plain twin draws the same mask as the kernel on any
 device. Streams and coordinates per kernel:
 
-  attention        stream = b * H + h, row = query, col = key
-  MLP              stream = 0, row = b * N + t, col = hidden unit
-  add + LayerNorm  stream = 0, row = b * N + t, col = channel
+  attention        stream = (b0 + b) * H + h, row = query, col = key
+  MLP              stream = 0, row = (b0 + b) * N + t, col = hidden unit
+  add + LayerNorm  stream = 0, row = (b0 + b) * N + t, col = channel
+
+where b0 is the global index of the process's first batch row (0 in one
+process): a data-parallel rank draws for its rows what one process
+draws for the same rows of the global batch.
 
 The keep rule is the JAX one: keep iff bits >= floor(p * 2^32), and a
 kept value is multiplied by the fp32 value of 1 / (1 - p).
@@ -28,7 +32,8 @@ Each kernel call site takes an int32 seed drawn on the host
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+import math
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -80,27 +85,35 @@ def philox4x32_10(c0, c1, k0, k1):
 
 
 def keep_bits(seed: int, stream: Union[int, Sequence[int], torch.Tensor], rows: int,
-              cols: int, device=None) -> torch.Tensor:
-    """The uint32 bits (as int64) at (stream, row, col): shape (rows, cols)
-    for one stream, (S, rows, cols) for S streams."""
+              cols: int, device=None, row0: int = 0) -> torch.Tensor:
+    """The uint32 bits (as int64) at (stream, row0 + row, col): shape (rows,
+    cols) for one stream, (S, rows, cols) for S streams."""
     one = isinstance(stream, int)
     s = torch.as_tensor([stream] if one else stream, dtype=torch.int64, device=device)
     s = (s & _MASK32).reshape(-1, 1, 1)
     quads = (cols + 3) // 4
     c0 = torch.arange(quads, dtype=torch.int64, device=device).reshape(1, 1, quads)
-    c1 = torch.arange(rows, dtype=torch.int64, device=device).reshape(1, rows, 1)
+    c1 = torch.arange(row0, row0 + rows, dtype=torch.int64, device=device).reshape(1, rows, 1)
+    c1 = c1 & _MASK32
     c0, c1 = torch.broadcast_tensors(c0, c1)
     words = philox4x32_10(c0, c1, int(seed) & _MASK32, s)
     bits = torch.stack(words, dim=-1).reshape(s.shape[0], rows, quads * 4)[..., :cols]
     return bits[0] if one else bits
 
 
-def keep_mask(seed: int, stream, rows: int, cols: int, p: float, device=None) -> torch.Tensor:
+def keep_mask(seed: int, stream, rows: int, cols: int, p: float, device=None,
+              row0: int = 0) -> torch.Tensor:
     """Bool keep mask, keep iff bits >= floor(p * 2^32) (all True at p = 0)."""
     if p <= 0.0:
         shape = (rows, cols) if isinstance(stream, int) else (len(stream), rows, cols)
         return torch.ones(shape, dtype=torch.bool, device=device)
-    return keep_bits(seed, stream, rows, cols, device) >= threshold(p)
+    return keep_bits(seed, stream, rows, cols, device, row0) >= threshold(p)
+
+
+def row_offset(x: torch.Tensor, b0: int) -> int:
+    """The first global row of a (B, ..., C) operand whose batch starts at
+    global row b0: b0 times the rows of one batch item."""
+    return b0 * math.prod(x.shape[1:-1])
 
 
 def apply_keep(x: torch.Tensor, keep: torch.Tensor, p: float) -> torch.Tensor:
@@ -114,11 +127,17 @@ class HostSeeds:
     """A host stream of random numbers for one training micro step: the
     int32 seed of each kernel call site and the layerdrop draws, each from
     ``np.random.SeedSequence([seed, global_step, site])`` with ``site``
-    counting the draws."""
+    counting the draws. The same on every data-parallel rank; ``shard``
+    (rank, world) gives each kernel its batch offset (:meth:`b0`)."""
 
-    def __init__(self, seed: int, global_step: int):
+    def __init__(self, seed: int, global_step: int, shard: Tuple[int, int] = (0, 1)):
         self.key = (int(seed), int(global_step))
         self.site = 0
+        self.shard = shard
+
+    def b0(self, batch: int) -> int:
+        """The global index of the first of this rank's ``batch`` rows."""
+        return self.shard[0] * batch
 
     def _words(self, n: int) -> np.ndarray:
         words = np.random.SeedSequence([*self.key, self.site]).generate_state(n)
@@ -133,3 +152,39 @@ class HostSeeds:
         """A float in [0, 1)."""
         hi, lo = (int(w) for w in self._words(2))
         return ((hi >> 5) * 67108864.0 + (lo >> 6)) / 9007199254740992.0
+
+
+class ShardGenerator(torch.Generator):
+    """The plain draws' generator of one data-parallel rank: ``shard`` =
+    (rank, world). :func:`global_rand` and :func:`global_randint` draw at
+    the global batch's shape and keep this rank's rows, so each rank draws
+    what one process draws for the same global rows, and every rank's
+    generator advances alike."""
+
+    def __new__(cls, device, shard: Tuple[int, int] = (0, 1)):
+        gen = super().__new__(cls, device=device)
+        gen.shard = shard
+        return gen
+
+    def __init__(self, device, shard: Tuple[int, int] = (0, 1)):
+        pass
+
+
+def _rows(shape, generator, draw):
+    rank, world = getattr(generator, "shard", (0, 1))
+    if world == 1:
+        return draw(tuple(shape))
+    b = shape[0]
+    return draw((b * world, *shape[1:]))[rank * b:(rank + 1) * b]
+
+
+def global_rand(shape, generator: torch.Generator, device=None) -> torch.Tensor:
+    """torch.rand of a (B, ...) batch's draws, keyed on global rows."""
+    return _rows(shape, generator,
+                 lambda s: torch.rand(s, generator=generator, device=device))
+
+
+def global_randint(high: int, shape, generator: torch.Generator, device=None) -> torch.Tensor:
+    """torch.randint(0, high) of a (B, ...) batch's draws, keyed on global rows."""
+    return _rows(shape, generator,
+                 lambda s: torch.randint(0, high, s, generator=generator, device=device))

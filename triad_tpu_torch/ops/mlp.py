@@ -36,29 +36,32 @@ def gelu(x: torch.Tensor, form: str) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if form == "tanh" else "none")
 
 
-def mlp_keep(rows: int, dh: int, seed: int, p_drop: float, device) -> torch.Tensor:
-    """The (rows, Dh) keep mask of the MLP's activation dropout."""
-    return dropout.keep_mask(seed, 0, rows, dh, p_drop, device)
+def mlp_keep(rows: int, dh: int, seed: int, p_drop: float, device, row0: int = 0) -> torch.Tensor:
+    """The (rows, Dh) keep mask of the MLP's activation dropout, rows
+    counted from global row ``row0``."""
+    return dropout.keep_mask(seed, 0, rows, dh, p_drop, device, row0)
 
 
 def fused_mlp_plain(x, w1, b1, w2, b2, form: str = "erf", seed: int = 0,
-                    p_drop: float = 0.0) -> torch.Tensor:
+                    p_drop: float = 0.0, b0: int = 0) -> torch.Tensor:
     f32 = torch.float32
     h = x.to(f32) @ w1.to(f32).t() + b1.to(f32)
     g = gelu(h, form)
-    keep = mlp_keep(h[..., 0].numel(), h.shape[-1], seed, p_drop, x.device)
+    keep = mlp_keep(h[..., 0].numel(), h.shape[-1], seed, p_drop, x.device,
+                    dropout.row_offset(x, b0))
     g = dropout.apply_keep(g, keep.reshape(g.shape), p_drop).to(w2.dtype)
     y = g.to(f32) @ w2.to(f32).t() + b2.to(f32)
     return y.to(x.dtype)
 
 
 def fused_mlp(x, w1, b1, w2, b2, form: str = "erf", seed: int = 0,
-              p_drop: float = 0.0) -> torch.Tensor:
-    """x (..., Din) -> (..., Dout); w1 (Dh, Din), b1 (Dh,), w2 (Dout, Dh),
-    b2 (Dout,), all in the compute dtype; activation dropout at rate
-    ``p_drop`` from the int32 ``seed``."""
+              p_drop: float = 0.0, b0: int = 0) -> torch.Tensor:
+    """x (B, ..., Din) -> (B, ..., Dout); w1 (Dh, Din), b1 (Dh,), w2 (Dout,
+    Dh), b2 (Dout,), all in the compute dtype; activation dropout at rate
+    ``p_drop`` from the int32 ``seed``, for global batch rows b0 .. b0 + B
+    - 1."""
     if x.device.type == "cpu":
-        return fused_mlp_plain(x, w1, b1, w2, b2, form, seed, p_drop)
+        return fused_mlp_plain(x, w1, b1, w2, b2, form, seed, p_drop, b0)
     _check_form(form)
     kernels.require_cuda("fused_mlp", x, w1, b1, w2, b2, dtype=torch.bfloat16)
     w1, b1, w2, b2 = (t.contiguous() for t in (w1, b1, w2, b2))
@@ -77,7 +80,8 @@ def fused_mlp(x, w1, b1, w2, b2, form: str = "erf", seed: int = 0,
     kernels.call(
         "fused_mlp", x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), y.data_ptr(), g.data_ptr(), m, din, dh, dout,
-        int(form == "tanh"), *kernels.dropout_args(seed, p_drop), kernels.stream_ptr(y),
+        int(form == "tanh"), *kernels.dropout_args(seed, p_drop, dropout.row_offset(x, b0)),
+        kernels.stream_ptr(y),
     )
     kernels.LAUNCHES["fused_mlp"] += 1
     return y.reshape(*lead, dout)
@@ -103,7 +107,7 @@ def gelu_grad(h: torch.Tensor, form: str) -> torch.Tensor:
 
 
 def fused_mlp_bwd_plain(x, w1, b1, w2, dy, form: str = "erf", seed: int = 0,
-                        p_drop: float = 0.0):
+                        p_drop: float = 0.0, b0: int = 0):
     """_bwd_kernel's body: recompute h = x W1^T + b1 and g = gelu(h) in
     fp32; dg = dy W2 (fp32); replay the keep mask: g and dg times keep /
     (1 - p); dh = dg gelu'(h); dx = dh W1 with dh rounded to the weights'
@@ -111,7 +115,8 @@ def fused_mlp_bwd_plain(x, w1, b1, w2, dy, form: str = "erf", seed: int = 0,
     output."""
     f32 = torch.float32
     h = x.to(f32) @ w1.to(f32).t() + b1.to(f32)
-    keep = mlp_keep(h[..., 0].numel(), h.shape[-1], seed, p_drop, x.device).reshape(h.shape)
+    keep = mlp_keep(h[..., 0].numel(), h.shape[-1], seed, p_drop, x.device,
+                    dropout.row_offset(x, b0)).reshape(h.shape)
     dg = dropout.apply_keep(dy.to(f32) @ w2.to(f32), keep, p_drop)
     dh = dg * gelu_grad(h, form)
     dx = dh.to(w1.dtype).to(f32) @ w1.to(f32)
@@ -119,12 +124,13 @@ def fused_mlp_bwd_plain(x, w1, b1, w2, dy, form: str = "erf", seed: int = 0,
     return dx.to(x.dtype), dh.to(x.dtype), g.to(x.dtype)
 
 
-def fused_mlp_bwd(x, w1, b1, w2, dy, form: str = "erf", seed: int = 0, p_drop: float = 0.0):
+def fused_mlp_bwd(x, w1, b1, w2, dy, form: str = "erf", seed: int = 0, p_drop: float = 0.0,
+                  b0: int = 0):
     """(dx, dh, g) for x (..., Din), dy (..., Dout): the plain version for
-    a CPU tensor, csrc/fused_mlp.cu's backward kernel for a CUDA one; seed
-    and p_drop are the forward's."""
+    a CPU tensor, csrc/fused_mlp.cu's backward kernel for a CUDA one; seed,
+    p_drop and b0 are the forward's."""
     if x.device.type == "cpu":
-        return fused_mlp_bwd_plain(x, w1, b1, w2, dy, form, seed, p_drop)
+        return fused_mlp_bwd_plain(x, w1, b1, w2, dy, form, seed, p_drop, b0)
     _check_form(form)
     kernels.require_cuda("fused_mlp_bwd", x, w1, b1, w2, dy, dtype=torch.bfloat16)
     w1, b1, w2 = (t.contiguous() for t in (w1, b1, w2))
@@ -147,8 +153,8 @@ def fused_mlp_bwd(x, w1, b1, w2, dy, form: str = "erf", seed: int = 0, p_drop: f
     kernels.call(
         "fused_mlp_bwd", x2.data_ptr(), w1.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
         w2t.data_ptr(), dy2.data_ptr(), dx.data_ptr(), dhid.data_ptr(), g.data_ptr(), m, din,
-        dh, dout, int(form == "tanh"), *kernels.dropout_args(seed, p_drop),
-        kernels.stream_ptr(dx),
+        dh, dout, int(form == "tanh"),
+        *kernels.dropout_args(seed, p_drop, dropout.row_offset(x, b0)), kernels.stream_ptr(dx),
     )
     kernels.LAUNCHES["fused_mlp_bwd"] += 1
     return dx.reshape(*lead, din), dhid.reshape(*lead, dh), g.reshape(*lead, dh)
@@ -174,12 +180,12 @@ class FusedMlp(torch.autograd.Function):
     = dh^T x and dW2 = dy^T g are plain products (weight_grad), db1 and db2
     fp32 sums, formed only for the inputs that need a gradient (the frozen
     ViT base needs none).
-    Apply as FusedMlp.apply(x, w1, b1, w2, b2, form, seed, p_drop)."""
+    Apply as FusedMlp.apply(x, w1, b1, w2, b2, form, seed, p_drop, b0)."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, form, seed=0, p_drop=0.0):
+    def forward(ctx, x, w1, b1, w2, b2, form, seed=0, p_drop=0.0, b0=0):
         ctx.save_for_backward(x, w1, b1, w2)
-        ctx.args, ctx.b2_dtype = (form, int(seed), float(p_drop)), b2.dtype
+        ctx.args, ctx.b2_dtype = (form, int(seed), float(p_drop), int(b0)), b2.dtype
         return fused_mlp(x, w1, b1, w2, b2, *ctx.args)
 
     @staticmethod
@@ -193,4 +199,4 @@ class FusedMlp(torch.autograd.Function):
         db1 = dh2.sum(dim=0, dtype=f32).to(b1.dtype) if need[2] else None
         dw2 = weight_grad(dy2, g2, w2.dtype) if need[3] else None
         db2 = dy2.sum(dim=0, dtype=f32).to(ctx.b2_dtype) if need[4] else None
-        return dx if need[0] else None, dw1, db1, dw2, db2, None, None, None
+        return dx if need[0] else None, dw1, db1, dw2, db2, None, None, None, None

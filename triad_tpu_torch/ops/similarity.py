@@ -39,6 +39,13 @@ def pair_scores(q_tokens, q_mask, k_tokens, k_mask, inv_temp) -> torch.Tensor:
     return (mx * q_mask.to(f32)[:, :, None]).sum(dim=1) / counts[:, None]
 
 
+def diag_token_sims(query, key, temperature) -> torch.Tensor:
+    """Positive-pair (i == i) token sims (similarity.py:141): (B, Nq, Nk)
+    fp32, unnormalized, times the temperature, at "highest"."""
+    q, k = _volume_operands(query, key, "highest")
+    return _sims("bqd,bkd->bqk", q, k, torch.float32) * temperature.to(torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # Training aggregation (triad_tpu/ops/similarity.py:aggregate_crossbatch)
 # ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@ package a tensor-parallel mesh and the serving export both need it; in
 the port the serving export does (``serve/export.py``): a bundle runs no
 hand-written kernel. The mesh and the Megatron sharding rules
 (``make_dp_tp_mesh``, ``tp_param_specs``, ``tp_state_shardings``) are
-still to port, with the rest of ``parallel/`` (ROADMAP.md).
+still to port, with FSDP (``parallel/fsdp.py``; ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -29,6 +29,14 @@ epoch, batch, idx) and jump to the batch cursor in O(1)
 collection: a hard link of the step's ``state.pt`` (a copy where the
 file system has no links) and its ``meta.json``.
 
+A data-parallel run writes the files a one-process run writes: every
+rank gathers the ZeRO-1 moment slices into whole AdamW states and sums
+its share of the accumulated gradients with the others'; rank 0 alone
+writes and commits, and the others wait at a barrier. A restore loads the
+whole state on every rank and keeps each rank's slices, with the summed
+gradients on rank 0 (zeros elsewhere: the next reduction adds them), so
+a run resumes in either world size.
+
 The port reads only its own checkpoints: the Orbax checkpoints of JAX
 runs would need JAX to read (ROADMAP.md, the weight importers).
 """
@@ -45,6 +53,9 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from triad_tpu_torch.parallel import collectives as C
+from triad_tpu_torch.parallel.distributed import coordination_barrier
 
 STATE_FILE, META_FILE = "state.pt", "meta.json"
 
@@ -81,13 +92,14 @@ def _to_host(x):
 
 def state_payload(train_state) -> Dict[str, Any]:
     """What a checkpoint holds of a TrainState (``train/step.py``), copied
-    to the host."""
+    to the host: whole AdamW states and the gradients summed over the
+    ranks (a collective in a data-parallel run: every rank calls it)."""
     model, bank = train_state.model, train_state.bank
     return _to_host({
         "model": model.state_dict(),
-        "opts": {g: opt.state_dict() for g, opt in bank.opts.items()},
+        "opts": bank.full_state_dicts(),
         "counts": dict(bank.counts),
-        "grads": {n: p.grad for n, p in model.named_parameters() if p.grad is not None},
+        "grads": bank.summed_grads(),
         "global_step": int(train_state.global_step),
         "seed": int(train_state.seed),
     })
@@ -95,19 +107,14 @@ def state_payload(train_state) -> Dict[str, Any]:
 
 def load_payload(train_state, payload: Dict[str, Any]):
     """Load a checkpoint's payload into a live TrainState, in place, on
-    its device; parameters without a saved gradient get ``.grad`` None."""
+    its device; parameters without a saved gradient get ``.grad`` None.
+    A data-parallel rank keeps its ZeRO-1 slices; the saved gradients go
+    to rank 0, zeros to the others."""
     model, bank = train_state.model, train_state.bank
     model.load_state_dict(payload["model"])
-    if set(payload["opts"]) != set(bank.opts):
-        raise ValueError(f"checkpoint optimizer groups {sorted(payload['opts'])} != "
-                         f"{sorted(bank.opts)}")
-    for g, opt in bank.opts.items():
-        opt.load_state_dict(payload["opts"][g])
+    bank.load_full_state_dicts(payload["opts"])
     bank.counts = dict(payload["counts"])
-    grads = payload["grads"]
-    for name, p in model.named_parameters():
-        g = grads.get(name)
-        p.grad = None if g is None else g.to(p.device, p.dtype)
+    bank.load_grads(payload["grads"])
     train_state.global_step = int(payload["global_step"])
     train_state.seed = int(payload["seed"])
     return train_state
@@ -121,11 +128,17 @@ class CheckpointManager:
     old steps. One write is in flight at a time (a new save waits for the
     last); ``wait_until_finished``, ``latest_step``, ``restore`` and
     ``close`` drain it first, and re-raise its error. ``timings`` holds,
-    per save, the seconds of its blocking part and of its write."""
+    per save, the seconds of its blocking part and of its write.
+
+    In a data-parallel run every rank makes the manager and calls save
+    (the state is gathered from all of them); rank 0 writes, and every
+    rank meets the others at a barrier once the write has committed (in
+    ``wait_until_finished`` for an async save)."""
 
     def __init__(
         self, directory: str, max_to_keep: int = 3, async_save: bool = False
     ):
+        self.primary = C.rank() == 0
         self.directory = Path(directory).resolve()
         self.directory.mkdir(parents=True, exist_ok=True)
         self._steps_dir = self.directory / "ckpts"
@@ -135,6 +148,7 @@ class CheckpointManager:
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending = False  # a save whose commit the ranks have not met at
         self.timings: List[Dict[str, float]] = []
 
     # -- save -----------------------------------------------------------
@@ -158,8 +172,15 @@ class CheckpointManager:
         payload = state_payload(train_state)
         timing = {"step": step, "block_s": 0.0, "write_s": 0.0}
         self.timings.append(timing)
+        if not self.primary:  # rank 0 writes; meet it once it has committed
+            self._pending = True
+            if not self.async_save:
+                self.wait_until_finished()
+            return
         if not self.async_save:
             self._write(step, payload, meta, is_best, timing)
+            self._pending = True
+            self.wait_until_finished()
             timing["block_s"] = time.perf_counter() - t0
             return
         timing["block_s"] = time.perf_counter() - t0
@@ -167,6 +188,7 @@ class CheckpointManager:
             target=self._write_guarded, args=(step, payload, meta, is_best, timing),
             name=f"checkpoint-{step}", daemon=True)
         self._thread.start()
+        self._pending = True
 
     def _write_guarded(self, *args) -> None:
         try:
@@ -214,6 +236,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            self._pending = False
+            coordination_barrier("checkpoint committed")
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("an async checkpoint save failed") from err

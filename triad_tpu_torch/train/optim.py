@@ -15,6 +15,14 @@ trainer's torch AdamW + OneCycleLR(cycle_momentum=True) bank):
   moments start fresh at unfreeze, while the schedules advance per update;
 * global-norm 10.0 clipping over audio_* and over text_*, after gating.
 
+Data-parallel (``mesh``): the micro steps accumulate each rank's share in
+``.grad``; ``all_reduce_grads`` sums it over the ranks once per update
+window, before the group norms and the clip, which so see the full
+gradients, as in JAX. With ``zero1`` (``parallel/zero.py``) each AdamW
+holds and updates only this rank's slice of each large parameter, and
+the slices are all-gathered back after the step. ``counts`` and the
+schedules stay on the host, alike on every rank.
+
 The schedule is set on each param group before each step rather than
 through ``OneCycleLR``: the JAX bank clamps at the cycle's end and for
 cycles shorter than one warm-up step, where ``OneCycleLR`` raises or
@@ -25,13 +33,14 @@ nothing reached a parameter, as the JAX bank's zero-filled tree does.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List
+from typing import Any, Callable, Dict, List
 
 import torch
 import torch.nn as nn
 
 from triad_tpu_torch.config import OptimConfig
 from triad_tpu_torch.models.layers import not_ported
+from triad_tpu_torch.parallel import collectives as C
 
 GROUPS = ("others", "audio", "text", "vit_lora")
 FROZEN_GROUP = "vit_frozen"
@@ -98,21 +107,29 @@ def _norm(grads: List[torch.Tensor], device) -> torch.Tensor:
     return total.sqrt()
 
 
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
 class OptimizerBank:
     """4x AdamW with per-group delayed OneCycle schedules over a model's
-    parameters (grouped by ``label_for_path``)."""
+    parameters (grouped by ``label_for_path``). ``mesh``: a data-parallel
+    run's mesh (``parallel/dp.py``); ``zero1`` shards the moments over
+    ``mesh_axis``."""
 
-    def __init__(self, cfg: OptimConfig, model: nn.Module, total_updates: int):
+    def __init__(self, cfg: OptimConfig, model: nn.Module, total_updates: int, mesh=None,
+                 mesh_axis="data", zero1: bool = False):
         if cfg.mu_dtype != "float32" or cfg.nu_dtype != "float32":
             raise not_ported(f"Adam moments in {cfg.mu_dtype}/{cfg.nu_dtype}",
                              "train/optim.py:scale_by_cycled_adam's low-precision moment "
                              "storage")
-        self.cfg = cfg
+        self.cfg, self.model = cfg, model
         self.named = list(model.named_parameters())
         self.device = self.named[0][1].device
         self.groups: Dict[str, List[nn.Parameter]] = {g: [] for g in GROUPS + (FROZEN_GROUP,)}
+        self.names: Dict[str, List[str]] = {g: [] for g in self.groups}
         for name, p in self.named:
             self.groups[label_for_path(name)].append(p)
+            self.names[label_for_path(name)].append(name)
         cycles = {
             "others": total_updates,
             "audio": total_updates - cfg.unfreeze_audio_step,
@@ -123,12 +140,99 @@ class OptimizerBank:
                   "text": cfg.lr_scale_text, "vit_lora": cfg.lr_scale_vit_lora}
         self.schedules = {g: onecycle(cfg, scales[g], cycles[g]) for g in GROUPS}
         self.momentum = {g: onecycle_momentum(cfg, cycles[g]) for g in GROUPS}
+        self.mesh = mesh
+        self.group = mesh.group if mesh is not None else None
+        self.set_shards({}, self.group)
+        if zero1 and mesh is not None:
+            from triad_tpu_torch.parallel.zero import apply_zero1
+
+            apply_zero1(self, mesh, mesh_axis)
+        self.counts = {g: 0 for g in GROUPS}  # applied updates per group
+
+    def set_shards(self, shards: Dict[str, Any], group=None) -> None:
+        """(Re)build the AdamW bank: a parameter named in ``shards`` (ZeRO-1,
+        ``parallel/zero.py``) is stepped through a view of this rank's
+        slice, with that slice's moments; the rest in full."""
+        self.shards, self.group = dict(shards), group
+        cfg = self.cfg
+        self.storage = {
+            g: [p if n not in self.shards
+                else nn.Parameter(self.shards[n].of(p.data), requires_grad=False)
+                for n, p in zip(self.names[g], self.groups[g])]
+            for g in GROUPS
+        }
         self.opts = {
-            g: torch.optim.AdamW(self.groups[g], lr=0.0, betas=(cfg.b1, cfg.b2), eps=cfg.eps,
+            g: torch.optim.AdamW(self.storage[g], lr=0.0, betas=(cfg.b1, cfg.b2), eps=cfg.eps,
                                  weight_decay=cfg.weight_decay)
             for g in GROUPS if self.groups[g]
         }
-        self.counts = {g: 0 for g in GROUPS}  # applied updates per group
+
+    @torch.no_grad()
+    def all_reduce_grads(self) -> None:
+        """Sum every .grad over the ranks, in place (one all-reduce a dtype
+        over the flattened gradients)."""
+        if self.mesh is None:
+            return
+        grads = [p.grad for _, p in self.named if p.grad is not None]
+        for dtype in sorted({g.dtype for g in grads}, key=str):
+            same = [g for g in grads if g.dtype == dtype]
+            flat = C.all_reduce_(torch.cat([g.reshape(-1) for g in same]), group=self.group)
+            for g, part in zip(same, flat.split([g.numel() for g in same])):
+                g.copy_(part.view_as(g))
+
+    def summed_grads(self) -> Dict[str, torch.Tensor]:
+        """Each .grad summed over the ranks (copies; a collective in a
+        data-parallel run): the one-process run's accumulated gradient."""
+        out = {}
+        for n, p in self.named:
+            if p.grad is not None:
+                g = p.grad.detach().clone()
+                out[n] = g if self.mesh is None else C.all_reduce_(g, group=self.group)
+        return out
+
+    def load_grads(self, grads: Dict[str, torch.Tensor]) -> None:
+        """Set .grad from summed gradients (summed_grads'): rank 0 takes them,
+        the other ranks zeros (None where none was saved)."""
+        first = self.mesh is None or self.mesh.rank == 0
+        for n, p in self.named:
+            g = grads.get(n)
+            p.grad = None if g is None else (g.to(p.device, p.dtype) if first
+                                             else torch.zeros_like(p))
+
+    def moment_bytes(self) -> int:
+        """Bytes of AdamW moments this rank holds."""
+        return sum(st[k].numel() * st[k].element_size()
+                   for opt in self.opts.values() for st in opt.state.values()
+                   for k in _MOMENTS if k in st)
+
+    def _moments(self, g: str, state_dict, fn):
+        """A copy of group g's AdamW state dict with fn(moment, shard)
+        applied to the moments of its sharded parameters."""
+        sd = {"state": {i: dict(st) for i, st in state_dict["state"].items()},
+              "param_groups": state_dict["param_groups"]}
+        for i, st in sd["state"].items():
+            shard = self.shards.get(self.names[g][int(i)])
+            if shard is not None:
+                for k in _MOMENTS:
+                    st[k] = fn(st[k], shard)
+        return sd
+
+    def full_state_dicts(self) -> Dict[str, Any]:
+        """Each group's AdamW state dict with whole moments: ZeRO-1 slices
+        gathered from every rank (a collective: every rank calls it)."""
+        return {g: self._moments(g, opt.state_dict(),
+                                 lambda t, sh: C.gather_rows(t, self.group, sh.dim))
+                for g, opt in self.opts.items()}
+
+    def load_full_state_dicts(self, state_dicts: Dict[str, Any]) -> None:
+        """Load whole AdamW state dicts (a one-process checkpoint's, or
+        full_state_dicts'), keeping this rank's slices under ZeRO-1."""
+        if set(state_dicts) != set(self.opts):
+            raise ValueError(f"checkpoint optimizer groups {sorted(state_dicts)} != "
+                             f"{sorted(self.opts)}")
+        for g, opt in self.opts.items():
+            opt.load_state_dict(self._moments(g, state_dicts[g],
+                                              lambda t, sh: sh.of(t).contiguous()))
 
     def gates(self, global_step: int) -> Dict[str, bool]:
         """Which groups train at this micro step (others and vit_lora always)."""
@@ -166,16 +270,30 @@ class OptimizerBank:
             metrics[f"lr_{g}"] = lr
             if not on or g not in self.opts:
                 continue
-            for p in self.groups[g]:
+            for name, p, st in zip(self.names[g], self.groups[g], self.storage[g]):
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+                if st is not p:
+                    st.grad = self.shards[name].of(p.grad)
             b1 = self.momentum[g](count) if self.cfg.cycle_momentum else self.cfg.b1
             for group in self.opts[g].param_groups:
                 group["lr"], group["betas"] = lr, (b1, self.cfg.b2)
             self.opts[g].step()
+            self._gather_slices(g)
             self.counts[g] = count + 1
         return metrics
+
+    @torch.no_grad()
+    def _gather_slices(self, g: str) -> None:
+        """The updated ZeRO-1 slices of group g back into the whole
+        parameters on every rank."""
+        for name, p, st in zip(self.names[g], self.groups[g], self.storage[g]):
+            if st is not p:
+                p.data.copy_(C.gather_rows(st.data, self.group, self.shards[name].dim))
 
     def zero_grad(self) -> None:
         for _, p in self.named:
             p.grad = None
+        for sts in self.storage.values():
+            for st in sts:
+                st.grad = None

@@ -14,6 +14,16 @@ site (HuBERT's, and DistilBERT's fused attention) and HuBERT's layerdrop
 (host draws, so no seed is read back from the card). The two frameworks'
 bits differ. Metrics come back as scalars
 with the JAX step's keys.
+
+With a ``mesh`` (``parallel/dp.py``) each rank runs its rows of the global
+batch through the distributed losses, and every draw is keyed on global
+rows (``ops.dropout.ShardGenerator``, ``HostSeeds.b0``): a rank's rows
+draw what the one-process step draws for them. Each rank runs its
+backward from the replicated loss with the cotangent 1 / world
+(``parallel/collectives.py``'s convention), so the gradients summed over
+the ranks, once per update window (``OptimizerBank.all_reduce_grads``),
+are the global loss's gradients; terms every rank computes alike (the
+temperature calibration) count once. Metrics are replicated.
 """
 
 from __future__ import annotations
@@ -26,8 +36,9 @@ import torch
 
 from triad_tpu_torch.config import LossConfig, OptimConfig
 from triad_tpu_torch.models.multimodal import TriadModel
-from triad_tpu_torch.ops.dropout import HostSeeds
+from triad_tpu_torch.ops.dropout import HostSeeds, ShardGenerator
 from triad_tpu_torch.ops.losses import av_loss, tv_loss
+from triad_tpu_torch.parallel.dp import distributed_av_loss, distributed_tv_loss
 from triad_tpu_torch.train.optim import GROUPS, OptimizerBank
 
 _NORM_GROUPS = ("others", "audio", "text", "vit_lora", "vit")
@@ -46,10 +57,11 @@ class TrainState:
     seed: int = 0
 
 
-def step_generator(seed: int, global_step: int, device) -> torch.Generator:
-    """The micro step's dropout generator, keyed on (seed, global_step)."""
+def step_generator(seed: int, global_step: int, device, shard=(0, 1)) -> torch.Generator:
+    """The micro step's dropout generator, keyed on (seed, global_step);
+    ``shard`` (rank, world) keys its draws on global rows."""
     key = np.random.SeedSequence([seed, global_step]).generate_state(1, dtype=np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(key) & (2 ** 63 - 1))
+    return ShardGenerator(device, shard).manual_seed(int(key) & (2 ** 63 - 1))
 
 
 def _batches(mode: str, av_batch, tv_batch):
@@ -61,10 +73,27 @@ def _batches(mode: str, av_batch, tv_batch):
 
 class StepFactory:
     """Builds the per-phase train steps for a TriadModel (the model and
-    its bank travel in the TrainState)."""
+    its bank travel in the TrainState). ``mesh``: data-parallel over its
+    ``mesh_axis`` (a name, or a tuple of names on a multi-slice mesh);
+    every batch is then this rank's rows of the global batch."""
 
-    def __init__(self, loss_cfg: LossConfig, optim_cfg: OptimConfig):
+    def __init__(self, loss_cfg: LossConfig, optim_cfg: OptimConfig, mesh=None,
+                 mesh_axis="data"):
         self.loss_cfg, self.optim_cfg = loss_cfg, optim_cfg
+        self.mesh, self.mesh_axis = mesh, mesh_axis
+        self.shard = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+
+    def _av_loss(self, audio, visual, temp):
+        if self.mesh is None:
+            return av_loss(audio, visual, temp, self.loss_cfg)
+        return distributed_av_loss(audio, visual, temp, self.loss_cfg, self.mesh,
+                                   self.mesh_axis)
+
+    def _tv_loss(self, text, visual, mask, temp):
+        if self.mesh is None:
+            return tv_loss(text, visual, mask, temp, self.loss_cfg)
+        return distributed_tv_loss(text, visual, mask, temp, self.loss_cfg, self.mesh,
+                                   self.mesh_axis)
 
     def compute_losses(self, model: TriadModel, av_batch, tv_batch,
                        generator: Optional[torch.Generator], w_av=1.0, w_tv=1.0,
@@ -81,7 +110,7 @@ class StepFactory:
         if av_batch is not None:
             visual = model.encode_visual(av_batch["images"], train, generator)
             audio = model.encode_audio(av_batch["audio"], train, generator, seeds)
-            av = av_loss(audio, visual, temp, self.loss_cfg)
+            av = self._av_loss(audio, visual, temp)
             total = total + w_av * av.total
             metrics.update({k: v.detach() for k, v in av.stats.items()})
             metrics.update(loss_av=av.total.detach(), av_contrastive_loss=av.contrastive.detach(),
@@ -90,7 +119,7 @@ class StepFactory:
             visual = model.encode_visual(tv_batch["images"], train, generator)
             text = model.encode_text(tv_batch["token_ids"], tv_batch["text_mask"], train,
                                      generator, seeds)
-            tv = tv_loss(text, visual, tv_batch["text_mask"], temp, self.loss_cfg)
+            tv = self._tv_loss(text, visual, tv_batch["text_mask"], temp)
             total = total + w_tv * tv.total
             metrics.update({k: v.detach() for k, v in tv.stats.items()})
             metrics.update(loss_tv=tv.total.detach(),
@@ -104,18 +133,20 @@ class StepFactory:
         be None."""
         _batches(mode, None, None)
         accum = self.optim_cfg.gradient_accumulation_steps
+        scale = accum * self.shard[1]  # the 1 / world cotangent of each rank
 
         def step(state: TrainState, av_batch, tv_batch, w_av=1.0, w_tv=1.0):
             av_batch, tv_batch = _batches(mode, av_batch, tv_batch)
             gs = state.global_step
             state.bank.set_trainable(gs)
-            gen = step_generator(state.seed, gs, state.model.temperature.device)
-            seeds = HostSeeds(state.seed, gs)
+            gen = step_generator(state.seed, gs, state.model.temperature.device, self.shard)
+            seeds = HostSeeds(state.seed, gs, self.shard)
             total, metrics = self.compute_losses(state.model, av_batch, tv_batch, gen, w_av,
                                                  w_tv, seeds=seeds)
             # loss / accum before backward; .grad accumulates the micro steps.
-            (total / accum if accum > 1 else total).backward()
+            (total / scale if scale > 1 else total).backward()
             if (gs + 1) % accum == 0:
+                state.bank.all_reduce_grads()
                 metrics.update(state.bank.clip_grads())
                 metrics.update(state.bank.update(gs))
                 state.bank.zero_grad()

@@ -23,7 +23,16 @@ departures from the JAX Trainer, both for exact resume across processes:
 the segment hop at an epoch's start draws from ``random.Random`` keyed on
 (seed, epoch), not from the process's global ``random``; and the
 checkpoint holds the accumulated gradients (``train/checkpoint.py``).
-The multi-device mesh and multi-process runs raise ``not_ported``,
+
+Data parallelism (``mesh.num_devices`` > 1): one process per device,
+launched by torchrun or the ``TRIAD_*`` variables
+(``parallel/distributed.py``); ``mesh.num_devices`` is the world size.
+Each process decodes its rows of every global batch (``process_shard``),
+trains through the distributed losses with ZeRO-1 moments by default
+(``mesh.zero1``), validates through the distributed eval loss and embeds
+its share of each retrieval batch; rank 0 alone logs, draws the
+visualizations and writes the checkpoints, which are those of a
+one-process run. Tensor parallelism and FSDP raise ``not_ported``,
 naming the JAX route. ``config.pretrained`` starts the model from HF
 snapshots, a torch.hub DINOv2 file or a reference checkpoint
 (``models/hf_import.py:init_model_from_pretrained``).
@@ -62,6 +71,9 @@ from triad_tpu_torch.eval.retrieval import (
 from triad_tpu_torch.models.convert import init_triad_model
 from triad_tpu_torch.models.layers import not_ported
 from triad_tpu_torch.ops.similarity import pairwise_similarity
+from triad_tpu_torch.parallel import collectives as C
+from triad_tpu_torch.parallel.distributed import process_shard, put_global_tree
+from triad_tpu_torch.parallel.dp import make_mesh, make_multislice_mesh
 from triad_tpu_torch.train.checkpoint import (
     CheckpointManager,
     HostProgress,
@@ -93,21 +105,52 @@ def _open_av_root(root: str, image_size: int, segmented: bool):
     return FlatAudioVisualDataset(root, image_size=image_size)
 
 
-def _check_routes(config: Config) -> None:
-    """The JAX Trainer's routes this port does not run yet."""
-    import torch.distributed as dist
-
-    n_dev = config.mesh.num_devices or 1
-    if n_dev > 1:
-        raise not_ported(
-            f"mesh.num_devices={n_dev} (a multi-device mesh)",
-            "triad_tpu/parallel's data-parallel mesh with its dp / tp / fsdp / zero1 "
-            "shardings (train/trainer.py:204-296)")
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise not_ported(
-            f"a multi-process run (torch.distributed world size {dist.get_world_size()})",
-            "parallel/distributed.py:process_shard, the per-process row-slices of each "
-            "global batch (train/trainer.py:182, :470)")
+def _make_mesh(config: Config):
+    """(mesh, mesh_axis) of the JAX Trainer's mesh section
+    (train/trainer.py:204-296) for data parallelism: None in one process.
+    mesh.num_devices is the torch.distributed world size."""
+    mc, dc = config.mesh, config.data
+    n_dev = mc.num_devices or 1
+    world = C.world()
+    if n_dev == 1:
+        if world > 1:
+            raise ValueError(
+                f"multi-process run (torch.distributed world size {world} > 1) needs a "
+                "device mesh: set mesh.num_devices to the GLOBAL chip count (every process "
+                "would otherwise train its own redundant copy)"
+            )
+        return None, mc.data_axis
+    if mc.tp > 1:
+        raise not_ported(f"mesh.tp={mc.tp} (tensor parallelism)",
+                         "parallel/tp.py's Megatron shardings (make_dp_tp_mesh, "
+                         "tp_param_specs, tp_state_shardings)")
+    if mc.fsdp:
+        raise not_ported("mesh.fsdp (FSDP parameters)", "parallel/fsdp.py:fsdp_param_specs")
+    tp = mc.tp
+    if mc.num_slices > 1 and n_dev % (mc.num_slices * tp):
+        raise ValueError(
+            f"mesh.num_devices={n_dev} not divisible by "
+            f"num_slices({mc.num_slices}) x tp({tp})"
+        )
+    if n_dev != world:
+        raise ValueError(
+            f"mesh.num_devices={n_dev} but torch.distributed runs {world} process(es): "
+            "launch one process per device (torchrun, or TRIAD_COORDINATOR / "
+            "TRIAD_NUM_PROCESSES / TRIAD_PROCESS_ID)")
+    if mc.num_slices > 1:
+        mesh = make_multislice_mesh(mc.num_slices, n_dev // mc.num_slices,
+                                    axes=(mc.replica_axis, mc.data_axis))
+        axis = (mc.replica_axis, mc.data_axis)
+    else:
+        mesh, axis = make_mesh(n_dev, axis=mc.data_axis), mc.data_axis
+    dp_size = n_dev // tp
+    for name, bs in (("batch_size_av", dc.batch_size_av), ("batch_size_tv", dc.batch_size_tv)):
+        if bs % dp_size:
+            raise ValueError(
+                f"{name}={bs} not divisible by the data-parallel "
+                f"size {dp_size}"
+            )
+    return mesh, axis
 
 
 class Trainer:
@@ -115,7 +158,8 @@ class Trainer:
         self.device = torch.device(device or "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device (pass device='cpu' to train on the CPU)")
-        _check_routes(config)
+        self.mesh, self.mesh_axis = _make_mesh(config)
+        self.primary = C.rank() == 0
         self.config = config
         tc = config.train
         self.output_dir = Path(tc.output_dir)
@@ -214,18 +258,23 @@ class Trainer:
                 "(pass data.tokenizer_vocab for the pretrained vocab)"
             )
 
+        # Every process runs the same samplers and decodes only its rows of
+        # each global batch; batch_size_* stay global.
+        self._proc_shard = process_shard()
         self.av_loader = AVLoader(
             self.av_dataset, dc.batch_size_av, dc.audio_num_samples,
             seed=tc.seed, num_workers=dc.num_workers,
             worker_mode=dc.worker_mode,
             unique_videos=dc.unique_videos
             and hasattr(self.av_dataset, "video_files"),
+            process_shard=self._proc_shard,
             device_augment=dc.device_augment,
         )
         self.tv_loader = TVLoader(
             self.tv_dataset, self.tokenizer, dc.batch_size_tv,
             max_text_tokens=dc.max_text_tokens, seed=tc.seed,
             num_workers=dc.num_workers, worker_mode=dc.worker_mode,
+            process_shard=self._proc_shard,
             device_augment=dc.device_augment,
         )
 
@@ -256,14 +305,22 @@ class Trainer:
             )
         else:
             self.model = init_triad_model(config.model, generator, device=self.device)
+        if self.mesh is not None:
+            put_global_tree(self.model)  # no rank starts apart
+            self.metrics.info(
+                f"Data-parallel over {self.mesh.size} replicas (all-gathered negatives"
+                + (f", {config.mesh.num_slices} slices" if config.mesh.num_slices > 1 else "")
+                + (", ZeRO-1 moments" if config.mesh.zero1 else "") + ")")
         self.steps_per_epoch = tc.steps_per_epoch or max(
             len(self.av_loader), len(self.tv_loader)
         )
         self.total_updates = (
             self.steps_per_epoch * tc.num_epochs
         ) // tc.optim.gradient_accumulation_steps
-        self.bank = OptimizerBank(tc.optim, self.model, self.total_updates)
-        self.factory = StepFactory(config.loss, tc.optim)
+        self.bank = OptimizerBank(tc.optim, self.model, self.total_updates, mesh=self.mesh,
+                                  mesh_axis=self.mesh_axis, zero1=config.mesh.zero1)
+        self.factory = StepFactory(config.loss, tc.optim, mesh=self.mesh,
+                                   mesh_axis=self.mesh_axis)
         # The dropout seed: the JAX Trainer's state rng is key(seed + 1).
         self.state = TrainState(self.model, self.bank, 0, tc.seed + 1)
         self._steps = {mode: self.factory.make_step(mode) for mode in MODES}
@@ -281,7 +338,7 @@ class Trainer:
             return (self.model.encode_text(ids.to(self.device), mask.to(self.device)),
                     self.model.encode_visual(images.to(self.device)))
 
-        self._enc_av, self._enc_tv = _enc_av, _enc_tv
+        self._enc_av, self._enc_tv = self._sharded(_enc_av), self._sharded(_enc_tv)
 
         # -- progress / resume ----------------------------------------
         self.progress = HostProgress()
@@ -376,7 +433,7 @@ class Trainer:
             # steps of the first trained epoch (SURVEY §5 tracing hook).
             profile_left = (
                 self.config.train.profile_steps
-                if epoch == self.progress.epoch
+                if epoch == self.progress.epoch and self.primary
                 else 0
             )
             if profile_left > 0:
@@ -419,7 +476,8 @@ class Trainer:
                     self.progress.global_step += 1
                     hooked = False
                     if gs > 0 and gs % tc.vis_every == 0:
-                        self.visualize_samples(epoch)
+                        if self.primary:
+                            self.visualize_samples(epoch)
                         hooked = True
                     if gs > 0 and gs % tc.save_every_steps == 0:
                         self.progress.epoch = epoch
@@ -457,6 +515,9 @@ class Trainer:
         # thread never races interpreter shutdown.
         self.ckpt.wait_until_finished()
         self.metrics.info("Training complete!")
+        if self.mesh is not None:
+            print(f"rank {self.mesh.rank}: AdamW moments {self.bank.moment_bytes()} bytes",
+                  flush=True)
 
     @staticmethod
     def _fetch_metrics(metrics: Dict) -> Dict[str, float]:
@@ -591,6 +652,7 @@ class Trainer:
                 self.val_av_dataset, self.config.data.batch_size_av,
                 self.config.data.audio_num_samples, shuffle=False,
                 augment=False, num_workers=self.config.data.num_workers,
+                process_shard=self._proc_shard,
             )
             av_totals = _run_leg("av", av_loader, self._device_av)
         if self.val_tv_dataset is not None and mode in ("tv", "joint"):
@@ -600,6 +662,7 @@ class Trainer:
                 max_text_tokens=self.config.data.max_text_tokens,
                 shuffle=False, augment=False,
                 num_workers=self.config.data.num_workers,
+                process_shard=self._proc_shard,
             )
             tv_totals = _run_leg("tv", tv_loader, self._device_tv)
         if not av_totals and not tv_totals:
@@ -633,6 +696,24 @@ class Trainer:
     # ------------------------------------------------------------------
     # Retrieval eval (train.py:835-874 -> eval/retrieval.py)
     # ------------------------------------------------------------------
+
+    def _sharded(self, encode):
+        """``encode`` data-parallel (the counterpart of the JAX Trainer's
+        _shard_eval_input): each rank embeds its share of a batch's rows
+        (the batch padded with its last row to a multiple of the world),
+        and every rank gets all the rows back, in order."""
+        if self.mesh is None:
+            return encode
+        n, r = self.mesh.size, self.mesh.rank
+
+        def sharded(*xs):
+            b = xs[0].shape[0]
+            per = -(-b // n)
+            xs = [torch.cat([x, x[-1:].expand(per * n - b, *x.shape[1:])]) for x in xs]
+            outs = encode(*(x[r * per:(r + 1) * per] for x in xs))
+            return tuple(C.gather_rows(o, self.mesh.group)[:b] for o in outs)
+
+        return sharded
 
     def eval_1000_way_retrieval(self) -> Dict[str, float]:
         t0 = time.perf_counter()
