@@ -25,7 +25,8 @@ Phases (any failure exits nonzero before the last line):
   3. each kernel vs its plain twin on the card in bf16: max abs error
      against a stated bound, median time of the kernel, of the twin and
      of one PyTorch library call computing the same function where there
-     is one (CUDA events, one call from an idle card; beside the fused
+     is one (CUDA events, one call from an idle card, 20 turns; 5-19 for a
+     call of 50 ms or more, a twin or library call; beside the fused
      MLP, which no one call computes, the cuBLAS composition at p = 0,
      printed as "composition"), the kernel's and
      the library call's device time per call (CUDA events around calls
@@ -150,7 +151,8 @@ Phases (any failure exits nonzero before the last line):
      step-8 checkpoint has committed; run C, the command again, resumes
      and ends with every tensor of its step-12 checkpoint, the progress
      and the losses after the resume bit-equal to run A's. cli.eval of run
-     A (latest, and --best) prints run A's last retrieval metrics exactly;
+     A (latest, and --best; beside runs B and C) prints run A's last
+     retrieval metrics exactly;
      then the eval legs (validation, retrieval, viz) with counts zeroed:
      the forward kernels only. Run logs in chiprun_out/trainer_run_*.txt.
  18. pretrained weights (models/hf_import.py, reference_import.py), the
@@ -226,6 +228,23 @@ Phases (any failure exits nonzero before the last line):
      ring negatives and with the gathered ones (the losses equal within
      1e-6, the update at cosine 0.99: each ring step's bf16 feature
      cotangents are summed in bf16). The phase's seconds are printed.
+ 21. tensor parallelism and FSDP (parallel/tp.py, parallel/fsdp.py):
+     phase 20's Trainer config at global B = 16 with every impl knob on
+     the plain route, in one process, and again with its split layers
+     rounding as tp = 2's shards do (_TpRounding); 21a mesh.tp = 2 and 21b
+     mesh.fsdp as two gloo ranks each, side by side, 21c mesh.tp = 2 x
+     num_slices 2 as four (ranks of this script, --train-rank, under
+     torchrun), each held to the plain run per step (5e-3 relative) and
+     in its final parameters (2 Adam steps of 2 lr), and in its final update
+     (cosine 0.99): 21b to the plain run; 21a and 21c to the run at their
+     rounding (on torch.mm alone), their cosine against the plain run
+     printed (in bf16 the row sums' other rounding flips Adam's early
+     sign-like steps: cosine 0.9668); each rank's parameter and moment
+     bytes and peak; 21c's step-4 checkpoint holds whole tensors under
+     one-process names and shapes, and its step-2 save resumes in one
+     process (held to both one-process runs); 21d mesh.tp = 2 with an
+     explicit kernel knob exits non-zero with resolve_xla_impls's message
+     and writes no run directory; no kernel launches in any of it.
 The port's kernels add in a fixed order (no atomics), so phase 8 trains
 the same weights every run (PERF.md) and phase 9 reads the same each run.
 Phase 3 also holds posconv dW at B = 96 and the activation at 768
@@ -245,9 +264,9 @@ at conv_1's (64, 31999, 512), the train steps' batch.
 The line before the last is one JSON object with one entry per kernel
 (and the step times, phase 16's numbers under "data" and phase 17's under
 "trainer", phase 18's under "pretrained", phase 19's under "export", phase
-20's under "dp"): its
+20's under "dp", phase 21's under "tp"): its
 launches in the paths that run it (phases 4, 6, 8, 10, 11, 12, 13, 14, 15,
-16, 17, 18, 19 and 20, each counted from zero), and its error, times and bound
+16, 17, 18, 19, 20 and 21, each counted from zero), and its error, times and bound
 at its main case of
 phase 3 (the shape the train steps give it, else the first); every shape
 of phase 3 goes to chiprun_out/kernel_cases.json. The last line is
@@ -308,15 +327,30 @@ def randn(shape, seed, scale=1.0, dtype=torch.bfloat16):
     return torch.from_numpy(a).to("cuda", dtype)
 
 
-def time_fns(fns, reps=20, warmup=3):
-    """Median ms of each function, timed in turns with CUDA events."""
-    for _ in range(warmup):
-        for fn in fns:
+def time_fns(fns, reps=20, warmup=3, budget_ms=None):
+    """Median ms of each function, timed in turns with CUDA events.
+    ``budget_ms``: a function whose last warm-up call took longer than
+    budget_ms / reps is timed in only the first max(5, budget_ms / its ms)
+    turns (the plain twins and library calls of 50 ms and more)."""
+    counts = [reps] * len(fns)
+    for i in range(warmup):
+        for j, fn in enumerate(fns):
+            if budget_ms is None or i < warmup - 1:
+                fn()
+                continue
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             fn()
+            end.record()
+            end.synchronize()
+            counts[j] = max(5, min(reps, int(budget_ms / max(start.elapsed_time(end), 1e-3))))
     torch.cuda.synchronize()
     times = [[] for _ in fns]
-    for _ in range(reps):
-        for t, fn in zip(times, fns):
+    for i in range(reps):
+        for t, fn, n in zip(times, fns, counts):
+            if i >= n:
+                continue
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -393,7 +427,7 @@ def compare(results, name, shape, kernel_fn, plain_fn, tol_rel, bound, library_f
     err, mx = max_err(got, ref)
     tol = tol_rel * mx
     extra = [fn for fn in (library_fn, composition_fn) if fn is not None]
-    ms, plain_ms, *others = time_fns([kernel_fn, plain_fn] + extra)
+    ms, plain_ms, *others = time_fns([kernel_fn, plain_fn] + extra, budget_ms=1000.0)
     library_ms = others.pop(0) if library_fn is not None else None
     comp_ms = others.pop(0) if composition_fn is not None else None
     host_ms = host_time(kernel_fn)
@@ -952,7 +986,8 @@ def kernel_phase():
             lambda: F.conv1d(x1t, w1b, stride=2))
     del x1t
     # conv_1 at the train steps' B = 64 (the joint and AV steps' frontend)
-    x64 = randn((TRAIN_B, x1.shape[1], 512), 14)
+    x64 = torch.randn((TRAIN_B, x1.shape[1], 512), device="cuda", dtype=torch.bfloat16,
+                      generator=torch.Generator(device="cuda").manual_seed(14))  # 1e9 draws
     x64t = x64.transpose(1, 2).contiguous()
     compare(res, "frontend_conv", (TRAIN_B, x1.shape[1], 512, "k3"),
             lambda: FE.conv_s2_gelu(x64, ws[0], "tanh"),
@@ -2551,8 +2586,8 @@ def trainer_phase(root):
     retrieval, viz and async checkpoints; run B, the same command in a
     subprocess with a fresh directory, SIGKILLed once its step-8 save has
     committed; run C, the same command again, resuming; C's final
-    checkpoint held to A's bit for bit; then ``cli.eval`` of A (the latest
-    and --best), and the eval legs' launch counts. Returns the summary and
+    checkpoint held to A's bit for bit; ``cli.eval`` of A (the latest and
+    --best), started beside runs B and C; then the eval legs' launch counts. Returns the summary and
     the launch counts of run A and of the eval legs."""
     import shutil
 
@@ -2685,74 +2720,79 @@ def trainer_phase(root):
               f"Trainer's start from a random init)", flush=True)
         torch.cuda.empty_cache()
 
-        # -- run B, killed; run C, resumed ------------------------------------
-        env = dict(os.environ, PYTHONUNBUFFERED="1")
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(_cli("train", *args, "--output-dir", run_b, "--force-new"),
-                                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True, env=env)
-        _, entries = _kill_after_commit(proc, run_b, os.path.join(
-            ROOT, "chiprun_out", "trainer_run_b.txt"))
-        proc = None
-        out["run_b_s"] = time.perf_counter() - t0
-        print(f"  run B killed (SIGKILL) after '{TRAINER_KILL}' in {out['run_b_s']:.1f} s; "
-              f"checkpoint entries at the kill: {entries}", flush=True)
-        t0 = time.perf_counter()
-        c = subprocess.run(_cli("train", *args, "--output-dir", run_b), cwd=ROOT,
-                           capture_output=True, text=True, env=env, timeout=600)
-        out["run_c_s"] = time.perf_counter() - t0
-        with open(os.path.join(ROOT, "chiprun_out", "trainer_run_c.txt"), "w") as f:
-            f.write(c.stdout + c.stderr)
-        if c.returncode != 0:
-            fail(f"run C exited {c.returncode}: {c.stderr[-2000:]}")
-        resumed = re.search(r"Resumed from step (\d+) \(epoch (\d+), batch (\d+)\) in ([\d.]+) s",
-                            c.stdout)
-        if not resumed:
-            fail("run C did not resume from a checkpoint")
-        out["resumed"] = {"step": int(resumed.group(1)), "epoch": int(resumed.group(2)),
-                          "batch": int(resumed.group(3)), "restore_s": float(resumed.group(4))}
-        (pa, prog_a), (pc, prog_c) = _checkpoint(run_a, 12), _checkpoint(run_b, 12)
-        differ = _tree_differences(pa, pc)
-        if differ or prog_a != prog_c:
-            fail(f"run C's final checkpoint differs from run A's: {differ[:5]} {prog_a} {prog_c}")
-        got, want = _losses_by_step(_run_metrics(run_b)), _losses_by_step(lines_a)
-        after = {s: v for s, v in got.items() if s >= out["resumed"]["step"]}
-        if not after or any(want.get(s) != v for s, v in after.items()):
-            fail(f"run C's train_loss after the resume {after} differs from run A's {want}")
-        n_tensors = sum(1 for _ in _tensors(pa))
-        out["resume_bit_equal"] = {"tensors": n_tensors, "losses_after_resume": after}
-        print(f"  run C resumed from step {out['resumed']['step']} (epoch "
-              f"{out['resumed']['epoch']}, batch {out['resumed']['batch']}; restore "
-              f"{out['resumed']['restore_s']:.3f} s) and ended in {out['run_c_s']:.1f} s with "
-              f"all {n_tensors} tensors of its step-12 checkpoint (model, AdamW, .grads), the "
-              f"progress and the train_loss of steps {sorted(after)} bit-equal to run A's",
-              flush=True)
-
-        # -- cli.eval: the latest checkpoint and --best, side by side ---------
+        # -- cli.eval of run A: the latest checkpoint and --best, side by side,
+        # and beside runs B and C (run A's files are final) ------------------
         evals, procs = {}, {}
-        t0 = time.perf_counter()
+        t_eval = time.perf_counter()
         for name, extra in (("latest", ()), ("best", ("--best",))):
             path = os.path.join(root, f"eval_{name}.json")
-            procs[name] = (path, subprocess.Popen(
+            log = open(os.path.join(root, f"eval_{name}.log"), "w+")  # read after run C
+            procs[name] = (path, log, subprocess.Popen(
                 _cli("eval", "--run-dir", run_a, "--out", path, *extra), cwd=ROOT,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+                stdout=log, stderr=subprocess.STDOUT, text=True))
         try:
-            for name, (path, p) in procs.items():
-                _, err = p.communicate(timeout=600)
+            # -- run B, killed; run C, resumed ------------------------------------
+            env = dict(os.environ, PYTHONUNBUFFERED="1")
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(_cli("train", *args, "--output-dir", run_b, "--force-new"),
+                                    cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True, env=env)
+            _, entries = _kill_after_commit(proc, run_b, os.path.join(
+                ROOT, "chiprun_out", "trainer_run_b.txt"))
+            proc = None
+            out["run_b_s"] = time.perf_counter() - t0
+            print(f"  run B killed (SIGKILL) after '{TRAINER_KILL}' in {out['run_b_s']:.1f} s; "
+                  f"checkpoint entries at the kill: {entries}", flush=True)
+            t0 = time.perf_counter()
+            c = subprocess.run(_cli("train", *args, "--output-dir", run_b), cwd=ROOT,
+                               capture_output=True, text=True, env=env, timeout=600)
+            out["run_c_s"] = time.perf_counter() - t0
+            with open(os.path.join(ROOT, "chiprun_out", "trainer_run_c.txt"), "w") as f:
+                f.write(c.stdout + c.stderr)
+            if c.returncode != 0:
+                fail(f"run C exited {c.returncode}: {c.stderr[-2000:]}")
+            resumed = re.search(
+                r"Resumed from step (\d+) \(epoch (\d+), batch (\d+)\) in ([\d.]+) s", c.stdout)
+            if not resumed:
+                fail("run C did not resume from a checkpoint")
+            out["resumed"] = {"step": int(resumed.group(1)), "epoch": int(resumed.group(2)),
+                              "batch": int(resumed.group(3)), "restore_s": float(resumed.group(4))}
+            (pa, prog_a), (pc, prog_c) = _checkpoint(run_a, 12), _checkpoint(run_b, 12)
+            differ = _tree_differences(pa, pc)
+            if differ or prog_a != prog_c:
+                fail(f"run C's final checkpoint differs from run A's: {differ[:5]} {prog_a} "
+                     f"{prog_c}")
+            got, want = _losses_by_step(_run_metrics(run_b)), _losses_by_step(lines_a)
+            after = {s: v for s, v in got.items() if s >= out["resumed"]["step"]}
+            if not after or any(want.get(s) != v for s, v in after.items()):
+                fail(f"run C's train_loss after the resume {after} differs from run A's {want}")
+            n_tensors = sum(1 for _ in _tensors(pa))
+            out["resume_bit_equal"] = {"tensors": n_tensors, "losses_after_resume": after}
+            print(f"  run C resumed from step {out['resumed']['step']} (epoch "
+                  f"{out['resumed']['epoch']}, batch {out['resumed']['batch']}; restore "
+                  f"{out['resumed']['restore_s']:.3f} s) and ended in {out['run_c_s']:.1f} s with "
+                  f"all {n_tensors} tensors of its step-12 checkpoint (model, AdamW, .grads), the "
+                  f"progress and the train_loss of steps {sorted(after)} bit-equal to run A's",
+                  flush=True)
+
+            for name, (path, log, p) in procs.items():
+                p.wait(timeout=600)
                 if p.returncode != 0:
-                    fail(f"cli.eval ({name}) exited {p.returncode}: {err[-2000:]}")
+                    log.seek(0)
+                    fail(f"cli.eval ({name}) exited {p.returncode}: {log.read()[-2000:]}")
                 with open(path) as f:
-                    evals[name] = {"metrics": json.load(f), "s": time.perf_counter() - t0}
+                    evals[name] = {"metrics": json.load(f), "s": time.perf_counter() - t_eval}
         finally:
-            for _, p in procs.values():
+            for _, log, p in procs.values():
                 if p.poll() is None:
                     p.kill()
                     p.wait()
+                log.close()
         if evals["latest"]["metrics"] != _last_retrieval(lines_a):
             fail(f"cli.eval's metrics {evals['latest']['metrics']} differ from run A's last "
                  f"retrieval {_last_retrieval(lines_a)}")
         out["eval"] = evals
-        print(f"  cli.eval of run A (the two commands side by side, "
+        print(f"  cli.eval of run A (the two commands side by side, beside runs B and C, "
               f"{max(e['s'] for e in evals.values()):.1f} s) equals run A's last retrieval "
               f"exactly: {evals['latest']['metrics']}; --best: {evals['best']['metrics']}",
               flush=True)
@@ -3728,13 +3768,19 @@ def _world2(cfg_path, run_dir, *extra):
     return moments
 
 
-def _dp_hold(what, key, got_losses, want_losses, got, want, init, lr_max, updates):
-    """Per-step losses within DP_LOSS_REL[key] relative; the parameters
-    after the run: their updates (from ``init``) at cosine >= DP_UPDATE_COS[key],
-    and no element further apart than ``updates`` Adam steps of 2 lr_max
-    (an Adam step moves an element by at most lr; two runs may step a
-    gradient that is 0 up to rounding either way) plus 1e-6 (fp32
-    rounding of the parameters)."""
+HOLD_ALL = ("losses", "cosine", "parameters")
+
+
+def _dp_hold(what, key, got_losses, want_losses, got, want, init, lr_max, updates,
+             held=HOLD_ALL):
+    """Per-step losses within DP_LOSS_REL[key] relative ("losses"); the
+    parameters after the run: their updates (from ``init``) at cosine >=
+    DP_UPDATE_COS[key] ("cosine"), and no element further apart than
+    ``updates`` Adam steps of 2 lr_max (an Adam step moves an element by at
+    most lr; two runs may step a gradient that is 0 up to rounding either
+    way) plus 1e-6 (fp32 rounding of the parameters) ("parameters").
+    ``held`` names the checks that fail the phase; the others are printed
+    only."""
     if sorted(got_losses) != sorted(want_losses) or not want_losses:
         fail(f"{what}: logged steps {sorted(got_losses)} vs {sorted(want_losses)}")
     worst = max(abs(got_losses[s] - want_losses[s]) / abs(want_losses[s]) for s in want_losses)
@@ -3749,13 +3795,18 @@ def _dp_hold(what, key, got_losses, want_losses, got, want, init, lr_max, update
         far = max(far, float((a - b).abs().max()))
     cos = dot / max((n1 * n2) ** 0.5, 1e-300)
     bound = updates * 2 * lr_max + 1e-6
+    ok = {"losses": worst <= DP_LOSS_REL[key], "cosine": cos >= DP_UPDATE_COS[key],
+          "parameters": far <= bound}
     print(f"  {what}: losses " + ", ".join(f"{got_losses[s]:.6f}/{want_losses[s]:.6f}"
                                            for s in sorted(want_losses))
           + f" (worst {worst:.3g} relative, tol {DP_LOSS_REL[key]:g}); update cosine "
           f"{cos:.6f} (tol {DP_UPDATE_COS[key]}), |update| {n1 ** 0.5:.6g} vs {n2 ** 0.5:.6g}, "
-          f"largest parameter difference {far:.3g} (bound {bound:.3g})", flush=True)
-    if worst > DP_LOSS_REL[key] or cos < DP_UPDATE_COS[key] or far > bound:
-        fail(f"{what} disagrees")
+          f"largest parameter difference {far:.3g} (bound {bound:.3g})"
+          + ("" if tuple(held) == HOLD_ALL else f" (held: {', '.join(held) or 'none'})"),
+          flush=True)
+    bad = [k for k in held if not ok[k]]
+    if bad:
+        fail(f"{what} disagrees: {', '.join(bad)}")
     return {"worst_loss_rel": worst, "update_cos": cos, "max_param_diff": far}
 
 
@@ -4061,6 +4112,436 @@ def dp_phase(root):
     return out, {"dp_nccl_world1": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: tensor parallelism and FSDP
+# ---------------------------------------------------------------------------
+
+TP_B = 16  # global batch: four ranks of the plain attention fit on the one card
+# Each knob at the value resolve_xla_impls gives "auto": no hand-written
+# kernel takes a shard (JAX: a pallas_call is opaque to GSPMD).
+TP_PLAIN_KNOBS = {"attention_impl": "xla", "mlp_impl": "xla", "ln_impl": "xla",
+                  "frontend_impl": "conv", "posconv_impl": "conv"}
+TP_LEGS = {  # leg: (ranks, mesh overrides)
+    "21a": (2, ["mesh.tp=2"]),
+    "21b": (2, ["mesh.fsdp=true"]),
+    "21c": (4, ["mesh.tp=2", "mesh.num_slices=2"]),
+}
+
+
+def _tp_config(root):
+    """Phase 21's config: phase 20's (dp.json: full_joint, 2 epochs of 2
+    steps, accumulation 2, ZeRO-1, no validation set) at global B = 16,
+    every impl knob on the plain route."""
+    with open(_dp_config(root)) as f:
+        cfg = json.load(f)
+    cfg["data"].update(batch_size_av=TP_B, batch_size_tv=TP_B)
+    for enc in ("vit", "hubert", "text"):
+        sub = cfg["model"][enc]
+        sub.update({k: v for k, v in TP_PLAIN_KNOBS.items() if k in sub})
+    path = os.path.join(root, "tp.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+# The layers tensor parallelism splits (parallel/tp.py), by module name.
+TP_ROW_LAYERS = ("out_proj", "out_lin", "output_dense", "fc2")
+TP_COLUMN_LAYERS = ("q_proj", "k_proj", "v_proj", "q_lin", "k_lin", "v_lin", "intermediate_dense",
+                    "fc1")
+
+
+def _mm32(a, b):
+    """a @ b of two bf16 matrices as one GEMM with an fp32 output."""
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _SplitColumnGrad(torch.autograd.Function):
+    """x W^T + b whose input gradient sums ``parts`` slices of the output
+    dim, each accumulated in fp32, in fp32, and rounds once (a column shard
+    pair's backward)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, parts):
+        ctx.save_for_backward(x, w)
+        ctx.parts = parts
+        return torch.nn.functional.linear(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        g2 = g.reshape(-1, g.shape[-1])
+        n = w.shape[0] // ctx.parts
+        dx = dw = db = None
+        if need_x:
+            dx = sum(_mm32(g2[:, i * n:(i + 1) * n], w[i * n:(i + 1) * n])
+                     for i in range(ctx.parts)).to(x.dtype).reshape(x.shape)
+        if need_w:
+            dw = g2.t() @ x.reshape(-1, x.shape[-1])
+        if need_b:
+            db = g2.sum(0)
+        return dx, dw, db, None
+
+
+class _SplitRow(torch.autograd.Function):
+    """x W^T as the sum, in fp32, of ``parts`` slices of the input dim,
+    each one GEMM with an fp32 output (a row shard set's product); the
+    backward runs each slice's products in the input dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, parts):
+        ctx.save_for_backward(x, w)
+        ctx.parts = parts
+        x2, k = x.reshape(-1, x.shape[-1]), w.shape[1] // parts
+        y = sum(_mm32(x2[:, i * k:(i + 1) * k], w[:, i * k:(i + 1) * k].t())
+                for i in range(parts))
+        return y.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        k = w.shape[1] // ctx.parts
+        g2, x2 = g.to(x.dtype).reshape(-1, g.shape[-1]), x.reshape(-1, x.shape[-1])
+        cols = [slice(i * k, (i + 1) * k) for i in range(ctx.parts)]
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.cat([g2 @ w[:, c] for c in cols], 1).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = torch.cat([g2.t() @ x2[:, c] for c in cols], 1)
+        return dx, dw, None
+
+
+class _TpRounding:
+    """While active, one process's encoders round as ``parts`` tensor-parallel
+    shards do, every product otherwise the plain one: a row layer sums its
+    products over ``parts`` slices of its input in fp32 and casts once, a
+    column layer sums its input gradient over ``parts`` slices of its
+    output so. Built on torch.mm alone (_SplitRow, _SplitColumnGrad), not
+    on the port's tensor-parallel layers. Phase 21's reference of the same
+    arithmetic for 21a / 21c's update cosine: the Trainers made while it is
+    active mark their layers."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def __enter__(self):
+        from triad_tpu_torch.models.layers import Dense
+        from triad_tpu_torch.train.trainer import Trainer
+
+        self.forward, self.init = Dense.forward, Trainer.__init__
+        parts, plain, init = self.parts, self.forward, self.init
+
+        def forward(layer, x):
+            kind, d = getattr(layer, "tp_rounding", None), layer.compute_dtype
+            if kind is None or d == torch.float32:
+                return plain(layer, x)
+            x, w = x.to(d), layer.weight.to(d)
+            if kind == "column":
+                return _SplitColumnGrad.apply(x, w, layer.bias.to(d), parts)
+            return (_SplitRow.apply(x, w, parts) + layer.bias.to(torch.float32)).to(d)
+
+        def mark(trainer, *args, **kwargs):
+            init(trainer, *args, **kwargs)
+            for name, m in trainer.model.named_modules():
+                leaf = name.rsplit(".", 1)[-1]
+                if isinstance(m, Dense) and leaf in TP_ROW_LAYERS + TP_COLUMN_LAYERS:
+                    m.tp_rounding = "row" if leaf in TP_ROW_LAYERS else "column"
+
+        Dense.forward, Trainer.__init__ = forward, mark
+        return self
+
+    def __exit__(self, *exc):
+        from triad_tpu_torch.models.layers import Dense
+        from triad_tpu_torch.train.trainer import Trainer
+
+        Dense.forward, Trainer.__init__ = self.forward, self.init
+
+
+def train_rank(final, args):
+    """A rank of phase 21 (``chip_smoke.py --train-rank FINAL ARGS`` under
+    torchrun, gloo): cli.train with ARGS and TF32 off; FINAL ("-": none)
+    receives rank 0's whole parameters after the run (a gather over the
+    ranks), and then the run writes no checkpoint (_NoSaves: only 21c's
+    are read). Writes the run directory's
+    train_rank<R>.json: {rank, launches, seconds, memory}: the kernel
+    launches of the run; the seconds to the first step, of the training
+    and of the gather and save; the rank's bytes of parameters and AdamW
+    moments and its peak."""
+    import contextlib
+
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.cli import train as train_cli
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.reset_launches()
+    with _StartState() as start, (_NoSaves() if final != "-" else contextlib.nullcontext()):
+        trainer = train_cli.main(args)
+    t1 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    if final != "-":
+        whole = trainer.bank.model_state_dict()
+        if trainer.primary:
+            torch.save({k: v.to("cpu") for k, v in whole.items()}, final)
+    seconds = {"to_first_step": start.startup_s, "train": t1 - t0 - start.startup_s,
+               "gather_save": time.perf_counter() - t1}
+    rank = torch.distributed.get_rank()
+    params = trainer.model.parameters()
+    memory = {"parameters": sum(p.numel() * p.element_size() for p in params),
+              "AdamW moments": trainer.bank.moment_bytes(),
+              "peak memory": torch.cuda.max_memory_allocated()}
+    with open(os.path.join(trainer.output_dir, f"train_rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "launches": launches, "seconds": seconds, "memory": memory}, f)
+    torch.distributed.destroy_process_group()
+
+
+def _tp_start(leg, cfg_path, run_dir, final):
+    """TP_LEGS[leg] as gloo ranks of ``train_rank`` on the one card
+    (torchrun), started: (process, start time)."""
+    ranks, sets = TP_LEGS[leg]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TRIAD_")}
+    env["TRIAD_DIST_BACKEND"] = "gloo"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(ranks), os.path.join(ROOT, "chip_smoke.py"), "--train-rank", final, "--config",
+           cfg_path, "--steps", str(DP_STEPS), "--output-dir", run_dir, "--force-new", "--set",
+           f"mesh.num_devices={ranks}", *sets]
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+
+def _tp_finish(leg, proc, t0, run_dir):
+    """Wait for a leg's ranks: (their reports, summed launches, seconds).
+    A rank that fails fails the phase."""
+    stdout, stderr = proc.communicate(timeout=900)
+    seconds = time.perf_counter() - t0
+    text = stdout + "\n--- stderr ---\n" + stderr
+    with open(os.path.join(ROOT, "chiprun_out", f"tp_{leg}.txt"), "w") as f:
+        f.write(text)
+    ranks, sets = TP_LEGS[leg]
+    paths = [os.path.join(run_dir, f"train_rank{r}.json") for r in range(ranks)]
+    if proc.returncode != 0 or not all(os.path.exists(p) for p in paths):
+        fail(f"{leg}: the {ranks} ranks exited {proc.returncode}: {text[-3000:]}")
+    reports = []
+    for path in paths:
+        with open(path) as f:
+            reports.append(json.load(f))
+    launches = {}
+    for r in reports:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    split = reports[0]["seconds"]
+    print(f"  {leg} ({ranks} ranks, {' '.join(sets)}): {seconds:.1f} s (rank 0: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in split.items())
+          + f"), log chiprun_out/tp_{leg}.txt", flush=True)
+    return reports, launches, seconds
+
+
+def _leg_memory(reports, one):
+    """Each rank's bytes at rest (parameters, AdamW moments) and peak,
+    printed beside one process's."""
+    got = {what: {r["rank"]: r["memory"][what] for r in reports} for what in one}
+    for what, by_rank in got.items():
+        print(f"    {what}: " + ", ".join(f"rank {r} {b} ({b / one[what]:.3f})"
+                                          for r, b in sorted(by_rank.items()))
+              + f"; one process {one[what]}", flush=True)
+    return got
+
+
+def tp_phase(root):
+    """Phase 21: tensor parallelism and FSDP on phase 20's Trainer config
+    (B = 16, the plain impls): one process in this process, and again with
+    its split layers rounding as tp = 2's shards do (_TpRounding); 21a
+    mesh.tp = 2 as two gloo ranks, 21b mesh.fsdp as two (side by side),
+    21c tp = 2 x 2 slices as four, each held per step and in its final
+    parameters (phase 20's world-2 bounds) to the plain one process, and
+    in its update cosine: 21b to the plain run, 21a and 21c to the run at
+    their rounding (their cosine against the plain run printed); each
+    rank's bytes and peak; 21c's checkpoint holds whole tensors under
+    one-process names and shapes, and its step-2 save resumes in one
+    process; 21d an explicit kernel knob at tp = 2
+    exits non-zero with JAX's resolve_xla_impls text. No kernel launches in
+    any of it. Returns the summary and the launch counts."""
+    import shutil
+
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.cli import train as train_cli
+
+    t_phase = time.perf_counter()
+    out = {}
+    cfg_path = _tp_config(root)
+    refused_dir = os.path.join(root, "tp_refused")
+    refusal = subprocess.Popen(  # 21d, beside the one-process run
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+         "-m", "triad_tpu_torch.cli.train", "--config", cfg_path, "--output-dir", refused_dir,
+         "--force-new", "--set", "mesh.num_devices=2", "mesh.tp=2", "model.hubert.mlp_impl=fused"],
+        cwd=ROOT, env={**{k: v for k, v in os.environ.items() if not k.startswith("TRIAD_")},
+                       "TRIAD_DIST_BACKEND": "gloo"},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    phase(f"21. one process: phase 20's Trainer config at B = {TP_B}, the plain impls, "
+          f"{DP_EPOCHS * DP_STEPS} steps, accumulation 2")
+    args = ["--config", cfg_path, "--steps", str(DP_STEPS)]
+    run1 = os.path.join(root, "tp_one")
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _StartState() as start, _NoSaves():
+        one = train_cli.main(args + ["--output-dir", run1, "--force-new"])
+    out["one_process_s"] = time.perf_counter() - t0
+    launches = {"one_process": dict(kernels.LAUNCHES)}
+    final1 = _params(one)
+    init = {k: v for k, v in start.state.items() if k in final1}
+    shapes1 = {k: tuple(v.shape) for k, v in one.model.state_dict().items()}
+    one_mem = {"parameters": sum(p.numel() * p.element_size() for p in one.model.parameters()),
+               "AdamW moments": one.bank.moment_bytes(),
+               "peak memory": torch.cuda.max_memory_allocated()}
+    del one, start
+    torch.cuda.empty_cache()
+    lines1 = _run_metrics(run1)
+    want_losses = _losses_by_step(lines1)
+    lr_max = _lr_max(lines1)
+    out["one_process_step_ms"] = _logged_step_ms(lines1)
+    print(f"  one process: {out['one_process_s']:.1f} s, update steps (ms, logged) "
+          f"{out['one_process_step_ms']}, {one_mem}", flush=True)
+    # The reference of tp = 2's arithmetic for the update cosine: the same
+    # run with each split layer rounding as a shard pair does (_TpRounding,
+    # on torch.mm alone). Against the plain run tp = 2's update cosine is
+    # 0.9668 (PERF.md §6): the row sums' other rounding flips Adam's
+    # sign-like early steps on near-zero gradients. The plain run still
+    # holds 21a and 21c's losses and parameters.
+    run_s = os.path.join(root, "tp_one_split")
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    with _TpRounding(2), _NoSaves():
+        split = train_cli.main(args + ["--output-dir", run_s, "--force-new"])
+    launches["one_process_split"] = dict(kernels.LAUNCHES)
+    final_s = _params(split)
+    del split
+    torch.cuda.empty_cache()
+    losses_s = _losses_by_step(_run_metrics(run_s))
+    out["split_rounding_s"] = time.perf_counter() - t0
+    out["split_vs_plain"] = _dp_hold("one process at tp = 2's rounding vs plain", "world2",
+                                     losses_s, want_losses, final_s, final1, init, lr_max, 2,
+                                     ("losses", "parameters"))
+    plain = ("one process", want_losses, final1, HOLD_ALL)
+    refs = {"21a": [plain[:3] + (("losses", "parameters"),),
+                    ("one process at tp = 2's rounding", losses_s, final_s, HOLD_ALL)],
+            "21b": [plain]}
+    refs["21c"] = refs["21a"]
+
+    # 21a and 21b run side by side (four ranks on the card), then 21c
+    for legs in (("21a", "21b"), ("21c",)):
+        phase(f"{' and '.join(legs)}. " + "; ".join(
+            f"{leg}: {' '.join(TP_LEGS[leg][1])} as {TP_LEGS[leg][0]} gloo ranks" for leg in legs)
+            + " (side by side)" * (len(legs) > 1) + ", against one process")
+        started = {}
+        for leg in legs:
+            final = os.path.join(root, f"tp_{leg}_final.pt") if leg != "21c" else "-"
+            started[leg] = (_tp_start(leg, cfg_path, os.path.join(root, f"tp_{leg}"), final),
+                            final)
+        for leg in legs:
+            (proc, t0), final = started[leg]
+            reports, launches[leg], seconds = _tp_finish(leg, proc, t0,
+                                                         os.path.join(root, f"tp_{leg}"))
+            out[leg] = _tp_leg(leg, root, reports, final, refs[leg], init, lr_max, shapes1,
+                               one_mem)
+            out[leg]["seconds"] = seconds
+
+    phase("21c'. 21c's step-2 checkpoint resumed in one process (at tp = 2's rounding) for steps "
+          "3-4")
+    run_c, run_r = os.path.join(root, "tp_21c"), os.path.join(root, "tp_resumed")
+    shutil.copytree(run_c, run_r, copy_function=os.link)
+    shutil.rmtree(os.path.join(run_r, "checkpoints", "ckpts", str(2 * DP_STEPS)))
+    os.remove(os.path.join(run_r, "metrics.jsonl"))
+    shutil.copy(os.path.join(run_c, "metrics.jsonl"), run_r)
+    kernels.reset_launches()
+    with _TpRounding(2), _NoSaves():
+        resumed = train_cli.main(args + ["--output-dir", run_r])
+    launches["resumed"] = dict(kernels.LAUNCHES)
+    if resumed.timings["restore"] == []:
+        fail("the one-process run did not resume 21c's checkpoint")
+    final_r = _params(resumed)
+    del resumed
+    torch.cuda.empty_cache()
+    after = {s: v for s, v in _losses_by_step(_run_metrics(run_r)).items() if s >= DP_STEPS}
+    out["resumed_vs_plain"] = _dp_hold(
+        "21c's step-2 save resumed in one process, steps 3-4, vs the uninterrupted plain one "
+        "process", "world2", after, {s: v for s, v in want_losses.items() if s >= DP_STEPS},
+        final_r, final1, init, lr_max, 2, ("losses", "parameters"))
+    out["resumed"] = _dp_hold("21c's step-2 save resumed in one process at tp = 2's rounding, "
+                              "steps 3-4, vs the uninterrupted one process at that rounding",
+                              "world2", after,
+                              {s: v for s, v in losses_s.items() if s >= DP_STEPS},
+                              final_r, final_s, init, lr_max, 2)
+    shutil.rmtree(run_r)
+    shutil.rmtree(run_c)
+
+    phase("21d. mesh.tp = 2 with model.hubert.mlp_impl = 'fused': refused")
+    text = refusal.communicate(timeout=600)[0]
+    with open(os.path.join(ROOT, "chiprun_out", "tp_21d.txt"), "w") as f:
+        f.write(text)
+    want = ("mesh.tp > 1 requires XLA impls; hubert.mlp_impl='fused' is a pallas path "
+            "(allowed: ['xla'] or 'auto')")
+    print(f"  exit {refusal.returncode}; JAX's text in its output {want in text}; run "
+          f"directory written {os.path.exists(refused_dir)}", flush=True)
+    if refusal.returncode == 0 or want not in text or os.path.exists(refused_dir):
+        fail(f"21d: the kernel knob was not refused: {text[-2000:]}")
+    out["refused"] = {"returncode": refusal.returncode}
+
+    total = {}
+    for counts in launches.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    print(f"  kernel launches in phase 21: {sum(total.values())} ({total})", flush=True)
+    if any(total.values()):
+        fail("a hand-written kernel launched on the tensor-parallel / FSDP path")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 21: {out['phase_s']:.1f} s", flush=True)
+    return out, {"tp_fsdp_legs": {k: total.get(k, 0) for k in kernels.LAUNCHES}}
+
+
+def _tp_leg(leg, root, reports, final, refs, init, lr_max, shapes1, one_mem):
+    """One leg against its one-process references ``refs`` [(what, losses,
+    parameters, held checks)]: per-step losses and the final update
+    (phase 20's world-2 bounds); 21c's step-4 checkpoint holds whole tensors under
+    one-process names and shapes; each rank's bytes and peak; rank 0's
+    logged update steps."""
+    import shutil
+
+    run_dir = os.path.join(root, f"tp_{leg}")
+    lines = _run_metrics(run_dir)
+    if final == "-":
+        payload, _ = _checkpoint(run_dir, 2 * DP_STEPS)
+        got = payload["model"]
+        shapes = {k: tuple(v.shape) for k, v in got.items()}
+        moments = [(_group_names(g, shapes1)[int(i)], tuple(st["exp_avg"].shape))
+                   for g, sd in payload["opts"].items() for i, st in sd["state"].items()]
+        bad = [n for n, sh in moments if sh != shapes1[n]]
+        print(f"  {leg}'s step-4 checkpoint: {len(shapes)} tensors, one-process names and shapes "
+              f"{shapes == shapes1}; {len(moments)} moments whole {not bad}", flush=True)
+        if shapes != shapes1 or bad or not moments:
+            fail(f"{leg}'s checkpoint is not a one-process file: {bad[:5]}")
+    else:
+        got = torch.load(final, map_location="cpu", weights_only=True)
+        os.remove(final)
+        shutil.rmtree(run_dir)
+    out = {}
+    for what, want_losses, want, held in refs:
+        out[what] = _dp_hold(f"{leg} vs {what}", "world2", _losses_by_step(lines), want_losses,
+                             got, want, init, lr_max, 2, held)
+    out.update(step_ms=_logged_step_ms(lines), memory=_leg_memory(reports, one_mem))
+    print(f"    update steps (ms, logged, rank 0): {out['step_ms']}", flush=True)
+    return out
+
+
+def _group_names(group, shapes):
+    """The parameter names of an optimizer group, in the bank's order."""
+    from triad_tpu_torch.train.optim import label_for_path
+
+    return [n for n in shapes if label_for_path(n) == group]
+
+
 def _tensors(tree):
     if isinstance(tree, torch.Tensor):
         yield tree
@@ -4155,6 +4636,10 @@ def main():
         sys.path.insert(0, ROOT)
         dp_ring_rank()
         return
+    if sys.argv[1:2] == ["--train-rank"]:  # a rank of phase 21, started by the script
+        sys.path.insert(0, ROOT)
+        train_rank(sys.argv[2], sys.argv[3:])
+        return
     sys.path.insert(0, ROOT)
     from triad_tpu_torch import kernels
     from triad_tpu_torch.cli.serve import load_config
@@ -4190,7 +4675,8 @@ def main():
     print(f"  built {os.path.relpath(path, ROOT)}", flush=True)
     sass_check(path)
 
-    phase("3. kernels vs plain (bf16, CUDA events, median of 20)")
+    phase("3. kernels vs plain (bf16, CUDA events, median of 20; of 5-19 for a call of "
+          "50 ms or more)")
     results, agree = kernel_phase()
 
     phase("4. serve perf_eval_model_config() at full width")
@@ -4341,6 +4827,12 @@ def main():
               "dropout kernels at b0 > 0")
         dp, dp_launches = dp_phase(root)
         torch.cuda.empty_cache()
+
+        phase(f"21. tensor parallelism and FSDP: phase 20's Trainer config at B = {TP_B} as "
+              "tp = 2, FSDP and tp = 2 x 2 slices (gloo ranks on the card) against one process; "
+              "a resume across layouts; a kernel knob refused")
+        tp, tp_launches = tp_phase(root)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4350,7 +4842,7 @@ def main():
                "flash_eval": flash_eval_launches, "train_tv_flash": tv_flash_launches,
                "long_clips": long_clip_launches, "train_joint_fed": fed_launches,
                "trainer": trainer_launches, "trainer_eval_legs": trainer_eval_launches,
-               **pretrained_launches, **export_launches, **dp_launches}
+               **pretrained_launches, **export_launches, **dp_launches, **tp_launches}
     kernels_json = [_kernel_entry(name, results, by_path) for name in KERNELS]
     phase("done")
     # every shape of phase 3, too long for the line the kernels entries take
@@ -4363,7 +4855,7 @@ def main():
                       "knobs_peak_bytes": knobs_peak, "layouts_agree": agree,
                       "retrieval": retrieval, "flash_eval": flash_eval,
                       "tv_flash_step_ms": tv_flash_ms, "data": data, "trainer": trainer,
-                      "pretrained": pretrained, "export": export, "dp": dp}),
+                      "pretrained": pretrained, "export": export, "dp": dp, "tp": tp}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

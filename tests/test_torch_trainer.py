@@ -163,20 +163,30 @@ def test_mid_epoch_resume_is_bit_equal(tmp_path):
 
 
 @pytest.mark.parametrize("route", ["tp", "fsdp"])
-def test_not_ported_routes_raise(tmp_path, route):
+def test_not_ported_routes_raise(tmp_path, monkeypatch, route):
+    """Tensor parallelism and FSDP are ported; what they still refuse is
+    refused before anything is written: at tp 2, a split inside a head
+    (3 heads; GSPMD would re-gather) raises not_ported; under FSDP an
+    explicit kernel knob raises JAX's resolve_xla_impls error."""
+    from triad_tpu_torch.parallel import collectives as C
     from triad_tpu_torch.train.trainer import Trainer
 
+    monkeypatch.setattr(C, "world", lambda group=None: 2)
     cfg = port_config(tiny_config(tmp_path))
     if route == "tp":
         mesh = dataclasses.replace(cfg.mesh, num_devices=2, tp=2)
-        names = "parallel/tp.py"
+        model = dataclasses.replace(cfg.model, text=dataclasses.replace(
+            cfg.model.text, hidden_size=30, num_heads=3))
+        err, text = NotImplementedError, "GSPMD"
     else:
         mesh = dataclasses.replace(cfg.mesh, num_devices=2, fsdp=True)
-        names = "parallel/fsdp.py"
-    cfg = dataclasses.replace(cfg, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="not ported") as err:
+        model = dataclasses.replace(cfg.model, hubert=dataclasses.replace(
+            cfg.model.hubert, mlp_impl="fused"))
+        err, text = ValueError, "mesh.tp > 1 requires XLA impls; hubert.mlp_impl='fused'"
+    cfg = dataclasses.replace(cfg, mesh=mesh, model=model)
+    with pytest.raises(err) as info:
         Trainer(cfg, force_new_training=True, device="cpu")
-    assert names in str(err.value) and "JAX package" in str(err.value)
+    assert text in str(info.value)
     assert not Path(cfg.train.output_dir).exists()  # raised before writing
 
 

@@ -14,8 +14,8 @@ size with global batches of 4 (2 rows a rank) and every dropout live.
 (g) The epoch's validation and 1000-way retrieval metrics equal the
     one-process ones (atol 1e-6, as tests/test_trainer_dp.py), both runs
     scoring one subset.
-(h) The JAX Trainer's mesh ValueErrors, with torch's world size, and the
-    not_ported refusals of tensor parallelism and FSDP.
+(h) The JAX Trainer's mesh ValueErrors, with torch's world size, those
+    of tensor parallelism and FSDP included.
 """
 
 import dataclasses
@@ -217,31 +217,57 @@ def _mesh_config(tmp_path, **mesh):
     return dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, **mesh))
 
 
-@pytest.mark.parametrize("case", ["batch", "no_mesh", "slices", "world", "tp", "fsdp"])
+_REFUSALS = ["batch", "no_mesh", "slices", "world", "tp", "fsdp", "tp_slices", "tp_batch",
+             "ring_slices"]
+
+
+@pytest.mark.parametrize("case", _REFUSALS)
 def test_mesh_refusals(tmp_path, monkeypatch, case):
+    """The JAX Trainer's mesh ValueErrors with torch's world size: "tp" and
+    "fsdp" an explicit kernel knob (JAX's resolve_xla_impls text),
+    "tp_slices" num_devices % (num_slices x tp), "tp_batch" a batch the
+    data-parallel size (num_devices / tp) does not divide, "ring_slices"
+    the ring negatives on a tuple axis (dp.py's error, raised here before
+    anything is written)."""
     from triad_tpu_torch.parallel import collectives as C
     from triad_tpu_torch.train.trainer import Trainer
 
-    world = {"batch": 2, "no_mesh": 2, "slices": 1, "world": 1, "tp": 1, "fsdp": 1}[case]
+    world = {"batch": 2, "no_mesh": 2, "slices": 1, "world": 1, "tp": 2, "fsdp": 2,
+             "tp_slices": 2, "tp_batch": 4, "ring_slices": 2}[case]
     monkeypatch.setattr(C, "world", lambda group=None: world)
+    err = ValueError
     if case == "batch":
         cfg = _mesh_config(tmp_path, num_devices=2)
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, batch_size_tv=3))
-        err, text = ValueError, "batch_size_tv=3 not divisible by the data-parallel size 2"
+        text = "batch_size_tv=3 not divisible by the data-parallel size 2"
     elif case == "no_mesh":
         cfg = _mesh_config(tmp_path)
-        err, text = ValueError, ("multi-process run (torch.distributed world size 2 > 1) needs "
-                                 "a device mesh: set mesh.num_devices to the GLOBAL chip count")
+        text = ("multi-process run (torch.distributed world size 2 > 1) needs a device mesh: "
+                "set mesh.num_devices to the GLOBAL chip count")
     elif case == "slices":
         cfg = _mesh_config(tmp_path, num_devices=3, num_slices=2)
-        err, text = ValueError, "mesh.num_devices=3 not divisible by num_slices(2) x tp(1)"
+        text = "mesh.num_devices=3 not divisible by num_slices(2) x tp(1)"
     elif case == "world":
         cfg = _mesh_config(tmp_path, num_devices=2)
-        err, text = ValueError, "mesh.num_devices=2 but torch.distributed runs 1 process"
-    else:
+        text = "mesh.num_devices=2 but torch.distributed runs 1 process"
+    elif case in ("tp", "fsdp"):
         cfg = _mesh_config(tmp_path, num_devices=2, **({"tp": 2} if case == "tp"
                                                          else {"fsdp": True}))
-        err, text = NotImplementedError, f"parallel/{case}.py"
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, vit=dataclasses.replace(cfg.model.vit, attention_impl="flash")))
+        text = ("mesh.tp > 1 requires XLA impls; vit.attention_impl='flash' is a pallas path "
+                "(allowed: ['xla'] or 'auto')")
+    elif case == "tp_slices":
+        cfg = _mesh_config(tmp_path, num_devices=2, num_slices=2, tp=2)
+        text = "mesh.num_devices=2 not divisible by num_slices(2) x tp(2)"
+    elif case == "tp_batch":
+        cfg = _mesh_config(tmp_path, num_devices=4, tp=2)
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, batch_size_av=3))
+        text = "batch_size_av=3 not divisible by the data-parallel size 2"
+    else:
+        cfg = _mesh_config(tmp_path, num_devices=2, num_slices=2)
+        cfg = dataclasses.replace(cfg, loss=dataclasses.replace(cfg.loss, negatives="ring"))
+        text = "negatives='ring' supports a single mesh axis"
     with pytest.raises(err) as info:
         Trainer(cfg, force_new_training=True, device="cpu")
     assert text in str(info.value)

@@ -201,7 +201,132 @@ def steps(rank, world, workdir):
     return out
 
 
-CASES = {"losses": losses, "steps": steps}
+# ---------------------------------------------------------------------------
+# layouts: tensor parallelism, FSDP, ZeRO-1 and slices (tests/test_torch_tp.py)
+# ---------------------------------------------------------------------------
+
+# name: (world, mesh kind, tp, fsdp, zero1); mesh kinds: "flat" (data),
+# "tp" (data, model), "slices" (replica, data), "slices_tp" (replica, data,
+# model, one data index a slice)
+LAYOUTS = {
+    "tp2": (2, "tp", 2, False, True),
+    "fsdp": (2, "flat", 1, True, True),
+    "dp2tp2": (4, "tp", 2, False, False),
+    "dp2tp2_zero1": (4, "tp", 2, False, True),
+    "tp2_slices": (4, "slices_tp", 2, False, True),
+    "fsdp_tp2": (4, "tp", 2, True, True),
+    "fsdp_slices": (4, "slices", 1, True, True),
+}
+
+
+def layout_mesh(kind: str, world: int, tp: int):
+    """(mesh, data axis) of a layout's mesh kind over the world."""
+    from triad_tpu_torch.parallel.dp import make_mesh, make_multislice_mesh
+    from triad_tpu_torch.parallel.tp import make_dp_tp_mesh, make_multislice_tp_mesh
+
+    if kind == "flat":
+        return make_mesh(world), "data"
+    if kind == "tp":
+        return make_dp_tp_mesh(world, tp), "data"
+    if kind == "slices":
+        return make_multislice_mesh(2, world // 2), ("replica", "data")
+    return make_multislice_tp_mesh(2, world // 2 // tp, tp), ("replica", "data")
+
+
+def layout_run(workdir, key, layout, world=1):
+    """DIR/KEY.pt's micro steps (its config, state, seed and batches; an
+    update per accumulation window) under ``layout`` (None: one process),
+    on this rank's rows; returns (metrics of the last step, whole
+    parameters, bytes of this rank's parameters, of its moments)."""
+    from triad_tpu_torch.config import Config
+    from triad_tpu_torch.models.convert import init_triad_model
+    from triad_tpu_torch.parallel.fsdp import fsdp_param_specs
+    from triad_tpu_torch.parallel.tp import shard_model, tp_param_specs
+    from triad_tpu_torch.train.optim import OptimizerBank
+    from triad_tpu_torch.train.step import StepFactory, TrainState
+
+    spec = torch.load(workdir / f"{key}.pt", weights_only=False)
+    cfg = Config.from_dict(spec["config"])
+    model = init_triad_model(cfg.model, torch.Generator().manual_seed(0))
+    model.load_state_dict(spec["state"])
+    mesh, axis, specs, zero1 = None, "data", None, False
+    if layout is not None:
+        _, kind, tp, fsdp, zero1 = LAYOUTS[layout]
+        mesh, axis = layout_mesh(kind, world, tp)
+        specs = tp_param_specs(model, tp) if tp > 1 else {}
+        if fsdp:
+            specs = fsdp_param_specs(model, mesh, base_specs=specs)
+        shard_model(model, mesh, specs)
+    ocfg = cfg.train.optim
+    bank = OptimizerBank(ocfg, model, total_updates=100, mesh=mesh, mesh_axis=axis, zero1=zero1,
+                         param_specs=specs)
+    state = TrainState(model, bank, 0, spec["seed"])
+    step = StepFactory(cfg.loss, ocfg, mesh=mesh, mesh_axis=axis).make_step("joint")
+    index, size = (mesh.index(axis), mesh.axis_size(axis)) if mesh is not None else (0, 1)
+    for av, tv in spec["batches"]:
+        per = av["audio"].shape[0] // size
+        rows = slice(index * per, (index + 1) * per)
+        _, m = step(state, {k: v[rows] for k, v in av.items()},
+                    {k: v[rows] for k, v in tv.items()}, spec["w_av"], spec["w_tv"])
+    params = {n: p.detach().clone() for n, p in bank.model_state_dict().items()}
+    return ({k: float(v) for k, v in m.items()}, params,
+            sum(p.numel() * p.element_size() for p in model.parameters()), bank.moment_bytes())
+
+
+def bf16_pair(x, w1, b1, w2, b2, rank=0, parts=1):
+    """A bf16 column-parallel Dense, GELU, a row-parallel Dense (rank's
+    shards of the given fp32 weights; parts 1: the plain layers), and
+    d(sum y^2)/dx: (y, dx) in fp32."""
+    from triad_tpu_torch.models.layers import Dense
+
+    fc1 = Dense(w1.shape[1], w1.shape[0] // parts, dtype=torch.bfloat16)
+    fc2 = Dense(w2.shape[1] // parts, w2.shape[0], dtype=torch.bfloat16)
+    n = w1.shape[0] // parts
+    with torch.no_grad():
+        fc1.weight.copy_(w1[rank * n:(rank + 1) * n])
+        fc1.bias.copy_(b1[rank * n:(rank + 1) * n])
+        fc2.weight.copy_(w2[:, rank * n:(rank + 1) * n])
+        fc2.bias.copy_(b2)
+    if parts > 1:
+        fc1.set_tensor_parallel("column", rank, parts, None)
+        fc2.set_tensor_parallel("row", rank, parts, None)
+    x = x.clone().requires_grad_()
+    y = fc2(torch.nn.functional.gelu(fc1(x)))
+    (y.float() ** 2).sum().backward()
+    return y.detach().float(), x.grad
+
+
+def layouts(rank, world, workdir):
+    out = {}
+    if world == 2 and (workdir / "bf16_pair.pt").exists():
+        y, dx = bf16_pair(*torch.load(workdir / "bf16_pair.pt"), rank=rank, parts=2)
+        out["bf16_pair/y"], out["bf16_pair/dx"] = y.numpy(), dx.numpy()
+    for key in ("exact", "accum2", "live"):
+        if not (workdir / f"{key}.pt").exists():
+            continue
+        names = torch.load(workdir / f"{key}.pt", weights_only=False)["layouts"]
+        for layout in names:
+            if LAYOUTS[layout][0] != world:
+                continue
+            m, params, pbytes, mbytes = layout_run(workdir, key, layout, world)
+            for k, v in m.items():
+                out[f"{key}/{layout}/metric/{k}"] = np.asarray(v)
+            for n, p in params.items():
+                out[f"{key}/{layout}/param/{n}"] = p.numpy()
+            out[f"{key}/{layout}/param_bytes"] = np.asarray(
+                _gather_ints(pbytes))
+            out[f"{key}/{layout}/moment_bytes"] = np.asarray(_gather_ints(mbytes))
+    return out
+
+
+def _gather_ints(x: int):
+    """Every rank's integer, in rank order."""
+    from triad_tpu_torch.parallel import collectives as C
+
+    return C.gather_rows(torch.tensor([x], dtype=torch.int64)).tolist()
+
+
+CASES = {"losses": losses, "steps": steps, "layouts": layouts}
 
 
 def main():

@@ -21,7 +21,10 @@ their number, launched by torchrun or by the JAX package's variables:
 
 ``TRIAD_DIST_BACKEND`` names the backend (default nccl on the card, gloo
 with ``--device cpu``). Every process writes to one output directory,
-through rank 0 (``parallel/distributed.py``).
+through rank 0 (``parallel/distributed.py``). Tensor parallelism and FSDP
+take the same launch: ``--set mesh.num_devices=2 mesh.tp=2`` (add
+``mesh.num_slices=2`` at four processes for the (replica, data, model)
+mesh) or ``--set mesh.num_devices=2 mesh.fsdp=true``.
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ eval kernel concatenates them at use).
 from __future__ import annotations
 
 import re
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -39,13 +39,25 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
+_KERNEL_PERM = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}  # torch dim i is Flax dim perm[i]
+
+
+def flax_dims(name: str, ndim: int) -> Tuple[int, ...]:
+    """The Flax dim of each dim of the state-dict entry ``name`` (ndim
+    dims): its torch tensor is the Flax leaf transposed by this."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf in ("lora_a", "lora_b"):
+        return (1, 0)
+    if leaf == "weight" and ndim >= 2:
+        return _KERNEL_PERM[ndim]
+    return tuple(range(ndim))
+
+
 def _to_torch_layout(leaf: str, a: np.ndarray) -> np.ndarray:
     if leaf in ("lora_a", "lora_b"):
         return a.T
     if leaf == "kernel":
-        return {2: lambda x: x.T,
-                3: lambda x: x.transpose(2, 1, 0),
-                4: lambda x: x.transpose(3, 2, 0, 1)}[a.ndim](a)
+        return a.transpose(_KERNEL_PERM[a.ndim])
     return a
 
 
@@ -53,9 +65,7 @@ def _to_flax_layout(leaf: str, a: np.ndarray) -> np.ndarray:
     if leaf in ("lora_a", "lora_b"):
         return a.T
     if leaf == "kernel":
-        return {2: lambda x: x.T,
-                3: lambda x: x.transpose(2, 1, 0),
-                4: lambda x: x.transpose(2, 3, 1, 0)}[a.ndim](a)
+        return a.transpose(np.argsort(_KERNEL_PERM[a.ndim]))
     return a
 
 

@@ -42,6 +42,10 @@ route everywhere (its plain twin on the CPU). Layerdrop skips a dropped
 layer's compute (JAX computes and discards it): its parameters get no
 gradient, which the optimizer bank treats as zero, as the JAX step's
 gradient is.
+
+Under tensor parallelism (``parallel/tp.py``) the attention runs on the
+rank's heads (its attention dropout draws the full head extent and keeps
+the rank's heads) and the MLP on its hidden columns.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from triad_tpu_torch.models.layers import (
     dropout,
     merged_attention,
     mlp_forward,
+    not_ported,
 )
 from triad_tpu_torch.models.quantize import int8_active
 from triad_tpu_torch.ops.attention import HEAD_DIM
@@ -219,6 +224,10 @@ class HubertSelfAttention(nn.Module):
         impl = c.attention_impl
         train = generator is not None
         rate = c.attention_dropout if train else 0.0
+        if self.q_proj.tp is not None and impl != "xla" and (
+                impl != "auto" or (rate > 0.0 and x.is_cuda)):  # a kernel on the rank's heads
+            raise not_ported(f"attention_impl {impl!r} on a tensor-parallel shard",
+                             "the XLA attention (parallel/tp.py:resolve_xla_impls)")
         if impl in MERGED_IMPLS:
             if int8_active():
                 # The merged qkv product below takes raw weights: the int8
@@ -242,7 +251,8 @@ class HubertSelfAttention(nn.Module):
         if impl == "auto" or (impl in ("packed", "packed_pair") and rate > 0.0):
             impl = "fused" if rate > 0.0 and on_cuda else "xla"
         hd = c.hidden_size // c.num_heads
-        q, k, v = (p(x).reshape(b, n, c.num_heads, hd)
+        heads = self.q_proj.out_features // hd  # this rank's heads under tensor parallelism
+        q, k, v = (p(x).reshape(b, n, heads, hd)
                    for p in (self.q_proj, self.k_proj, self.v_proj))
         if impl in ("fused", "fused_packed", "fused_packed_merged"):
             seed = seeds.seed() if rate > 0.0 else 0
@@ -252,13 +262,15 @@ class HubertSelfAttention(nn.Module):
         else:
             probs_dropout = None
             if rate > 0.0:
+                split = None if self.q_proj.tp is None else (1, *self.q_proj.tp.split)
+
                 def probs_dropout(p):
-                    return dropout(p, rate, generator)
+                    return dropout(p, rate, generator, split)
             out = dot_product_attention(
                 q, k, v, None, d, scores_dtype=getattr(torch, c.attention_scores_dtype),
                 impl=impl, probs_dropout=probs_dropout,
             )
-        return self.out_proj(out.reshape(b, n, c.hidden_size))
+        return self.out_proj(out.reshape(b, n, heads * hd))
 
 
 class HubertEncoderLayer(nn.Module):

@@ -5,11 +5,17 @@ Dtype policy as in the JAX package: parameters stay in ``param_dtype``
 (fp32) and every module casts them and its input to its compute
 ``dtype`` at use. Linear weights take torch's (out, in) layout; the
 converter in ``models/convert.py`` transposes the Flax (in, out) kernels.
+
+A ``Dense`` may hold a tensor-parallel shard (``set_tensor_parallel``,
+``parallel/tp.py:shard_model``): its ``in_features`` / ``out_features``
+are then its local sizes, and it runs the collectives over the model
+group it was given.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -28,6 +34,7 @@ from triad_tpu_torch.ops.attention import (
 )
 from triad_tpu_torch.ops import quant
 from triad_tpu_torch.ops.dropout import global_rand
+from triad_tpu_torch.parallel import collectives as C
 from triad_tpu_torch.ops.flash_attention import flash_attention
 from triad_tpu_torch.ops.mlp import FusedMlp, gelu
 
@@ -42,23 +49,132 @@ def not_ported(option: str, reference: str):
     )
 
 
+@dataclass(frozen=True)
+class TensorParallel:
+    """A Dense layer's Megatron shard: ``kind`` "column" (rows of the
+    weight, the output dim) or "row" (its columns, the input dim); this
+    rank's ``index`` of ``parts`` over the model axis, whose process group
+    is ``group``."""
+
+    kind: str
+    index: int
+    parts: int
+    group: Any
+
+    @property
+    def split(self) -> Tuple[int, int]:
+        """(index, parts): the slice of a full-width draw this rank keeps."""
+        return self.index, self.parts
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b accumulated and returned in fp32 (on the card, one GEMM with
+    an fp32 output for low-precision inputs)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _ColumnParallel(torch.autograd.Function):
+    """x W^T + b on the rank's output columns, with Megatron's "copy to
+    the model region" at its input (identity forward, all-reduce
+    backward): the backward sums the ranks' partial input gradients (each
+    accumulated in fp32) in fp32 and casts once, as one process's
+    dx = dy W rounds once. Gradients that no input needs are not
+    computed (a frozen layer's dW, db), as F.linear's backward skips them."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, group):
+        ctx.save_for_backward(x, w)
+        ctx.group = group
+        return F.linear(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = dw = db = None
+        if need_x:
+            dx = C.all_reduce_(_mm_f32(g2, w), group=ctx.group).to(x.dtype).reshape(x.shape)
+        if need_w:
+            dw = g2.t() @ x.reshape(-1, x.shape[-1])
+        if need_b:
+            db = g2.sum(0)
+        return dx, dw, db, None
+
+
+class _RowPartial(torch.autograd.Function):
+    """x W^T of the rank's input columns, accumulated and returned in fp32
+    (one rounding: the row-parallel sum adds the partials in fp32 and casts
+    once, as a one-process GEMM rounds once). The backward takes the
+    cotangent in the compute dtype, as F.linear's does, and computes only
+    the gradients an input needs."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = _mm_f32(x.reshape(-1, x.shape[-1]), w.t())
+        return y.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = g @ w if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+        return dx, dw
+
+
 class Dense(nn.Linear):
     """nn.Dense: y = x W^T + b, computed in ``dtype`` (params cast); in
     the int8 serving mode (``models/quantize.py``) the int8 product, cast
-    to the input's dtype."""
+    to the input's dtype. Tensor-parallel (``tp``): "column" gives the
+    rank's output columns and all-reduces its input's gradient
+    (``_ColumnParallel``); "row" takes the rank's input columns, sums the
+    partial products over the model group in fp32 (``_RowPartial``,
+    ``collectives.reduce_from_model``), adds the replicated bias and casts
+    once. Both sums over the model group run on fp32 partials and round
+    once, as one process's GEMM does: two bf16 partials summed in bf16
+    would round twice."""
 
     def __init__(self, in_features, out_features, bias=True, dtype=torch.float32,
                  param_dtype=torch.float32, device=None):
         super().__init__(in_features, out_features, bias=bias, device=device,
                          dtype=param_dtype)
         self.compute_dtype = dtype
+        self.tp: Optional[TensorParallel] = None
+
+    def set_tensor_parallel(self, kind: str, index: int, parts: int, group) -> None:
+        """Run as this rank's ``kind`` shard (the caller cuts the weight and
+        bias, ``parallel/tp.py:shard_model``); the features become local."""
+        if kind not in ("column", "row"):
+            raise ValueError(f"unknown tensor-parallel kind {kind!r}")
+        self.tp = TensorParallel(kind, index, parts, group)
+        if kind == "column":
+            self.out_features //= parts
+        else:
+            self.in_features //= parts
 
     def forward(self, x):
         if int8_active():
+            if self.tp is not None:
+                raise not_ported("the int8 serving mode on a tensor-parallel shard",
+                                 "the int8 Dense on GSPMD-sharded weights")
             return quant.int8_dense(x, self.weight, self.bias).to(x.dtype)
         d = self.compute_dtype
+        x, w = x.to(d), self.weight.to(d)
+        if self.tp is not None and self.tp.kind == "row":
+            y = C.reduce_from_model(_RowPartial.apply(x, w), self.tp.group)
+            if self.bias is not None:
+                y = y + self.bias.to(torch.float32)
+            return y.to(d)
         b = None if self.bias is None else self.bias.to(d)
-        return F.linear(x.to(d), self.weight.to(d), b)
+        if self.tp is None:
+            return F.linear(x, w, b)
+        return _ColumnParallel.apply(x, w, b, self.tp.group)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -124,15 +240,18 @@ class LoRALinear(nn.Module):
         return y
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            split: Optional[Tuple[int, int, int]] = None):
     """nn.Dropout as Flax applies it: keep with probability 1 - rate, kept
     values divided by 1 - rate. ``generator`` None means deterministic
     (eval): x is returned as it is. x is batch-major: a data-parallel
     rank's ``ShardGenerator`` draws at the global batch's shape and keeps
-    its rows (ops/dropout.py:global_rand)."""
+    its rows (ops/dropout.py:global_rand); ``split`` (dim, index, parts):
+    x is slice ``index`` of ``parts`` of the full tensor along ``dim`` (a
+    tensor-parallel rank's heads or hidden columns), whose draw keeps it."""
     if generator is None or rate == 0.0:
         return x
-    keep = global_rand(x.shape, generator, x.device) < 1.0 - rate
+    keep = global_rand(x.shape, generator, x.device, split) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -151,12 +270,17 @@ def mlp_forward(x, fc1: Dense, fc2: Dense, impl: str, gelu_form: str, rate: floa
     the in-kernel activation dropout at ``rate`` from the int32 ``seed``
     (x's rows at global batch rows b0 ..);
     "xla" runs the two Dense layers around an exact GELU and a plain
-    dropout from ``generator``, as the JAX package's unfused path does."""
+    dropout from ``generator``, as the JAX package's unfused path does (on
+    a column-parallel fc1, the draw of the rank's hidden columns)."""
     if impl == "fused":
+        if fc1.tp is not None:
+            raise not_ported("the fused MLP on a tensor-parallel shard",
+                             "the XLA MLP (parallel/tp.py:resolve_xla_impls)")
         d = fc1.compute_dtype
         return FusedMlp.apply(x.to(d), fc1.weight.to(d), fc1.bias.to(d), fc2.weight.to(d),
                               fc2.bias.to(d), gelu_form, seed, rate, b0)
-    return fc2(dropout(gelu(fc1(x), "erf"), rate, generator))
+    split = None if fc1.tp is None else (-1, *fc1.tp.split)
+    return fc2(dropout(gelu(fc1(x), "erf"), rate, generator, split))
 
 
 class Mlp(nn.Module):

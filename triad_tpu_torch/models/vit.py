@@ -13,7 +13,8 @@ the differentiable merged training kernel; ``"fused"`` (strided) and
 ``"fused_packed"`` run the differentiable training kernels on the split
 q, k, v. DINOv2 has no attention dropout, so the training kernels run at
 p = 0, the same at eval and in training. Images are NHWC, as
-in the JAX package.
+in the JAX package. Under tensor parallelism only the MLP shards
+(``parallel/tp.py``): the fused qkv stays whole.
 """
 
 from __future__ import annotations

@@ -128,7 +128,8 @@ class HostSeeds:
     int32 seed of each kernel call site and the layerdrop draws, each from
     ``np.random.SeedSequence([seed, global_step, site])`` with ``site``
     counting the draws. The same on every data-parallel rank; ``shard``
-    (rank, world) gives each kernel its batch offset (:meth:`b0`)."""
+    (data index, data size) gives each kernel its batch offset
+    (:meth:`b0`)."""
 
     def __init__(self, seed: int, global_step: int, shard: Tuple[int, int] = (0, 1)):
         self.key = (int(seed), int(global_step))
@@ -156,10 +157,11 @@ class HostSeeds:
 
 class ShardGenerator(torch.Generator):
     """The plain draws' generator of one data-parallel rank: ``shard`` =
-    (rank, world). :func:`global_rand` and :func:`global_randint` draw at
-    the global batch's shape and keep this rank's rows, so each rank draws
-    what one process draws for the same global rows, and every rank's
-    generator advances alike."""
+    (data index, data size). :func:`global_rand` and :func:`global_randint`
+    draw at the global batch's shape and keep this rank's rows, so each
+    rank draws what one process draws for the same global rows, and every
+    rank's generator advances alike (a tensor-parallel group's ranks hold
+    the same rows and draw the same)."""
 
     def __new__(cls, device, shard: Tuple[int, int] = (0, 1)):
         gen = super().__new__(cls, device=device)
@@ -170,18 +172,31 @@ class ShardGenerator(torch.Generator):
         pass
 
 
-def _rows(shape, generator, draw):
+def _rows(shape, generator, draw, split=None):
+    """draw() at the global shape, this rank's part kept: its rows of the
+    global batch and, with ``split`` = (dim, index, parts), slice ``index``
+    of ``parts`` along ``dim`` (a tensor-parallel rank's heads or hidden
+    columns, drawn at their full extent)."""
     rank, world = getattr(generator, "shard", (0, 1))
-    if world == 1:
-        return draw(tuple(shape))
-    b = shape[0]
-    return draw((b * world, *shape[1:]))[rank * b:(rank + 1) * b]
+    shape = list(shape)
+    shape[0] *= world
+    if split is not None:
+        dim, index, parts = split
+        n = shape[dim]
+        shape[dim] = n * parts
+    out = draw(tuple(shape))
+    if world > 1:
+        out = out.narrow(0, rank * (shape[0] // world), shape[0] // world)
+    if split is not None:
+        out = out.narrow(dim, index * n, n)
+    return out
 
 
-def global_rand(shape, generator: torch.Generator, device=None) -> torch.Tensor:
-    """torch.rand of a (B, ...) batch's draws, keyed on global rows."""
+def global_rand(shape, generator: torch.Generator, device=None, split=None) -> torch.Tensor:
+    """torch.rand of a (B, ...) batch's draws, keyed on global rows (and,
+    with ``split``, on the full extent of a split dim)."""
     return _rows(shape, generator,
-                 lambda s: torch.rand(s, generator=generator, device=device))
+                 lambda s: torch.rand(s, generator=generator, device=device), split)
 
 
 def global_randint(high: int, shape, generator: torch.Generator, device=None) -> torch.Tensor:

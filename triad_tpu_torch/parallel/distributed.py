@@ -7,10 +7,11 @@ one process per device, all in every collective.
     ``MASTER_PORT`` / ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``. The
     backend is ``TRIAD_DIST_BACKEND``, else "nccl" for a CUDA device and
     "gloo" for the CPU: never switched behind the caller's back.
-  * ``process_shard()`` is (rank, world) for the loaders: every process
-    runs the same sampler (seed, epoch, batch) and decodes only its rows
-    of each global batch, so data order and resume are the one-process
-    ones.
+  * ``process_shard(mesh, axis)`` is (data index, data size) for the
+    loaders: every process runs the same sampler (seed, epoch, batch) and
+    decodes only its rows of each global batch, so data order and resume
+    are the one-process ones. The ranks of a tensor-parallel group share
+    a data index, so they load the same rows.
   * ``put_global_tree`` broadcasts rank 0's parameters and buffers, so no
     rank starts apart; ``fetch`` brings every rank's rows to the host;
     ``global_batch_from_local`` checks a rank's rows against the global
@@ -81,12 +82,13 @@ def process_device(device="cuda", rank: Optional[int] = None) -> torch.device:
     return torch.device("cuda", local % torch.cuda.device_count())
 
 
-def process_shard() -> Optional[Tuple[int, int]]:
-    """(rank, world) when the world is larger than 1, else None: the
-    loaders' row-slice selector."""
-    if C.world() > 1:
-        return C.rank(), C.world()
-    return None
+def process_shard(mesh=None, axis="data") -> Optional[Tuple[int, int]]:
+    """The loaders' row-slice selector: (data index, data size) over the
+    mesh's data ``axis`` (a name or a tuple), or (rank, world) without a
+    mesh; None when there is one slice."""
+    index, size = ((mesh.index(axis), mesh.axis_size(axis)) if mesh is not None
+                   else (C.rank(), C.world()))
+    return (index, size) if size > 1 else None
 
 
 def coordination_barrier(name: str) -> None:
@@ -116,11 +118,12 @@ def put_global_tree(tree):
     return tree
 
 
-def global_batch_from_local(mesh, local, batch_size: int):
+def global_batch_from_local(mesh, local, batch_size: int, axis="data"):
     """This rank's rows of a global batch of ``batch_size``, after a shape
-    check: they number batch_size / mesh.size."""
+    check: they number batch_size over the size of the data ``axis``."""
     rows = next(iter(local.values())).shape[0] if isinstance(local, dict) else local.shape[0]
-    if batch_size % mesh.size or rows * mesh.size != batch_size:
-        raise ValueError(f"{rows} local rows on a mesh of {mesh.size} make no global batch of "
+    n = mesh.axis_size(axis)
+    if batch_size % n or rows * n != batch_size:
+        raise ValueError(f"{rows} local rows on a data axis of {n} make no global batch of "
                          f"{batch_size}")
     return local

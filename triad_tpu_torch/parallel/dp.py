@@ -20,11 +20,14 @@ the cross-rank sums.
 
 A ``Mesh`` is the process group seen as the JAX mesh's axes: ranks
 replica-major (a multi-slice mesh's rank r is slice r // d, chip r % d),
-so collectives over all of its axes span the global batch in rank order.
+the last axis minor. The losses' collectives run over ``axis`` only (the
+data axes): under tensor parallelism each ``model`` rank of a data
+index holds the same rows and computes the same replicated loss.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -46,7 +49,14 @@ Axis = Union[str, Tuple[str, ...]]
 class Mesh:
     """Named axes over a process group (None: the default group): ``shape``
     maps each axis name to its size, in mesh order; their product is the
-    group's size (1 without a process group)."""
+    group's size (1 without a process group). Ranks lie in mesh order, the
+    last axis minor: rank r of a (data, model) mesh of tp = 2 is (data
+    r // 2, model r % 2), as ``make_dp_tp_mesh`` orders the JAX devices.
+
+    The process group of every coset of every subset of the axes of size >
+    1 is made here, on every rank, in one order (``torch.distributed``
+    needs every rank in every ``new_group`` call); ``group_of(axes)`` is
+    this rank's. Axes of size 1 talk to no one (``collectives.SINGLE``)."""
 
     def __init__(self, shape: Dict[str, int], group=None):
         self.shape = dict(shape)
@@ -56,17 +66,85 @@ class Mesh:
         if self.size != C.world(group):
             raise ValueError(f"a mesh of {self.size} devices {self.shape} over a process group "
                              f"of {C.world(group)} processes")
+        self.coords = dict(zip(self.axis_names, _unravel(C.rank(group), self.shape.values())))
+        self._groups = {}
+        live = tuple(a for a in self.axis_names if self.shape[a] > 1)
+        if len(live) > 1 and C._active(group):
+            members = (torch.distributed.get_process_group_ranks(group) if group is not None
+                       else list(range(self.size)))
+            for k in range(1, len(live)):
+                for subset in itertools.combinations(live, k):
+                    for ranks in self._cosets(subset):
+                        pg = torch.distributed.new_group([members[r] for r in ranks])
+                        if self.rank in ranks:
+                            self._groups[subset] = pg
+
+    def _cosets(self, subset):
+        """Each coset of ``subset``: the flat ranks that share the other
+        axes' coordinates, ascending (so in ``index(subset)`` order)."""
+        dims = list(self.shape.values())
+        cosets = {}
+        for r in range(self.size):
+            c = _unravel(r, dims)
+            key = tuple(x for a, x in zip(self.axis_names, c) if a not in subset)
+            cosets.setdefault(key, []).append(r)
+        return [cosets[k] for k in sorted(cosets)]
 
     @property
     def rank(self) -> int:
-        """This process's flat index (replica-major)."""
+        """This process's flat index (the last axis minor)."""
         return C.rank(self.group)
 
     def axis_size(self, axis: Axis) -> int:
         return math.prod(self.shape[a] for a in _names(axis))
 
+    def index(self, axis: Axis) -> int:
+        """This rank's flat index over ``axis`` (a name or a tuple of
+        names, the first major)."""
+        i = 0
+        for a in _names(axis):
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+    def group_of(self, axis: Axis):
+        """The process group of this rank's coset of ``axis``: the mesh's
+        group when the axis spans every axis of size > 1 (so a mesh of one
+        still runs its collectives), else ``SINGLE`` when it spans none."""
+        live = tuple(a for a in self.axis_names if a in _names(axis) and self.shape[a] > 1)
+        if live == tuple(a for a in self.axis_names if self.shape[a] > 1):
+            return self.group
+        if not live:
+            return C.SINGLE
+        return self._groups[live]
+
+    # -- tensors laid out by a spec: one entry per dim, None or an axis ----
+
+    def local(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's slice of a whole tensor laid out by ``spec``."""
+        for d, e in enumerate(spec or ()):
+            if e is not None:
+                n = t.shape[d] // self.axis_size(e)
+                t = t.narrow(d, self.index(e) * n, n)
+        return t
+
+    def whole(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """The whole tensor from every rank's slice of it (a collective:
+        every rank of each sharded axis calls it)."""
+        for d, e in enumerate(spec or ()):
+            if e is not None:
+                t = C.gather_rows(t, self.group_of(e), d)
+        return t
+
     def __repr__(self):
         return f"Mesh({self.shape})"
+
+
+def _unravel(r: int, dims) -> Tuple[int, ...]:
+    out = []
+    for n in reversed(list(dims)):
+        out.append(r % n)
+        r //= n
+    return tuple(reversed(out))
 
 
 def _names(axis: Axis) -> Tuple[str, ...]:
@@ -74,17 +152,15 @@ def _names(axis: Axis) -> Tuple[str, ...]:
 
 
 def _group(mesh: Mesh, axis: Axis):
-    """The process group of collectives over ``axis``: the mesh's whole
-    group. An axis that leaves out a mesh axis of size > 1 (a collective
-    per slice) is not ported."""
+    """The process group of collectives over ``axis``: this rank's coset
+    of it. A tuple axis is taken in mesh order (the gathered rows' order)."""
     names = _names(axis)
     if any(a not in mesh.shape for a in names):
         raise ValueError(f"axis {axis!r} not in mesh axes {mesh.axis_names}")
-    if mesh.axis_size(axis) != mesh.size or list(names) != [
-            a for a in mesh.axis_names if a in names]:
-        raise ValueError(f"collectives over {axis!r} on {mesh}: the port runs them over every "
-                         "mesh axis, in mesh order")
-    return mesh.group
+    if list(names) != [a for a in mesh.axis_names if a in names]:
+        raise ValueError(f"collectives over {axis!r} on {mesh}: the port takes a tuple axis in "
+                         "mesh order")
+    return mesh.group_of(axis)
 
 
 def make_mesh(num_devices: Optional[int] = None, axis: str = "data", group=None) -> Mesh:
@@ -108,10 +184,10 @@ def make_multislice_mesh(num_slices: int, devices_per_slice: Optional[int] = Non
 # ---------------------------------------------------------------------------
 
 
-def _local_diag(clip_block: torch.Tensor, mesh: Mesh):
+def _local_diag(clip_block: torch.Tensor, mesh: Mesh, axis: Axis):
     b_l = clip_block.shape[0]
     rows = torch.arange(b_l, device=clip_block.device)
-    return rows, mesh.rank * b_l + rows
+    return rows, mesh.index(axis) * b_l + rows
 
 
 def _distributed_symmetric_infonce(clip_block: torch.Tensor, mesh: Mesh, axis: Axis):
@@ -120,7 +196,7 @@ def _distributed_symmetric_infonce(clip_block: torch.Tensor, mesh: Mesh, axis: A
     (contrastive loss replicated, diag_vals (B_l,) local)."""
     group = _group(mesh, axis)
     b = clip_block.shape[1]
-    rows, cols = _local_diag(clip_block, mesh)
+    rows, cols = _local_diag(clip_block, mesh, axis)
     diag_vals = clip_block[rows, cols]
     # a2v (rows): full columns are local.
     row_loss_sum = (torch.logsumexp(clip_block, dim=1) - diag_vals).sum()
@@ -143,7 +219,7 @@ def _distributed_stats(clip_block: torch.Tensor, diag_vals: torch.Tensor, mesh: 
     group = _group(mesh, axis)
     clip, diag = clip_block.detach(), diag_vals.detach()
     b = clip.shape[1]
-    rows, cols = _local_diag(clip, mesh)
+    rows, cols = _local_diag(clip, mesh, axis)
     offdiag = torch.ones_like(clip)
     offdiag[rows, cols] = 0.0
     n_neg = b * b - b
@@ -188,7 +264,7 @@ def _ring_aggregate(query, key_local, temperature, cfg: LossConfig, clamp_min: f
             "'all_gather' on multi-slice (tuple-axis) meshes"
         )
     group = _group(mesh, axis)
-    n, me = mesh.size, mesh.rank
+    n, me = mesh.axis_size(axis), mesh.index(axis)
     buf, blocks, nonneg = key_local, [], []
     for s in range(n):
         if s:
@@ -226,7 +302,7 @@ def _av_loss_shard(audio, visual, temperature, cfg: LossConfig, mesh: Mesh,
     group = _group(mesh, axis)
     b_l, na, _ = audio.shape
     nv = visual.shape[1]
-    b = mesh.size * b_l
+    b = mesh.axis_size(axis) * b_l
     clip, nonneg = _negatives(audio, visual, temperature, cfg, cfg.av_nonneg_clamp_min, None,
                               mesh, axis)
     contrastive, diag_vals = _distributed_symmetric_infonce(clip, mesh, axis)
@@ -248,7 +324,7 @@ def _tv_loss_shard(text, visual, text_mask, temperature, cfg: LossConfig, mesh: 
     group = _group(mesh, axis)
     b_l, nt, _ = text.shape
     nv = visual.shape[1]
-    b = mesh.size * b_l
+    b = mesh.axis_size(axis) * b_l
     clip, nonneg = _negatives(text, visual, temperature, cfg, cfg.tv_nonneg_clamp_min,
                               text_mask, mesh, axis)
     contrastive, diag_vals = _distributed_symmetric_infonce(clip, mesh, axis)

@@ -15,7 +15,8 @@ import subprocess
 import sys
 import tempfile
 
-OPS = ("all_reduce", "all_reduce_max", "broadcast", "all_gather", "send_recv", "barrier")
+OPS = ("all_reduce", "all_reduce_max", "broadcast", "all_gather", "reduce_scatter", "send_recv",
+       "barrier")
 
 RANK = r'''
 import sys, torch, torch.distributed as dist
@@ -32,6 +33,9 @@ elif op == "broadcast":
 elif op == "all_gather":
     parts = [torch.empty_like(x) for _ in range(2)]
     dist.all_gather(parts, x); ok = float(parts[0][0]) == 1.0 and float(parts[1][0]) == 2.0
+elif op == "reduce_scatter":
+    out = torch.empty(500, device="cuda")
+    dist.reduce_scatter_tensor(out, x); ok = float(out.min()) == float(out.max()) == 3.0
 elif op == "send_recv":
     out = torch.empty_like(x)
     for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1 - rank),

@@ -30,12 +30,14 @@ collection: a hard link of the step's ``state.pt`` (a copy where the
 file system has no links) and its ``meta.json``.
 
 A data-parallel run writes the files a one-process run writes: every
-rank gathers the ZeRO-1 moment slices into whole AdamW states and sums
-its share of the accumulated gradients with the others'; rank 0 alone
-writes and commits, and the others wait at a barrier. A restore loads the
-whole state on every rank and keeps each rank's slices, with the summed
-gradients on rank 0 (zeros elsewhere: the next reduction adds them), so
-a run resumes in either world size.
+rank gathers the ZeRO-1 moment slices and the tensor-parallel and FSDP
+slices of the parameters, their moments and gradients into whole tensors
+and sums its share of the accumulated gradients with the others'; rank 0
+alone writes and commits, and the others wait at a barrier. A restore
+loads the whole state on every rank and keeps each rank's slices (by the
+live run's layout), with the summed gradients on the first rank of the
+ranks they are summed over (zeros elsewhere: the next reduction adds
+them), so a run resumes in any world size, ``tp`` or ``fsdp``.
 
 The port reads only its own checkpoints: the Orbax checkpoints of JAX
 runs would need JAX to read (ROADMAP.md, the weight importers).
@@ -94,9 +96,9 @@ def state_payload(train_state) -> Dict[str, Any]:
     """What a checkpoint holds of a TrainState (``train/step.py``), copied
     to the host: whole AdamW states and the gradients summed over the
     ranks (a collective in a data-parallel run: every rank calls it)."""
-    model, bank = train_state.model, train_state.bank
+    bank = train_state.bank
     return _to_host({
-        "model": model.state_dict(),
+        "model": bank.model_state_dict(),
         "opts": bank.full_state_dicts(),
         "counts": dict(bank.counts),
         "grads": bank.summed_grads(),
@@ -108,10 +110,10 @@ def state_payload(train_state) -> Dict[str, Any]:
 def load_payload(train_state, payload: Dict[str, Any]):
     """Load a checkpoint's payload into a live TrainState, in place, on
     its device; parameters without a saved gradient get ``.grad`` None.
-    A data-parallel rank keeps its ZeRO-1 slices; the saved gradients go
-    to rank 0, zeros to the others."""
-    model, bank = train_state.model, train_state.bank
-    model.load_state_dict(payload["model"])
+    A data-parallel rank keeps its slices; the saved gradients go to the
+    first rank of those they are summed over, zeros to the others."""
+    bank = train_state.bank
+    bank.load_model_state_dict(payload["model"])
     bank.load_full_state_dicts(payload["opts"])
     bank.counts = dict(payload["counts"])
     bank.load_grads(payload["grads"])

@@ -16,12 +16,20 @@ trainer's torch AdamW + OneCycleLR(cycle_momentum=True) bank):
 * global-norm 10.0 clipping over audio_* and over text_*, after gating.
 
 Data-parallel (``mesh``): the micro steps accumulate each rank's share in
-``.grad``; ``all_reduce_grads`` sums it over the ranks once per update
+``.grad``; ``all_reduce_grads`` sums it over the data axes once per update
 window, before the group norms and the clip, which so see the full
 gradients, as in JAX. With ``zero1`` (``parallel/zero.py``) each AdamW
 holds and updates only this rank's slice of each large parameter, and
 the slices are all-gathered back after the step. ``counts`` and the
 schedules stay on the host, alike on every rank.
+
+Sharded parameters (``param_specs``: tensor parallelism, FSDP): each rank
+holds and steps its slice. A TP slice's gradient, like a replicated
+parameter's, is summed over the data axes; an FSDP slice's arrives summed
+over 'data' (its gather's backward) and is summed over the other data
+axes ('replica'). The group norms and the clip sum each element's square
+once: a rank counts a leaf's squares only where its coordinates on the
+axes the leaf is not sharded over are 0, and one all-reduce sums them.
 
 The schedule is set on each param group before each step rather than
 through ``OneCycleLR``: the JAX bank clamps at the cycle's end and for
@@ -41,6 +49,7 @@ import torch.nn as nn
 from triad_tpu_torch.config import OptimConfig
 from triad_tpu_torch.models.layers import not_ported
 from triad_tpu_torch.parallel import collectives as C
+from triad_tpu_torch.parallel.dp import _names
 
 GROUPS = ("others", "audio", "text", "vit_lora")
 FROZEN_GROUP = "vit_frozen"
@@ -100,11 +109,15 @@ def onecycle_momentum(cfg: OptimConfig, cycle_steps: int) -> Callable[[int], flo
     return schedule
 
 
-def _norm(grads: List[torch.Tensor], device) -> torch.Tensor:
+def _sumsq(grads: List[torch.Tensor], device) -> torch.Tensor:
     total = torch.zeros((), dtype=torch.float32, device=device)
     for g in grads:
         total = total + g.to(torch.float32).square().sum()
-    return total.sqrt()
+    return total
+
+
+def _norm(grads: List[torch.Tensor], device) -> torch.Tensor:
+    return _sumsq(grads, device).sqrt()
 
 
 _MOMENTS = ("exp_avg", "exp_avg_sq")
@@ -114,10 +127,11 @@ class OptimizerBank:
     """4x AdamW with per-group delayed OneCycle schedules over a model's
     parameters (grouped by ``label_for_path``). ``mesh``: a data-parallel
     run's mesh (``parallel/dp.py``); ``zero1`` shards the moments over
-    ``mesh_axis``."""
+    ``mesh_axis``; ``param_specs`` ({name: spec}, ``parallel/tp.py``) lays
+    out the model's parameters, which are this rank's slices already."""
 
     def __init__(self, cfg: OptimConfig, model: nn.Module, total_updates: int, mesh=None,
-                 mesh_axis="data", zero1: bool = False):
+                 mesh_axis="data", zero1: bool = False, param_specs=None):
         if cfg.mu_dtype != "float32" or cfg.nu_dtype != "float32":
             raise not_ported(f"Adam moments in {cfg.mu_dtype}/{cfg.nu_dtype}",
                              "train/optim.py:scale_by_cycled_adam's low-precision moment "
@@ -140,20 +154,22 @@ class OptimizerBank:
                   "text": cfg.lr_scale_text, "vit_lora": cfg.lr_scale_vit_lora}
         self.schedules = {g: onecycle(cfg, scales[g], cycles[g]) for g in GROUPS}
         self.momentum = {g: onecycle_momentum(cfg, cycles[g]) for g in GROUPS}
-        self.mesh = mesh
-        self.group = mesh.group if mesh is not None else None
-        self.set_shards({}, self.group)
+        self.mesh, self.mesh_axis = mesh, mesh_axis
+        self.specs = {n: tuple(s) for n, s in (param_specs or {}).items()
+                      if any(e is not None for e in s)}
+        self.set_shards({}, None)
         if zero1 and mesh is not None:
             from triad_tpu_torch.parallel.zero import apply_zero1
 
-            apply_zero1(self, mesh, mesh_axis)
+            apply_zero1(self, mesh, mesh_axis, param_specs)
         self.counts = {g: 0 for g in GROUPS}  # applied updates per group
 
     def set_shards(self, shards: Dict[str, Any], group=None) -> None:
         """(Re)build the AdamW bank: a parameter named in ``shards`` (ZeRO-1,
         ``parallel/zero.py``) is stepped through a view of this rank's
-        slice, with that slice's moments; the rest in full."""
-        self.shards, self.group = dict(shards), group
+        slice, with that slice's moments, gathered back over ``group``; the
+        rest in full."""
+        self.shards, self.zero_group = dict(shards), group
         cfg = self.cfg
         self.storage = {
             g: [p if n not in self.shards
@@ -167,37 +183,66 @@ class OptimizerBank:
             for g in GROUPS if self.groups[g]
         }
 
+    def _sum_axes(self, name: str):
+        """The data axes over which ``name``'s gradient is summed: those its
+        spec does not shard (an FSDP slice's gradient is summed over
+        'data' already)."""
+        used = {a for e in self.specs.get(name, ()) if e is not None for a in _names(e)}
+        return tuple(a for a in _names(self.mesh_axis) if a not in used)
+
     @torch.no_grad()
     def all_reduce_grads(self) -> None:
-        """Sum every .grad over the ranks, in place (one all-reduce a dtype
-        over the flattened gradients)."""
+        """Sum every .grad over its data axes, in place (one all-reduce per
+        group of ranks and dtype, over the flattened gradients)."""
         if self.mesh is None:
             return
-        grads = [p.grad for _, p in self.named if p.grad is not None]
-        for dtype in sorted({g.dtype for g in grads}, key=str):
-            same = [g for g in grads if g.dtype == dtype]
-            flat = C.all_reduce_(torch.cat([g.reshape(-1) for g in same]), group=self.group)
+        by: Dict[Any, List[torch.Tensor]] = {}
+        for n, p in self.named:
+            if p.grad is not None:
+                by.setdefault((self._sum_axes(n), str(p.grad.dtype)), []).append(p.grad)
+        for (axes, _), same in sorted(by.items()):
+            flat = C.all_reduce_(torch.cat([g.reshape(-1) for g in same]),
+                                 group=self.mesh.group_of(axes))
             for g, part in zip(same, flat.split([g.numel() for g in same])):
                 g.copy_(part.view_as(g))
 
     def summed_grads(self) -> Dict[str, torch.Tensor]:
-        """Each .grad summed over the ranks (copies; a collective in a
+        """Each .grad summed over the ranks, whole (copies; collectives in a
         data-parallel run): the one-process run's accumulated gradient."""
         out = {}
         for n, p in self.named:
             if p.grad is not None:
                 g = p.grad.detach().clone()
-                out[n] = g if self.mesh is None else C.all_reduce_(g, group=self.group)
+                if self.mesh is not None:
+                    g = C.all_reduce_(g, group=self.mesh.group_of(self._sum_axes(n)))
+                    g = self.mesh.whole(g, self.specs.get(n))
+                out[n] = g
         return out
 
     def load_grads(self, grads: Dict[str, torch.Tensor]) -> None:
-        """Set .grad from summed gradients (summed_grads'): rank 0 takes them,
-        the other ranks zeros (None where none was saved)."""
-        first = self.mesh is None or self.mesh.rank == 0
+        """Set .grad from whole summed gradients (summed_grads'): this rank's
+        slice where it is the first of the ranks they are summed over, zeros
+        elsewhere (None where none was saved)."""
         for n, p in self.named:
             g = grads.get(n)
-            p.grad = None if g is None else (g.to(p.device, p.dtype) if first
-                                             else torch.zeros_like(p))
+            if g is None:
+                p.grad = None
+                continue
+            if self.mesh is not None:
+                first = self.mesh.index(self._sum_axes(n)) == 0
+                g = self.mesh.local(g, self.specs.get(n)) if first else None
+            p.grad = torch.zeros_like(p) if g is None else g.to(p.device, p.dtype)
+
+    def model_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state dict with whole tensors (sharded parameters
+        gathered: a collective, every rank calls it)."""
+        return {k: self.mesh.whole(v, self.specs[k]) if k in self.specs else v
+                for k, v in self.model.state_dict().items()}
+
+    def load_model_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        """Load a state dict of whole tensors, keeping this rank's slices."""
+        self.model.load_state_dict({k: self.mesh.local(v, self.specs[k]) if k in self.specs
+                                    else v for k, v in state.items()})
 
     def moment_bytes(self) -> int:
         """Bytes of AdamW moments this rank holds."""
@@ -206,33 +251,43 @@ class OptimizerBank:
                    for k in _MOMENTS if k in st)
 
     def _moments(self, g: str, state_dict, fn):
-        """A copy of group g's AdamW state dict with fn(moment, shard)
+        """A copy of group g's AdamW state dict with fn(moment, name)
         applied to the moments of its sharded parameters."""
         sd = {"state": {i: dict(st) for i, st in state_dict["state"].items()},
               "param_groups": state_dict["param_groups"]}
         for i, st in sd["state"].items():
-            shard = self.shards.get(self.names[g][int(i)])
-            if shard is not None:
+            name = self.names[g][int(i)]
+            if name in self.shards or name in self.specs:
                 for k in _MOMENTS:
-                    st[k] = fn(st[k], shard)
+                    st[k] = fn(st[k], name)
         return sd
 
     def full_state_dicts(self) -> Dict[str, Any]:
         """Each group's AdamW state dict with whole moments: ZeRO-1 slices
-        gathered from every rank (a collective: every rank calls it)."""
-        return {g: self._moments(g, opt.state_dict(),
-                                 lambda t, sh: C.gather_rows(t, self.group, sh.dim))
-                for g, opt in self.opts.items()}
+        and the slices of sharded parameters gathered from every rank (a
+        collective: every rank calls it)."""
+        def whole(t, name):
+            if name in self.shards:
+                t = C.gather_rows(t, self.zero_group, self.shards[name].dim)
+            return self.mesh.whole(t, self.specs.get(name))
+
+        return {g: self._moments(g, opt.state_dict(), whole) for g, opt in self.opts.items()}
 
     def load_full_state_dicts(self, state_dicts: Dict[str, Any]) -> None:
         """Load whole AdamW state dicts (a one-process checkpoint's, or
-        full_state_dicts'), keeping this rank's slices under ZeRO-1."""
+        full_state_dicts'), keeping this rank's slices."""
         if set(state_dicts) != set(self.opts):
             raise ValueError(f"checkpoint optimizer groups {sorted(state_dicts)} != "
                              f"{sorted(self.opts)}")
+
+        def local(t, name):
+            t = self.mesh.local(t, self.specs.get(name))
+            if name in self.shards:
+                t = self.shards[name].of(t)
+            return t.contiguous()
+
         for g, opt in self.opts.items():
-            opt.load_state_dict(self._moments(g, state_dicts[g],
-                                              lambda t, sh: sh.of(t).contiguous()))
+            opt.load_state_dict(self._moments(g, state_dicts[g], local))
 
     def gates(self, global_step: int) -> Dict[str, bool]:
         """Which groups train at this micro step (others and vit_lora always)."""
@@ -247,17 +302,37 @@ class OptimizerBank:
         for p in self.groups[FROZEN_GROUP]:
             p.requires_grad_(False)
 
+    def _owned(self, name: str) -> bool:
+        """Does this rank count ``name``'s squares in a norm? Where its
+        coordinates on the axes the leaf is not sharded over are 0."""
+        used = {a for e in self.specs.get(name, ()) if e is not None for a in _names(e)}
+        return all(self.mesh.coords[a] == 0 for a in self.mesh.axis_names if a not in used)
+
     def clip_grads(self) -> Dict[str, torch.Tensor]:
         """Per-group grad norms (metrics) and the audio / text subtree
         clipping, in place on the accumulated .grad."""
-        grads = {g: [p.grad for p in ps if p.grad is not None] for g, ps in self.groups.items()}
-        metrics = {f"grad_norm_{'vit' if g == FROZEN_GROUP else g}": _norm(gs, self.device)
-                   for g, gs in grads.items()}
-        for prefixes in _CLIP_SUBTREES:
-            sub = [p.grad for n, p in self.named if n.startswith(prefixes) and p.grad is not None]
-            coef = torch.clamp(self.cfg.clip_norm / (_norm(sub, self.device) + 1e-6), max=1.0)
-            for g in sub:
-                g.mul_(coef.to(g.dtype))
+        groups = {f"grad_norm_{'vit' if g == FROZEN_GROUP else g}": self.names[g]
+                  for g in self.groups}
+        subtrees = [[n for n, _ in self.named if n.startswith(prefixes)]
+                    for prefixes in _CLIP_SUBTREES]
+        grad = dict((n, p.grad) for n, p in self.named if p.grad is not None)
+        if self.specs:  # sharded leaves: each element's square once, summed over the mesh
+            def sumsq(names):
+                return _sumsq([grad[n] for n in names if n in grad and self._owned(n)],
+                              self.device)
+
+            sums = C.all_reduce_(torch.stack([sumsq(ns) for ns in [*groups.values(), *subtrees]]),
+                                 group=self.mesh.group)
+            norms = list(sums.sqrt())
+        else:
+            norms = [_norm([grad[n] for n in ns if n in grad], self.device)
+                     for ns in [*groups.values(), *subtrees]]
+        metrics = dict(zip(groups, norms))
+        for names, norm in zip(subtrees, norms[len(groups):]):
+            coef = torch.clamp(self.cfg.clip_norm / (norm + 1e-6), max=1.0)
+            for n in names:
+                if n in grad:
+                    grad[n].mul_(coef.to(grad[n].dtype))
         return metrics
 
     def update(self, global_step: int) -> Dict[str, float]:
@@ -285,11 +360,12 @@ class OptimizerBank:
 
     @torch.no_grad()
     def _gather_slices(self, g: str) -> None:
-        """The updated ZeRO-1 slices of group g back into the whole
-        parameters on every rank."""
+        """The updated ZeRO-1 slices of group g back into the parameters
+        (this rank's slices of them, under ``param_specs``) over the data
+        axes."""
         for name, p, st in zip(self.names[g], self.groups[g], self.storage[g]):
             if st is not p:
-                p.data.copy_(C.gather_rows(st.data, self.group, self.shards[name].dim))
+                p.data.copy_(C.gather_rows(st.data, self.zero_group, self.shards[name].dim))
 
     def zero_grad(self) -> None:
         for _, p in self.named:

@@ -19,11 +19,14 @@ With a ``mesh`` (``parallel/dp.py``) each rank runs its rows of the global
 batch through the distributed losses, and every draw is keyed on global
 rows (``ops.dropout.ShardGenerator``, ``HostSeeds.b0``): a rank's rows
 draw what the one-process step draws for them. Each rank runs its
-backward from the replicated loss with the cotangent 1 / world
+backward from the replicated loss with the cotangent 1 / (data size)
 (``parallel/collectives.py``'s convention), so the gradients summed over
-the ranks, once per update window (``OptimizerBank.all_reduce_grads``),
+the data axes, once per update window (``OptimizerBank.all_reduce_grads``),
 are the global loss's gradients; terms every rank computes alike (the
-temperature calibration) count once. Metrics are replicated.
+temperature calibration) count once. Under tensor parallelism the rows
+are sharded over the data axes only (``mesh_axis``): the ranks of a model
+group hold the same rows, and their loss is replicated over ``model``.
+Metrics are replicated.
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ class TrainState:
 
 def step_generator(seed: int, global_step: int, device, shard=(0, 1)) -> torch.Generator:
     """The micro step's dropout generator, keyed on (seed, global_step);
-    ``shard`` (rank, world) keys its draws on global rows."""
+    ``shard`` (data index, data size) keys its draws on global rows."""
     key = np.random.SeedSequence([seed, global_step]).generate_state(1, dtype=np.uint64)[0]
     return ShardGenerator(device, shard).manual_seed(int(key) & (2 ** 63 - 1))
 
@@ -81,7 +84,8 @@ class StepFactory:
                  mesh_axis="data"):
         self.loss_cfg, self.optim_cfg = loss_cfg, optim_cfg
         self.mesh, self.mesh_axis = mesh, mesh_axis
-        self.shard = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+        self.shard = ((mesh.index(mesh_axis), mesh.axis_size(mesh_axis)) if mesh is not None
+                      else (0, 1))
 
     def _av_loss(self, audio, visual, temp):
         if self.mesh is None:
@@ -133,7 +137,7 @@ class StepFactory:
         be None."""
         _batches(mode, None, None)
         accum = self.optim_cfg.gradient_accumulation_steps
-        scale = accum * self.shard[1]  # the 1 / world cotangent of each rank
+        scale = accum * self.shard[1]  # the 1 / (data size) cotangent of each rank
 
         def step(state: TrainState, av_batch, tv_batch, w_av=1.0, w_tv=1.0):
             av_batch, tv_batch = _batches(mode, av_batch, tv_batch)

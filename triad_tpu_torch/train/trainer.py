@@ -32,15 +32,22 @@ trains through the distributed losses with ZeRO-1 moments by default
 (``mesh.zero1``), validates through the distributed eval loss and embeds
 its share of each retrieval batch; rank 0 alone logs, draws the
 visualizations and writes the checkpoints, which are those of a
-one-process run. Tensor parallelism and FSDP raise ``not_ported``,
-naming the JAX route. ``config.pretrained`` starts the model from HF
-snapshots, a torch.hub DINOv2 file or a reference checkpoint
+one-process run. ``mesh.tp`` > 1 shards the encoders Megatron-style over
+a 'model' axis (``parallel/tp.py``; the 2-D (data, model) mesh, or the
+3-D (replica, data, model) one with ``mesh.num_slices``), and
+``mesh.fsdp`` stores the large parameters sharded over 'data' and
+gathers them at use (``parallel/fsdp.py``); both run the plain impls
+(``resolve_xla_impls``), and the ranks of a model group load the same
+rows. ``config.pretrained`` starts the model from HF snapshots, a
+torch.hub DINOv2 file or a reference checkpoint
 (``models/hf_import.py:init_model_from_pretrained``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import random
+import tempfile
 import time
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -69,11 +76,19 @@ from triad_tpu_torch.eval.retrieval import (
     tv_retrieval_metrics,
 )
 from triad_tpu_torch.models.convert import init_triad_model
-from triad_tpu_torch.models.layers import not_ported
 from triad_tpu_torch.ops.similarity import pairwise_similarity
 from triad_tpu_torch.parallel import collectives as C
 from triad_tpu_torch.parallel.distributed import process_shard, put_global_tree
-from triad_tpu_torch.parallel.dp import make_mesh, make_multislice_mesh
+from triad_tpu_torch.parallel.dp import _group, make_mesh, make_multislice_mesh
+from triad_tpu_torch.parallel.fsdp import fsdp_param_specs
+from triad_tpu_torch.parallel.tp import (
+    check_heads,
+    make_dp_tp_mesh,
+    make_multislice_tp_mesh,
+    resolve_xla_impls,
+    shard_model,
+    tp_param_specs,
+)
 from triad_tpu_torch.train.checkpoint import (
     CheckpointManager,
     HostProgress,
@@ -106,9 +121,10 @@ def _open_av_root(root: str, image_size: int, segmented: bool):
 
 
 def _make_mesh(config: Config):
-    """(mesh, mesh_axis) of the JAX Trainer's mesh section
-    (train/trainer.py:204-296) for data parallelism: None in one process.
-    mesh.num_devices is the torch.distributed world size."""
+    """(config, mesh, mesh_axis) of the JAX Trainer's mesh section
+    (train/trainer.py:202-296): the mesh None in one process; the config's
+    impl knobs resolved to the plain route under tensor parallelism or
+    FSDP. mesh.num_devices is the torch.distributed world size."""
     mc, dc = config.mesh, config.data
     n_dev = mc.num_devices or 1
     world = C.world()
@@ -119,14 +135,12 @@ def _make_mesh(config: Config):
                 "device mesh: set mesh.num_devices to the GLOBAL chip count (every process "
                 "would otherwise train its own redundant copy)"
             )
-        return None, mc.data_axis
-    if mc.tp > 1:
-        raise not_ported(f"mesh.tp={mc.tp} (tensor parallelism)",
-                         "parallel/tp.py's Megatron shardings (make_dp_tp_mesh, "
-                         "tp_param_specs, tp_state_shardings)")
-    if mc.fsdp:
-        raise not_ported("mesh.fsdp (FSDP parameters)", "parallel/fsdp.py:fsdp_param_specs")
+        return config, None, mc.data_axis
     tp = mc.tp
+    if tp > 1 or mc.fsdp:
+        # the kernels take no shard: sharded parameters run the plain impls
+        config = dataclasses.replace(config, model=resolve_xla_impls(config.model))
+        check_heads(config.model, tp)
     if mc.num_slices > 1 and n_dev % (mc.num_slices * tp):
         raise ValueError(
             f"mesh.num_devices={n_dev} not divisible by "
@@ -137,12 +151,26 @@ def _make_mesh(config: Config):
             f"mesh.num_devices={n_dev} but torch.distributed runs {world} process(es): "
             "launch one process per device (torchrun, or TRIAD_COORDINATOR / "
             "TRIAD_NUM_PROCESSES / TRIAD_PROCESS_ID)")
-    if mc.num_slices > 1:
+    axis = mc.data_axis
+    if tp > 1 and mc.num_slices > 1:
+        ns = mc.num_slices
+        mesh = make_multislice_tp_mesh(ns, n_dev // ns // tp, tp, replica_axis=mc.replica_axis,
+                                       data_axis=mc.data_axis, model_axis=mc.model_axis)
+        axis = (mc.replica_axis, mc.data_axis)
+    elif tp > 1:
+        mesh = make_dp_tp_mesh(n_dev, tp, data_axis=mc.data_axis, model_axis=mc.model_axis)
+    elif mc.num_slices > 1:
         mesh = make_multislice_mesh(mc.num_slices, n_dev // mc.num_slices,
                                     axes=(mc.replica_axis, mc.data_axis))
         axis = (mc.replica_axis, mc.data_axis)
     else:
-        mesh, axis = make_mesh(n_dev, axis=mc.data_axis), mc.data_axis
+        mesh = make_mesh(n_dev, axis=mc.data_axis)
+    if config.loss.negatives == "ring" and isinstance(axis, tuple):
+        # parallel/dp.py:_ring_aggregate's error, before anything is written
+        raise ValueError(
+            "negatives='ring' supports a single mesh axis; use "
+            "'all_gather' on multi-slice (tuple-axis) meshes"
+        )
     dp_size = n_dev // tp
     for name, bs in (("batch_size_av", dc.batch_size_av), ("batch_size_tv", dc.batch_size_tv)):
         if bs % dp_size:
@@ -150,7 +178,20 @@ def _make_mesh(config: Config):
                 f"{name}={bs} not divisible by the data-parallel "
                 f"size {dp_size}"
             )
-    return mesh, axis
+    return config, mesh, axis
+
+
+def _layout(config: Config, model, mesh):
+    """The parameter specs of a tensor-parallel and / or FSDP run (the
+    JAX Trainer's :345-388): Megatron specs over 'model', extended by FSDP
+    over 'data'; None when neither is on."""
+    mc = config.mesh
+    if mc.tp <= 1 and not mc.fsdp:
+        return None
+    specs = tp_param_specs(model, mc.tp, model_axis=mc.model_axis) if mc.tp > 1 else {}
+    if mc.fsdp:
+        specs = fsdp_param_specs(model, mesh, data_axis=mc.data_axis, base_specs=specs)
+    return specs
 
 
 class Trainer:
@@ -158,7 +199,7 @@ class Trainer:
         self.device = torch.device(device or "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device (pass device='cpu' to train on the CPU)")
-        self.mesh, self.mesh_axis = _make_mesh(config)
+        config, self.mesh, self.mesh_axis = _make_mesh(config)
         self.primary = C.rank() == 0
         self.config = config
         tc = config.train
@@ -260,7 +301,7 @@ class Trainer:
 
         # Every process runs the same samplers and decodes only its rows of
         # each global batch; batch_size_* stay global.
-        self._proc_shard = process_shard()
+        self._proc_shard = process_shard(self.mesh, self.mesh_axis)
         self.av_loader = AVLoader(
             self.av_dataset, dc.batch_size_av, dc.audio_num_samples,
             seed=tc.seed, num_workers=dc.num_workers,
@@ -305,12 +346,25 @@ class Trainer:
             )
         else:
             self.model = init_triad_model(config.model, generator, device=self.device)
+        self.param_specs = None
         if self.mesh is not None:
             put_global_tree(self.model)  # no rank starts apart
-            self.metrics.info(
-                f"Data-parallel over {self.mesh.size} replicas (all-gathered negatives"
-                + (f", {config.mesh.num_slices} slices" if config.mesh.num_slices > 1 else "")
-                + (", ZeRO-1 moments" if config.mesh.zero1 else "") + ")")
+            mc = config.mesh
+            self.param_specs = _layout(config, self.model, self.mesh)
+            if self.param_specs is not None:
+                shard_model(self.model, self.mesh, self.param_specs, mc.model_axis,
+                            mc.data_axis)
+            extras = ["all-gathered negatives"]
+            if mc.tp > 1:
+                extras.append(f"tensor-parallel x{mc.tp}")
+            if mc.fsdp:
+                extras.append("FSDP params")
+            if mc.num_slices > 1:
+                extras.append(f"{mc.num_slices} slices")
+            if mc.zero1:
+                extras.append("ZeRO-1 moments")
+            self.metrics.info(f"Data-parallel over {self.mesh.axis_size(self.mesh_axis)} "
+                              f"replicas ({', '.join(extras)})")
         self.steps_per_epoch = tc.steps_per_epoch or max(
             len(self.av_loader), len(self.tv_loader)
         )
@@ -318,7 +372,8 @@ class Trainer:
             self.steps_per_epoch * tc.num_epochs
         ) // tc.optim.gradient_accumulation_steps
         self.bank = OptimizerBank(tc.optim, self.model, self.total_updates, mesh=self.mesh,
-                                  mesh_axis=self.mesh_axis, zero1=config.mesh.zero1)
+                                  mesh_axis=self.mesh_axis, zero1=config.mesh.zero1,
+                                  param_specs=self.param_specs)
         self.factory = StepFactory(config.loss, tc.optim, mesh=self.mesh,
                                    mesh_axis=self.mesh_axis)
         # The dropout seed: the JAX Trainer's state rng is key(seed + 1).
@@ -476,7 +531,7 @@ class Trainer:
                     self.progress.global_step += 1
                     hooked = False
                     if gs > 0 and gs % tc.vis_every == 0:
-                        if self.primary:
+                        if self.primary or self.param_specs is not None:
                             self.visualize_samples(epoch)
                         hooked = True
                     if gs > 0 and gs % tc.save_every_steps == 0:
@@ -516,8 +571,13 @@ class Trainer:
         self.ckpt.wait_until_finished()
         self.metrics.info("Training complete!")
         if self.mesh is not None:
-            print(f"rank {self.mesh.rank}: AdamW moments {self.bank.moment_bytes()} bytes",
-                  flush=True)
+            r = self.mesh.rank
+            params = sum(p.numel() * p.element_size() for p in self.model.parameters())
+            print(f"rank {r}: AdamW moments {self.bank.moment_bytes()} bytes", flush=True)
+            print(f"rank {r}: parameters {params} bytes", flush=True)
+            if self.device.type == "cuda":
+                print(f"rank {r}: peak memory {torch.cuda.max_memory_allocated(self.device)} "
+                      "bytes", flush=True)
 
     @staticmethod
     def _fetch_metrics(metrics: Dict) -> Dict[str, float]:
@@ -699,19 +759,21 @@ class Trainer:
 
     def _sharded(self, encode):
         """``encode`` data-parallel (the counterpart of the JAX Trainer's
-        _shard_eval_input): each rank embeds its share of a batch's rows
-        (the batch padded with its last row to a multiple of the world),
-        and every rank gets all the rows back, in order."""
+        _shard_eval_input): each data index embeds its share of a batch's
+        rows (the batch padded with its last row to a multiple of the data
+        size; a model group's ranks embed the same rows), and every rank
+        gets all the rows back, in order."""
         if self.mesh is None:
             return encode
-        n, r = self.mesh.size, self.mesh.rank
+        n, r = self.mesh.axis_size(self.mesh_axis), self.mesh.index(self.mesh_axis)
+        group = _group(self.mesh, self.mesh_axis)
 
         def sharded(*xs):
             b = xs[0].shape[0]
             per = -(-b // n)
             xs = [torch.cat([x, x[-1:].expand(per * n - b, *x.shape[1:])]) for x in xs]
             outs = encode(*(x[r * per:(r + 1) * per] for x in xs))
-            return tuple(C.gather_rows(o, self.mesh.group)[:b] for o in outs)
+            return tuple(C.gather_rows(o, group)[:b] for o in outs)
 
         return sharded
 
@@ -774,11 +836,20 @@ class Trainer:
         return torch.from_numpy(np.asarray(a)).to(self.device)
 
     def visualize_samples(self, epoch: int, max_samples: int = 4) -> None:
+        """Rank 0 draws into the run directory; the other ranks of a
+        sharded model run the same encoder calls (which need every rank)
+        and draw into a directory they remove."""
+        if self.primary:
+            return self._visualize(epoch, self.output_dir / "viz" / f"epoch_{epoch}",
+                                   max_samples)
+        with tempfile.TemporaryDirectory() as scratch:
+            return self._visualize(epoch, Path(scratch), max_samples)
+
+    def _visualize(self, epoch: int, viz_dir: Path, max_samples: int) -> None:
         from triad_tpu_torch.data.audio import pad_or_trim
 
         t0 = time.perf_counter()
         phase, _, _ = self.phase_for_epoch(epoch)
-        viz_dir = self.output_dir / "viz" / f"epoch_{epoch}"
         viz_dir.mkdir(parents=True, exist_ok=True)
         model = self.model
 
