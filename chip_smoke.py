@@ -10,8 +10,10 @@ mqkv + vitmq + loss=pallas set for a few steps each, runs the
 feeds the joint step from files on disk through the port's data layer,
 trains the whole curriculum through the Trainer's train / eval commands,
 killed mid-epoch and resumed bit for bit, exports the serving bundle
-and serves it, and trains data-parallel (NCCL at world size 1, two gloo
-ranks of cli.train against one process).
+and serves it, trains data-parallel (NCCL at world size 1, two gloo
+ranks of cli.train against one process), tensor-parallel and FSDP, and
+runs HuBERT's remat policies, bf16 Adam moments and the Trainer from an
+MP4 folder.
 
     python3 chip_smoke.py
 
@@ -68,8 +70,9 @@ Phases (any failure exits nonzero before the last line):
      the CPU, the audio group included: on the weights phase 8 trained
      (the loss held, the group cosines printed) and, 9b, on the weights
      phase 8 started from (seed 1; every group held);
- 10. configs/default.yaml's joint step (ModelConfig(), the chunked loss
-     at "highest", lr 1e-4, accumulation 4, every group unfrozen) at
+ 10. configs/default.yaml's joint step (ModelConfig(): HuBERT's chunked
+     frontend; the chunked loss at "highest", lr 1e-4, accumulation 4,
+     every group unfrozen) at
      B = 22 clips of 10 s and 22 captions of 128 tokens with every
      dropout live: 2 warm-up and 4 timed micro steps (one accumulation
      boundary), every HuBERT parameter moved, HuBERT's strided attention
@@ -223,18 +226,19 @@ Phases (any failure exits nonzero before the last line):
      by M: bf16 products of 32 and 64 rows round apart), each rank's AdamW
      moment bytes against the one process's (at most 0.6); the world-2
      step-2 checkpoint resumed in one process for steps 3-4, held to the
-     world-2 run; 20c phase 8's joint step at world 2 (two gloo ranks of
-     this script, --dp-ring-rank, under torchrun) from one start with the
+     world-2 run; 20c phase 8's joint step at B = 32 and world 2 (two gloo
+     ranks of this script, --dp-ring-rank, under torchrun) from one start
+     with the
      ring negatives and with the gathered ones (the losses equal within
      1e-6, the update at cosine 0.99: each ring step's bf16 feature
      cotangents are summed in bf16). The phase's seconds are printed.
  21. tensor parallelism and FSDP (parallel/tp.py, parallel/fsdp.py):
-     phase 20's Trainer config at global B = 16 with every impl knob on
+     phase 20's Trainer config at global B = 8 with every impl knob on
      the plain route, in one process, and again with its split layers
      rounding as tp = 2's shards do (_TpRounding); 21a mesh.tp = 2 and 21b
-     mesh.fsdp as two gloo ranks each, side by side, 21c mesh.tp = 2 x
-     num_slices 2 as four (ranks of this script, --train-rank, under
-     torchrun), each held to the plain run per step (5e-3 relative) and
+     mesh.fsdp as two gloo ranks each, 21c mesh.tp = 2 x num_slices 2 as
+     four, all three side by side (ranks of this script, --train-rank,
+     under torchrun), each held to the plain run per step (5e-3 relative) and
      in its final parameters (2 Adam steps of 2 lr), and in its final update
      (cosine 0.99): 21b to the plain run; 21a and 21c to the run at their
      rounding (on torch.mm alone), their cosine against the plain run
@@ -245,6 +249,24 @@ Phases (any failure exits nonzero before the last line):
      process (held to both one-process runs); 21d mesh.tp = 2 with an
      explicit kernel knob exits non-zero with resolve_xla_impls's message
      and writes no run directory; no kernel launches in any of it.
+ 22. HuBERT's remat policies and bf16 Adam moments: 22a phase 10's 6
+     micro steps from the same start at remat "none" (the whole frontend):
+     both medians and peaks, the losses on the start's weights within
+     2e-3, the first update within one Adam step of 2 lr; 22b a B = 4
+     joint step at full width on the chunked "conv_act" frontend against
+     the chunked "conv" one (rates 0): frontend_activation launched once a
+     pass a block, forward and recompute; the features and the loss within
+     4 bf16 ulps, every group's and frontend tensor's gradient at cosine
+     0.998; 22c a B = 4 joint step with every dropout live at remat
+     "full" against "none": every gradient bit-equal, the HuBERT forward
+     kernels launched again in the recompute; 22d phase 8's joint step at
+     B = 16, 2 updates, with fp32 and with bf16 Adam moments: bytes (0.500),
+     the update cosine by group, the largest parameter difference, and a
+     CheckpointManager round trip keeping the bf16 moments bit-equal; 22e
+     cli.train at full width on the reference's mp4 segment folders (cv2
+     mp4v video muxed with 16 kHz 'sowt' PCM), B = 4, 3 steps: finite
+     losses, every HuBERT tensor moved, the frames and tracks each decoder
+     produced.
 The port's kernels add in a fixed order (no atomics), so phase 8 trains
 the same weights every run (PERF.md) and phase 9 reads the same each run.
 Phase 3 also holds posconv dW at B = 96 and the activation at 768
@@ -264,9 +286,9 @@ at conv_1's (64, 31999, 512), the train steps' batch.
 The line before the last is one JSON object with one entry per kernel
 (and the step times, phase 16's numbers under "data" and phase 17's under
 "trainer", phase 18's under "pretrained", phase 19's under "export", phase
-20's under "dp", phase 21's under "tp"): its
+20's under "dp", phase 21's under "tp", phase 22's under "remat"): its
 launches in the paths that run it (phases 4, 6, 8, 10, 11, 12, 13, 14, 15,
-16, 17, 18, 19, 20 and 21, each counted from zero), and its error, times and bound
+16, 17, 18, 19, 20, 21 and 22, each counted from zero), and its error, times and bound
 at its main case of
 phase 3 (the shape the train steps give it, else the first); every shape
 of phase 3 goes to chiprun_out/kernel_cases.json. The last line is
@@ -1395,8 +1417,9 @@ def _new_state(ocfg, seed, model_cfg=None):
     return TrainState(model, OptimizerBank(ocfg, model, total_updates=1000), 0, 1)
 
 
-def _run_steps(step, state, batches, loss_keys, n, warmup):
-    """n steps; returns the median ms of the steps after ``warmup``."""
+def _run_steps(step, state, batches, loss_keys, n, warmup, record=None):
+    """n steps; returns the median ms of the steps after ``warmup``. Each
+    step's losses are appended to ``record`` where given."""
     times = []
     for i in range(n):
         (state, m), ms = _step_ms(lambda: step(state, *batches))
@@ -1407,6 +1430,8 @@ def _run_steps(step, state, batches, loss_keys, n, warmup):
         for k, v in losses.items():
             if not np.isfinite(v):
                 fail(f"train step {i}: {k} {v}")
+        if record is not None:
+            record.append(losses)
         if i >= warmup:
             times.append(ms)
     return statistics.median(times) if times else None
@@ -1516,41 +1541,63 @@ def _check_audio_moved(model, before, path):
           "bit-unchanged", flush=True)
 
 
-def default_phase():
-    """Path A: configs/default.yaml's model (ModelConfig()), loss (chunked,
-    highest) and optimizer (lr 1e-4, accumulation 4), every group
-    unfrozen, B = 22 AV clips of 10 s and 22 TV pairs of 128 tokens: 2
-    warm-up and 4 timed joint micro steps (one accumulation boundary).
-    HuBERT's "auto" attention takes the strided kernel (live attention
-    dropout on the card) and its "auto" MLP the fused kernel with erf
-    GELU; the packed training attention must stay unlaunched. Returns the
-    model, the loss config, the launch counts, the median ms and the peak
-    memory."""
+def _default_steps(remat=None):
+    """configs/default.yaml's 6 joint micro steps (2 warm-up, 4 timed; one
+    accumulation boundary) from its seeded start (seed 2) on the batches of
+    seeds 9 and 10, every group unfrozen; ``remat`` replaces HuBERT's
+    policy. Returns (model, loss config, launch counts, median ms, (peak
+    bytes, bytes allocated before the steps), per-step losses, the
+    parameters before the steps, (step, state, batches))."""
     from triad_tpu_torch import kernels
     from triad_tpu_torch.config import default_train_config
     from triad_tpu_torch.train.step import StepFactory
 
     cfg = default_train_config()
+    model_cfg = cfg.model if remat is None else dataclasses.replace(
+        cfg.model, hubert=dataclasses.replace(cfg.model.hubert, remat=remat))
     ocfg = _unfrozen(cfg.train.optim)
-    state = _new_state(ocfg, 2, cfg.model)
+    state = _new_state(ocfg, 2, model_cfg)
     model = state.model
-    print(f"  HuBERT attention_impl {model.cfg.hubert.attention_impl!r}, mlp_impl "
-          f"{model.cfg.hubert.mlp_impl!r} ({model.cfg.hubert.mlp_gelu} GELU), ln_impl "
-          f"{model.cfg.hubert.ln_impl!r}, frontend {model.cfg.hubert.frontend_impl!r}; loss "
-          f"{cfg.loss.implementation!r} at {cfg.loss.matmul_precision!r}; accumulation "
-          f"{ocfg.gradient_accumulation_steps}", flush=True)
+    h = model.cfg.hubert
+    print(f"  HuBERT attention_impl {h.attention_impl!r}, mlp_impl {h.mlp_impl!r} ({h.mlp_gelu} "
+          f"GELU), ln_impl {h.ln_impl!r}, frontend {h.frontend_impl!r}, remat {h.remat!r} "
+          f"(chunked frontend: {model.audio_backbone.feature_extractor.chunked()}, "
+          f"{h.frontend_chunk_tokens} tokens a block); loss {cfg.loss.implementation!r} at "
+          f"{cfg.loss.matmul_precision!r}; accumulation {ocfg.gradient_accumulation_steps}",
+          flush=True)
     step = StepFactory(cfg.loss, ocfg).make_step("joint")
     d = cfg.data
     av = {k: v.cuda() for k, v in _av_batch(d.batch_size_av, 9).items()}
     tv = {k: v.cuda() for k, v in _train_batch(d.batch_size_tv, 10, d.max_text_tokens).items()}
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    step_ms = _run_steps(step, state, (av, tv, 0.5, 0.5), ("loss_av", "loss_tv"), 6, 2)
+    losses = []
+    step_ms = _run_steps(step, state, (av, tv, 0.5, 0.5), ("loss_av", "loss_tv"), 6, 2, losses)
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     print(f"  median of 4 timed micro steps: {step_ms:.3f} ms; peak device memory "
-          f"{peak / 2 ** 30:.3f} GiB (max_memory_allocated)", flush=True)
+          f"{peak / 2 ** 30:.3f} GiB (max_memory_allocated), {(peak - base) / 2 ** 30:.3f} GiB "
+          f"above the {base / 2 ** 30:.3f} GiB allocated before the steps", flush=True)
+    return model, cfg.loss, launches, step_ms, (peak, base), losses, before, (step, state, av, tv)
+
+
+def default_phase():
+    """Path A: configs/default.yaml's model (ModelConfig(), HuBERT's chunked
+    frontend), loss (chunked, highest) and optimizer (lr 1e-4,
+    accumulation 4), every group unfrozen, B = 22 AV clips of 10 s and 22
+    TV pairs of 128 tokens: 2 warm-up and 4 timed joint micro steps (one
+    accumulation boundary). HuBERT's "auto" attention takes the strided
+    kernel (live attention dropout on the card) and its "auto" MLP the
+    fused kernel with erf GELU; the packed training attention must stay
+    unlaunched. Returns the model, the loss config, the launch counts, the
+    median ms, the peak memory, the per-step losses and the parameters
+    after the steps (on the host)."""
+    model, loss_cfg, launches, step_ms, peak, losses, before, run = _default_steps()
+    if not model.audio_backbone.feature_extractor.chunked():
+        fail("configs/default.yaml's HuBERT frontend is not the chunked one")
     _check_audio_moved(model, before, "default-config")
     _check_launches(launches, DEFAULT_KERNELS, "default-config")
     if model.cfg.hubert.mlp_gelu != "erf":
@@ -1558,8 +1605,10 @@ def default_phase():
     for name in ("attention_train", "attention_train_bwd"):
         if launches[name]:
             fail(f"{name} (the packed layout) ran under the default config")
+    step, state, av, tv = run
+    after = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
     profile_step(lambda: step(state, av, tv, 0.5, 0.5), "default_profile.txt")
-    return model, cfg.loss, launches, step_ms, peak
+    return model, loss_cfg, launches, step_ms, peak, losses, after
 
 
 def knobs_phase():
@@ -3924,11 +3973,14 @@ def dropout_offset_cases():
     return {"global_draw_ms": ms_global, "local_draw_ms": ms_local}
 
 
-def _joint_once(mesh, negatives="all_gather"):
-    """Phase 8's joint step once (its seeded start, batches and seeds, every
-    group unfrozen, accumulation 1), through StepFactory(mesh=mesh) (this
-    rank's rows of the batch): (metrics, parameters after the update on
-    the host, parameters before it)."""
+RING_B = 32  # 20c's global batch (cut from phase 8's 64 for the script's time)
+
+
+def _joint_once(mesh, negatives="all_gather", b=TRAIN_B):
+    """Phase 8's joint step once (its seeded start, batches and seeds at
+    global batch ``b``, every group unfrozen, accumulation 1), through
+    StepFactory(mesh=mesh) (this rank's rows of the batch): (metrics,
+    parameters after the update on the host, parameters before it)."""
     from triad_tpu_torch.config import OptimConfig, perf_train_loss_config
     from triad_tpu_torch.train.step import StepFactory
 
@@ -3940,12 +3992,12 @@ def _joint_once(mesh, negatives="all_gather"):
         from triad_tpu_torch.train.optim import OptimizerBank
 
         state.bank = OptimizerBank(ocfg, state.model, total_updates=1000, mesh=mesh, zero1=True)
-        per = TRAIN_B // mesh.size
+        per = b // mesh.size
         rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
     loss_cfg = dataclasses.replace(perf_train_loss_config(), negatives=negatives)
     step = StepFactory(loss_cfg, ocfg, mesh=mesh).make_step("joint")
-    av = {k: v[rows].cuda() for k, v in _av_batch(TRAIN_B, 5).items()}
-    tv = {k: v[rows].cuda() for k, v in _train_batch(TRAIN_B, 6).items()}
+    av = {k: v[rows].cuda() for k, v in _av_batch(b, 5).items()}
+    tv = {k: v[rows].cuda() for k, v in _train_batch(b, 6).items()}
     init = {n: p.detach().to("cpu", copy=True) for n, p in state.model.named_parameters()}
     _, m = step(state, av, tv, 0.5, 0.5)
     params = {n: p.detach().to("cpu", copy=True) for n, p in state.model.named_parameters()}
@@ -3969,8 +4021,8 @@ def dp_ring_rank():
     initialize_from_env("cuda")
     kernels.library()
     mesh = make_mesh()
-    gather_m, gather_p, init = _joint_once(mesh)
-    ring_m, ring_p, _ = _joint_once(mesh, "ring")
+    gather_m, gather_p, init = _joint_once(mesh, b=RING_B)
+    ring_m, ring_p, _ = _joint_once(mesh, "ring", RING_B)
     if mesh.rank == 0:
         keys = ("loss_av", "loss_tv", "train_loss")
         lr_max = max(v for k, v in gather_m.items() if k.startswith("lr_"))
@@ -3990,7 +4042,8 @@ def dp_phase(root):
     step and in its final parameters to the same config in one process;
     the world-2 step-2 checkpoint resumed in one process for steps 3-4;
     each rank's moment bytes; 20c the ring negatives at world 2 against
-    20b's world-2 run. Returns the summary and 20a's launch counts."""
+    the gathered ones (two ranks started beside 20b). Returns the summary
+    and 20a's launch counts."""
     import shutil
 
     from triad_tpu_torch import kernels
@@ -4041,6 +4094,15 @@ def dp_phase(root):
           "process")
     cfg_path = _dp_config(root)
     run2, run1, run_r = (os.path.join(root, n) for n in ("dp_world2", "dp_one", "dp_resumed"))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TRIAD_")}
+    env["TRIAD_DIST_BACKEND"] = "gloo"
+    t_ring = time.perf_counter()
+    ring_log = os.path.join(ROOT, "chiprun_out", "dp_ring.txt")
+    with open(ring_log, "w") as log:  # 20c, beside 20b
+        ring = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                 "--nproc_per_node", "2", os.path.join(ROOT, "chip_smoke.py"),
+                                 "--dp-ring-rank"], cwd=ROOT, env=env, stdout=log,
+                                stderr=subprocess.STDOUT, text=True)
     moments = _world2(cfg_path, run2)
     args = ["--config", cfg_path, "--steps", str(DP_STEPS)]
     t0 = time.perf_counter()
@@ -4089,24 +4151,20 @@ def dp_phase(root):
         final_r, final2, init, lr_max, 1)
 
     phase("20c. the ring negatives at world 2 against the all-gathered ones: phase 8's joint "
-          f"step, B = {TRAIN_B} ({TRAIN_B // 2} a rank), from one start")
-    env = {k: v for k, v in os.environ.items() if not k.startswith("TRIAD_")}
-    env["TRIAD_DIST_BACKEND"] = "gloo"
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                           "--nproc_per_node", "2", os.path.join(ROOT, "chip_smoke.py"),
-                           "--dp-ring-rank"], cwd=ROOT, env=env, capture_output=True, text=True,
-                          timeout=600)
-    with open(os.path.join(ROOT, "chiprun_out", "dp_ring.txt"), "w") as f:
-        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
-    print("\n".join(line for line in proc.stdout.splitlines() if line.startswith("  ring")),
+          f"step, B = {RING_B} ({RING_B // 2} a rank), from one start (two ranks started "
+          "beside 20b)")
+    ring.wait(timeout=600)
+    with open(ring_log) as f:
+        text = f.read()
+    print("\n".join(line for line in text.splitlines() if line.startswith("  ring")),
           flush=True)
-    held = [line for line in proc.stdout.splitlines() if line.startswith("DP_RING ")]
-    if proc.returncode != 0 or not held:
-        fail(f"the ring ranks exited {proc.returncode}: {(proc.stdout + proc.stderr)[-3000:]}")
+    held = [line for line in text.splitlines() if line.startswith("DP_RING ")]
+    if ring.returncode != 0 or not held:
+        fail(f"the ring ranks exited {ring.returncode}: {text[-3000:]}")
     out["ring"] = json.loads(held[0][len("DP_RING "):])
-    out["ring_s"] = time.perf_counter() - t0
-    print(f"  the ring's two ranks: {out['ring_s']:.1f} s", flush=True)
+    out["ring_s"] = time.perf_counter() - t_ring
+    print(f"  the ring's two ranks: {out['ring_s']:.1f} s from their start beside 20b",
+          flush=True)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  phase 20: {out['phase_s']:.1f} s", flush=True)
     return out, {"dp_nccl_world1": launches}
@@ -4116,7 +4174,7 @@ def dp_phase(root):
 # Phase 21: tensor parallelism and FSDP
 # ---------------------------------------------------------------------------
 
-TP_B = 16  # global batch: four ranks of the plain attention fit on the one card
+TP_B = 8  # global batch (16 until the script's time asked for a cut: PERF.md)
 # Each knob at the value resolve_xla_impls gives "auto": no hand-written
 # kernel takes a shard (JAX: a pallas_call is opaque to GSPMD).
 TP_PLAIN_KNOBS = {"attention_impl": "xla", "mlp_impl": "xla", "ln_impl": "xla",
@@ -4130,7 +4188,7 @@ TP_LEGS = {  # leg: (ranks, mesh overrides)
 
 def _tp_config(root):
     """Phase 21's config: phase 20's (dp.json: full_joint, 2 epochs of 2
-    steps, accumulation 2, ZeRO-1, no validation set) at global B = 16,
+    steps, accumulation 2, ZeRO-1, no validation set) at global B = TP_B,
     every impl knob on the plain route."""
     with open(_dp_config(root)) as f:
         cfg = json.load(f)
@@ -4350,10 +4408,11 @@ def _leg_memory(reports, one):
 
 def tp_phase(root):
     """Phase 21: tensor parallelism and FSDP on phase 20's Trainer config
-    (B = 16, the plain impls): one process in this process, and again with
+    (B = TP_B, the plain impls): one process in this process, and again with
     its split layers rounding as tp = 2's shards do (_TpRounding); 21a
-    mesh.tp = 2 as two gloo ranks, 21b mesh.fsdp as two (side by side),
-    21c tp = 2 x 2 slices as four, each held per step and in its final
+    mesh.tp = 2 as two gloo ranks, 21b mesh.fsdp as two, 21c tp = 2 x 2
+    slices as four (all three side by side, beside the one-process runs),
+    each held per step and in its final
     parameters (phase 20's world-2 bounds) to the plain one process, and
     in its update cosine: 21b to the plain run, 21a and 21c to the run at
     their rounding (their cosine against the plain run printed); each
@@ -4379,8 +4438,16 @@ def tp_phase(root):
                        "TRIAD_DIST_BACKEND": "gloo"},
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
+    # 21a, 21b and 21c (eight ranks) start first and run beside the
+    # one-process runs, their references
+    legs = ("21a", "21b", "21c")
+    started = {}
+    for leg in legs:
+        final = os.path.join(root, f"tp_{leg}_final.pt") if leg != "21c" else "-"
+        started[leg] = (_tp_start(leg, cfg_path, os.path.join(root, f"tp_{leg}"), final), final)
+
     phase(f"21. one process: phase 20's Trainer config at B = {TP_B}, the plain impls, "
-          f"{DP_EPOCHS * DP_STEPS} steps, accumulation 2")
+          f"{DP_EPOCHS * DP_STEPS} steps, accumulation 2 (beside 21a-c's ranks)")
     args = ["--config", cfg_path, "--steps", str(DP_STEPS)]
     run1 = os.path.join(root, "tp_one")
     kernels.reset_launches()
@@ -4430,23 +4497,15 @@ def tp_phase(root):
             "21b": [plain]}
     refs["21c"] = refs["21a"]
 
-    # 21a and 21b run side by side (four ranks on the card), then 21c
-    for legs in (("21a", "21b"), ("21c",)):
-        phase(f"{' and '.join(legs)}. " + "; ".join(
-            f"{leg}: {' '.join(TP_LEGS[leg][1])} as {TP_LEGS[leg][0]} gloo ranks" for leg in legs)
-            + " (side by side)" * (len(legs) > 1) + ", against one process")
-        started = {}
-        for leg in legs:
-            final = os.path.join(root, f"tp_{leg}_final.pt") if leg != "21c" else "-"
-            started[leg] = (_tp_start(leg, cfg_path, os.path.join(root, f"tp_{leg}"), final),
-                            final)
-        for leg in legs:
-            (proc, t0), final = started[leg]
-            reports, launches[leg], seconds = _tp_finish(leg, proc, t0,
-                                                         os.path.join(root, f"tp_{leg}"))
-            out[leg] = _tp_leg(leg, root, reports, final, refs[leg], init, lr_max, shapes1,
-                               one_mem)
-            out[leg]["seconds"] = seconds
+    phase(", ".join(legs) + ". " + "; ".join(
+        f"{leg}: {' '.join(TP_LEGS[leg][1])} as {TP_LEGS[leg][0]} gloo ranks" for leg in legs)
+        + " (side by side), against one process")
+    for leg in legs:
+        (proc, t0), final = started[leg]
+        reports, launches[leg], seconds = _tp_finish(leg, proc, t0,
+                                                     os.path.join(root, f"tp_{leg}"))
+        out[leg] = _tp_leg(leg, root, reports, final, refs[leg], init, lr_max, shapes1, one_mem)
+        out[leg]["seconds"] = seconds
 
     phase("21c'. 21c's step-2 checkpoint resumed in one process (at tp = 2's rounding) for steps "
           "3-4")
@@ -4533,6 +4592,447 @@ def _tp_leg(leg, root, reports, final, refs, init, lr_max, shapes1, one_mem):
     out.update(step_ms=_logged_step_ms(lines), memory=_leg_memory(reports, one_mem))
     print(f"    update steps (ms, logged, rank 0): {out['step_ms']}", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: HuBERT's remat policies, bf16 Adam moments, the Trainer from
+# an MP4 folder
+# ---------------------------------------------------------------------------
+
+REMAT_LOSS_REL = 2e-3  # 22a: chunked against whole frontend, per-step losses
+LOWP_B = 16  # 22d: phase 8's joint step at this batch, 2 updates
+# 22e: the reference's segment folders of cv2-written, PCM-muxed mp4s
+MP4_SEGMENTS, MP4_CLIPS, MP4_FRAMES, MP4_B, MP4_STEPS = 2, 8, 10, 4, 3
+# tensors whose gradient is 0 up to rounding (the softmax ignores a key bias)
+KEY_BIASES = ("k_proj.bias", "k_lin.bias")
+
+
+def remat_whole_leg(chunked):
+    """22a: Path A's 6 micro steps from the same start at remat "none" (the
+    whole frontend, every activation kept for the backward) against phase
+    10's chunked run ``chunked`` = (median ms, (peak, base), losses,
+    parameters after the steps): both medians and peaks; the per-step
+    losses on the start's weights (the first accumulation window) within
+    REMAT_LOSS_REL (only the statistics' summation order differs); the
+    first update's parameters within one Adam step (2 lr + 1e-6) of each
+    other, their update cosine printed, and the losses after it printed
+    (Adam's first, sign-like step turns gradients that are 0 up to
+    rounding into steps of lr either way, which moves the later losses by
+    some 1e-3)."""
+    from triad_tpu_torch.config import default_train_config
+
+    model, _, launches, ms, (peak, base), losses, init, run = _default_steps("none")
+    if model.audio_backbone.feature_extractor.chunked():
+        fail("remat 'none' ran the chunked frontend")
+    bank = run[1].bank
+    lr_max = max(bank.schedules[g](0) for g in bank.schedules)
+    init = {n: p.cpu() for n, p in init.items()}
+    whole = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    del model, run, bank
+    torch.cuda.empty_cache()
+    c_ms, (c_peak, c_base), c_losses, c_after = chunked
+    rel = [max(abs(a[k] - b[k]) / abs(b[k]) for k in b) for a, b in zip(c_losses, losses)]
+    accum = default_train_config().train.optim.gradient_accumulation_steps
+    dot = n1 = n2 = far = 0.0
+    for n, p0 in init.items():
+        u1, u2 = (c_after[n] - p0).double(), (whole[n] - p0).double()
+        dot, n1, n2 = dot + float((u1 * u2).sum()), n1 + float((u1 * u1).sum()), n2 + float(
+            (u2 * u2).sum())
+        far = max(far, float((c_after[n] - whole[n]).abs().max()))
+    cos = dot / max((n1 * n2) ** 0.5, 1e-300)
+    bound = 2 * lr_max + 1e-6
+    print(f"  chunked (phase 10) / whole: median micro step {c_ms:.3f} / {ms:.3f} ms; peak "
+          f"{c_peak / 2 ** 30:.3f} / {peak / 2 ** 30:.3f} GiB, above the start "
+          f"{(c_peak - c_base) / 2 ** 30:.3f} / {(peak - base) / 2 ** 30:.3f} GiB (drop "
+          f"{((peak - base) - (c_peak - c_base)) / 2 ** 30:.3f} GiB); per-step losses, "
+          f"relative: {', '.join(f'{r:.3g}' for r in rel)}: worst {max(rel[:accum]):.3g} on the "
+          f"start's weights (bound {REMAT_LOSS_REL}); the first update: cosine {cos:.6f}, "
+          f"largest parameter difference {far:.3g} (bound {bound:.3g})", flush=True)
+    if not (max(rel[:accum]) <= REMAT_LOSS_REL and far <= bound):
+        fail("the chunked and the whole frontend's steps disagree")
+    return {"chunked_ms": c_ms, "whole_ms": ms, "chunked_peak_bytes": c_peak,
+            "whole_peak_bytes": peak, "chunked_above_start_bytes": c_peak - c_base,
+            "whole_above_start_bytes": peak - base, "loss_rel": rel, "update_cos": cos,
+            "max_param_diff": far}, launches
+
+
+def _joint_grads(model_cfg, seed=1):
+    """One B = REF_B joint step's total loss and every parameter's gradient
+    (all groups trainable), training mode from the seeded init ``seed``
+    with step_generator(0, 0) and HostSeeds(0, 0); the launch counts
+    during its forward and backward; the model."""
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.config import OptimConfig, perf_train_loss_config
+    from triad_tpu_torch.ops.dropout import HostSeeds
+    from triad_tpu_torch.train.step import StepFactory, step_generator
+
+    model = _initial_model(model_cfg, seed)
+    model.requires_grad_(True)
+    av = {k: v.cuda() for k, v in _av_batch(REF_B, 23).items()}
+    tv = {k: v.cuda() for k, v in _train_batch(REF_B, 24).items()}
+    factory = StepFactory(perf_train_loss_config(), OptimConfig())
+    kernels.reset_launches()
+    total, _ = factory.compute_losses(model, av, tv, step_generator(0, 0, "cuda"), train=True,
+                                      seeds=HostSeeds(0, 0))
+    total.backward()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    return float(total.detach()), grads, launches, model
+
+
+def _group_cosines(got, want, overall=False):
+    """The cosine of ``got`` to ``want`` ({name: tensor}) over each
+    optimizer group's tensors (over all of them as "all" with
+    ``overall``)."""
+    from triad_tpu_torch.train.optim import label_for_path
+
+    dots = {}
+    for n, w in want.items():
+        a, b = got[n].double().ravel(), w.double().ravel()
+        d = dots.setdefault("all" if overall else label_for_path(n), [0.0, 0.0, 0.0])
+        d[0] += float(a @ b)
+        d[1] += float(a @ a)
+        d[2] += float(b @ b)
+    return {g: d[0] / max((d[1] * d[2]) ** 0.5, 1e-300) for g, d in dots.items()}
+
+
+def conv_act_remat_leg():
+    """22b: the B = REF_B joint step at full width with HuBERT's "conv_act"
+    frontend under the default remat (chunked: one "norm_gelu" and six
+    "gelu" activation launches a pass-B block, again in the block's
+    recompute) against the same step on "conv" (the chunked plain-conv
+    route of the same function), rates 0. Held within phase 12's bound
+    between two frontends (4 bf16 ulps of the largest magnitude): the two
+    frontends' features on the batch, and the loss. Gradients: every
+    group's and every frontend tensor's at cosine 0.998 (conv_0's weight
+    gradient is a sum that cancels, the GroupNorm being blind to each
+    channel's scale, so bf16 rounding moves it by some percent of its
+    norm: 4.4% in a CPU rehearsal at narrow width); each frontend tensor's
+    largest difference printed."""
+    from triad_tpu_torch.config import perf_train_model_config
+    from triad_tpu_torch.models.hubert import normalize_waveform
+
+    def cfg(impl):
+        return _rates_off(perf_train_model_config(), frontend_impl=impl)
+
+    wave = normalize_waveform(_av_batch(REF_B, 23)["audio"].cuda())
+    act_loss, act, launches, model = _joint_grads(cfg("conv_act"))
+    with torch.no_grad():
+        f_act = model.audio_backbone.feature_extractor(wave)
+    del model
+    h = cfg("conv_act").hubert
+    blocks = -(-h.num_audio_tokens(AUDIO) // h.frontend_chunk_tokens)
+    want = 2 * blocks * len(h.conv_dim)
+    conv_loss, conv, conv_launches, model = _joint_grads(cfg("conv"))
+    with torch.no_grad():
+        f_conv = model.audio_backbone.feature_extractor(wave)
+    del model
+    print(f"  conv_act: frontend_activation launched {launches['frontend_activation']} times "
+          f"(predicted {want}: {blocks} blocks x {len(h.conv_dim)} passes, forward and "
+          f"recompute); conv: {conv_launches['frontend_activation']}", flush=True)
+    if launches["frontend_activation"] != want or conv_launches["frontend_activation"]:
+        fail("the chunked conv_act frontend's activation launches")
+    err, mx = max_err(f_act, f_conv)
+    rel = abs(act_loss - conv_loss) / abs(conv_loss)
+    front = {n: (float((act[n] - w).abs().max() / w.abs().max()),
+                 _group_cosines({"x": act[n]}, {"x": w}, True)["all"])
+             for n, w in conv.items() if ".feature_extractor." in n}
+    cos = _group_cosines(act, conv)
+    print(f"  features conv_act vs conv {tuple(f_act.shape)}: max abs difference {err:.4g} "
+          f"(bound 4 bf16 ulps of {mx:.4g}); loss {act_loss:.6f} vs {conv_loss:.6f} (rel "
+          f"{rel:.3g}, bound {4 * BF16_ULP:.4g}); group gradient cosines "
+          f"{json.dumps({g: round(c, 6) for g, c in cos.items()})}; frontend gradients "
+          "(largest difference over largest magnitude, cosine): "
+          + ", ".join(f"{n.split('feature_extractor.')[1]} {r:.3g} {c:.6f}"
+                      for n, (r, c) in front.items()), flush=True)
+    if not (err <= 4 * BF16_ULP * mx and rel <= 4 * BF16_ULP
+            and min(cos.values()) >= 0.998 and min(c for _, c in front.values()) >= 0.998):
+        fail("the chunked conv_act step disagrees with the chunked conv step")
+    del act, conv, f_act, f_conv
+    torch.cuda.empty_cache()
+    return {"launches_activation": launches["frontend_activation"], "predicted": want,
+            "features_err": err, "loss_rel": rel, "group_cos": cos, "frontend_grads": front}, \
+        launches
+
+
+def full_remat_leg():
+    """22c: the B = REF_B joint step at full width with every dropout live
+    at remat "full" (the whole frontend and each HuBERT layer checkpointed,
+    each layer's draws replayed in its recompute) against remat "none",
+    same seeds and generator: every gradient bit-equal; the HuBERT-only
+    forward kernels (layernorm, the frontend's) launched twice as often,
+    the attention and MLP forwards once more per HuBERT layer run, the
+    backward kernels as often."""
+    from triad_tpu_torch.config import perf_train_model_config
+
+    def cfg(remat):
+        c = perf_train_model_config()
+        return dataclasses.replace(c, hubert=dataclasses.replace(c.hubert, remat=remat))
+
+    full_loss, full, launches, _ = _joint_grads(cfg("full"))
+    none_loss, none, none_launches, _ = _joint_grads(cfg("none"))
+    differ = [n for n in none if not torch.equal(full[n], none[n])]
+    layers = none_launches["layernorm"] // 2  # two a HuBERT layer that ran
+    twice = ("layernorm", "frontend_conv0", "frontend_stats", "frontend_conv")
+    once_more = ("attention_train", "fused_mlp")
+    same = ("attention_train_bwd", "fused_mlp_bwd", "layernorm_bwd", "posconv", "posconv_dx",
+            "posconv_dw")
+    bad = [k for k in twice if launches[k] != 2 * none_launches[k] or not none_launches[k]]
+    bad += [k for k in once_more if launches[k] != none_launches[k] + layers]
+    bad += [k for k in same if k in launches and launches[k] != none_launches[k]]
+    print(f"  loss full {full_loss:.6f} / none {none_loss:.6f}; {len(none)} gradients, "
+          f"{len(none) - len(differ)} bit-equal; launches full / none: "
+          + ", ".join(f"{k} {launches[k]} / {none_launches[k]}" for k in twice + once_more + same
+                      if k in launches) + f" ({layers} HuBERT layers ran)", flush=True)
+    if differ:
+        worst = {n: float((full[n] - none[n]).abs().max() / none[n].abs().max().clamp_min(1e-30))
+                 for n in differ[:10]}
+        fail(f"remat 'full' changed {len(differ)} gradients: {worst}")
+    if full_loss != none_loss or bad:
+        fail(f"remat 'full': loss {full_loss} vs {none_loss}, launches off for {bad}")
+    n_grads = len(none)
+    del full, none
+    torch.cuda.empty_cache()
+    return {"gradients_bit_equal": n_grads, "hubert_layers_run": layers}, launches
+
+
+def lowp_moments_leg(root):
+    """22d: phase 8's joint step config at B = LOWP_B, one process, every
+    group unfrozen, 2 updates, with fp32 and with bf16 Adam moments from the
+    same start: the moments' bytes (bf16 0.500 of fp32), the update cosine
+    per group and overall against the fp32 run, the largest parameter
+    difference; the bf16 run saved through CheckpointManager and restored
+    into a new OptimizerBank: its moments bf16 and bit-equal."""
+    import shutil
+
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.config import OptimConfig, perf_train_loss_config
+    from triad_tpu_torch.train.checkpoint import CheckpointManager, HostProgress
+    from triad_tpu_torch.train.optim import OptimizerBank, label_for_path
+    from triad_tpu_torch.train.step import StepFactory, TrainState
+
+    av = {k: v.cuda() for k, v in _av_batch(LOWP_B, 5).items()}
+    tv = {k: v.cuda() for k, v in _train_batch(LOWP_B, 6).items()}
+    runs, init = {}, None
+    kernels.reset_launches()
+    for dtype in ("float32", "bfloat16"):
+        ocfg = _unfrozen(OptimConfig(gradient_accumulation_steps=1, mu_dtype=dtype,
+                                     nu_dtype=dtype))
+        state = _new_state(ocfg, 1)
+        if init is None:
+            init = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        step = StepFactory(perf_train_loss_config(), ocfg).make_step("joint")
+        print(f"  {dtype} moments:", flush=True)
+        _run_steps(step, state, (av, tv, 0.5, 0.5), ("loss_av", "loss_tv"), 2, 2)
+        runs[dtype] = state, ocfg
+    launches = dict(kernels.LAUNCHES)
+    (s32, _), (s16, ocfg16) = runs["float32"], runs["bfloat16"]
+    b32, b16 = s32.bank.moment_bytes(), s16.bank.moment_bytes()
+    dtypes = {str(st[k].dtype) for opt in s16.bank.opts.values() for st in opt.state.values()
+              for k in ("exp_avg", "exp_avg_sq")}
+    p32 = {n: p.detach() for n, p in s32.model.named_parameters()}
+    p16 = {n: p.detach() for n, p in s16.model.named_parameters()}
+    upd32 = {n: p32[n] - init[n] for n in init}
+    upd16 = {n: p16[n] - init[n] for n in init}
+    moved = {n for n in init if bool(upd32[n].any())}
+    cos = _group_cosines({n: upd16[n] for n in moved}, {n: upd32[n] for n in moved})
+    overall = _group_cosines({n: upd16[n] for n in moved}, {n: upd32[n] for n in moved},
+                             True)["all"]
+    far = max(float((p16[n] - p32[n]).abs().max()) for n in init)
+    lr_max = max(s32.bank.schedules[g](c) for g, c in s32.bank.counts.items())
+    print(f"  moment bytes bf16 / fp32: {b16} / {b32} = {b16 / b32:.3f} (dtypes {sorted(dtypes)}); "
+          f"update cosine to the fp32 run by group {json.dumps({g: round(c, 6) for g, c in cos.items()})}, "
+          f"overall {overall:.6f}; largest parameter difference {far:.3g}", flush=True)
+    if b16 * 2 != b32 or dtypes != {"torch.bfloat16"} or not overall >= 0.99:
+        fail("bf16 moments: bytes, dtypes or the update's direction")
+    del s32, runs, p32, upd32, upd16
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(root, "lowp_ckpt")
+    mgr = CheckpointManager(ckpt)
+    t0 = time.perf_counter()
+    mgr.save(2, s16, HostProgress(global_step=2), {})
+    save_s = time.perf_counter() - t0
+    model = _initial_model(s16.model.cfg, 1)
+    fresh = TrainState(model, OptimizerBank(ocfg16, model, total_updates=1000), 0, 0)
+    t0 = time.perf_counter()
+    mgr.restore(fresh)
+    restore_s = time.perf_counter() - t0
+    checked = 0
+    for g, opt in s16.bank.opts.items():
+        for name, p, q in zip(s16.bank.names[g], s16.bank.groups[g], fresh.bank.groups[g]):
+            if p not in opt.state:
+                continue
+            for k in ("exp_avg", "exp_avg_sq"):
+                a, b = opt.state[p][k], fresh.bank.opts[g].state[q][k]
+                if b.dtype != torch.bfloat16 or not torch.equal(a, b):
+                    fail(f"restored {name} {k}: {b.dtype}, bit-equal {torch.equal(a, b.to(a.dtype))}")
+                checked += 1
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"  saved in {save_s:.2f} s, restored into a new OptimizerBank in {restore_s:.2f} s: "
+          f"{checked} moments bf16 and bit-equal", flush=True)
+    del s16, fresh, model
+    torch.cuda.empty_cache()
+    return {"moment_bytes": {"float32": b32, "bfloat16": b16}, "ratio": b16 / b32,
+            "update_cos": cos, "update_cos_overall": overall, "max_param_diff": far,
+            "lr_max": lr_max, "restored_moments": checked}, launches
+
+
+class _DecodeCounts:
+    """While active, counts what the data layer's decoders produce: frames
+    decoded by cv2 and by the native libavcodec path (data/video.py), audio
+    tracks and samples demuxed natively (data/mp4.py), and failures."""
+
+    def __enter__(self):
+        from triad_tpu_torch.data import mp4, video
+
+        self.n = {"cv2_frames": 0, "native_frames": 0, "native_audio_tracks": 0,
+                  "native_audio_samples": 0, "failures": 0}
+        lock = threading.Lock()
+        self._orig = [(video, "_decode_random_frame_cv2"),
+                      (video, "_decode_random_frame_native"), (mp4, "extract_audio_track")]
+        self._orig = [(mod, name, getattr(mod, name)) for mod, name in self._orig]
+
+        def counted(fn, key):
+            def call(*args, **kw):
+                try:
+                    out = fn(*args, **kw)
+                except Exception:
+                    with lock:
+                        self.n["failures"] += 1
+                    raise
+                with lock:
+                    self.n[key] += 1
+                    if key == "native_audio_tracks":
+                        self.n["native_audio_samples"] += len(out[0])
+                return out
+            return call
+
+        for (mod, name, fn), key in zip(self._orig, ("cv2_frames", "native_frames",
+                                                     "native_audio_tracks")):
+            setattr(mod, name, counted(fn, key))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._orig:
+            setattr(mod, name, fn)
+
+
+def _mp4_folders(root):
+    """The reference's segment layout, root/mp4/segment_N/clip_i.mp4: each
+    clip MP4_FRAMES frames of 256^2 noise written by cv2.VideoWriter (mp4v)
+    and muxed by data/mp4.py:mux_mp4 with 10 s of 16 kHz 'sowt' PCM (a
+    tone of its own and noise)."""
+    import cv2
+
+    from triad_tpu_torch.data.mp4 import mux_mp4
+
+    rng = np.random.default_rng(61)
+    silent = os.path.join(root, "mp4_video_only.mp4")
+    t = np.arange(AUDIO) / 16_000
+    for seg in range(MP4_SEGMENTS):
+        d = os.path.join(root, "mp4", f"segment_{seg}")
+        os.makedirs(d)
+        for i in range(MP4_CLIPS):
+            writer = cv2.VideoWriter(silent, cv2.VideoWriter_fourcc(*"mp4v"), 1, (256, 256))
+            for _ in range(MP4_FRAMES):
+                writer.write(rng.integers(0, 256, (256, 256, 3), np.uint8))
+            writer.release()
+            tone = 200 + 40 * (seg * MP4_CLIPS + i)
+            audio = (0.3 * np.sin(2 * np.pi * tone * t)
+                     + 0.05 * rng.standard_normal(AUDIO)).astype(np.float32)
+            mux_mp4(os.path.join(d, f"clip_{i}.mp4"), silent, audio, 16_000, audio_codec="sowt")
+    os.remove(silent)
+    return os.path.join(root, "mp4")
+
+
+def mp4_trainer_leg(root):
+    """22e: cli.train at full width (perf_train_model_config()) on an
+    AudioVisualDataset of the reference's mp4 segment folders (video
+    through the cv2 fallback, audio through the native PCM demux) and
+    phase 17's caption folder: full_joint, B = MP4_B, MP4_STEPS steps,
+    every group unfrozen, no saves. Every loss finite, every HuBERT tensor
+    moved, each decoder's frames printed, no decode failure; the launch
+    counts of the run."""
+    from triad_tpu_torch import kernels
+    from triad_tpu_torch.cli import train as train_cli
+    from triad_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    mp4_root = _mp4_folders(root)
+    write_s = time.perf_counter() - t0
+    with open(os.path.join(root, "trainer.json")) as f:
+        cfg = json.load(f)
+    cfg["data"].update(audio_visual_data_root=mp4_root, audio_visual_val_data_root=None,
+                       text_dataset_val_path=None, batch_size_av=MP4_B, batch_size_tv=MP4_B)
+    cfg["train"].update(num_epochs=1, av_focus_epochs=0, tv_warmup_epochs=0,
+                        weighted_joint_epochs=0, vis_every=10 ** 9, save_every_steps=10 ** 9)
+    cfg["train"]["optim"].update(gradient_accumulation_steps=1, unfreeze_audio_step=0,
+                                 unfreeze_text_step=0, unfreeze_vit_step=0)
+    path, run = os.path.join(root, "mp4.json"), os.path.join(root, "run_mp4")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with _DecodeCounts() as counts, _StartState() as start, _NoSaves():
+        trainer = train_cli.main(["--config", path, "--steps", str(MP4_STEPS), "--output-dir",
+                                  run, "--force-new"])
+    run_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    losses = _losses_by_step(_run_metrics(run))
+    moved = 0
+    for name, p in trainer.model.named_parameters():
+        if name.startswith("audio_backbone"):
+            same = torch.equal(p.detach().cpu(), start.state[name])
+            moved += not same
+    n_audio = sum(1 for n, _ in trainer.model.named_parameters() if n.startswith("audio_backbone"))
+    n = counts.n
+    print(f"  {MP4_SEGMENTS} segment folders of {MP4_CLIPS} mp4s written in {write_s:.1f} s; "
+          f"cli.train, {MP4_STEPS} steps of B = {MP4_B}: {run_s:.1f} s, losses "
+          f"{json.dumps(losses)}; {moved} of {n_audio} HuBERT tensors moved; decoded: "
+          f"{n['cv2_frames']} frames by cv2, {n['native_frames']} by the native libavcodec path "
+          f"(avdec_supported {native.avdec_supported()}), {n['native_audio_tracks']} 'sowt' tracks "
+          f"({n['native_audio_samples']} samples) by the native demux, {n['failures']} failures",
+          flush=True)
+    want = MP4_STEPS * MP4_B
+    if not losses or not all(np.isfinite(v) for v in losses.values()):
+        fail(f"the mp4 run's logged losses {losses}")
+    if moved != n_audio:
+        fail(f"{n_audio - moved} HuBERT tensors did not move in the mp4 run")
+    if (n["failures"] or n["cv2_frames"] + n["native_frames"] < want
+            or n["native_audio_tracks"] < want
+            or n["native_audio_samples"] != AUDIO * n["native_audio_tracks"]):
+        fail(f"the mp4 run's decoders: {n}")
+    _check_launches(launches, JOINT_KERNELS, "mp4 trainer")
+    del trainer, start
+    torch.cuda.empty_cache()
+    return {"write_s": write_s, "run_s": run_s, "losses": losses, "decoded": n}, launches
+
+
+def remat_phase(root, chunked):
+    """Phase 22: 22a-22e (above); returns the summary and the launch counts
+    of each leg."""
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    phase(f"22a. Path A whole: configs/default.yaml's 6 micro steps at remat 'none', B = "
+          f"{DEFAULT_B}, against phase 10's chunked frontend")
+    out["path_a"], launches["default_noremat"] = remat_whole_leg(chunked)
+    phase(f"22b. the chunked 'conv_act' frontend in training: a B = {REF_B} joint step at full "
+          "width against the chunked 'conv' one")
+    out["conv_act"], launches["remat_conv_act"] = conv_act_remat_leg()
+    phase(f"22c. remat 'full' with every dropout live: a B = {REF_B} joint step at full width "
+          "against remat 'none'")
+    out["full"], launches["remat_full"] = full_remat_leg()
+    phase(f"22d. bf16 Adam moments: phase 8's joint step at B = {LOWP_B}, 2 updates, against "
+          "fp32 moments; a checkpoint round trip")
+    out["lowp"], launches["lowp_moments"] = lowp_moments_leg(root)
+    phase(f"22e. the Trainer from an MP4 folder: cli.train at full width on mp4 segment "
+          f"folders, B = {MP4_B}")
+    out["mp4"], launches["trainer_mp4"] = mp4_trainer_leg(root)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 22: {out['phase_s']:.1f} s", flush=True)
+    return out, launches
 
 
 def _group_names(group, shapes):
@@ -4730,7 +5230,8 @@ def main():
 
     phase(f"10. configs/default.yaml's joint step at full width, B = {DEFAULT_B}, accumulation "
           "4, dropouts live")
-    model, loss_cfg, default_launches, default_ms, default_peak = default_phase()
+    model, loss_cfg, default_launches, default_ms, default_peak, default_losses, default_after = \
+        default_phase()
     torch.cuda.empty_cache()
     phase(f"10b. its B = {REF_B} step, rates 0, HuBERT attention_impl 'fused': bf16 card vs "
           "fp32 CPU")
@@ -4833,6 +5334,14 @@ def main():
               "a resume across layouts; a kernel knob refused")
         tp, tp_launches = tp_phase(root)
         torch.cuda.empty_cache()
+
+        phase("22. HuBERT's remat policies and bf16 Adam moments: Path A chunked against whole, "
+              "the chunked 'conv_act' frontend in training, remat 'full' with live dropout, bf16 "
+              "moments and their checkpoint; the Trainer from an MP4 folder")
+        remat, remat_launches = remat_phase(root, (default_ms, default_peak, default_losses,
+                                                   default_after))
+        del default_after
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4842,7 +5351,8 @@ def main():
                "flash_eval": flash_eval_launches, "train_tv_flash": tv_flash_launches,
                "long_clips": long_clip_launches, "train_joint_fed": fed_launches,
                "trainer": trainer_launches, "trainer_eval_legs": trainer_eval_launches,
-               **pretrained_launches, **export_launches, **dp_launches, **tp_launches}
+               **pretrained_launches, **export_launches, **dp_launches, **tp_launches,
+               **remat_launches}
     kernels_json = [_kernel_entry(name, results, by_path) for name in KERNELS]
     phase("done")
     # every shape of phase 3, too long for the line the kernels entries take
@@ -4851,11 +5361,12 @@ def main():
         json.dump(results, f, indent=1)
     print(json.dumps({"kernels": kernels_json, "train_step_ms": tv_ms, "joint_step_ms": joint_ms,
                       "joint_peak_bytes": peak, "default_micro_step_ms": default_ms,
-                      "default_peak_bytes": default_peak, "knobs_step_ms": knobs_ms,
+                      "default_peak_bytes": default_peak[0], "knobs_step_ms": knobs_ms,
                       "knobs_peak_bytes": knobs_peak, "layouts_agree": agree,
                       "retrieval": retrieval, "flash_eval": flash_eval,
                       "tv_flash_step_ms": tv_flash_ms, "data": data, "trainer": trainer,
-                      "pretrained": pretrained, "export": export, "dp": dp, "tp": tp}),
+                      "pretrained": pretrained, "export": export, "dp": dp, "tp": tp,
+                      "remat": remat}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

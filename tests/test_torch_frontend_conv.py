@@ -158,8 +158,8 @@ def frontend_config(impl):
     """2 layers, hidden 32, 4 heads, a 3-layer 32-channel conv frontend
     (kernels 10, 3, 2, strides 5, 2, 2) on ``impl``. remat "none": the JAX
     package's chunked remat of "conv_act" cannot differentiate interpret-
-    mode Pallas (as its own test notes); it moves no number, and the port
-    reads no remat field."""
+    mode Pallas (as its own test notes); tests/test_torch_remat.py holds
+    the chunked routes."""
     return HubertConfig(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
                         conv_dim=(32, 32, 32), conv_kernel=(10, 3, 2), conv_stride=(5, 2, 2),
                         num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,

@@ -18,6 +18,7 @@ The worlds are tests/test_torch_tp.py's, computed once a session.
 import pytest
 
 from tests.test_torch_tp import (  # noqa: F401 — layout_worlds is a fixture
+    BLOCKS,
     _jax_params,
     _port_model,
     fake_world,
@@ -91,3 +92,20 @@ def test_fsdp_storage(layout_worlds):
     params_1, _ = layout_worlds["one_process_bytes"]
     assert max(got["exact/fsdp/param_bytes"]) < 0.6 * params_1
     assert max(got["exact/fsdp_tp2/param_bytes"]) < 0.45 * params_1
+
+
+def test_fsdp_chunked_frontend_reads_gathered_weights(monkeypatch, layout_worlds):
+    """FSDP shards conv_1's weight of HuBERT's frontend, and the FSDP runs
+    still ran the chunked frontend (5 blocks, each again in the backward's
+    recompute, which reads the weight the forward gathered: the runs above
+    hold to JAX and to one process)."""
+    from triad_tpu_torch.parallel.dp import make_mesh
+    from triad_tpu_torch.parallel.fsdp import fsdp_param_specs
+
+    fake_world(monkeypatch, 2)
+    specs = fsdp_param_specs(_port_model(), make_mesh(2))
+    assert "data" in specs["audio_backbone.feature_extractor.convs.1.weight"]
+    for key, layout in FSDP_LAYOUTS:
+        steps = 2 if key == "accum2" else 1
+        assert float(layout_worlds["got"][f"{key}/{layout}/metric/frontend_blocks"]) == \
+            2 * BLOCKS * steps, (key, layout)

@@ -254,12 +254,12 @@ def test_joint_step_matches_jax():
 JAX_KNOBS = ("perf", "tanh", "pkattn", "mqkv", "vitpk", "vitmq", "monofe", "posconv", "wave640",
              "wavext", "rematconv", "noremat", "mlprows2", "mlprows4", "attnpad", "pad128",
              "lorasep", "vitrows2")  # the known set of triad_tpu/core/config.py:apply_train_knobs
-UNREAD_KNOBS = ("wave640", "wavext", "rematconv", "noremat", "attnpad", "pad128", "mlprows2",
-                "mlprows4", "vitrows2")
+UNREAD_KNOBS = ("wave640", "wavext", "attnpad", "pad128", "mlprows2", "mlprows4", "vitrows2")
 
 
 @pytest.mark.parametrize("knobs", ["perf", "mqkv,vitmq", "perf,mqkv,vitmq", "tanh,pkattn,mqkv",
-                                   "lorasep,vitpk,pkattn", "monofe,posconv,tanh,vitmq"])
+                                   "lorasep,vitpk,pkattn", "monofe,posconv,tanh,vitmq",
+                                   "rematconv", "perf,noremat", "rematconv,noremat,mqkv"])
 def test_apply_train_knobs_equals_jax(knobs):
     from triad_tpu_torch import config as PC
 
@@ -293,7 +293,7 @@ def test_unread_knobs_raise(knob):
     from triad_tpu_torch.models import IGNORED_TPU_KNOBS
 
     hubert, vit = PC._KNOBS[knob]
-    assert set(hubert) | set(vit) <= set(IGNORED_TPU_KNOBS) | {"remat"}
+    assert set(hubert) | set(vit) <= set(IGNORED_TPU_KNOBS)
     for knobs in (knob, f"perf,{knob},mqkv"):
         with pytest.raises(NotImplementedError, match=knob):
             PC.apply_train_knobs(PC.ModelConfig(), knobs)

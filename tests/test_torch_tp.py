@@ -59,6 +59,14 @@ def _optim(accum=1):
                        unfreeze_text_step=0, unfreeze_vit_step=0)
 
 
+# HuBERT's frontend chunks: 800 samples give 79 tokens, so its chunked
+# frontend (the default remat, on the "conv" frontend the layouts resolve
+# to) runs 5 blocks of up to 16 tokens, each again in the backward; FSDP
+# shards conv_1's weight (3072 elements), which the blocks read gathered.
+CHUNK = 16
+BLOCKS = -(-79 // CHUNK)
+
+
 def model_config(live=False):
     """The narrow model: heads of 8 in every encoder (4 heads, 2 a rank at
     tp 2), a vocabulary of 128 (64 rows a rank); dropouts off, or live."""
@@ -68,9 +76,9 @@ def model_config(live=False):
         vit=ViTConfig(image_size=28, patch_size=14, hidden_size=32, num_layers=2, num_heads=4),
         hubert=HubertConfig(
             hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
-            conv_dim=(16, 16), conv_kernel=(10, 3), conv_stride=(5, 2),
-            num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
-            hidden_dropout=r, activation_dropout=r, attention_dropout=r, feat_proj_dropout=r,
+            conv_dim=(32, 32), conv_kernel=(10, 3), conv_stride=(5, 2),
+            frontend_chunk_tokens=CHUNK, num_conv_pos_embeddings=16,
+            num_conv_pos_embedding_groups=4, hidden_dropout=r, activation_dropout=r, attention_dropout=r, feat_proj_dropout=r,
             layerdrop=0.3 if live else 0.0, apply_spec_augment=live,
             mask_time_prob=0.2 if live else 0.05, mask_time_length=3),
         text=DistilBertConfig(vocab_size=128, hidden_size=32, num_layers=2, num_heads=4,
@@ -429,6 +437,19 @@ def test_tp_storage(layout_worlds):
     plain = list(got["exact/dp2tp2/moment_bytes"])
     zero1 = list(got["exact/dp2tp2_zero1/moment_bytes"])
     assert max(plain) < 0.8 * moments_1 and max(zero1) < 0.6 * max(plain)
+
+
+def test_chunked_frontend_ran(layout_worlds):
+    """Every layout's step, and the one-process step, ran HuBERT's chunked
+    frontend: BLOCKS pass-B blocks a micro step, each again in the
+    backward's recompute."""
+    got = layout_worlds["got"]
+    runs = {k: v for k, v in got.items() if k.endswith("/metric/frontend_blocks")}
+    assert len(runs) >= 2 * len(LAYOUTS)
+    for key, n in runs.items():
+        steps = 2 if key.startswith("accum2/") else 1
+        assert float(n) == 2 * BLOCKS * steps, key
+    assert layout_worlds["refs"]["live"][0]["frontend_blocks"] == 2 * BLOCKS
 
 
 def test_bf16_column_row_pair(layout_worlds):

@@ -140,13 +140,6 @@ def test_bank_matches_jax_over_micro_steps():
     assert not bank.opts["audio"].state
 
 
-def test_bank_refuses_low_precision_moments():
-    from triad_tpu_torch.train.optim import OptimizerBank
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OptimizerBank(OptimConfig(mu_dtype="bfloat16"), nn.Linear(2, 2), 10)
-
-
 # ---------------------------------------------------------------------------
 # The text-visual step
 # ---------------------------------------------------------------------------

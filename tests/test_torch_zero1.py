@@ -47,6 +47,7 @@ B = 16
 W_AV, W_TV = 0.7, 0.3
 _UNFROZEN = OptimConfig(gradient_accumulation_steps=1, unfreeze_audio_step=0,
                         unfreeze_text_step=0, unfreeze_vit_step=0)
+_LOWP = dataclasses.replace(_UNFROZEN, mu_dtype="bfloat16", nu_dtype="bfloat16")
 
 
 def _dryrun_model():
@@ -97,8 +98,8 @@ def _batches(audio):
     return av, tv
 
 
-def _spec(model_cfg, loss_cfg, state, av, tv, seed):
-    cfg = Config(model=model_cfg, loss=loss_cfg, train=TrainConfig(optim=_UNFROZEN))
+def _spec(model_cfg, loss_cfg, state, av, tv, seed, optim=_UNFROZEN):
+    cfg = Config(model=model_cfg, loss=loss_cfg, train=TrainConfig(optim=optim))
     return {"config": dataclasses.asdict(cfg), "state": state, "seed": seed,
             "av": {k: torch.from_numpy(v) for k, v in av.items()},
             "tv": {k: torch.from_numpy(v) for k, v in tv.items()}, "w_av": W_AV, "w_tv": W_TV}
@@ -128,6 +129,8 @@ def _compute(workdir):
     model = port_init(_port(live), torch.Generator().manual_seed(3))
     lav, ltv = _batches(1600)
     torch.save(_spec(live, loss_cfg, model.state_dict(), lav, ltv, 5), workdir / "live.pt")
+    # (e) the live model with bf16 Adam moments
+    torch.save(_spec(live, loss_cfg, model.state_dict(), lav, ltv, 5, _LOWP), workdir / "lowp.pt")
 
     errors = []
 
@@ -146,12 +149,18 @@ def _compute(workdir):
                        {k: jnp.asarray(v) for k, v in tv.items()}, jnp.float32(W_AV),
                        jnp.float32(W_TV))
     m1, p1, _ = _step_run(workdir, 0, 1, "live", zero1=False, mesh_on=False)
+    _, q1, lowp_bank = _step_run(workdir, 0, 1, "lowp", zero1=False, mesh_on=False)
     ranks.join()
     if errors:
         raise errors[0]
     got = dict(np.load(workdir / "steps-2.npz"))
+    lowp = {"params": {n: p.numpy() for n, p in q1.items()},
+            "moments": {f"{name}/{k}": opt.state[p][k] for g, opt in lowp_bank.opts.items()
+                        for name, p in zip(lowp_bank.names[g], lowp_bank.groups[g])
+                        for k in ("exp_avg", "exp_avg_sq")},
+            "slices": [torch.load(workdir / f"lowp-slices-{r}.pt") for r in range(2)]}
     return (got, (jax.tree.map(np.asarray, jstate.params), {k: float(v) for k, v in jm.items()}),
-            ({k: float(v) for k, v in m1.items()}, {n: p.numpy() for n, p in p1.items()}))
+            ({k: float(v) for k, v in m1.items()}, {n: p.numpy() for n, p in p1.items()}), lowp)
 
 
 def _port(jax_model_cfg):
@@ -183,7 +192,7 @@ def _flax_layout(name, value):
 
 
 def test_dryrun_step_matches_jax(world):
-    got, (jparams, jm), _ = world
+    got, (jparams, jm), *_ = world
     checked = 0
     for key, ref in jm.items():
         mine = got.get(f"dryrun/zero1/metric/{key}")
@@ -211,7 +220,7 @@ def test_live_dropout_zero1_step(world, other):
     """With every dropout live, the ZeRO-1 world-2 step gives the
     replicated world-2 step's and the one-process step's metrics and
     parameters (each rank's rows draw what one process draws for them)."""
-    got, _, (m1, p1) = world
+    got, _, (m1, p1), _ = world
     if other == "replicated":
         ref_m = {k.split("/", 3)[3]: float(v) for k, v in got.items()
                  if k.startswith("live/replicated/metric/")}
@@ -234,3 +243,44 @@ def test_live_dropout_zero1_step(world, other):
             np.testing.assert_allclose(mine, ref, rtol=0, atol=step, err_msg=name)
         else:
             np.testing.assert_allclose(mine, ref, rtol=1e-5, atol=1e-7, err_msg=name)
+
+
+def test_zero1_bf16_moments(world):
+    """(e) the live step with bf16 Adam moments under ZeRO-1 at world 2:
+    each rank's moment slices are bf16; the checkpoint's gather
+    (``full_state_dicts``, C.gather_rows over gloo) returns whole bf16
+    moments equal bit for bit to the ranks' slices in rank order; against
+    the one-process bf16 step the parameters within 1e-5 relative plus
+    2^-7 of the largest lr (a moment that rounds to the other bf16 neighbour
+    moves its update by about 2^-8 lr; the key biases within two steps, as
+    above) and the moments within two bf16 ulps of each leaf's largest (the
+    key biases' moments, of rounding noise, not compared)."""
+    got, _, _, lowp = world
+    slices, moments = lowp["slices"], lowp["moments"]
+    names = sorted(moments)
+    assert len(names) > 200
+    sharded = 0
+    for key in names:
+        assert str(got[f"lowp/whole_dtype/{key}"]) == "torch.bfloat16", key
+        whole = torch.from_numpy(got[f"lowp/whole/{key}"]).view(torch.bfloat16)
+        parts = [slices[r][key] for r in range(2)]
+        assert all(t.dtype == torch.bfloat16 for t in parts), key
+        if parts[0].shape == whole.shape:
+            assert torch.equal(parts[0], whole) and torch.equal(parts[1], whole), key
+        else:
+            dim = next(d for d, (a, b) in enumerate(zip(parts[0].shape, whole.shape)) if a != b)
+            assert torch.equal(torch.cat(parts, dim), whole), key
+            sharded += 1
+        ref = moments[key].to(torch.float32)
+        assert moments[key].dtype == torch.bfloat16
+        if key.split("/")[0].endswith(("k_proj.bias", "k_lin.bias")):
+            continue  # moments of rounding noise
+        ulp = 2.0 ** (np.floor(np.log2(max(float(ref.abs().max()), 2.0 ** -126))) - 7)
+        assert float((whole.to(torch.float32) - ref).abs().max()) <= 2 * ulp, key
+    assert sharded > 50
+    lr = max(float(got[f"lowp/zero1/metric/lr_{g}"]) for g in ("others", "audio", "text",
+                                                                 "vit_lora"))
+    for name, ref in lowp["params"].items():
+        mine = got[f"lowp/zero1/param/{name}"]
+        atol = 2 * lr if name.endswith(("k_proj.bias", "k_lin.bias")) else 2.0 ** -7 * lr + 1e-7
+        np.testing.assert_allclose(mine, ref, rtol=1e-5, atol=atol, err_msg=name)

@@ -173,7 +173,8 @@ def steps(rank, world, workdir):
 
     out = {}
     for key, legs in (("dryrun", (("zero1", True),)),
-                      ("live", (("zero1", True), ("replicated", False)))):
+                      ("live", (("zero1", True), ("replicated", False))),
+                      ("lowp", (("zero1", True),))):
         if not (workdir / f"{key}.pt").exists():
             continue
         for leg, zero1 in legs:
@@ -198,6 +199,21 @@ def steps(rank, world, workdir):
                                 assert got == want, (name, k, got, want)
                                 checked += 1
                 out[f"{key}/{leg}/moments_checked"] = np.asarray(checked)
+            if key == "lowp":  # bf16 moments: this rank's slices, and the gathered whole ones
+                mine = {}
+                for g, opt in bank.opts.items():
+                    for name, st in zip(bank.names[g], bank.storage[g]):
+                        for k in ("exp_avg", "exp_avg_sq"):
+                            mine[f"{name}/{k}"] = opt.state[st][k].clone()
+                torch.save(mine, workdir / f"lowp-slices-{rank}.pt")
+                for g, sd in bank.full_state_dicts().items():
+                    for i, st in sd["state"].items():
+                        for k in ("exp_avg", "exp_avg_sq"):
+                            t = st[k]
+                            out[f"lowp/whole/{bank.names[g][int(i)]}/{k}"] = \
+                                t.view(torch.int16).numpy()
+                            out[f"lowp/whole_dtype/{bank.names[g][int(i)]}/{k}"] = \
+                                np.asarray(str(t.dtype))
     return out
 
 
@@ -263,14 +279,38 @@ def layout_run(workdir, key, layout, world=1):
     state = TrainState(model, bank, 0, spec["seed"])
     step = StepFactory(cfg.loss, ocfg, mesh=mesh, mesh_axis=axis).make_step("joint")
     index, size = (mesh.index(axis), mesh.axis_size(axis)) if mesh is not None else (0, 1)
-    for av, tv in spec["batches"]:
-        per = av["audio"].shape[0] // size
-        rows = slice(index * per, (index + 1) * per)
-        _, m = step(state, {k: v[rows] for k, v in av.items()},
-                    {k: v[rows] for k, v in tv.items()}, spec["w_av"], spec["w_tv"])
+    with _BlockCount() as blocks:
+        for av, tv in spec["batches"]:
+            per = av["audio"].shape[0] // size
+            rows = slice(index * per, (index + 1) * per)
+            _, m = step(state, {k: v[rows] for k, v in av.items()},
+                        {k: v[rows] for k, v in tv.items()}, spec["w_av"], spec["w_tv"])
     params = {n: p.detach().clone() for n, p in bank.model_state_dict().items()}
-    return ({k: float(v) for k, v in m.items()}, params,
-            sum(p.numel() * p.element_size() for p in model.parameters()), bank.moment_bytes())
+    m = {k: float(v) for k, v in m.items()}
+    m["frontend_blocks"] = float(blocks.n)
+    return (m, params, sum(p.numel() * p.element_size() for p in model.parameters()),
+            bank.moment_bytes())
+
+
+class _BlockCount:
+    """While active, counts the pass-B blocks HuBERT's chunked frontend runs
+    (in the forward and in the backward's recompute)."""
+
+    def __enter__(self):
+        from triad_tpu_torch.models.hubert import ConvFeatureEncoder
+
+        self.n, block = 0, ConvFeatureEncoder._block
+
+        def counted(mod, *args):
+            self.n += 1
+            return block(mod, *args)
+
+        self._undo = lambda: setattr(ConvFeatureEncoder, "_block", block)
+        ConvFeatureEncoder._block = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._undo()
 
 
 def bf16_pair(x, w1, b1, w2, b2, rank=0, parts=1):

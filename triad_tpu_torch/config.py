@@ -28,8 +28,7 @@ IGNORED_TPU_KNOBS = (
     "ln_block_rows",
     "attention_pad",
 )
-# ... nor HuBERT's rematerialisation policy (memory only; not ported).
-_UNREAD_FIELDS = frozenset(IGNORED_TPU_KNOBS) | {"remat"}
+_UNREAD_FIELDS = frozenset(IGNORED_TPU_KNOBS)
 
 
 # ---------------------------------------------------------------------------
@@ -460,8 +459,8 @@ def apply_train_knobs(model_cfg: ModelConfig, knobs) -> ModelConfig:
     ``apply_train_knobs``, shared there by its train bench and profiler).
     knobs: iterable of strings or a comma-separated string; an unknown
     knob raises ValueError, and a knob that only sets fields the port does
-    not read (TPU tilings, remat: wave640, wavext, attnpad, pad128,
-    mlprows2, mlprows4, vitrows2, rematconv, noremat) raises
+    not read (TPU tilings: wave640, wavext, attnpad, pad128, mlprows2,
+    mlprows4, vitrows2) raises
     NotImplementedError, so an A/B run cannot measure a knob that changes
     nothing. "perf" starts from perf_train_model_config(); the others
     replace fields of the config in the order below, so "mqkv" supersedes
@@ -476,7 +475,7 @@ def apply_train_knobs(model_cfg: ModelConfig, knobs) -> ModelConfig:
     if unread:
         raise NotImplementedError(
             f"train knobs {unread} set only fields triad_tpu_torch does not read (TPU tilings "
-            "and layouts, or HuBERT's remat policy, in the JAX package)")
+            "and layouts in the JAX package)")
     if "perf" in knobs:
         model_cfg = perf_train_model_config()
     for knob, (hubert, vit) in _KNOBS.items():

@@ -43,6 +43,13 @@ layer's compute (JAX computes and discards it): its parameters get no
 gradient, which the optimizer bank treats as zero, as the JAX step's
 gradient is.
 
+``remat`` (hubert.py:895-957): "chunked_conv" (the default) runs the
+frontend in two passes of checkpointed chunks on the routes that are not
+one program by design (``ConvFeatureEncoder._chunked``); "conv" and
+"full" checkpoint the whole frontend, whatever its impl; "full" also each
+encoder layer, replaying its dropout draws in the recompute
+(``_checkpointed_layer``); any other value checkpoints nothing.
+
 Under tensor parallelism (``parallel/tp.py``) the attention runs on the
 rank's heads (its attention dropout draws the full head extent and keeps
 the rank's heads) and the MLP on its hidden columns.
@@ -50,12 +57,14 @@ the rank's heads) and the MLP on its hidden columns.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from triad_tpu_torch.config import HubertConfig
 from triad_tpu_torch.models.layers import (
@@ -70,7 +79,7 @@ from triad_tpu_torch.models.layers import (
 )
 from triad_tpu_torch.models.quantize import int8_active
 from triad_tpu_torch.ops.attention import HEAD_DIM
-from triad_tpu_torch.ops.dropout import HostSeeds, global_rand, global_randint
+from triad_tpu_torch.ops.dropout import HostSeeds, global_rand, global_randint, replay_generator
 from triad_tpu_torch.ops.frontend import frontend_vjp
 from triad_tpu_torch.ops.frontend_conv import (
     frontend_activation,
@@ -125,6 +134,63 @@ class ConvFeatureEncoder(nn.Module):
         self.group_norm = ChannelNorm(c.conv_dim[0], param_dtype, device)
         self.cfg, self.dtype = cfg, dtype
 
+    def _weights(self):
+        """The frontend's tensors as this forward reads them: (conv weights,
+        conv biases, GroupNorm weight, GroupNorm bias). Under FSDP these
+        are the gathered weights the parent's pre-hook swapped in; the
+        checkpointed chunks take them as arguments, so a recompute in the
+        backward reads what the forward read, not the slices the post-hook
+        put back."""
+        return ([m.weight for m in self.convs], [m.bias for m in self.convs],
+                self.group_norm.weight, self.group_norm.bias)
+
+    def _conv(self, i, x, ws):
+        """conv_i in the compute dtype on (B, C, T) x."""
+        b = ws[1][i]
+        return F.conv1d(x, ws[0][i].to(self.dtype), None if b is None else b.to(self.dtype),
+                        stride=self.convs[i].stride)
+
+    def conv0(self, audio, ws):
+        """First conv, before its norm: (B, T) -> (B, conv_dim[0], T0) in
+        the compute dtype (hubert.py:conv0, channels first)."""
+        return self._conv(0, audio.to(self.dtype)[:, None, :], ws)
+
+    @staticmethod
+    def stats(y0):
+        """Per-(batch, channel) mean and biased variance of conv_0's output
+        (B, C, T0) over time, fp32, var = E[y^2] - mean^2: (B, C, 1) each."""
+        yf = y0.to(torch.float32)
+        mean = yf.mean(dim=-1, keepdim=True)
+        return mean, (yf * yf).mean(dim=-1, keepdim=True) - mean * mean
+
+    def tail(self, y0, mean, var, ws):
+        """The GroupNorm with the given statistics, GELU, then conv_1..n
+        each followed by GELU: (B, C, T0) -> (B, T', conv_dim[-1]).
+        "conv_act" runs the norm / GELU passes through frontend_activation
+        (hubert.py:_conv_act_tail); the other routes plain ops."""
+        d = self.dtype
+        gw, gb = ws[2].to(torch.float32), ws[3].to(torch.float32)
+        if self.cfg.frontend_impl == "conv_act":
+            x = frontend_activation(y0.transpose(1, 2), mean.transpose(1, 2),
+                                    torch.rsqrt(var + 1e-5).transpose(1, 2), gw, gb,
+                                    "norm_gelu")
+            for i in range(1, len(self.convs)):
+                x = self._conv(i, x.transpose(1, 2), ws).transpose(1, 2)
+                x = frontend_activation(x, *identity_stats(x.shape[0], x.shape[-1], x.device),
+                                        "gelu")
+            return x
+        x = (y0.to(torch.float32) - mean) * torch.rsqrt(var + 1e-5)
+        x = gelu((x * gw[:, None] + gb[:, None]).to(d), "erf")
+        for i in range(1, len(self.convs)):
+            x = gelu(self._conv(i, x, ws), "erf")
+        return x.transpose(1, 2)
+
+    def chunked(self) -> bool:
+        """hubert.py:895-902: remat "chunked_conv" runs the two-pass chunked
+        frontend, except on the frontends that are one program by design."""
+        return self.cfg.remat == "chunked_conv" and self.cfg.frontend_impl not in (
+            "pallas", "monolithic", "phase")
+
     def forward(self, audio):
         c, d = self.cfg, self.dtype
         if c.frontend_impl == "phase":
@@ -134,30 +200,78 @@ class ConvFeatureEncoder(nn.Module):
                 audio, self.convs[0].weight, self.group_norm.weight, self.group_norm.bias,
                 [conv.weight for conv in self.convs[1:]], form=c.frontend_gelu, out_dtype=d,
             )
-
-        def conv(i, x):
-            m = self.convs[i]
-            b = None if m.bias is None else m.bias.to(d)
-            return F.conv1d(x, m.weight.to(d), b, stride=m.stride)
-
-        y0 = conv(0, audio.to(d)[:, None, :])  # (B, C, T0)
-        yf = y0.to(torch.float32)
-        mean = yf.mean(dim=-1, keepdim=True)
-        var = (yf * yf).mean(dim=-1, keepdim=True) - mean * mean
-        gn = self.group_norm
-        if c.frontend_impl in ("pallas", "conv_act"):
+        ws = self._weights()
+        if self.chunked():
+            return self._chunked(audio, ws)
+        y0 = self.conv0(audio, ws)
+        mean, var = self.stats(y0)
+        if c.frontend_impl == "pallas":
+            gn = self.group_norm
             stats = (mean.transpose(1, 2), torch.rsqrt(var + 1e-5).transpose(1, 2),
                      gn.weight, gn.bias)
-            tail = self._pallas_tail if c.frontend_impl == "pallas" else self._conv_act_tail
-            return tail(y0.transpose(1, 2), stats, conv)
-        x = (yf - mean) * torch.rsqrt(var + 1e-5)
-        x = (x * gn.weight.to(torch.float32)[:, None] + gn.bias.to(torch.float32)[:, None]).to(d)
-        x = gelu(x, "erf")
-        for i in range(1, len(self.convs)):
-            x = gelu(conv(i, x), "erf")
-        return x.transpose(1, 2)
+            return self._pallas_tail(y0.transpose(1, 2), stats)
+        return self.tail(y0, mean, var, ws)
 
-    def _pallas_tail(self, x, stats, conv):
+    def _sums(self, audio, ws):
+        """Pass A's chunk: the fp32 sums of conv_0's output and of its
+        square over time, (B, C, 1) each."""
+        y = self.conv0(audio, ws).to(torch.float32)
+        return y.sum(dim=-1, keepdim=True), (y * y).sum(dim=-1, keepdim=True)
+
+    def _block(self, audio, mean, var, ws):
+        """Pass B's block: the frontend of one receptive window."""
+        return self.tail(self.conv0(audio, ws), mean, var, ws)
+
+    def _chunked(self, audio, ws):
+        """HubertModel._chunked_frontend (hubert.py:821-880): the two-pass
+        chunked frontend. The only coupling over time is the GroupNorm's
+        full-sequence statistics, so pass A streams conv_0 over waveform
+        chunks of ``frontend_chunk_tokens * stride_tail`` conv_0 steps,
+        summing y and y^2 in fp32, and pass B runs each block of
+        ``frontend_chunk_tokens`` tokens over its receptive window (conv_0
+        again, the norm with the global statistics, conv_1..n: VALID
+        convs, so the blocks are exact). Where autograd will differentiate
+        through them, each chunk and each block runs under a checkpoint
+        (JAX's nn.checkpoint): the backward recomputes it, so only the
+        waveform, the statistics and the blocks' outputs stay alive. The
+        statistics carry gradient into conv_0 through pass A."""
+        c = self.cfg
+        k0, s0 = c.conv_kernel[0], c.conv_stride[0]
+        t0_len = (audio.shape[1] - k0) // s0 + 1
+        stride_tail = math.prod(c.conv_stride[1:])
+        receptive_tail = 1
+        for k, s in zip(reversed(c.conv_kernel[1:]), reversed(c.conv_stride[1:])):
+            receptive_tail = (receptive_tail - 1) * s + k
+        total_tokens = c.num_audio_tokens(audio.shape[1])
+        if _grad_needed(audio, *ws[0], *ws[1], *ws[2:]):
+            def run(fn, *args):
+                return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            def run(fn, *args):
+                return fn(*args)
+
+        chunk0 = min(c.frontend_chunk_tokens * stride_tail, t0_len)
+        total = total_sq = 0.0
+        u0 = 0
+        while u0 < t0_len:
+            u1 = min(t0_len, u0 + chunk0)
+            s, sq = run(self._sums, audio[:, u0 * s0:(u1 - 1) * s0 + k0], ws)
+            total, total_sq = total + s, total_sq + sq
+            u0 = u1
+        mean = total / t0_len
+        var = total_sq / t0_len - mean * mean
+
+        chunk_t = min(c.frontend_chunk_tokens, total_tokens)
+        outs = []
+        t0 = 0
+        while t0 < total_tokens:
+            t1 = min(total_tokens, t0 + chunk_t)
+            v0, v1 = t0 * stride_tail, (t1 - 1) * stride_tail + receptive_tail
+            outs.append(run(self._block, audio[:, v0 * s0:(v1 - 1) * s0 + k0], mean, var, ws))
+            t0 = t1
+        return torch.cat(outs, dim=1)
+
+    def _pallas_tail(self, x, stats):
         """hubert.py:_pallas_tail: x (B, T0, C) conv_0's output; each conv
         after it reads its input through the fused prologue (conv_1: the
         GroupNorm with ``stats`` = (mean, rstd, scale, bias), then GELU;
@@ -168,16 +282,6 @@ class ConvFeatureEncoder(nn.Module):
             t_log = out_rows(t_log, m.kernel_size[0])
             prologue, stats = "gelu", identity_stats(x.shape[0], x.shape[-1], x.device)
         return gelu(x, "erf")
-
-    def _conv_act_tail(self, x, stats, conv):
-        """hubert.py:_conv_act_tail: the GroupNorm + GELU as one pass over
-        conv_0's output (B, T0, C), then each plain conv followed by a GELU
-        pass."""
-        x = frontend_activation(x, *stats, "norm_gelu")
-        for i in range(1, len(self.convs)):
-            x = conv(i, x.transpose(1, 2)).transpose(1, 2)
-            x = frontend_activation(x, *identity_stats(x.shape[0], x.shape[-1], x.device), "gelu")
-        return x
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -371,7 +475,13 @@ class HubertModel(nn.Module):
         if train and seeds is None:
             raise ValueError("HuBERT training draws kernel seeds and layerdrop on the host: "
                              "pass seeds (ops.dropout.HostSeeds)")
-        x = self.feature_extractor(audio)
+        if c.remat in ("conv", "full") and _grad_needed(
+                audio, *self.feature_extractor.parameters()):
+            # nn.remat(ConvFeatureEncoder): the whole frontend, whatever its
+            # impl, recomputed in the backward.
+            x = checkpoint(self.feature_extractor, audio, use_reentrant=False)
+        else:
+            x = self.feature_extractor(audio)
         x = self.feature_projection(self.feature_projection_norm(x))
         x = dropout(x, c.feat_proj_dropout, generator)
         if train and c.mask_time_prob > 0 and c.apply_spec_augment:
@@ -382,5 +492,38 @@ class HubertModel(nn.Module):
         for layer in self.layers:
             if train and c.layerdrop > 0 and seeds.uniform() < c.layerdrop:
                 continue  # LayerDrop: one draw per layer for the whole batch
-            x = layer(x, generator, seeds)
+            if c.remat == "full" and _grad_needed(x, *layer.parameters()):
+                x = _checkpointed_layer(layer, x, generator, seeds)
+            else:
+                x = layer(x, generator, seeds)
         return x
+
+
+def _grad_needed(*tensors) -> bool:
+    """Will autograd differentiate through these? Only then is a
+    checkpoint worth its recompute (an eval forward, a frozen encoder and
+    torch.export's trace take none)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _checkpointed_layer(layer, x, generator, seeds):
+    """``layer(x, generator, seeds)`` under a checkpoint (remat "full",
+    hubert.py:954-957) whose recompute draws what the forward drew: the
+    plain dropouts take an explicit generator, which the checkpoint's
+    preserve_rng_state does not restore, and the kernels take seeds from
+    the host stream, which would move on. So the generator's state and the
+    stream's position are noted before the call, and the recompute runs on
+    a generator set to that state and a stream at that position; the
+    forward's own draws advance the live ones as without remat."""
+    if generator is None:
+        return checkpoint(layer, x, None, None, use_reentrant=False)
+    state, site = generator.get_state(), seeds.site
+    calls = []
+
+    def run(x):
+        if calls:  # the recompute in the backward
+            return layer(x, replay_generator(generator, state), seeds.at(site))
+        calls.append(1)
+        return layer(x, generator, seeds)
+
+    return checkpoint(run, x, use_reentrant=False)

@@ -149,6 +149,13 @@ class HostSeeds:
         """An int32 kernel seed in [0, 2^31 - 1)."""
         return int(self._words(1)[0]) % 0x7FFFFFFF
 
+    def at(self, site: int) -> "HostSeeds":
+        """A copy of this stream positioned at ``site``: it draws again what
+        this one drew from there."""
+        other = HostSeeds(*self.key, shard=self.shard)
+        other.site = site
+        return other
+
     def uniform(self) -> float:
         """A float in [0, 1)."""
         hi, lo = (int(w) for w in self._words(2))
@@ -170,6 +177,17 @@ class ShardGenerator(torch.Generator):
 
     def __init__(self, device, shard: Tuple[int, int] = (0, 1)):
         pass
+
+
+def replay_generator(generator: torch.Generator, state: torch.Tensor) -> torch.Generator:
+    """A new generator of ``generator``'s kind, device (and shard) set to
+    ``state``: it draws again what ``generator`` drew from that state."""
+    if isinstance(generator, ShardGenerator):
+        other = ShardGenerator(generator.device, generator.shard)
+    else:
+        other = torch.Generator(device=generator.device)
+    other.set_state(state)
+    return other
 
 
 def _rows(shape, generator, draw, split=None):

@@ -6,7 +6,8 @@ trainer's torch AdamW + OneCycleLR(cycle_momentum=True) bank):
   (DistilBERT backbone), "vit_lora" (the ViT's LoRA factors),
   "vit_frozen" (the ViT base, never optimized) and "others" (projection
   heads and temperature, trained from step 0);
-* one ``torch.optim.AdamW`` per group at the group's OneCycle cosine
+* one :class:`Adam` per group (decoupled weight decay, moments stored in
+  ``mu_dtype`` / ``nu_dtype``) at the group's OneCycle cosine
   schedule (per-group peak scale, cycle shortened by the group's unfreeze
   step; vit_lora trains from step 0 on its shortened cycle), beta1
   cycled 0.95 -> 0.85 -> 0.95 along it;
@@ -43,11 +44,11 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, Dict, List
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from triad_tpu_torch.config import OptimConfig
-from triad_tpu_torch.models.layers import not_ported
 from triad_tpu_torch.parallel import collectives as C
 from triad_tpu_torch.parallel.dp import _names
 
@@ -109,6 +110,121 @@ def onecycle_momentum(cfg: OptimConfig, cycle_steps: int) -> Callable[[int], flo
     return schedule
 
 
+def _f32(ts: List[torch.Tensor]) -> List[torch.Tensor]:
+    """fp32 views of a list: the tensors themselves where they are fp32
+    (so in-place updates reach them), fp32 copies elsewhere."""
+    return [t if t.dtype == torch.float32 else t.to(torch.float32) for t in ts]
+
+
+def _bias_correction(beta: float, steps: List[float]) -> List[float]:
+    """1 - beta^count for each parameter's count, in fp32 as JAX forms it."""
+    one, b = np.float32(1.0), np.float32(beta)
+    return [float(one - np.power(b, np.float32(c))) for c in steps]
+
+
+class Adam(torch.optim.Optimizer):
+    """Adam with decoupled weight decay whose moments are stored in their
+    own dtypes: the bank's optimizer for every moment dtype (fp32 and bf16
+    alike take this path). ``torch.optim.AdamW`` keeps its moments in the
+    parameter's dtype, so it cannot hold bf16 moments of fp32 parameters.
+
+    ``cycled`` (the default route, ``scale_by_cycled_adam`` then
+    ``cycled_adamw``'s decay and -lr, optim.py:180-247): in fp32,
+    m = b1 m + (1 - b1) g stored in ``mu_dtype``, v = b2 v + (1 - b2) g^2
+    stored in ``nu_dtype``, and the update is taken from the stored,
+    rounded moments. Otherwise ``optax.adamw(mu_dtype=...)``'s
+    ``scale_by_adam`` (optim.py:395-410): v stays fp32 whatever
+    ``nu_dtype``, m = (1 - b1) g + b1 m in fp32 with b1 rounded to
+    ``mu_dtype`` (optax's decay is a weakly typed float, so b1 m is a
+    ``mu_dtype`` product, whose excess precision XLA keeps under jit: the
+    product itself is not rounded), the update is taken from the unrounded
+    fp32 m, and m is cast to ``mu_dtype`` for storage only. Both then step
+    p += -lr ((m / bc1) / (sqrt(v / bc2) + eps) + weight_decay p), with
+    bc = 1 - beta^count in fp32.
+
+    The state keys are torch AdamW's ("exp_avg", "exp_avg_sq", "step", a
+    CPU fp32 count), so ZeRO-1's views, the checkpoints and their restores
+    read it as before; ``load_state_dict`` puts the moments back in the
+    configured dtypes (``Optimizer.load_state_dict`` casts every floating
+    state to its parameter's dtype)."""
+
+    def __init__(self, params, lr: float, betas, eps: float, weight_decay: float,
+                 mu_dtype=torch.float32, nu_dtype=torch.float32, cycled: bool = True):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay))
+        self.mu_dtype, self.cycled = mu_dtype, cycled
+        self.nu_dtype = nu_dtype if cycled else torch.float32
+
+    def load_state_dict(self, state_dict) -> None:
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            for key, dtype in (("exp_avg", self.mu_dtype), ("exp_avg_sq", self.nu_dtype)):
+                if key in st:
+                    st[key] = st[key].to(dtype)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            ps = [p for p in group["params"] if p.grad is not None]
+            if ps:
+                self._step_group(group, ps)
+
+    def _step_group(self, group, ps: List[torch.Tensor]) -> None:
+        lr, (b1, b2), eps, wd = group["lr"], group["betas"], group["eps"], group["weight_decay"]
+        states = [self.state[p] for p in ps]
+        for p, st in zip(ps, states):
+            if not st:
+                st["step"] = torch.tensor(0.0, dtype=torch.float32)
+                st["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype)
+                st["exp_avg_sq"] = torch.zeros_like(p, dtype=self.nu_dtype)
+            st["step"] += 1
+        steps = [float(st["step"]) for st in states]
+        g = _f32([p.grad for p in ps])
+        ms = [st["exp_avg"] for st in states]
+        vs = [st["exp_avg_sq"] for st in states]
+        # the second moment: b2 v + (1 - b2) g^2 in fp32, stored in its dtype
+        v = _f32(vs)
+        gg = torch._foreach_mul(g, g)
+        torch._foreach_mul_(gg, 1.0 - b2)
+        torch._foreach_mul_(v, b2)
+        torch._foreach_add_(v, gg)
+        del gg
+        _store(vs, v)
+        # the first moment
+        low = self.mu_dtype != torch.float32
+        if self.cycled or not low:
+            m = _f32(ms)
+            torch._foreach_mul_(m, b1)
+            torch._foreach_add_(m, torch._foreach_mul(g, 1.0 - b1))
+        else:  # optax: (1 - b1) g plus b1 m, b1 rounded to mu_dtype, in fp32
+            m = torch._foreach_mul(g, 1.0 - b1)
+            b1m = _f32(ms)
+            torch._foreach_mul_(b1m, float(torch.tensor(b1, dtype=self.mu_dtype)))
+            torch._foreach_add_(m, b1m)
+            del b1m
+        _store(ms, m)
+        if self.cycled:  # the update reads the stored moments
+            m, v = _f32(ms), _f32(vs)
+        u = torch._foreach_div(v, _bias_correction(b2, steps))
+        torch._foreach_sqrt_(u)
+        torch._foreach_add_(u, eps)
+        mh = torch._foreach_div(m, _bias_correction(b1, steps))
+        torch._foreach_div_(mh, u)
+        del u, m, v
+        if wd:
+            torch._foreach_add_(mh, torch._foreach_mul(ps, wd))
+        torch._foreach_mul_(mh, -lr)
+        torch._foreach_add_(ps, mh)
+
+
+def _store(dst: List[torch.Tensor], src: List[torch.Tensor]) -> None:
+    """Write fp32 values into the stored moments, rounding to their dtype
+    (nothing to do where they are the same tensors)."""
+    for d, s in zip(dst, src):
+        if d is not s:
+            d.copy_(s)
+
+
 def _sumsq(grads: List[torch.Tensor], device) -> torch.Tensor:
     total = torch.zeros((), dtype=torch.float32, device=device)
     for g in grads:
@@ -132,10 +248,6 @@ class OptimizerBank:
 
     def __init__(self, cfg: OptimConfig, model: nn.Module, total_updates: int, mesh=None,
                  mesh_axis="data", zero1: bool = False, param_specs=None):
-        if cfg.mu_dtype != "float32" or cfg.nu_dtype != "float32":
-            raise not_ported(f"Adam moments in {cfg.mu_dtype}/{cfg.nu_dtype}",
-                             "train/optim.py:scale_by_cycled_adam's low-precision moment "
-                             "storage")
         self.cfg, self.model = cfg, model
         self.named = list(model.named_parameters())
         self.device = self.named[0][1].device
@@ -178,8 +290,9 @@ class OptimizerBank:
             for g in GROUPS
         }
         self.opts = {
-            g: torch.optim.AdamW(self.storage[g], lr=0.0, betas=(cfg.b1, cfg.b2), eps=cfg.eps,
-                                 weight_decay=cfg.weight_decay)
+            g: Adam(self.storage[g], lr=0.0, betas=(cfg.b1, cfg.b2), eps=cfg.eps,
+                    weight_decay=cfg.weight_decay, mu_dtype=getattr(torch, cfg.mu_dtype),
+                    nu_dtype=getattr(torch, cfg.nu_dtype), cycled=cfg.cycle_momentum)
             for g in GROUPS if self.groups[g]
         }
 
